@@ -16,8 +16,11 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    D=64, causal, bf16) and the grouped-query serving shape (B=8, S=8192,
    H=8, H_kv=2, D=64); its launch count must be > 0;
 4. every kernel against its plain PyTorch version on the card, at the shapes
-   the main path gives it: histogram and tree scores bit-equal, flash within
-   5e-2 (bf16) and 2e-5 (f32) of the f32 plain version; then each kernel,
+   the main path gives it: histogram and tree scores bit-equal; flash within
+   5e-2 (bf16) and 2e-5 (f32) of the f32 plain version, and in bf16 also
+   within FLASH_ROW_TOL of the plain version with bf16 P@V, as an error
+   relative to each output row's norm (a limit the script first shows to lie
+   well below what one skipped key tile would give); then each kernel,
    its plain version and the one PyTorch call that computes the same
    function (where there is one) timed with CUDA events.
 
@@ -47,6 +50,11 @@ N_FEATURES = 28               # HIGGS width
 GBDT = dict(num_iterations=10, num_leaves=31, max_bin=63)
 FLASH_HEADLINE = (1, 32768, 8, 8, 64)   # B, S, H, H_kv, D (bench.py flash headline)
 FLASH_GQA = (8, 8192, 8, 2, 64)         # bench.py GQA serving shape
+FLASH_KEY_TILE = 64                     # keys per tile of csrc/flash_attn.cu
+# Limit on max over rows of |kernel - plain|_2 / |plain|_2 in bf16: bf16
+# rounding of P and of the output gives ~2e-3 (at most ~5e-3); one key tile
+# dropped from a row of 32768 keys moves it by ~sqrt(64 / 32768) ~ 4e-2.
+FLASH_ROW_TOL = 1e-2
 
 
 def fail(msg: str) -> None:
@@ -99,6 +107,28 @@ def higgs_width_data(seed: int, n: int):
     return x, y
 
 
+def row_rel_err(out: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """|out - ref|_2 / |ref|_2 over the head dim, for every (b, s, h) row."""
+    out, ref = out.float(), ref.float()
+    return (out - ref).norm(dim=-1) / ref.norm(dim=-1)
+
+
+def tail_attention(q, k, v, n_rows: int, drop=None) -> torch.Tensor:
+    """f32 end-aligned causal attention of the last ``n_rows`` queries of every
+    (batch, head), with the keys in the slice ``drop`` masked out if given."""
+    _, s_q, h, d = q.shape
+    s_k, h_kv = k.shape[1], k.shape[2]
+    kk = k.float().repeat_interleave(h // h_kv, dim=2)
+    vv = v.float().repeat_interleave(h // h_kv, dim=2)
+    sc = torch.einsum("brhd,bkhd->bhrk", q[:, -n_rows:].float(), kk) / d ** 0.5
+    qpos = torch.arange(s_q - n_rows, s_q, device=q.device) + (s_k - s_q)
+    keep = qpos[:, None] >= torch.arange(s_k, device=q.device)[None, :]
+    if drop is not None:
+        keep[:, drop] = False
+    p = torch.softmax(torch.where(keep, sc, -1e30), dim=-1)
+    return torch.einsum("bhrk,bkhd->brhd", p, vv)
+
+
 def causal_pairs(s_q: int, s_k: int) -> int:
     """(query, key) pairs the end-aligned causal mask keeps."""
     diag = s_k - s_q
@@ -119,7 +149,7 @@ def main() -> int:
     from synapseml_tpu_torch.gbdt.boost import _preround, _sigmoid
     from synapseml_tpu_torch.gbdt.device_predict import device_raw_scores, raw_scores_plain
     from synapseml_tpu_torch.gbdt.estimators import LightGBMClassifier
-    from synapseml_tpu_torch.gbdt.histogram import histogram_panel, histogram_panel_plain
+    from synapseml_tpu_torch.gbdt.histogram import histogram, histogram_plain
     from synapseml_tpu_torch.kernels import all_kernels
     from synapseml_tpu_torch.kernels.build import build
     from synapseml_tpu_torch.parallel.flash import dense_attention, flash_attention
@@ -232,8 +262,8 @@ def main() -> int:
                      **extra})
         log(json.dumps({"kernel": rows[-1]}))
 
-    # A: gradient histogram at the fit's shape, on the pre-rounded panel of the
-    # gradients after the last iteration
+    # A: gradient histogram at the fit's shape, on the pre-rounded gradients
+    # after the last iteration, weighted by a 0/1 child mask as a split step's
     mapper = booster.mapper
     T, C, S = booster.parent.shape
     tree_args = [torch.from_numpy(a).to(dev).contiguous() for a in (
@@ -245,26 +275,28 @@ def main() -> int:
     p0 = _sigmoid(device_raw_scores(binned_tr, *tree_args)[:, 0]
                   + float(booster.base_score[0]))
     n_bound = 1 << (N_TRAIN - 1).bit_length()
-    panel = torch.stack([(p0 - y_d), p0 * (1 - p0), torch.ones_like(y_d)], dim=1)
-    panel = _preround(panel, n_bound).contiguous()
-    h_kern = histogram_panel(binned_tr, panel, n_bins)
-    h_plain = histogram_panel_plain(binned_tr, panel, n_bins)
+    g = _preround((p0 - y_d)[:, None], n_bound)[:, 0].contiguous()
+    h = _preround((p0 * (1 - p0))[:, None], n_bound)[:, 0].contiguous()
+    w = (binned_tr[:, 0].to(torch.int32) > n_bins // 2).to(torch.float32)
+    h_kern = histogram(binned_tr, g, h, w, n_bins)
+    h_plain = histogram_plain(binned_tr, g, h, w, n_bins)
     if not torch.equal(h_kern, h_plain):
         fail(f"histogram kernel differs from the plain version by "
              f"{float((h_kern - h_plain).abs().max())}")
     flat = (binned_tr.to(torch.int64)
             + torch.arange(N_FEATURES, device=dev)[None, :] * n_bins).reshape(-1)
+    panel = torch.stack([g * w, h * w, w], dim=1)
     vals = panel[:, None, :].expand(N_TRAIN, N_FEATURES, 3).reshape(-1, 3).contiguous()
     h_lib = torch.zeros(N_FEATURES * n_bins, 3, device=dev)
-    ms = time_ms(lambda: histogram_panel(binned_tr, panel, n_bins), 20)
-    plain_ms = time_ms(lambda: histogram_panel_plain(binned_tr, panel, n_bins), 5)
+    ms = time_ms(lambda: histogram(binned_tr, g, h, w, n_bins), 20)
+    plain_ms = time_ms(lambda: histogram_plain(binned_tr, g, h, w, n_bins), 5)
     lib_ms = time_ms(lambda: h_lib.index_add_(0, flat, vals), 5)
-    del flat, vals, h_lib
+    del flat, vals, h_lib, panel
     record("gbdt_histogram", gbdt_launches["gbdt_histogram"], 0.0, ms, plain_ms,
            bound(N_TRAIN * N_FEATURES * binned_tr.element_size() + 12 * N_TRAIN
                  + N_FEATURES * n_bins * 12, 3 * N_TRAIN * N_FEATURES, F32_FLOPS), lib_ms,
            shape=f"n={N_TRAIN} d={N_FEATURES} B={n_bins} {binned_tr.dtype}")
-    del binned_tr, panel, y_d, p0, h_kern, h_plain
+    del binned_tr, g, h, w, y_d, p0, h_kern, h_plain
 
     # B: tree scoring of the held-out rows with the trained trees
     binned_te = mapper.transform_torch(torch.from_numpy(x_te).to(dev))
@@ -293,6 +325,26 @@ def main() -> int:
         log(f"phase 4 flash {key} {shape} bf16: max|kernel - plain f32| = {err:.3g}")
         if not err <= 5e-2:
             fail(f"flash {key}: bf16 error {err} > 5e-2")
+        # the tight check: per-row error against the plain version with bf16
+        # P@V, and the median error that dropping one key tile gives the deepest
+        # rows (a kernel that drops it for a query tile fails when any one of
+        # those rows passes the limit; the median must stand well above it)
+        ref = dense_attention(q, k, v, causal=True, pv_dtype=torch.bfloat16)
+        rel = row_rel_err(flash_out[key], ref)
+        row_err, row_mean = float(rel.max()), float(rel.mean())
+        del ref, rel
+        mid = S_ // 2 // FLASH_KEY_TILE * FLASH_KEY_TILE
+        skip_err = float(row_rel_err(
+            tail_attention(q, k, v, FLASH_KEY_TILE, slice(mid, mid + FLASH_KEY_TILE)),
+            tail_attention(q, k, v, FLASH_KEY_TILE)).median())
+        log(f"phase 4 flash {key}: per-row error vs plain bf16-P@V max {row_err:.3g} "
+            f"(mean {row_mean:.3g}, limit {FLASH_ROW_TOL}); one key tile dropped "
+            f"from the last {FLASH_KEY_TILE} rows gives a median {skip_err:.3g}")
+        if not skip_err >= 2 * FLASH_ROW_TOL:
+            fail(f"flash {key}: a dropped key tile moves a row by only {skip_err}; "
+                 f"the limit {FLASH_ROW_TOL} cannot see it")
+        if not row_err <= FLASH_ROW_TOL:
+            fail(f"flash {key}: per-row bf16 error {row_err} > {FLASH_ROW_TOL}")
         rep = H // H_kv
         qt = q.transpose(1, 2).contiguous()
         kt = k.repeat_interleave(rep, dim=2).transpose(1, 2).contiguous()
@@ -304,7 +356,7 @@ def main() -> int:
         del qt, kt, vt
         flops = 4 * B * H * D * causal_pairs(S_, S_)
         b = bound(2 * (q.numel() * 2 + k.numel() + v.numel()), flops, BF16_TC_FLOPS)
-        flash_rows[key] = dict(err=err, ms=ms, plain_ms=plain_ms, bound=b, lib_ms=lib_ms,
+        flash_rows[key] = dict(err=err, row_err=row_err, skip_err=skip_err, ms=ms, plain_ms=plain_ms, bound=b, lib_ms=lib_ms,
                                tflops=flops / ms / 1e9, shape=shape)
         log(json.dumps({"flash": key, "B_S_H_Hkv_D": shape, "ms": ms, "plain_ms": plain_ms,
                         "sdpa_ms": lib_ms, "bound_ms": b[0], "bound_by": b[1],
@@ -331,6 +383,9 @@ def main() -> int:
                 "ms": flash_rows["gqa"]["ms"], "plain_ms": flash_rows["gqa"]["plain_ms"],
                 "bound_ms": flash_rows["gqa"]["bound"][0],
                 "library_ms": flash_rows["gqa"]["lib_ms"]},
+           row_rel_err={key: r["row_err"] for key, r in flash_rows.items()},
+           row_rel_tol=FLASH_ROW_TOL,
+           one_tile_dropped_median_row_rel_err={key: r["skip_err"] for key, r in flash_rows.items()},
            f32_max_abs_err=f32_err)
 
     missing = set(kernels) - {r["name"] for r in rows}

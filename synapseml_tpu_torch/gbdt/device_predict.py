@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from ..kernels.build import CudaKernel
+from .grow import GrownTree, predict_binned
 
 __all__ = ["device_raw_scores", "raw_scores_plain", "SCORE_KERNEL", "MAX_CLASSES"]
 
@@ -34,20 +35,16 @@ SCORE_KERNEL = CudaKernel(
 
 
 def raw_scores_plain(binned, parent, feature, bins, leaf_value, scale) -> torch.Tensor:
-    """Plain PyTorch version: the reference's replay, tree by tree."""
-    n = binned.shape[0]
-    T, C, S = parent.shape
-    acc = torch.zeros(n, C, dtype=torch.float32, device=binned.device)
+    """Plain PyTorch version: each tree's leaves by :func:`~.grow.predict_binned`,
+    summed tree by tree."""
+    T, C, _ = parent.shape
+    acc = torch.zeros(binned.shape[0], C, dtype=torch.float32, device=binned.device)
     for t in range(T):
         vals = []
         for c in range(C):
-            node = torch.zeros(n, dtype=torch.int64, device=binned.device)
-            for s in range(S):
-                p = parent[t, c, s]
-                col = torch.index_select(binned, 1, feature[t, c, s].reshape(1).long())[:, 0]
-                go_right = (node == p) & (p >= 0) & (col.to(torch.int64) > bins[t, c, s])
-                node = torch.where(go_right, s + 1, node)
-            vals.append(leaf_value[t, c][node])
+            tree = GrownTree(parent[t, c], feature[t, c], bins[t, c], None,
+                             leaf_value[t, c], None)
+            vals.append(tree.leaf_value[predict_binned(tree, binned).long()])
         acc = acc + scale[t] * torch.stack(vals, dim=1)
     return acc
 

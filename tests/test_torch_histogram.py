@@ -10,7 +10,7 @@ import jax.numpy as jnp
 from synapseml_tpu.gbdt.boost import _preround as jax_preround
 from synapseml_tpu.gbdt.histogram import histogram as jax_histogram
 from synapseml_tpu_torch.gbdt.boost import _preround
-from synapseml_tpu_torch.gbdt.histogram import histogram, histogram_panel
+from synapseml_tpu_torch.gbdt.histogram import histogram
 
 
 def _inputs(seed, n, d, n_bins, dtype):
@@ -55,9 +55,12 @@ def test_histogram_raw_gradients_within_rounding(dtype, n_bins):
 
 def test_histogram_panel_checks_inputs():
     b = torch.zeros(4, 2, dtype=torch.int8)
+    v = torch.zeros(4)
     with pytest.raises(TypeError, match="int8/int16/int32"):
-        histogram_panel(b.float(), torch.zeros(4, 3), 8)
+        histogram(b.float(), v, v, v, 8)
     with pytest.raises(TypeError, match="float32"):
-        histogram_panel(b, torch.zeros(4, 2), 8)
+        histogram(b, v, v, torch.zeros(4, 1), 8)
+    with pytest.raises(TypeError, match="float32"):
+        histogram(b, v.double(), v, v, 8)
     with pytest.raises(ValueError, match="shared memory"):
-        histogram_panel(b, torch.zeros(4, 3), 100_000)
+        histogram(b, v, v, v, 100_000)
