@@ -13,16 +13,21 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    and tree-scoring kernels must be > 0, the held-out AUC > 0.9, and a small
    fit on the card must grow the same trees as the plain CPU path;
 3. flash attention's entry point at the headline shape (B=1, S=32768, H=8,
-   D=64, causal, bf16) and the grouped-query serving shape (B=8, S=8192,
-   H=8, H_kv=2, D=64); its launch count must be > 0;
+   D=64, causal, bf16), the grouped-query serving shape (B=8, S=8192, H=8,
+   H_kv=2, D=64), the headline length at D=128 (all three on the wgmma
+   kernel) and a D=32 grouped-query shape (on the mma.sync kernel); the
+   launch counts of both flash kernels must be > 0;
 4. every kernel against its plain PyTorch version on the card, at the shapes
-   the main path gives it: histogram and tree scores bit-equal; flash within
-   5e-2 (bf16) and 2e-5 (f32) of the f32 plain version, and in bf16 also
-   within FLASH_ROW_TOL of the plain version with bf16 P@V, as an error
-   relative to each output row's norm (a limit the script first shows to lie
-   well below what one skipped key tile would give); then each kernel,
-   its plain version and the one PyTorch call that computes the same
-   function (where there is one) timed with CUDA events.
+   the main path gives it: histogram and tree scores bit-equal (the
+   histogram at three weightings: half the rows, every row, about 1/16 of
+   the rows; and with a NaN g and an inf h on rows of zero weight, NaN in
+   exactly the plain version's cells); flash within 5e-2 (bf16) and 2e-5
+   (f32) of the f32 plain version, and in bf16 also within FLASH_ROW_TOL of
+   the plain version with bf16 P@V, as an error relative to each output
+   row's norm (a limit the script first shows to lie well below what one
+   skipped key tile of the serving kernel would give); then each kernel, its
+   plain version and the one PyTorch call that computes the same function
+   (where there is one) timed with CUDA events.
 
 The line before the last is ``{"kernels": [...]}`` with each kernel's
 launches, error, times and bound; the last line is
@@ -48,12 +53,16 @@ N_TRAIN = 4_194_304
 N_TEST = 1_048_576
 N_FEATURES = 28               # HIGGS width
 GBDT = dict(num_iterations=10, num_leaves=31, max_bin=63)
-FLASH_HEADLINE = (1, 32768, 8, 8, 64)   # B, S, H, H_kv, D (bench.py flash headline)
-FLASH_GQA = (8, 8192, 8, 2, 64)         # bench.py GQA serving shape
-FLASH_KEY_TILE = 64                     # keys per tile of csrc/flash_attn.cu
+# B, S, H, H_kv, D of the flash shapes, all causal bf16
+FLASH_SHAPES = {
+    "headline": (1, 32768, 8, 8, 64),   # bench.py flash headline
+    "gqa": (8, 8192, 8, 2, 64),         # bench.py GQA serving shape
+    "d128": (1, 32768, 8, 8, 128),      # the headline length at the widest head dim
+    "d32": (2, 8192, 8, 2, 32),         # a small head dim (the mma.sync kernel)
+}
 # Limit on max over rows of |kernel - plain|_2 / |plain|_2 in bf16: bf16
 # rounding of P and of the output gives ~2e-3 (at most ~5e-3); one key tile
-# dropped from a row of 32768 keys moves it by ~sqrt(64 / 32768) ~ 4e-2.
+# dropped from a row of 32768 keys moves it by ~sqrt(tile / 32768) >= 4e-2.
 FLASH_ROW_TOL = 1e-2
 
 
@@ -152,7 +161,8 @@ def main() -> int:
     from synapseml_tpu_torch.gbdt.histogram import histogram, histogram_plain
     from synapseml_tpu_torch.kernels import all_kernels
     from synapseml_tpu_torch.kernels.build import build
-    from synapseml_tpu_torch.parallel.flash import dense_attention, flash_attention
+    from synapseml_tpu_torch.parallel.flash import (KEY_TILE_BY_HEAD_DIM, dense_attention,
+                                                    flash_attention, kernel_for)
     from synapseml_tpu_torch.runtime.device import card_info
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -238,16 +248,19 @@ def main() -> int:
         mk = lambda h: torch.randn(B, S, h, D, generator=gen, device=dev).to(torch.bfloat16)
         return mk(H), mk(H_kv), mk(H_kv)
 
-    flash_in = {"headline": qkv(*FLASH_HEADLINE), "gqa": qkv(*FLASH_GQA)}
+    flash_in = {key: qkv(*shape) for key, shape in FLASH_SHAPES.items()}
+    flash_names = sorted({kernel_for(torch.bfloat16, shape[-1]).name
+                          for shape in FLASH_SHAPES.values()})
     for k in kernels.values():
         k.launches = 0
     torch.cuda.synchronize()
     flash_out = {key: flash_attention(*t, causal=True) for key, t in flash_in.items()}
     torch.cuda.synchronize()
-    flash_launches = kernels["flash_attention_fwd"].launches
+    flash_launches = {name: kernels[name].launches for name in flash_names}
     log(f"phase 3 flash launches: {flash_launches}")
-    if flash_launches < 1:
-        fail("the flash entry point never launched flash_attention_fwd")
+    for name, n in flash_launches.items():
+        if n < 1:
+            fail(f"the flash entry point never launched {name}")
 
     # -- phase 4: each kernel against its plain version, and timed ----------------------
     rows = []
@@ -263,7 +276,10 @@ def main() -> int:
         log(json.dumps({"kernel": rows[-1]}))
 
     # A: gradient histogram at the fit's shape, on the pre-rounded gradients
-    # after the last iteration, weighted by a 0/1 child mask as a split step's
+    # after the last iteration, at three weightings: half the rows (0/1, as
+    # in PR 1's timing), every row at weight 1 (a root histogram, 10 of a
+    # fit's launches) and a child of about 1/16 of the rows (a split step).
+    # A row is live (its bins are read) iff w != 0 or g or h is not finite.
     mapper = booster.mapper
     T, C, S = booster.parent.shape
     tree_args = [torch.from_numpy(a).to(dev).contiguous() for a in (
@@ -277,26 +293,56 @@ def main() -> int:
     n_bound = 1 << (N_TRAIN - 1).bit_length()
     g = _preround((p0 - y_d)[:, None], n_bound)[:, 0].contiguous()
     h = _preround((p0 * (1 - p0))[:, None], n_bound)[:, 0].contiguous()
-    w = (binned_tr[:, 0].to(torch.int32) > n_bins // 2).to(torch.float32)
-    h_kern = histogram(binned_tr, g, h, w, n_bins)
-    h_plain = histogram_plain(binned_tr, g, h, w, n_bins)
-    if not torch.equal(h_kern, h_plain):
-        fail(f"histogram kernel differs from the plain version by "
-             f"{float((h_kern - h_plain).abs().max())}")
+    weightings = {
+        "half": (binned_tr[:, 0].to(torch.int32) > n_bins // 2).to(torch.float32),
+        "all": torch.ones(N_TRAIN, device=dev),
+        "sixteenth": (binned_tr[:, 1].to(torch.int32) < n_bins // 16).to(torch.float32),
+    }
+    hist_runs = []
+    for key, w in weightings.items():
+        h_kern = histogram(binned_tr, g, h, w, n_bins)
+        h_plain = histogram_plain(binned_tr, g, h, w, n_bins)
+        if not torch.equal(h_kern, h_plain):
+            fail(f"histogram kernel ({key} weighting) differs from the plain version by "
+                 f"{float((h_kern - h_plain).abs().max())}")
+        n_live = int(((w != 0) | ~torch.isfinite(g) | ~torch.isfinite(h)).sum())
+        ms = time_ms(lambda: histogram(binned_tr, g, h, w, n_bins), 20)
+        b = bound(12 * N_TRAIN + n_live * N_FEATURES * binned_tr.element_size()
+                  + N_FEATURES * n_bins * 12, 2 * N_TRAIN + 3 * n_live * N_FEATURES, F32_FLOPS)
+        hist_runs.append({"weighting": key, "n_live": n_live, "ms": ms, "bound_ms": b[0],
+                          "bound_by": b[1]})
+        log(json.dumps({"histogram": hist_runs[-1]}))
+    # NaN in g and inf in h on rows of zero weight: those rows still count
+    w = weightings["sixteenth"]
+    dead = torch.nonzero(w == 0)[:64, 0]
+    g_nf, h_nf = g.clone(), h.clone()
+    g_nf[dead[:32]] = float("nan")
+    h_nf[dead[32:]] = float("inf")
+    h_kern = histogram(binned_tr, g_nf, h_nf, w, n_bins)
+    h_plain = histogram_plain(binned_tr, g_nf, h_nf, w, n_bins)
+    nan_cells = int(h_plain.isnan().sum())
+    if not (nan_cells > 0 and torch.equal(h_kern.isnan(), h_plain.isnan())
+            and torch.equal(h_kern.nan_to_num(), h_plain.nan_to_num())):
+        fail(f"histogram kernel with non-finite g/h on zero-weight rows: NaN cells "
+             f"{int(h_kern.isnan().sum())} against the plain version's {nan_cells}, or other "
+             f"cells differ")
+    log(f"phase 4 histogram non-finite: NaN in the same {nan_cells} cells, the rest bit-equal")
+    del g_nf, h_nf
+    w = weightings["half"]
     flat = (binned_tr.to(torch.int64)
             + torch.arange(N_FEATURES, device=dev)[None, :] * n_bins).reshape(-1)
     panel = torch.stack([g * w, h * w, w], dim=1)
     vals = panel[:, None, :].expand(N_TRAIN, N_FEATURES, 3).reshape(-1, 3).contiguous()
     h_lib = torch.zeros(N_FEATURES * n_bins, 3, device=dev)
-    ms = time_ms(lambda: histogram(binned_tr, g, h, w, n_bins), 20)
     plain_ms = time_ms(lambda: histogram_plain(binned_tr, g, h, w, n_bins), 5)
     lib_ms = time_ms(lambda: h_lib.index_add_(0, flat, vals), 5)
     del flat, vals, h_lib, panel
-    record("gbdt_histogram", gbdt_launches["gbdt_histogram"], 0.0, ms, plain_ms,
-           bound(N_TRAIN * N_FEATURES * binned_tr.element_size() + 12 * N_TRAIN
-                 + N_FEATURES * n_bins * 12, 3 * N_TRAIN * N_FEATURES, F32_FLOPS), lib_ms,
-           shape=f"n={N_TRAIN} d={N_FEATURES} B={n_bins} {binned_tr.dtype}")
-    del binned_tr, g, h, w, y_d, p0, h_kern, h_plain
+    half = hist_runs[0]
+    record("gbdt_histogram", gbdt_launches["gbdt_histogram"], 0.0, half["ms"], plain_ms,
+           (half["bound_ms"], half["bound_by"]), lib_ms,
+           shape=f"n={N_TRAIN} d={N_FEATURES} B={n_bins} {binned_tr.dtype}, half the rows live",
+           weightings=hist_runs, nonfinite_nan_cells=nan_cells)
+    del binned_tr, g, h, w, weightings, y_d, p0, h_kern, h_plain
 
     # B: tree scoring of the held-out rows with the trained trees
     binned_te = mapper.transform_torch(torch.from_numpy(x_te).to(dev))
@@ -314,9 +360,9 @@ def main() -> int:
            shape=f"n={N_TEST} d={N_FEATURES} T={T} C={C} S={S}")
     del binned_te, s_kern, s_plain
 
-    # C: flash attention, bf16 at both entry-point shapes, f32 at a short shape
+    # C: flash attention, bf16 at the entry point's shapes, f32 at short shapes
     flash_rows = {}
-    for key, shape in (("headline", FLASH_HEADLINE), ("gqa", FLASH_GQA)):
+    for key, shape in FLASH_SHAPES.items():
         B, S_, H, H_kv, D = shape
         q, k, v = flash_in[key]
         ref = dense_attention(q.float(), k.float(), v.float(), causal=True)
@@ -326,20 +372,22 @@ def main() -> int:
         if not err <= 5e-2:
             fail(f"flash {key}: bf16 error {err} > 5e-2")
         # the tight check: per-row error against the plain version with bf16
-        # P@V, and the median error that dropping one key tile gives the deepest
-        # rows (a kernel that drops it for a query tile fails when any one of
-        # those rows passes the limit; the median must stand well above it)
+        # P@V, and the median error that dropping one key tile (of the kernel
+        # that serves this head dim) gives the deepest rows (a kernel that
+        # drops it for a query tile fails when any one of those rows passes
+        # the limit; the median must stand well above it)
+        tile = KEY_TILE_BY_HEAD_DIM[D]
         ref = dense_attention(q, k, v, causal=True, pv_dtype=torch.bfloat16)
         rel = row_rel_err(flash_out[key], ref)
         row_err, row_mean = float(rel.max()), float(rel.mean())
         del ref, rel
-        mid = S_ // 2 // FLASH_KEY_TILE * FLASH_KEY_TILE
+        mid = S_ // 2 // tile * tile
         skip_err = float(row_rel_err(
-            tail_attention(q, k, v, FLASH_KEY_TILE, slice(mid, mid + FLASH_KEY_TILE)),
-            tail_attention(q, k, v, FLASH_KEY_TILE)).median())
+            tail_attention(q, k, v, tile, slice(mid, mid + tile)),
+            tail_attention(q, k, v, tile)).median())
         log(f"phase 4 flash {key}: per-row error vs plain bf16-P@V max {row_err:.3g} "
-            f"(mean {row_mean:.3g}, limit {FLASH_ROW_TOL}); one key tile dropped "
-            f"from the last {FLASH_KEY_TILE} rows gives a median {skip_err:.3g}")
+            f"(mean {row_mean:.3g}, limit {FLASH_ROW_TOL}); one {tile}-key tile dropped "
+            f"from the last {tile} rows gives a median {skip_err:.3g}")
         if not skip_err >= 2 * FLASH_ROW_TOL:
             fail(f"flash {key}: a dropped key tile moves a row by only {skip_err}; "
                  f"the limit {FLASH_ROW_TOL} cannot see it")
@@ -356,12 +404,14 @@ def main() -> int:
         del qt, kt, vt
         flops = 4 * B * H * D * causal_pairs(S_, S_)
         b = bound(2 * (q.numel() * 2 + k.numel() + v.numel()), flops, BF16_TC_FLOPS)
-        flash_rows[key] = dict(err=err, row_err=row_err, skip_err=skip_err, ms=ms, plain_ms=plain_ms, bound=b, lib_ms=lib_ms,
-                               tflops=flops / ms / 1e9, shape=shape)
-        log(json.dumps({"flash": key, "B_S_H_Hkv_D": shape, "ms": ms, "plain_ms": plain_ms,
-                        "sdpa_ms": lib_ms, "bound_ms": b[0], "bound_by": b[1],
-                        "tflops": flops / ms / 1e9, "sdpa_tflops": flops / lib_ms / 1e9,
-                        "bound_tflops": flops / b[0] / 1e9}))
+        flash_rows[key] = dict(err=err, row_err=row_err, skip_err=skip_err, ms=ms,
+                               plain_ms=plain_ms, bound=b, lib_ms=lib_ms,
+                               tflops=flops / ms / 1e9, shape=shape,
+                               kernel=kernel_for(torch.bfloat16, D).name)
+        log(json.dumps({"flash": key, "B_S_H_Hkv_D": shape, "kernel": flash_rows[key]["kernel"],
+                        "ms": ms, "plain_ms": plain_ms, "sdpa_ms": lib_ms, "bound_ms": b[0],
+                        "bound_by": b[1], "tflops": flops / ms / 1e9,
+                        "sdpa_tflops": flops / lib_ms / 1e9, "bound_tflops": flops / b[0] / 1e9}))
     f32_err = 0.0
     for shape in ((1, 4096, 4096, 8, 2, 64), (2, 300, 300, 4, 4, 128)):
         B, S_q, S_k, H, H_kv, D = shape
@@ -375,18 +425,25 @@ def main() -> int:
     log(f"phase 4 flash f32: max|kernel - plain| = {f32_err:.3g}")
     if not f32_err <= 2e-5:
         fail(f"flash f32 error {f32_err} > 2e-5")
-    hr = flash_rows["headline"]
-    record("flash_attention_fwd", flash_launches, max(hr["err"], flash_rows["gqa"]["err"]),
-           hr["ms"], hr["plain_ms"], hr["bound"], hr["lib_ms"],
-           shape="B=1 S=32768 H=8 D=64 causal bf16",
-           gqa={"shape": "B=8 S=8192 H=8 H_kv=2 D=64 causal bf16",
-                "ms": flash_rows["gqa"]["ms"], "plain_ms": flash_rows["gqa"]["plain_ms"],
-                "bound_ms": flash_rows["gqa"]["bound"][0],
-                "library_ms": flash_rows["gqa"]["lib_ms"]},
-           row_rel_err={key: r["row_err"] for key, r in flash_rows.items()},
-           row_rel_tol=FLASH_ROW_TOL,
-           one_tile_dropped_median_row_rel_err={key: r["skip_err"] for key, r in flash_rows.items()},
-           f32_max_abs_err=f32_err)
+
+    def shape_text(shape):
+        B, S_, H, H_kv, D = shape
+        return f"B={B} S={S_} H={H} H_kv={H_kv} D={D} causal bf16"
+
+    def shape_entry(r):
+        return {"shape": shape_text(r["shape"]), "ms": r["ms"], "plain_ms": r["plain_ms"],
+                "bound_ms": r["bound"][0], "library_ms": r["lib_ms"], "tflops": r["tflops"],
+                "max_abs_err": r["err"], "row_rel_err": r["row_err"],
+                "one_tile_dropped_median_row_rel_err": r["skip_err"]}
+
+    for name in flash_names:
+        mine = {key: r for key, r in flash_rows.items() if r["kernel"] == name}
+        main = mine.get("headline", next(iter(mine.values())))
+        record(name, flash_launches[name], max(r["err"] for r in mine.values()), main["ms"],
+               main["plain_ms"], main["bound"], main["lib_ms"],
+               shape=shape_text(main["shape"]), tflops=main["tflops"],
+               shapes={key: shape_entry(r) for key, r in mine.items()}, row_rel_tol=FLASH_ROW_TOL,
+               **({"f32_max_abs_err": f32_err} if name == "flash_attention_fwd" else {}))
 
     missing = set(kernels) - {r["name"] for r in rows}
     if missing:

@@ -6,27 +6,51 @@
 // in feature f is b, giving a (d, B, 3) f32 histogram. The products are taken
 // here, from the (n,) g, h and w vectors, so no (n, 3) panel is built first.
 //
-// Bound on the H100: bytes. Each row is read once: d bins at their stored
-// width plus 12 bytes of g, h and w, n*d*sizeof(bin) + 12n bytes at
-// 3.35 TB/s. The arithmetic (2 multiplies and 3 adds per element) is
-// negligible; the practical limit is the throughput of shared-memory atomics
-// on hot cells.
+// Rows that cannot change the result are skipped: a row contributes iff
+// w != 0 || !isfinite(g) || !isfinite(h). A row of weight 0 with finite g
+// and h adds (+-0, +-0, 0), and +-0 never changes a cell that starts at +0;
+// a non-finite g or h makes g*0 or h*0 NaN, so that row is still added. A
+// split step weights the rows by a 0/1 mask of the new child, so most of its
+// rows are skipped.
 //
-// Design: each block keeps a private (dt, B, 3) f32 sub-histogram in shared
-// memory for a tile of dt features (all d features when d*B*12 bytes fit;
-// the grid's y axis walks feature tiles otherwise). Blocks grid-stride over
-// the flattened (row, feature-in-tile) elements, so neighbouring threads
-// read neighbouring bins (coalesced, at the stored width: int8/int16/int32,
-// never widened on the host), and add the row's [g*w, h*w, w] with shared-memory
-// atomics. At the end each block merges its non-zero cells into the global
-// histogram with global atomics. The grid is sized by the occupancy
-// calculator: as many blocks as can be resident, so the merge cost stays
-// proportional to the number of SMs, not to n.
+// Bound on the H100: bytes. g, h and w are read for every row (12n bytes);
+// the bins only for the n_live contributing rows (n_live*d*sizeof(bin)); the
+// output is d*B*12 bytes. The arithmetic (2 multiplies and 3 adds per
+// element) is negligible; what the design has to keep cheap is the
+// shared-memory atomics (3 per live element) and the latency of the bin
+// loads.
+//
+// Design: a warp takes 32 consecutive rows at a time. Its lanes load w, g
+// and h for those rows (coalesced, one group ahead), form g*w and h*w once
+// per row with __fmul_rn (no contraction, as PyTorch rounds), and take a
+// __ballot_sync of the contributing rows. The warp then walks only those,
+// four at a time: the row's three values are broadcast with __shfl_sync,
+// lane j reads the row's bin of feature j (looping when d > 32; one
+// coalesced segment per row at the stored width, four rows' loads in flight
+// together) and adds the three values to its feature's cell with
+// shared-memory atomics. Each feature's (B, 3) slice of the block's
+// sub-histogram starts at f*(3B + 1) floats: the odd stride puts the same
+// bin of 32 features in 32 different banks, where a stride of 3B (a multiple
+// of 32 at B = 64) put them all in one. Blocks cover a tile of features (all
+// d when d*(3B + 1)*4 bytes fit; grid y walks feature tiles otherwise, e.g.
+// int32 bins with 4096 bins). At the end each block merges its non-zero
+// cells into the global histogram with global atomics; the grid is sized by
+// the occupancy calculator, so the merge costs O(SMs), not O(n). No 64-bit
+// division per element.
+//
+// On sm_90a a float atomicAdd to shared memory is a compare-and-swap loop
+// (ATOMS.CAST.SPIN in the SASS), so the atomics, not the bytes, set the pace
+// when most rows contribute; the kernel stays under 64 registers a thread
+// so that at least four blocks (32 warps) per SM hide their latency.
+// Per-warp private copies with
+// plain adds (no atomics) were faster when most rows contribute but slower
+// on the sparse weightings of split steps, which are 300 of a fit's 310
+// launches, and were not kept (PERF.md, PR 2).
 //
 // Sums are taken in an order that changes from run to run. On gradients that
 // were pre-rounded to a summation-exact grid (boost._preround), with 0/1
 // weights, every partial sum is exact, and the result is bit-equal to any
-// other order. The products round as PyTorch's do (__fmul_rn, no contraction).
+// other order.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -34,41 +58,80 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kBatch = 4;                // live rows whose bins are loaded together
 constexpr int kSmemBudget = 200 * 1024;  // bytes of one block's sub-histogram
+constexpr unsigned kAll = 0xffffffffu;
 
 template <typename BinT>
-__global__ void hist_kernel(const BinT* __restrict__ bins,
-                            const float* __restrict__ grad,
-                            const float* __restrict__ hess,
-                            const float* __restrict__ weight,
-                            float* __restrict__ out, long long n, int d,
-                            int n_bins, int tile) {
+__global__ void __launch_bounds__(kThreads)
+hist_kernel(const BinT* __restrict__ bins, const float* __restrict__ grad,
+            const float* __restrict__ hess, const float* __restrict__ weight,
+            float* __restrict__ out, long long n, int d, int n_bins, int tile) {
   extern __shared__ float sh[];
   const int f0 = blockIdx.y * tile;
   const int dt = min(tile, d - f0);
-  const int cells = dt * n_bins * 3;
-  for (int i = threadIdx.x; i < cells; i += blockDim.x) sh[i] = 0.f;
+  const int fstride = 3 * n_bins + 1;  // odd: one bank per feature for a bin
+  for (int i = threadIdx.x; i < dt * fstride; i += blockDim.x) sh[i] = 0.f;
   __syncthreads();
 
-  const long long total = n * dt;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x; e < total;
-       e += stride) {
-    const long long row = e / dt;
-    const int j = (int)(e - row * dt);
-    const int b = (int)bins[row * d + f0 + j];
-    if (b < 0 || b >= n_bins) continue;  // out-of-range bins are dropped
-    const float w = __ldg(weight + row);
-    float* cell = sh + (j * n_bins + b) * 3;
-    atomicAdd(cell, __fmul_rn(__ldg(grad + row), w));
-    atomicAdd(cell + 1, __fmul_rn(__ldg(hess + row), w));
-    atomicAdd(cell + 2, w);
+  const int lane = threadIdx.x & 31;
+  const long long n_groups = (n + 31) / 32;
+  const long long step = (long long)gridDim.x * kWarps;
+  long long grp = (long long)blockIdx.x * kWarps + threadIdx.x / 32;
+  // g, h and w of the warp's next group are loaded one group ahead
+  float ng = 0.f, nh = 0.f, nw = 0.f;
+  if (grp < n_groups && grp * 32 + lane < n) {
+    ng = __ldg(grad + grp * 32 + lane);
+    nh = __ldg(hess + grp * 32 + lane);
+    nw = __ldg(weight + grp * 32 + lane);
+  }
+  for (; grp < n_groups; grp += step) {
+    const float g = ng, h = nh, w = nw;
+    const long long r = grp * 32 + lane, r_next = r + step * 32;
+    if (r_next < n) {
+      ng = __ldg(grad + r_next);
+      nh = __ldg(hess + r_next);
+      nw = __ldg(weight + r_next);
+    }
+    const float gw = __fmul_rn(g, w), hw = __fmul_rn(h, w);
+    const bool live = r < n && (w != 0.f || !isfinite(g) || !isfinite(h));
+    unsigned mask = __ballot_sync(kAll, live);
+    const BinT* rows = bins + grp * 32 * d + f0;
+    while (mask) {
+      int src[kBatch];
+      float vg[kBatch], vh[kBatch], vw[kBatch];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        src[u] = mask ? __ffs(mask) - 1 : -1;
+        mask &= mask - 1;
+        const int s = src[u] < 0 ? 0 : src[u];
+        vg[u] = __shfl_sync(kAll, gw, s);
+        vh[u] = __shfl_sync(kAll, hw, s);
+        vw[u] = __shfl_sync(kAll, w, s);
+      }
+      for (int f = lane; f - lane < dt; f += 32) {
+        int b[kBatch];
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u)
+          b[u] = (src[u] >= 0 && f < dt) ? (int)rows[(long long)src[u] * d + f] : -1;
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) {
+          if (b[u] < 0 || b[u] >= n_bins) continue;  // out-of-range bins are dropped
+          float* cell = sh + f * fstride + b[u] * 3;
+          atomicAdd(cell, vg[u]);
+          atomicAdd(cell + 1, vh[u]);
+          atomicAdd(cell + 2, vw[u]);
+        }
+      }
+    }
   }
   __syncthreads();
 
   float* o = out + (long long)f0 * n_bins * 3;
+  const int cells = dt * n_bins * 3;
   for (int i = threadIdx.x; i < cells; i += blockDim.x) {
-    const float v = sh[i];
+    const float v = sh[i + i / (3 * n_bins)];  // cell i of feature f sits f floats later
     if (v != 0.f) atomicAdd(o + i, v);
   }
 }
@@ -77,10 +140,10 @@ template <typename BinT>
 cudaError_t launch(const void* bins, const float* grad, const float* hess,
                    const float* weight, float* out, long long n, int d, int n_bins,
                    cudaStream_t stream) {
-  const int cell_bytes = n_bins * 3 * (int)sizeof(float);
-  const int tile = min(d, max(1, kSmemBudget / cell_bytes));
+  const int feat_bytes = (3 * n_bins + 1) * (int)sizeof(float);
+  const int tile = min(d, max(1, kSmemBudget / feat_bytes));
   const int n_tiles = (d + tile - 1) / tile;
-  const int smem = tile * cell_bytes;
+  const int smem = tile * feat_bytes;
   auto kern = hist_kernel<BinT>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -94,7 +157,7 @@ cudaError_t launch(const void* bins, const float* grad, const float* hess,
                                                            smem)) != cudaSuccess)
     return err;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  const long long work = (n * tile + kThreads - 1) / kThreads;
+  const long long work = ((n + 31) / 32 + kWarps - 1) / kWarps;  // blocks of 8 row groups
   long long gx = (long long)per_sm * sms / n_tiles;
   if (gx < 1) gx = 1;
   if (gx > work) gx = work;

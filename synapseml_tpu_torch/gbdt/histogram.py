@@ -3,11 +3,12 @@
 Port of ``synapseml_tpu/gbdt/histogram.py``. For every (feature, bin) cell
 the histogram sums the rows' ``[g·w, h·w, w]`` into a (d, B, 3) f32 tensor.
 On CUDA tensors :func:`histogram` launches the hand-written kernel in
-``csrc/histogram.cu`` (shared-memory sub-histograms with atomics, merged into
-global memory with atomics; it forms the products itself, so no (n, 3)
-panel is built); on CPU tensors it runs the plain PyTorch version
-:func:`histogram_plain` (``index_add_``), which the CPU tests hold against
-the reference's scatter path.
+``csrc/histogram.cu`` (a warp per 32 rows, shared-memory sub-histograms with
+conflict-free atomics, merged into global memory with atomics; it forms the
+products itself, so no (n, 3) panel is built, and it skips the rows that
+cannot change the result: weight 0 with finite g and h); on CPU tensors it
+runs the plain PyTorch version :func:`histogram_plain` (``index_add_``),
+which the CPU tests hold against the reference's scatter path.
 
 Summation order differs between the two (atomics), so raw gradients agree to
 float rounding; gradients pre-rounded by ``boost._preround``, with 0/1
@@ -61,7 +62,7 @@ def _check(binned: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
                             f"{t.dtype} of shape {tuple(t.shape)}")
         if t.device != binned.device:
             raise ValueError(f"binned on {binned.device} but {name} on {t.device}")
-    if n_bins < 1 or n_bins * HIST_CHANNELS * 4 > 227 * 1024:
+    if n_bins < 1 or (n_bins * HIST_CHANNELS + 1) * 4 > 227 * 1024:
         raise ValueError(f"n_bins={n_bins}: one feature's (B, 3) f32 histogram "
                          "must fit one block's shared memory")
 

@@ -7,12 +7,22 @@ attention: query head ``h`` reads K/V head ``h // (H / H_kv)``, never
 expanded). ``causal`` aligns the diagonal to the END of the keys (queries
 are the last ``S_q`` positions); masked scores are a finite ``-1e30``.
 
-On CUDA tensors :func:`flash_attention` launches ``csrc/flash_attn.cu``:
-bf16 products on the tensor cores (``mma.sync``) with f32 accumulation, f32
-inputs on FMA. On CPU tensors it runs :func:`dense_attention`, the plain
-PyTorch version. The reference's TPU-only parts are gone: the block
-sizes are fixed for the card, and the kernel masks the ragged tail itself,
-so any sequence length works (no dense fallback, no tile minimum).
+On CUDA tensors :func:`flash_attention` launches ``csrc/flash_attn.cu``,
+one of three kernels chosen by dtype and head dim alone (:func:`kernel_for`):
+
+- bf16 at head dim 64 or 128: a warp-specialised Hopper kernel, TMA loads
+  into a shared-memory ring and ``wgmma`` products (``FLASH_KERNEL``; needs
+  ``sm_90a`` and 16-byte aligned q, k and v, which the wrapper checks);
+- bf16 at head dim 16 or 32: the first version on ``mma.sync``
+  (``FLASH_MMA_SYNC_KERNEL``), kept for the head dims whose tiles would need
+  the narrower TMA swizzles;
+- f32 at any of the four head dims: FMA, one thread per query row
+  (``FLASH_KERNEL``).
+
+On CPU tensors it runs :func:`dense_attention`, the plain PyTorch version.
+The reference's TPU-only parts are gone: the block sizes are fixed for the
+card, and the kernels mask the ragged tail themselves, so any sequence
+length works (no dense fallback, no tile minimum).
 """
 
 from __future__ import annotations
@@ -25,17 +35,37 @@ import torch
 
 from ..kernels.build import CudaKernel
 
-__all__ = ["flash_attention", "dense_attention", "FLASH_KERNEL", "KERNEL_HEAD_DIMS"]
+__all__ = ["flash_attention", "dense_attention", "kernel_for", "FLASH_KERNEL",
+           "FLASH_MMA_SYNC_KERNEL", "KERNEL_HEAD_DIMS", "WGMMA_HEAD_DIMS", "FLASH_KEY_TILE",
+           "KEY_TILE_BY_HEAD_DIM"]
 
 _NEG = -1e30
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)
+WGMMA_HEAD_DIMS = (64, 128)       # bf16 head dims served by the wgmma kernel
+FLASH_KEY_TILE = 128              # keys per tile of the wgmma kernel
+# keys per tile of the kernel that serves each bf16 head dim
+KEY_TILE_BY_HEAD_DIM = {16: 64, 32: 64, 64: FLASH_KEY_TILE, 128: FLASH_KEY_TILE}
+
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+_REPLACES = "synapseml_tpu/parallel/flash.py:193 (_flash_bh_impl, pl.pallas_call at :272)"
 
 FLASH_KERNEL = CudaKernel(
     name="flash_attention_fwd", source="flash_attn", symbol="smt_flash_fwd",
-    argtypes=[ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
-    replaces="synapseml_tpu/parallel/flash.py:193 (_flash_bh_impl, pl.pallas_call at :272)")
+    argtypes=_ARGTYPES, replaces=_REPLACES)
+FLASH_MMA_SYNC_KERNEL = CudaKernel(
+    name="flash_attention_fwd_mma_sync", source="flash_attn",
+    symbol="smt_flash_fwd_mma_sync", argtypes=_ARGTYPES, replaces=_REPLACES)
+
+
+def kernel_for(dtype: torch.dtype, head_dim: int) -> CudaKernel:
+    """The kernel that serves ``dtype`` at ``head_dim``: bf16 at 64 or 128 on
+    the wgmma kernel, bf16 at 16 or 32 on the mma.sync kernel, f32 on the FMA
+    kernel (``FLASH_KERNEL``'s f32 path)."""
+    if dtype == torch.bfloat16 and head_dim not in WGMMA_HEAD_DIMS:
+        return FLASH_MMA_SYNC_KERNEL
+    return FLASH_KERNEL
 
 
 def _check(q, k, v, causal):
@@ -90,8 +120,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Blockwise online-softmax attention, ``q`` (B, S_q, H, D), ``k``/``v``
     (B, S_k, H_kv, D) -> (B, S_q, H, D) in ``q``'s dtype.
 
-    CUDA tensors (f32 or bf16, head dim 16/32/64/128) launch kernel C; CPU
-    tensors take the plain version."""
+    CUDA tensors (f32 or bf16, head dim 16/32/64/128) launch kernel C (the
+    kernel :func:`kernel_for` names); CPU tensors take the plain version."""
     _check(q, k, v, causal)
     if not (q.device == k.device == v.device):
         raise ValueError(f"q, k, v on different devices: {q.device}, {k.device}, "
@@ -113,9 +143,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)
     if q.numel() == 0 or s_k == 0:
         return out.zero_()
+    bf16 = q.dtype == torch.bfloat16
+    if bf16:
+        # TMA and the mma.sync kernel's 16-byte loads need 16-byte aligned
+        # bases; the row strides (multiples of 2*D bytes) always are
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"flash kernel needs 16-byte aligned bf16 tensors; {name} "
+                                 f"starts at {t.data_ptr():#x}")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        FLASH_KERNEL(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                     1 if q.dtype == torch.bfloat16 else 0, b, s_q, s_k, h, h_kv, d,
-                     int(bool(causal)), stream)
+        kernel_for(q.dtype, d)(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                               int(bf16), b, s_q, s_k, h, h_kv, d, int(bool(causal)), stream)
     return out

@@ -10,7 +10,10 @@ import jax.numpy as jnp
 
 from synapseml_tpu.parallel.flash import dense_attention as ref_dense
 from synapseml_tpu.parallel.flash import flash_attention as ref_flash
-from synapseml_tpu_torch.parallel.flash import dense_attention, flash_attention
+from synapseml_tpu_torch.parallel.flash import (FLASH_KERNEL, FLASH_MMA_SYNC_KERNEL,
+                                                KEY_TILE_BY_HEAD_DIM, KERNEL_HEAD_DIMS,
+                                                WGMMA_HEAD_DIMS, dense_attention, flash_attention,
+                                                kernel_for)
 
 
 @pytest.mark.parametrize("causal", [False, True])
@@ -83,3 +86,14 @@ def test_flash_shape_errors():
     with pytest.raises(ValueError, match="s_q <= s_k"):
         flash_attention(q, torch.zeros(1, 128, 2, 64), torch.zeros(1, 128, 2, 64),
                         causal=True)
+
+
+@pytest.mark.parametrize("head_dim", KERNEL_HEAD_DIMS)
+def test_kernel_choice_is_by_dtype_and_head_dim(head_dim):
+    """bf16 at 64/128 goes to the wgmma kernel, bf16 at 16/32 to the mma.sync
+    kernel, f32 to the FMA kernel behind FLASH_KERNEL; the key tile that the
+    chip check drops matches the kernel chosen."""
+    bf16 = kernel_for(torch.bfloat16, head_dim)
+    assert bf16 is (FLASH_KERNEL if head_dim in WGMMA_HEAD_DIMS else FLASH_MMA_SYNC_KERNEL)
+    assert kernel_for(torch.float32, head_dim) is FLASH_KERNEL
+    assert KEY_TILE_BY_HEAD_DIM[head_dim] == (128 if head_dim in WGMMA_HEAD_DIMS else 64)

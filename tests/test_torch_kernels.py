@@ -12,7 +12,8 @@ import torch
 from synapseml_tpu_torch.gbdt.boost import _preround
 from synapseml_tpu_torch.gbdt.device_predict import SCORE_KERNEL, device_raw_scores, raw_scores_plain
 from synapseml_tpu_torch.gbdt.histogram import HIST_KERNEL, histogram, histogram_plain
-from synapseml_tpu_torch.parallel.flash import FLASH_KERNEL, dense_attention, flash_attention
+from synapseml_tpu_torch.parallel.flash import (FLASH_KERNEL, KERNEL_HEAD_DIMS, dense_attention,
+                                                flash_attention, kernel_for)
 
 pytestmark = pytest.mark.cuda
 
@@ -72,10 +73,11 @@ def test_flash_kernel_matches_plain(cuda, dtype, tol, shape, causal):
     q = torch.randn(B, Sq, H, D, generator=g).to(dtype).to(cuda)
     k = torch.randn(B, Sk, Hkv, D, generator=g).to(dtype).to(cuda)
     v = torch.randn(B, Sk, Hkv, D, generator=g).to(dtype).to(cuda)
-    before = FLASH_KERNEL.launches
+    kern = kernel_for(dtype, D)
+    before = kern.launches
     out = flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
-    assert FLASH_KERNEL.launches == before + 1
+    assert kern.launches == before + 1
     ref = dense_attention(q.float(), k.float(), v.float(), causal=causal)
     assert float((out.float() - ref).abs().max()) <= tol
     if dtype == torch.bfloat16:
@@ -84,3 +86,73 @@ def test_flash_kernel_matches_plain(cuda, dtype, tol, shape, causal):
         ref = dense_attention(q, k, v, causal=causal, pv_dtype=torch.bfloat16).float()
         rel = (out.float() - ref).norm(dim=-1) / ref.norm(dim=-1)
         assert float(rel.max()) <= 1e-2
+
+
+@pytest.mark.parametrize("head_dim", KERNEL_HEAD_DIMS)
+@pytest.mark.parametrize("shape,causal", [
+    ((3, 200, 333, 48, 12), True),    # S_q < S_k, ragged, 4 query heads per K/V head, B*H > 132
+    ((2, 257, 257, 8, 2), False),     # ragged S, not a multiple of either kernel's tiles
+])
+def test_flash_bf16_every_head_dim(cuda, head_dim, shape, causal):
+    B, Sq, Sk, H, Hkv = shape
+    g = torch.Generator(device="cpu").manual_seed(3)
+    q = torch.randn(B, Sq, H, head_dim, generator=g).to(torch.bfloat16).to(cuda)
+    k = torch.randn(B, Sk, Hkv, head_dim, generator=g).to(torch.bfloat16).to(cuda)
+    v = torch.randn(B, Sk, Hkv, head_dim, generator=g).to(torch.bfloat16).to(cuda)
+    kern = kernel_for(torch.bfloat16, head_dim)
+    before = kern.launches
+    out = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 1
+    ref = dense_attention(q.float(), k.float(), v.float(), causal=causal)
+    assert float((out.float() - ref).abs().max()) <= 5e-2
+    ref = dense_attention(q, k, v, causal=causal, pv_dtype=torch.bfloat16).float()
+    rel = (out.float() - ref).norm(dim=-1) / ref.norm(dim=-1)
+    assert float(rel.max()) <= 1e-2
+
+
+@pytest.mark.parametrize("head_dim", KERNEL_HEAD_DIMS)
+def test_flash_bf16_misaligned_input_raises(cuda, head_dim):
+    """TMA reads from 16-byte aligned bases: a tensor that starts 2 bytes into
+    its storage is refused before any launch."""
+    B, S, H = 1, 128, 2
+    buf = torch.zeros(B * S * H * head_dim + 1, dtype=torch.bfloat16, device=cuda)
+    q = buf[1:].view(B, S, H, head_dim)
+    assert q.is_contiguous() and q.data_ptr() % 16
+    k = torch.zeros(B, S, H, head_dim, dtype=torch.bfloat16, device=cuda)
+    kern = kernel_for(torch.bfloat16, head_dim)
+    before = kern.launches
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_attention(q, k, k, causal=True)
+    assert kern.launches == before
+
+
+@pytest.mark.parametrize("case", ["sixteenth", "all_zero", "nonfinite"])
+def test_histogram_kernel_skip_rule(cuda, case):
+    """Rows of weight 0 with finite g and h are skipped; rows with a non-finite
+    g or h are kept, so NaN lands in exactly the plain version's cells."""
+    g = torch.Generator(device="cpu").manual_seed(4)
+    n, d, n_bins = 200_003, 28, 64
+    binned = torch.randint(0, n_bins, (n, d), generator=g).to(torch.int8).to(cuda)
+    gh = _preround(torch.randn(n, 2, generator=g), 1 << 18).to(cuda)
+    grad, hess = gh[:, 0].contiguous(), gh[:, 1].abs().contiguous()
+    if case == "all_zero":
+        weight = torch.zeros(n, device=cuda)
+    else:
+        weight = (binned[:, 3].to(torch.int32) < n_bins // 16).to(torch.float32)
+    if case == "nonfinite":
+        dead = torch.nonzero(weight == 0)[:64, 0]
+        grad[dead[:32]] = float("nan")
+        hess[dead[32:]] = float("inf")
+    before = HIST_KERNEL.launches
+    out = histogram(binned, grad, hess, weight, n_bins)
+    torch.cuda.synchronize()
+    assert HIST_KERNEL.launches == before + 1
+    ref = histogram_plain(binned, grad, hess, weight, n_bins)
+    if case == "nonfinite":
+        assert ref.isnan().any()
+        assert torch.equal(out.isnan(), ref.isnan())
+        out, ref = out.nan_to_num(), ref.nan_to_num()
+    if case == "all_zero":
+        assert (out == 0).all() and not torch.signbit(out).any()
+    assert torch.equal(out, ref)
