@@ -45,7 +45,7 @@
 // Per-warp private copies with
 // plain adds (no atomics) were faster when most rows contribute but slower
 // on the sparse weightings of split steps, which are 300 of a fit's 310
-// launches, and were not kept (PERF.md, PR 2).
+// launches, and were not kept (PERF.md, Findings).
 //
 // Sums are taken in an order that changes from run to run. On gradients that
 // were pre-rounded to a summation-exact grid (boost._preround), with 0/1
