@@ -12,22 +12,27 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    transform on 1,048,576 held-out rows; the launch counts of the histogram
    and tree-scoring kernels must be > 0, the held-out AUC > 0.9, and a small
    fit on the card must grow the same trees as the plain CPU path;
-3. flash attention's entry point at the headline shape (B=1, S=32768, H=8,
-   D=64, causal, bf16), the grouped-query serving shape (B=8, S=8192, H=8,
-   H_kv=2, D=64), the headline length at D=128 (all three on the wgmma
-   kernel) and a D=32 grouped-query shape (on the mma.sync kernel); the
-   launch counts of both flash kernels must be > 0;
+3. flash attention's entry point, all causal: in bf16 (the wgmma kernel) at
+   the headline shape (B=1, S=32768, H=8, D=64), the grouped-query serving
+   shape (B=8, S=8192, H=8, H_kv=2, D=64), the headline length at D=128, and
+   the serving shape's B=2 at D=32 and D=16; in f32 (the 3xTF32 kernel) at
+   the serving shape and at B=1, S=8192, H=8, D=128; the launch counts of
+   both flash kernels must be > 0;
 4. every kernel against its plain PyTorch version on the card, at the shapes
    the main path gives it: histogram and tree scores bit-equal (the
    histogram at three weightings: half the rows, every row, about 1/16 of
    the rows; and with a NaN g and an inf h on rows of zero weight, NaN in
    exactly the plain version's cells); flash within 5e-2 (bf16) and 2e-5
-   (f32) of the f32 plain version, and in bf16 also within FLASH_ROW_TOL of
-   the plain version with bf16 P@V, as an error relative to each output
-   row's norm (a limit the script first shows to lie well below what one
-   skipped key tile of the serving kernel would give); then each kernel, its
+   (f32, at the two f32 shapes and two short ragged ones) of the f32 plain
+   version, and in bf16 also within FLASH_ROW_TOL of it as an error
+   relative to each output row's norm (a limit the script first shows to
+   lie well below what one skipped key tile of the kernel would give); then
+   each kernel, its
    plain version and the one PyTorch call that computes the same function
-   (where there is one) timed with CUDA events.
+   (where there is one) timed with CUDA events; every flash shape's line
+   also gives its ex2 floor, the least time of one SFU exponential per
+   unmasked score (a floor of that way of computing the softmax, not a
+   bound of the function).
 
 The line before the last is ``{"kernels": [...]}`` with each kernel's
 launches, error, times and bound; the last line is
@@ -48,21 +53,35 @@ import torch
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 BF16_TC_FLOPS = 989e12        # H100 SXM dense bf16 tensor-core rate
 F32_FLOPS = 67e12             # H100 SXM float32 outside the tensor cores
+# f32 flash runs on the tensor cores in 3xTF32 (three TF32 products per f32
+# product), so its least time is at the TF32 rate over three; at the FMA
+# rate a tensor-core kernel could read above 100 % of its bound
+F32_3XTF32_FLOPS = 495e12 / 3
+# SFU (MUFU.EX2) exponentials: 132 SMs x 16 a clock x 1.83 GHz boost; the
+# ex2 floor it gives holds the softmax as the kernel computes it, not the function
+EX2_PER_S = 132 * 16 * 1.83e9
 
 N_TRAIN = 4_194_304
 N_TEST = 1_048_576
 N_FEATURES = 28               # HIGGS width
 GBDT = dict(num_iterations=10, num_leaves=31, max_bin=63)
-# B, S, H, H_kv, D of the flash shapes, all causal bf16
+# B, S, H, H_kv, D of the flash shapes, all causal; bf16, then f32
 FLASH_SHAPES = {
     "headline": (1, 32768, 8, 8, 64),   # bench.py flash headline
     "gqa": (8, 8192, 8, 2, 64),         # bench.py GQA serving shape
     "d128": (1, 32768, 8, 8, 128),      # the headline length at the widest head dim
-    "d32": (2, 8192, 8, 2, 32),         # a small head dim (the mma.sync kernel)
+    "d32": (2, 8192, 8, 2, 32),         # the small head dims (32- and 64-byte swizzles)
+    "d16": (2, 8192, 8, 2, 16),
 }
-# Limit on max over rows of |kernel - plain|_2 / |plain|_2 in bf16: bf16
-# rounding of P and of the output gives ~2e-3 (at most ~5e-3); one key tile
-# dropped from a row of 32768 keys moves it by ~sqrt(tile / 32768) >= 4e-2.
+F32_SHAPES = {
+    "f32-gqa": (8, 8192, 8, 2, 64),     # the serving shape in f32
+    "f32-d128": (1, 8192, 8, 8, 128),
+}
+# Limit on max over rows of |kernel - plain f32|_2 / |plain f32|_2 in bf16:
+# the kernel's own roundings, of P and of its output to bf16, give about 2e-3
+# on average and at most 7.5e-3 over the 131,072 rows of d16, the narrowest
+# rows, on eight inputs (PERF.md); one key tile dropped from a row of 32768
+# keys moves it by about sqrt(tile / 32768) >= 4e-2.
 FLASH_ROW_TOL = 1e-2
 
 
@@ -244,13 +263,16 @@ def main() -> int:
     # -- phase 3: flash attention's entry point -----------------------------------------
     gen = torch.Generator(device=dev).manual_seed(args.seed)
 
-    def qkv(B, S, H, H_kv, D):
-        mk = lambda h: torch.randn(B, S, h, D, generator=gen, device=dev).to(torch.bfloat16)
+    def qkv(B, S, H, H_kv, D, dtype):
+        mk = lambda h: torch.randn(B, S, h, D, generator=gen, device=dev).to(dtype)
         return mk(H), mk(H_kv), mk(H_kv)
 
-    flash_in = {key: qkv(*shape) for key, shape in FLASH_SHAPES.items()}
-    flash_names = sorted({kernel_for(torch.bfloat16, shape[-1]).name
-                          for shape in FLASH_SHAPES.values()})
+    flash_dtype = {**{key: torch.bfloat16 for key in FLASH_SHAPES},
+                   **{key: torch.float32 for key in F32_SHAPES}}
+    flash_shapes = {**FLASH_SHAPES, **F32_SHAPES}
+    flash_in = {key: qkv(*shape, flash_dtype[key]) for key, shape in flash_shapes.items()}
+    flash_names = sorted({kernel_for(flash_dtype[key], shape[-1]).name
+                          for key, shape in flash_shapes.items()})
     for k in kernels.values():
         k.launches = 0
     torch.cuda.synchronize()
@@ -360,58 +382,65 @@ def main() -> int:
            shape=f"n={N_TEST} d={N_FEATURES} T={T} C={C} S={S}")
     del binned_te, s_kern, s_plain
 
-    # C: flash attention, bf16 at the entry point's shapes, f32 at short shapes
+    # C: flash attention at the entry point's shapes (bf16, then f32)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
     flash_rows = {}
-    for key, shape in FLASH_SHAPES.items():
+    for key, shape in flash_shapes.items():
         B, S_, H, H_kv, D = shape
+        dtype = flash_dtype[key]
         q, k, v = flash_in[key]
         ref = dense_attention(q.float(), k.float(), v.float(), causal=True)
         err = float((flash_out[key].float() - ref).abs().max())
-        del ref
-        log(f"phase 4 flash {key} {shape} bf16: max|kernel - plain f32| = {err:.3g}")
-        if not err <= 5e-2:
-            fail(f"flash {key}: bf16 error {err} > 5e-2")
-        # the tight check: per-row error against the plain version with bf16
-        # P@V, and the median error that dropping one key tile (of the kernel
-        # that serves this head dim) gives the deepest rows (a kernel that
-        # drops it for a query tile fails when any one of those rows passes
-        # the limit; the median must stand well above it)
-        tile = KEY_TILE_BY_HEAD_DIM[D]
-        ref = dense_attention(q, k, v, causal=True, pv_dtype=torch.bfloat16)
         rel = row_rel_err(flash_out[key], ref)
-        row_err, row_mean = float(rel.max()), float(rel.mean())
-        del ref, rel
-        mid = S_ // 2 // tile * tile
-        skip_err = float(row_rel_err(
-            tail_attention(q, k, v, tile, slice(mid, mid + tile)),
-            tail_attention(q, k, v, tile)).median())
-        log(f"phase 4 flash {key}: per-row error vs plain bf16-P@V max {row_err:.3g} "
-            f"(mean {row_mean:.3g}, limit {FLASH_ROW_TOL}); one {tile}-key tile dropped "
-            f"from the last {tile} rows gives a median {skip_err:.3g}")
-        if not skip_err >= 2 * FLASH_ROW_TOL:
-            fail(f"flash {key}: a dropped key tile moves a row by only {skip_err}; "
-                 f"the limit {FLASH_ROW_TOL} cannot see it")
-        if not row_err <= FLASH_ROW_TOL:
-            fail(f"flash {key}: per-row bf16 error {row_err} > {FLASH_ROW_TOL}")
+        del ref
+        tol = 5e-2 if dtype == torch.bfloat16 else 2e-5
+        log(f"phase 4 flash {key} {shape} {dtype}: max|kernel - plain f32| = {err:.3g}")
+        if not err <= tol:
+            fail(f"flash {key}: {dtype} error {err} > {tol}")
+        extra = {}
+        if dtype == torch.bfloat16:
+            # the tight check: per-row error against the plain version, and
+            # the median error that dropping one key tile (of the kernel at
+            # this head dim) gives the deepest rows (a kernel that drops it
+            # for a query tile fails when any one of those rows passes the
+            # limit; the median must stand well above it)
+            tile = KEY_TILE_BY_HEAD_DIM[D]
+            row_err, row_mean = float(rel.max()), float(rel.mean())
+            mid = S_ // 2 // tile * tile
+            skip_err = float(row_rel_err(
+                tail_attention(q, k, v, tile, slice(mid, mid + tile)),
+                tail_attention(q, k, v, tile)).median())
+            log(f"phase 4 flash {key}: per-row error vs plain max {row_err:.3g} "
+                f"(mean {row_mean:.3g}, limit {FLASH_ROW_TOL}); one {tile}-key tile dropped "
+                f"from the last {tile} rows gives a median {skip_err:.3g}")
+            if not skip_err >= 2 * FLASH_ROW_TOL:
+                fail(f"flash {key}: a dropped key tile moves a row by only {skip_err}; "
+                     f"the limit {FLASH_ROW_TOL} cannot see it")
+            if not row_err <= FLASH_ROW_TOL:
+                fail(f"flash {key}: per-row bf16 error {row_err} > {FLASH_ROW_TOL}")
+            extra = dict(row_err=row_err, skip_err=skip_err)
+        del rel
         rep = H // H_kv
         qt = q.transpose(1, 2).contiguous()
         kt = k.repeat_interleave(rep, dim=2).transpose(1, 2).contiguous()
         vt = v.repeat_interleave(rep, dim=2).transpose(1, 2).contiguous()
-        sdpa = torch.nn.functional.scaled_dot_product_attention
         ms = time_ms(lambda: flash_attention(q, k, v, causal=True), 10)
         plain_ms = time_ms(lambda: dense_attention(q, k, v, causal=True), 2)
         lib_ms = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True), 10)
         del qt, kt, vt
-        flops = 4 * B * H * D * causal_pairs(S_, S_)
-        b = bound(2 * (q.numel() * 2 + k.numel() + v.numel()), flops, BF16_TC_FLOPS)
-        flash_rows[key] = dict(err=err, row_err=row_err, skip_err=skip_err, ms=ms,
-                               plain_ms=plain_ms, bound=b, lib_ms=lib_ms,
-                               tflops=flops / ms / 1e9, shape=shape,
-                               kernel=kernel_for(torch.bfloat16, D).name)
-        log(json.dumps({"flash": key, "B_S_H_Hkv_D": shape, "kernel": flash_rows[key]["kernel"],
-                        "ms": ms, "plain_ms": plain_ms, "sdpa_ms": lib_ms, "bound_ms": b[0],
-                        "bound_by": b[1], "tflops": flops / ms / 1e9,
+        pairs = B * H * causal_pairs(S_, S_)
+        flops = 4 * D * pairs
+        b = bound(q.element_size() * (2 * q.numel() + k.numel() + v.numel()), flops,
+                  BF16_TC_FLOPS if dtype == torch.bfloat16 else F32_3XTF32_FLOPS)
+        flash_rows[key] = dict(err=err, ms=ms, plain_ms=plain_ms, bound=b, lib_ms=lib_ms,
+                               tflops=flops / ms / 1e9, shape=shape, dtype=dtype,
+                               kernel=kernel_for(dtype, D).name, **extra)
+        log(json.dumps({"flash": key, "B_S_H_Hkv_D": shape, "dtype": str(dtype),
+                        "kernel": flash_rows[key]["kernel"], "ms": ms, "plain_ms": plain_ms,
+                        "sdpa_ms": lib_ms, "bound_ms": b[0], "bound_by": b[1],
+                        "ex2_floor_ms": pairs / EX2_PER_S * 1e3, "tflops": flops / ms / 1e9,
                         "sdpa_tflops": flops / lib_ms / 1e9, "bound_tflops": flops / b[0] / 1e9}))
+    del flash_in, flash_out
     f32_err = 0.0
     for shape in ((1, 4096, 4096, 8, 2, 64), (2, 300, 300, 4, 4, 128)):
         B, S_q, S_k, H, H_kv, D = shape
@@ -422,28 +451,34 @@ def main() -> int:
             e = float((flash_attention(q, k, v, causal=causal)
                        - dense_attention(q, k, v, causal=causal)).abs().max())
             f32_err = max(f32_err, e)
-    log(f"phase 4 flash f32: max|kernel - plain| = {f32_err:.3g}")
+    log(f"phase 4 flash f32 short shapes: max|kernel - plain| = {f32_err:.3g}")
     if not f32_err <= 2e-5:
         fail(f"flash f32 error {f32_err} > 2e-5")
 
-    def shape_text(shape):
-        B, S_, H, H_kv, D = shape
-        return f"B={B} S={S_} H={H} H_kv={H_kv} D={D} causal bf16"
+    def shape_text(r):
+        B, S_, H, H_kv, D = r["shape"]
+        kind = "bf16" if r["dtype"] == torch.bfloat16 else "f32"
+        return f"B={B} S={S_} H={H} H_kv={H_kv} D={D} causal {kind}"
 
     def shape_entry(r):
-        return {"shape": shape_text(r["shape"]), "ms": r["ms"], "plain_ms": r["plain_ms"],
-                "bound_ms": r["bound"][0], "library_ms": r["lib_ms"], "tflops": r["tflops"],
-                "max_abs_err": r["err"], "row_rel_err": r["row_err"],
-                "one_tile_dropped_median_row_rel_err": r["skip_err"]}
+        entry = {"shape": shape_text(r), "ms": r["ms"], "plain_ms": r["plain_ms"],
+                 "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+                 "library_ms": r["lib_ms"],
+                 "tflops": r["tflops"], "max_abs_err": r["err"]}
+        if "row_err" in r:
+            entry.update(row_rel_err=r["row_err"],
+                         one_tile_dropped_median_row_rel_err=r["skip_err"])
+        return entry
 
     for name in flash_names:
         mine = {key: r for key, r in flash_rows.items() if r["kernel"] == name}
-        main = mine.get("headline", next(iter(mine.values())))
+        main = mine.get("headline", mine.get("f32-gqa"))
+        extra = ({"row_rel_tol": FLASH_ROW_TOL} if main["dtype"] == torch.bfloat16
+                 else {"short_shapes_max_abs_err": f32_err})
         record(name, flash_launches[name], max(r["err"] for r in mine.values()), main["ms"],
-               main["plain_ms"], main["bound"], main["lib_ms"],
-               shape=shape_text(main["shape"]), tflops=main["tflops"],
-               shapes={key: shape_entry(r) for key, r in mine.items()}, row_rel_tol=FLASH_ROW_TOL,
-               **({"f32_max_abs_err": f32_err} if name == "flash_attention_fwd" else {}))
+               main["plain_ms"], main["bound"], main["lib_ms"], shape=shape_text(main),
+               tflops=main["tflops"],
+               shapes={key: shape_entry(r) for key, r in mine.items()}, **extra)
 
     missing = set(kernels) - {r["name"] for r in rows}
     if missing:

@@ -8,17 +8,17 @@ expanded). ``causal`` aligns the diagonal to the END of the keys (queries
 are the last ``S_q`` positions); masked scores are a finite ``-1e30``.
 
 On CUDA tensors :func:`flash_attention` launches ``csrc/flash_attn.cu``,
-one of three kernels chosen by dtype and head dim alone (:func:`kernel_for`):
+one of two kernels chosen by dtype alone (:func:`kernel_for`):
 
-- bf16 at head dim 64 or 128: a warp-specialised Hopper kernel, TMA loads
-  into a shared-memory ring and ``wgmma`` products (``FLASH_KERNEL``; needs
-  ``sm_90a`` and 16-byte aligned q, k and v, which the wrapper checks);
-- bf16 at head dim 16 or 32: the first version on ``mma.sync``
-  (``FLASH_MMA_SYNC_KERNEL``), kept for the head dims whose tiles would need
-  the narrower TMA swizzles;
-- f32 at any of the four head dims: FMA, one thread per query row
-  (``FLASH_KERNEL``).
+- bf16 at head dim 16, 32, 64 or 128: a warp-specialised Hopper kernel, TMA
+  loads into a shared-memory ring and ``wgmma`` products, the swizzle set by
+  the row width (``FLASH_KERNEL``; needs ``sm_90a``);
+- f32 at the same head dims: ``mma.sync`` on the tensor cores in 3xTF32, each
+  operand split into two tf32 halves and each product formed from three, for
+  about f32 accuracy (``FLASH_F32_KERNEL``).
 
+Both read q, k and v through 16-byte copies (TMA, ``cp.async``), so the
+wrapper refuses a tensor whose data does not start on a 16-byte boundary.
 On CPU tensors it runs :func:`dense_attention`, the plain PyTorch version.
 The reference's TPU-only parts are gone: the block sizes are fixed for the
 card, and the kernels mask the ragged tail themselves, so any sequence
@@ -36,36 +36,31 @@ import torch
 from ..kernels.build import CudaKernel
 
 __all__ = ["flash_attention", "dense_attention", "kernel_for", "FLASH_KERNEL",
-           "FLASH_MMA_SYNC_KERNEL", "KERNEL_HEAD_DIMS", "WGMMA_HEAD_DIMS", "FLASH_KEY_TILE",
-           "KEY_TILE_BY_HEAD_DIM"]
+           "FLASH_F32_KERNEL", "KERNEL_HEAD_DIMS", "KEY_TILE_BY_HEAD_DIM"]
 
 _NEG = -1e30
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)
-WGMMA_HEAD_DIMS = (64, 128)       # bf16 head dims served by the wgmma kernel
-FLASH_KEY_TILE = 128              # keys per tile of the wgmma kernel
-# keys per tile of the kernel that serves each bf16 head dim
-KEY_TILE_BY_HEAD_DIM = {16: 64, 32: 64, 64: FLASH_KEY_TILE, 128: FLASH_KEY_TILE}
+# keys per tile of the bf16 kernel at each head dim (wgmma_key_tile in the source)
+KEY_TILE_BY_HEAD_DIM = {16: 256, 32: 256, 64: 128, 128: 128}
 
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+             ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 _REPLACES = "synapseml_tpu/parallel/flash.py:193 (_flash_bh_impl, pl.pallas_call at :272)"
 
 FLASH_KERNEL = CudaKernel(
     name="flash_attention_fwd", source="flash_attn", symbol="smt_flash_fwd",
     argtypes=_ARGTYPES, replaces=_REPLACES)
-FLASH_MMA_SYNC_KERNEL = CudaKernel(
-    name="flash_attention_fwd_mma_sync", source="flash_attn",
-    symbol="smt_flash_fwd_mma_sync", argtypes=_ARGTYPES, replaces=_REPLACES)
+FLASH_F32_KERNEL = CudaKernel(
+    name="flash_attention_fwd_f32", source="flash_attn", symbol="smt_flash_fwd_f32",
+    argtypes=_ARGTYPES, replaces=_REPLACES)
 
 
 def kernel_for(dtype: torch.dtype, head_dim: int) -> CudaKernel:
-    """The kernel that serves ``dtype`` at ``head_dim``: bf16 at 64 or 128 on
-    the wgmma kernel, bf16 at 16 or 32 on the mma.sync kernel, f32 on the FMA
-    kernel (``FLASH_KERNEL``'s f32 path)."""
-    if dtype == torch.bfloat16 and head_dim not in WGMMA_HEAD_DIMS:
-        return FLASH_MMA_SYNC_KERNEL
-    return FLASH_KERNEL
+    """The kernel that serves ``dtype`` (at any head dim of
+    ``KERNEL_HEAD_DIMS``): the wgmma kernel for bf16, the 3xTF32 kernel for
+    f32."""
+    return FLASH_KERNEL if dtype == torch.bfloat16 else FLASH_F32_KERNEL
 
 
 def _check(q, k, v, causal):
@@ -143,16 +138,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)
     if q.numel() == 0 or s_k == 0:
         return out.zero_()
-    bf16 = q.dtype == torch.bfloat16
-    if bf16:
-        # TMA and the mma.sync kernel's 16-byte loads need 16-byte aligned
-        # bases; the row strides (multiples of 2*D bytes) always are
-        for name, t in (("q", q), ("k", k), ("v", v)):
-            if t.data_ptr() % 16:
-                raise ValueError(f"flash kernel needs 16-byte aligned bf16 tensors; {name} "
-                                 f"starts at {t.data_ptr():#x}")
+    # TMA and cp.async read 16-byte aligned bases; the row strides (multiples
+    # of 2*D bytes) always are
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"flash kernel needs 16-byte aligned tensors; {name} starts at "
+                             f"{t.data_ptr():#x}")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         kernel_for(q.dtype, d)(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                               int(bf16), b, s_q, s_k, h, h_kv, d, int(bool(causal)), stream)
+                               b, s_q, s_k, h, h_kv, d, int(bool(causal)), stream)
     return out

@@ -2,6 +2,10 @@
 Pallas kernel (interpret mode) and dense attention, with the reference's own
 cases and tolerances (tests/test_parallel.py)."""
 
+import math
+import os
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -10,10 +14,10 @@ import jax.numpy as jnp
 
 from synapseml_tpu.parallel.flash import dense_attention as ref_dense
 from synapseml_tpu.parallel.flash import flash_attention as ref_flash
-from synapseml_tpu_torch.parallel.flash import (FLASH_KERNEL, FLASH_MMA_SYNC_KERNEL,
+from synapseml_tpu_torch.kernels.build import CSRC_DIR
+from synapseml_tpu_torch.parallel.flash import (FLASH_F32_KERNEL, FLASH_KERNEL,
                                                 KEY_TILE_BY_HEAD_DIM, KERNEL_HEAD_DIMS,
-                                                WGMMA_HEAD_DIMS, dense_attention, flash_attention,
-                                                kernel_for)
+                                                dense_attention, flash_attention, kernel_for)
 
 
 @pytest.mark.parametrize("causal", [False, True])
@@ -90,10 +94,85 @@ def test_flash_shape_errors():
 
 @pytest.mark.parametrize("head_dim", KERNEL_HEAD_DIMS)
 def test_kernel_choice_is_by_dtype_and_head_dim(head_dim):
-    """bf16 at 64/128 goes to the wgmma kernel, bf16 at 16/32 to the mma.sync
-    kernel, f32 to the FMA kernel behind FLASH_KERNEL; the key tile that the
-    chip check drops matches the kernel chosen."""
-    bf16 = kernel_for(torch.bfloat16, head_dim)
-    assert bf16 is (FLASH_KERNEL if head_dim in WGMMA_HEAD_DIMS else FLASH_MMA_SYNC_KERNEL)
-    assert kernel_for(torch.float32, head_dim) is FLASH_KERNEL
-    assert KEY_TILE_BY_HEAD_DIM[head_dim] == (128 if head_dim in WGMMA_HEAD_DIMS else 64)
+    """bf16 at every head dim goes to the wgmma kernel, f32 to the 3xTF32
+    kernel; the key tile that the chip check drops is the one the CUDA source
+    builds for this head dim (its wgmma_key_tile)."""
+    assert kernel_for(torch.bfloat16, head_dim) is FLASH_KERNEL
+    assert kernel_for(torch.float32, head_dim) is FLASH_F32_KERNEL
+    assert FLASH_KERNEL.symbol != FLASH_F32_KERNEL.symbol
+    src = open(os.path.join(CSRC_DIR, "flash_attn.cu")).read()
+    rule = re.search(r"int wgmma_key_tile\(int D\) \{ return D <= (\d+) \? (\d+) : (\d+); \}",
+                     src)
+    assert rule
+    small_max, small_tile, tile = (int(x) for x in rule.groups())
+    assert KEY_TILE_BY_HEAD_DIM[head_dim] == (small_tile if head_dim <= small_max else tile)
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """The kernel's tf32 rounding, the same as cvt.rna.tf32.f32 on finite
+    values: 10 mantissa bits, nearest, ties away from zero (add half of the
+    dropped range to the magnitude bits, then clear them)."""
+    return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _mm_tf32(a: torch.Tensor, b: torch.Tensor, passes: int) -> torch.Tensor:
+    """a @ b as the f32 kernel forms it: 3xTF32, hi.hi summed apart from
+    lo.hi + hi.lo (hi = tf32(x), lo = tf32(x - hi)), or one TF32 product for
+    contrast."""
+    if passes == 1:
+        return _tf32(a) @ _tf32(b)
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return ah @ bh + (al @ bh + ah @ bl)
+
+
+def _emulate_f32_kernel(q, k, v, causal, passes=3):
+    """The f32 kernel's arithmetic in plain torch: key tiles of its size, both
+    products in 3xTF32, the online softmax in base 2 with scale*log2(e) folded
+    in, P split like any other operand."""
+    _, s_q, h, d = q.shape
+    s_k, h_kv = k.shape[1], k.shape[2]
+    tile = 32 if d == 128 else 64
+    cl2 = torch.tensor(math.log2(math.e) / math.sqrt(d), dtype=torch.float32)
+    qpos = torch.arange(s_q) + (s_k - s_q)
+    kpos = torch.arange(s_k)
+    out = torch.empty_like(q)
+    for bi in range(q.shape[0]):
+        for hi in range(h):
+            qh, kh, vh = q[bi, :, hi], k[bi, :, hi // (h // h_kv)], v[bi, :, hi // (h // h_kv)]
+            m, l = torch.full((s_q,), -1e30), torch.zeros(s_q)
+            acc = torch.zeros(s_q, d)
+            for k0 in range(0, s_k, tile):
+                s = _mm_tf32(qh, kh[k0:k0 + tile].T, passes)
+                if causal:
+                    s = torch.where(qpos[:, None] >= kpos[None, k0:k0 + tile], s, -1e30)
+                mx = torch.maximum(m, s.amax(-1))
+                corr = torch.exp2(m * cl2 - mx * cl2)
+                p = torch.exp2(s * cl2 - (mx * cl2)[:, None])
+                m, l = mx, l * corr + p.sum(-1)
+                acc = acc * corr[:, None] + _mm_tf32(p, vh[k0:k0 + tile], passes)
+            out[bi, :, hi] = acc / torch.clamp(l, min=1e-30)[:, None]
+    return out
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("head_dim", KERNEL_HEAD_DIMS)
+def test_f32_kernel_3xtf32_arithmetic_holds_2e5(head_dim, causal):
+    """The f32 kernel's numeric design, checked before any chip time: 3xTF32
+    products stay within the f32 contract (2e-5) of the reference's dense
+    attention and of its Pallas kernel (interpret mode), while one TF32
+    product per multiply does not (about 1e-3)."""
+    rng = np.random.default_rng(23 + head_dim)
+    q = rng.normal(size=(1, 256, 2, head_dim)).astype(np.float32)
+    k = rng.normal(size=(1, 256, 1, head_dim)).astype(np.float32)
+    v = rng.normal(size=(1, 256, 1, head_dim)).astype(np.float32)
+    t = [torch.from_numpy(a) for a in (q, k, v)]
+    out = _emulate_f32_kernel(*t, causal).numpy()
+    dense = np.asarray(ref_dense(jnp.asarray(q), jnp.repeat(jnp.asarray(k), 2, axis=2),
+                                 jnp.repeat(jnp.asarray(v), 2, axis=2), causal=causal))
+    pallas = np.asarray(ref_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                  causal=causal, block_q=64, block_k=128, interpret=True))
+    assert float(np.abs(out - dense).max()) <= 2e-5
+    assert float(np.abs(out - pallas).max()) <= 2e-5
+    one_pass = _emulate_f32_kernel(*t, causal, passes=1).numpy()
+    assert float(np.abs(one_pass - dense).max()) > 2e-5

@@ -12,8 +12,8 @@ import torch
 from synapseml_tpu_torch.gbdt.boost import _preround
 from synapseml_tpu_torch.gbdt.device_predict import SCORE_KERNEL, device_raw_scores, raw_scores_plain
 from synapseml_tpu_torch.gbdt.histogram import HIST_KERNEL, histogram, histogram_plain
-from synapseml_tpu_torch.parallel.flash import (FLASH_KERNEL, KERNEL_HEAD_DIMS, dense_attention,
-                                                flash_attention, kernel_for)
+from synapseml_tpu_torch.parallel.flash import (FLASH_F32_KERNEL, KERNEL_HEAD_DIMS,
+                                                dense_attention, flash_attention, kernel_for)
 
 pytestmark = pytest.mark.cuda
 
@@ -65,7 +65,8 @@ def test_score_kernel_bit_equal(cuda):
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5), (torch.bfloat16, 5e-2)])
 @pytest.mark.parametrize("shape", [(2, 300, 300, 4, 2, 64), (1, 128, 512, 8, 8, 128),
-                                   (2, 257, 257, 2, 1, 16)])
+                                   (2, 257, 257, 2, 1, 16),
+                                   (1, 300, 700, 4, 2, 32)])  # S_k a multiple of neither 128 nor 256
 @pytest.mark.parametrize("causal", [False, True])
 def test_flash_kernel_matches_plain(cuda, dtype, tol, shape, causal):
     B, Sq, Sk, H, Hkv, D = shape
@@ -81,9 +82,9 @@ def test_flash_kernel_matches_plain(cuda, dtype, tol, shape, causal):
     ref = dense_attention(q.float(), k.float(), v.float(), causal=causal)
     assert float((out.float() - ref).abs().max()) <= tol
     if dtype == torch.bfloat16:
-        # per-row error against the plain version with bf16 P@V: one skipped
-        # key tile of 64 moves a row of <= 512 keys by > 0.3, rounding by ~2e-3
-        ref = dense_attention(q, k, v, causal=causal, pv_dtype=torch.bfloat16).float()
+        # per-row error against the plain version: one skipped key tile
+        # (128 or 256 keys) moves a row of <= 700 keys by > 0.3, rounding by
+        # ~2e-3
         rel = (out.float() - ref).norm(dim=-1) / ref.norm(dim=-1)
         assert float(rel.max()) <= 1e-2
 
@@ -106,7 +107,6 @@ def test_flash_bf16_every_head_dim(cuda, head_dim, shape, causal):
     assert kern.launches == before + 1
     ref = dense_attention(q.float(), k.float(), v.float(), causal=causal)
     assert float((out.float() - ref).abs().max()) <= 5e-2
-    ref = dense_attention(q, k, v, causal=causal, pv_dtype=torch.bfloat16).float()
     rel = (out.float() - ref).norm(dim=-1) / ref.norm(dim=-1)
     assert float(rel.max()) <= 1e-2
 
@@ -125,6 +125,21 @@ def test_flash_bf16_misaligned_input_raises(cuda, head_dim):
     with pytest.raises(ValueError, match="16-byte aligned"):
         flash_attention(q, k, k, causal=True)
     assert kern.launches == before
+
+
+@pytest.mark.parametrize("head_dim", KERNEL_HEAD_DIMS)
+def test_flash_f32_misaligned_input_raises(cuda, head_dim):
+    """The f32 kernel copies K/V tiles with 16-byte cp.async: a tensor that
+    starts 4 bytes into its storage is refused before any launch."""
+    B, S, H = 1, 128, 2
+    buf = torch.zeros(B * S * H * head_dim + 1, device=cuda)
+    k = buf[1:].view(B, S, H, head_dim)
+    assert k.is_contiguous() and k.data_ptr() % 16
+    q = torch.zeros(B, S, H, head_dim, device=cuda)
+    before = FLASH_F32_KERNEL.launches
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_attention(q, k, q, causal=False)
+    assert FLASH_F32_KERNEL.launches == before
 
 
 @pytest.mark.parametrize("case", ["sixteenth", "all_zero", "nonfinite"])
