@@ -19,10 +19,20 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    the serving shape and at B=1, S=8192, H=8, D=128; the launch counts of
    both flash kernels must be > 0;
 4. every kernel against its plain PyTorch version on the card, at the shapes
-   the main path gives it: histogram and tree scores bit-equal (the
-   histogram at three weightings: half the rows, every row, about 1/16 of
-   the rows; and with a NaN g and an inf h on rows of zero weight, NaN in
-   exactly the plain version's cells); flash within 5e-2 (bf16) and 2e-5
+   the main path gives it: histogram bit-equal (at three weightings: half
+   the rows, every row, about 1/16 of the rows; and with a NaN g and an inf
+   h on rows of zero weight, NaN in exactly the plain version's cells); both
+   entries of kernel B (scores and leaf ids) bit-equal at (i) the fitted
+   model on the held-out rows, (ii) ``higgs500`` (random trees of LightGBM's
+   Higgs experiment: 500 trees of 255 leaves on the held-out rows at 255
+   bins, int16; checked on the first 16,384 rows), (iii) ``higgs500-cat``
+   (the same with 4 categorical features) and (iv) the fitted model's shape
+   at C=3 and C=9, each with its visits (one decision per node on each row's
+   path) and its bound against them at the INT32 rate of the card's maximum
+   SM clock; (v) a ``LightGBMClassificationModel`` around (ii)'s trees
+   transforms the held-out rows without and with ``leaf_prediction_col``
+   (wall s, rows/s; both kernel-B entries must launch, and the output must
+   equal (ii)'s); flash within 5e-2 (bf16) and 2e-5
    (f32, at the two f32 shapes and two short ragged ones) of the f32 plain
    version, and in bf16 also within FLASH_ROW_TOL of it as an error
    relative to each output row's norm (a limit the script first shows to
@@ -65,6 +75,10 @@ N_TRAIN = 4_194_304
 N_TEST = 1_048_576
 N_FEATURES = 28               # HIGGS width
 GBDT = dict(num_iterations=10, num_leaves=31, max_bin=63)
+# trees, classes, leaves of LightGBM's Higgs experiment (docs/Experiments.rst:
+# 500 trees, num_leaves=255, max_bin=255)
+HIGGS500 = (500, 1, 255)
+TREE_CHECK_ROWS = 16_384      # rows the plain replay checks at S=254
 # B, S, H, H_kv, D of the flash shapes, all causal; bf16, then f32
 FLASH_SHAPES = {
     "headline": (1, 32768, 8, 8, 64),   # bench.py flash headline
@@ -106,6 +120,18 @@ def time_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def timed_once(fn):
+    """(result, device ms) of one call of ``fn``, timed with CUDA events."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def bound(n_bytes: float, n_ops: float, peak_ops: float):
@@ -174,15 +200,23 @@ def main() -> int:
         return 2
 
     from synapseml_tpu_torch.core import Table
-    from synapseml_tpu_torch.gbdt.boost import _preround, _sigmoid
-    from synapseml_tpu_torch.gbdt.device_predict import device_raw_scores, raw_scores_plain
-    from synapseml_tpu_torch.gbdt.estimators import LightGBMClassifier
+    from synapseml_tpu_torch.gbdt.binning import BinMapper
+    from synapseml_tpu_torch.gbdt.boost import GBDTBooster, _preround, _sigmoid
+    from synapseml_tpu_torch.gbdt.device_predict import (device_leaf_indices,
+                                                         device_raw_scores,
+                                                         leaf_indices_plain, pack_trees,
+                                                         raw_scores_plain)
+    from synapseml_tpu_torch.gbdt.estimators import (LightGBMClassificationModel,
+                                                     LightGBMClassifier)
     from synapseml_tpu_torch.gbdt.histogram import histogram, histogram_plain
     from synapseml_tpu_torch.kernels import all_kernels
     from synapseml_tpu_torch.kernels.build import build
     from synapseml_tpu_torch.parallel.flash import (KEY_TILE_BY_HEAD_DIM, dense_attention,
                                                     flash_attention, kernel_for)
     from synapseml_tpu_torch.runtime.device import card_info
+    from synapseml_tpu_torch.tools.score_bench import (INT32_LANES_PER_SM, N_SMS,
+                                                       max_sm_clock_hz, path_visits,
+                                                       random_trees, tree_bound, tree_bytes)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -366,21 +400,122 @@ def main() -> int:
            weightings=hist_runs, nonfinite_nan_cells=nan_cells)
     del binned_tr, g, h, w, weightings, y_d, p0, h_kern, h_plain
 
-    # B: tree scoring of the held-out rows with the trained trees
+    # B: tree scoring, both entries, at five shapes: (i) the fitted model on
+    # the held-out rows; (ii) higgs500 and (iii) higgs500-cat, random trees of
+    # LightGBM's Higgs experiment on the held-out rows binned at 255 bins
+    # (bit-equal on the first TREE_CHECK_ROWS rows: the plain replay takes
+    # 254 steps a tree); (iv) the fitted model's shape at C=3 and C=9.
+    # Bound: bytes against one INT32 decision per node on each row's path.
+    clock_hz = max_sm_clock_hz()
+    int32_per_s = N_SMS * INT32_LANES_PER_SM * clock_hz
+    log(f"phase 4 tree scoring: max SM clock {clock_hz / 1e6:.0f} MHz, "
+        f"INT32 rate {int32_per_s:.4g} /s")
     binned_te = mapper.transform_torch(torch.from_numpy(x_te).to(dev))
-    s_kern = device_raw_scores(binned_te, *tree_args)
-    s_plain = raw_scores_plain(binned_te, *tree_args)
-    if not torch.equal(s_kern, s_plain):
-        fail(f"tree-scoring kernel differs from the plain version by "
-             f"{float((s_kern - s_plain).abs().max())}")
-    ms = time_ms(lambda: device_raw_scores(binned_te, *tree_args), 50)
-    plain_ms = time_ms(lambda: raw_scores_plain(binned_te, *tree_args), 5)
-    tree_bytes = sum(a.numel() * a.element_size() for a in tree_args)
-    record("gbdt_tree_score", gbdt_launches["gbdt_tree_score"], 0.0, ms, plain_ms,
-           bound(N_TEST * N_FEATURES * binned_te.element_size() + tree_bytes
-                 + N_TEST * C * 4, N_TEST * T * C * (S + 2), F32_FLOPS), None,
-           shape=f"n={N_TEST} d={N_FEATURES} T={T} C={C} S={S}")
-    del binned_te, s_kern, s_plain
+    mapper_255 = BinMapper(max_bin=255).fit(x_te)
+    binned_255 = mapper_255.transform_torch(torch.from_numpy(x_te).to(dev))
+    rng = np.random.default_rng(args.seed)
+    higgs = random_trees(rng, *HIGGS500, N_FEATURES, mapper_255.n_bins)
+    tree_cases = {
+        "fit10": (dict(parent=booster.parent, feature=booster.feature, bins=booster.bin,
+                       leaf_value=booster.leaf_value, scale=booster.tree_scale,
+                       cat_set=None), binned_te, N_TEST),
+        "higgs500": (higgs, binned_255, TREE_CHECK_ROWS),
+        "higgs500-cat": (random_trees(rng, *HIGGS500, N_FEATURES, mapper_255.n_bins,
+                                      n_cat=4), binned_255, TREE_CHECK_ROWS),
+        "fit10-c3": (random_trees(rng, T, 3, S + 1, N_FEATURES, mapper.n_bins), binned_te,
+                     N_TEST),
+        "fit10-c9": (random_trees(rng, T, 9, S + 1, N_FEATURES, mapper.n_bins), binned_te,
+                     N_TEST),
+    }
+    tree_rows = {"gbdt_tree_score": {}, "gbdt_tree_leaf": {}}
+    for key, (tr, binned, n_check) in tree_cases.items():
+        lists = (tr["parent"], tr["feature"], tr["bins"])
+        cats = tr["cat_set"]
+        lv = torch.from_numpy(tr["leaf_value"]).to(dev)
+        sc = torch.from_numpy(np.asarray(tr["scale"], dtype=np.float32)).to(dev)
+        packed = pack_trees(*lists, cats, device=dev)
+        scores = device_raw_scores(binned, *lists, lv, sc, cats, packed=packed)
+        leaves = device_leaf_indices(binned, *lists, cats, packed=packed)
+        sub = binned[:n_check]
+        s_plain, s_plain_ms = timed_once(lambda: raw_scores_plain(sub, *lists, lv, sc, cats))
+        l_plain, l_plain_ms = timed_once(lambda: leaf_indices_plain(sub, *lists, cats))
+        if not torch.equal(scores[:n_check], s_plain):
+            fail(f"tree-scoring kernel ({key}) differs from the plain version by "
+                 f"{float((scores[:n_check] - s_plain).abs().max())}")
+        if not torch.equal(leaves[:, :, :n_check], l_plain):
+            fail(f"leaf kernel ({key}) differs from the plain version in "
+                 f"{int((leaves[:, :, :n_check] != l_plain).sum())} leaf ids")
+        visits = path_visits(leaves, packed.depth)
+        if key == "higgs500":
+            higgs_check = (scores.cpu().numpy(), l_plain.cpu().numpy())
+        del leaves, scores, s_plain, l_plain
+        reps = 50 if packed.shape[2] < 100 else 10
+        times = {
+            "gbdt_tree_score": (time_ms(lambda: device_raw_scores(
+                binned, *lists, lv, sc, cats, packed=packed), reps), s_plain_ms),
+            "gbdt_tree_leaf": (time_ms(lambda: device_leaf_indices(
+                binned, *lists, cats, packed=packed), max(reps // 2, 1)), l_plain_ms)}
+        T_, C_, S_ = packed.shape
+        n_rows = binned.shape[0]
+        for name, (ms, plain_ms) in times.items():
+            b = tree_bound(tree_bytes(n_rows, N_FEATURES, binned.element_size(), packed,
+                                      leaf=name == "gbdt_tree_leaf"), visits, int32_per_s)
+            entry = {"shape": f"n={n_rows} d={N_FEATURES} T={T_} C={C_} S={S_} "
+                              f"{binned.dtype}" + (" 4 categorical" if cats is not None else ""),
+                     "ms": ms, "plain_ms": plain_ms, "plain_rows": n_check, "visits": visits,
+                     "bound_ms": b[0], "bound_by": b[1], "max_abs_err": 0.0}
+            log(json.dumps({"tree": key, "kernel": name, **entry}))
+            if not ms >= b[0]:
+                fail(f"{name} {key}: {ms} ms is under its bound {b[0]} ms")
+            tree_rows[name][key] = entry
+        torch.cuda.empty_cache()
+    del binned_te
+
+    # (v) end to end: a classification model around (ii)'s trees and the
+    # 255-bin mapper, transform with and without leaf_prediction_col
+    zeros = np.zeros(higgs["parent"].shape)
+    higgs_booster = GBDTBooster(
+        mapper=mapper_255, objective="binary", num_class=1, base_score=0.0,
+        parent=higgs["parent"], feature=higgs["feature"], threshold=zeros,
+        bin_=higgs["bins"], gain=zeros.astype(np.float32), leaf_value=higgs["leaf_value"],
+        leaf_hess=np.zeros_like(higgs["leaf_value"]), tree_scale=higgs["scale"])
+    LightGBMClassificationModel(booster=higgs_booster).transform(
+        Table({"features": x_te[:1024]}))  # packs the trees once
+    e2e = {}
+    for leaf_col in (None, "leaves"):
+        model_h = LightGBMClassificationModel(booster=higgs_booster, leaf_prediction_col=leaf_col)
+        for k in kernels.values():
+            k.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out_h = model_h.transform(test_table)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {name: kernels[name].launches for name in tree_rows}
+        run = "with_leaf_col" if leaf_col else "scores_only"
+        e2e[run] = {"transform_s": wall, "rows_per_s": N_TEST / wall, "launches": counts}
+        log(json.dumps({"phase": "gbdt_higgs500_transform", "leaf_prediction_col": leaf_col,
+                        **e2e[run]}))
+        if counts["gbdt_tree_score"] < 1 or (leaf_col and counts["gbdt_tree_leaf"] < 1):
+            fail(f"higgs500 transform ({run}) launched {counts}")
+        if not np.array_equal(np.asarray(out_h["rawPrediction"])[:, 1], higgs_check[0][:, 0]):
+            fail("higgs500 transform: rawPrediction differs from kernel B's scores")
+        if leaf_col:
+            got = np.asarray(out_h["leaves"])
+            if got.shape != (N_TEST, HIGGS500[0]) or got.dtype != np.float64 or not \
+                    np.array_equal(got[:TREE_CHECK_ROWS].T, higgs_check[1][:, 0]):
+                fail(f"higgs500 transform: leaf column {got.shape} {got.dtype} differs "
+                     f"from the plain version's leaf ids")
+        del out_h
+    leaf_launches = e2e["with_leaf_col"]["launches"]["gbdt_tree_leaf"]
+    for name, launches in (("gbdt_tree_score", gbdt_launches["gbdt_tree_score"]),
+                           ("gbdt_tree_leaf", leaf_launches)):
+        main = tree_rows[name]["fit10"]
+        record(name, launches, 0.0, main["ms"], main["plain_ms"],
+               (main["bound_ms"], main["bound_by"]), None, shape=main["shape"],
+               visits=main["visits"], shapes=tree_rows[name],
+               higgs500_transform=e2e)
+    del binned_255
 
     # C: flash attention at the entry point's shapes (bf16, then f32)
     sdpa = torch.nn.functional.scaled_dot_product_attention

@@ -168,7 +168,8 @@ class GBDTBooster:
     """Trained model: stacked tree arrays (T, C, ...) + bin mapper + metadata.
 
     The arrays live on the host as numpy, in the reference's layout; scoring
-    bins rows and replays the trees on a device (kernel B on a GPU)."""
+    bins rows and runs the trees on a device (kernel B on a GPU, over the
+    trees packed top-down once per device and tree count)."""
 
     def __init__(self, mapper: BinMapper, objective: str, num_class: int,
                  base_score, parent, feature, threshold, bin_, gain, leaf_value,
@@ -190,6 +191,7 @@ class GBDTBooster:
         self.boosting = boosting
         self.best_iteration = best_iteration
         self.feature_names = feature_names
+        self._device_trees: Dict[Any, tuple] = {}
 
     @property
     def num_trees(self) -> int:
@@ -201,26 +203,64 @@ class GBDTBooster:
             t = self.num_trees
         return t
 
+    def _trees_on(self, T: int, dev: torch.device) -> tuple:
+        """(packed trees, leaf values, f32 scales) of the first ``T`` trees on
+        ``dev``, built at the first call and kept."""
+        from .device_predict import pack_trees
+
+        key = (T, str(dev))
+        if key not in self._device_trees:
+            self._device_trees[key] = (
+                pack_trees(self.parent[:T], self.feature[:T], self.bin[:T], device=dev),
+                torch.as_tensor(self.leaf_value[:T], dtype=torch.float32, device=dev),
+                torch.as_tensor(self.tree_scale[:T].astype(np.float32), device=dev))
+        return self._device_trees[key]
+
+    def _binned_on(self, x, device):
+        dev = resolve_device(device)
+        xt = torch.as_tensor(x)
+        return dev, self.mapper.transform_torch(xt.to(dev))
+
     def raw_predict(self, x, num_iteration: Optional[int] = None,
                     device=None) -> np.ndarray:
-        """Raw margin, shape (n,) or (n, C): bins ``x`` and replays the trees on
+        """Raw margin, shape (n,) or (n, C): bins ``x`` and scores the trees on
         ``device`` (default: the GPU, through kernel B), then adds the base score."""
         from .device_predict import device_raw_scores
 
-        dev = resolve_device(device)
         T = self._used_trees(num_iteration)
-        xt = torch.as_tensor(x)
-        n = xt.shape[0]
+        n = len(x)
         base = np.tile(self.base_score, (n, 1)).astype(np.float64)
         if T == 0:
+            resolve_device(device)
             out = base
         else:
-            binned = self.mapper.transform_torch(xt.to(dev))
-            scores = device_raw_scores(
-                binned, self.parent[:T], self.feature[:T], self.bin[:T],
-                self.leaf_value[:T], self.tree_scale[:T])
+            dev, binned = self._binned_on(x, device)
+            if dev.type == "cuda":
+                packed, leaf_value, scale = self._trees_on(T, dev)
+            else:
+                packed, leaf_value, scale = None, self.leaf_value[:T], self.tree_scale[:T]
+            scores = device_raw_scores(binned, self.parent[:T], self.feature[:T],
+                                       self.bin[:T], leaf_value, scale, packed=packed)
             out = base + scores.cpu().numpy().astype(np.float64)
         return out[:, 0] if self.num_class == 1 else out
+
+    def predict_leaf(self, x, num_iteration: Optional[int] = None,
+                     device=None) -> np.ndarray:
+        """Leaf index of every row in every tree, (n, T*C) int32, column
+        ``t*C + c`` for tree ``t`` and class ``c`` (the reference's
+        ``predict_leaf`` for dense input); on ``device`` as ``raw_predict``."""
+        from .device_predict import device_leaf_indices
+
+        T = self._used_trees(num_iteration)
+        n = len(x)
+        if T == 0:
+            resolve_device(device)
+            return np.zeros((n, 0), dtype=np.int32)
+        dev, binned = self._binned_on(x, device)
+        packed = self._trees_on(T, dev)[0] if dev.type == "cuda" else None
+        leaves = device_leaf_indices(binned, self.parent[:T], self.feature[:T],
+                                     self.bin[:T], packed=packed)        # (T, C, n)
+        return leaves.permute(2, 0, 1).reshape(n, T * self.num_class).cpu().numpy()
 
     def predict(self, x, num_iteration: Optional[int] = None, device=None) -> np.ndarray:
         """Probability for binary, value for regression."""

@@ -47,6 +47,7 @@ class _LightGBMBase(Estimator):
     label_col = Param("label column", str, default="label")
     prediction_col = Param("prediction output column", str, default="prediction")
     weight_col = Param("optional sample-weight column", str, default=None)
+    leaf_prediction_col = Param("optional leaf-index output column", str, default=None)
     device = Param("'cuda[:i]' (default: the GPU) or 'cpu'", str, default=None)
 
     boosting_type = Param("gbdt (rf | dart | goss not ported yet)", str, default="gbdt",
@@ -123,11 +124,26 @@ class _LightGBMModelBase(Model):
 
     features_col = Param("features column", str, default="features")
     prediction_col = Param("prediction output column", str, default="prediction")
+    leaf_prediction_col = Param("optional leaf-index output column", str, default=None)
     device = Param("'cuda[:i]' (default: the GPU) or 'cpu'", str, default=None)
     booster = ComplexParam("trained GBDTBooster", object, default=None)
 
     def input_schema(self) -> TableSchema:
         return TableSchema({self.features_col: _FEATURES_SPEC})
+
+    def _leaf_schema(self, schema: TableSchema) -> TableSchema:
+        if self.leaf_prediction_col:
+            schema = schema.with_column(self.leaf_prediction_col,
+                                        ColumnSpec("float", "vector"))
+        return schema
+
+    def _leaf_output(self, out: Table, x: np.ndarray) -> Table:
+        """The leaf index of every row in every tree, (n, T*C) float64."""
+        if self.leaf_prediction_col:
+            out = out.with_column(self.leaf_prediction_col,
+                                  self.booster.predict_leaf(x, device=self.device)
+                                  .astype(np.float64))
+        return out
 
 
 class LightGBMClassifier(_LightGBMBase):
@@ -157,7 +173,8 @@ class LightGBMClassifier(_LightGBMBase):
             if np.issubdtype(classes.dtype, np.number) else classes,
             features_col=self.features_col, prediction_col=self.prediction_col,
             probability_col=self.probability_col,
-            raw_prediction_col=self.raw_prediction_col, device=self.device)
+            raw_prediction_col=self.raw_prediction_col,
+            leaf_prediction_col=self.leaf_prediction_col, device=self.device)
 
 
 class LightGBMClassificationModel(_LightGBMModelBase):
@@ -167,9 +184,10 @@ class LightGBMClassificationModel(_LightGBMModelBase):
 
     def transform_schema(self, schema: TableSchema) -> TableSchema:
         self._check_schema(schema, self.input_schema())
-        return (schema.with_column(self.prediction_col, ColumnSpec("any", "scalar"))
-                .with_column(self.raw_prediction_col, ColumnSpec("float", "vector"))
-                .with_column(self.probability_col, ColumnSpec("float", "vector")))
+        return self._leaf_schema(
+            schema.with_column(self.prediction_col, ColumnSpec("any", "scalar"))
+            .with_column(self.raw_prediction_col, ColumnSpec("float", "vector"))
+            .with_column(self.probability_col, ColumnSpec("float", "vector")))
 
     def _transform(self, table: Table) -> Table:
         self._validate_input(table, self.features_col)
@@ -184,7 +202,7 @@ class LightGBMClassificationModel(_LightGBMModelBase):
         pred = np.asarray(labels)[idx] if labels is not None else idx.astype(np.float64)
         out = table.with_column(self.raw_prediction_col, raw2.astype(np.float32))
         out = out.with_column(self.probability_col, prob2.astype(np.float32))
-        return out.with_column(self.prediction_col, pred)
+        return self._leaf_output(out.with_column(self.prediction_col, pred), x)
 
 
 class LightGBMRegressor(_LightGBMBase):
@@ -196,17 +214,20 @@ class LightGBMRegressor(_LightGBMBase):
         booster = self._fit_booster(table)
         return LightGBMRegressionModel(booster=booster, features_col=self.features_col,
                                        prediction_col=self.prediction_col,
+                                       leaf_prediction_col=self.leaf_prediction_col,
                                        device=self.device)
 
 
 class LightGBMRegressionModel(_LightGBMModelBase):
     def transform_schema(self, schema: TableSchema) -> TableSchema:
         self._check_schema(schema, self.input_schema())
-        return schema.with_column(self.prediction_col, ColumnSpec("float", "scalar"))
+        return self._leaf_schema(
+            schema.with_column(self.prediction_col, ColumnSpec("float", "scalar")))
 
     def _transform(self, table: Table) -> Table:
         self._validate_input(table, self.features_col)
         x = _features(table, self.features_col)
-        return table.with_column(self.prediction_col,
-                                 self.booster.predict(x, device=self.device)
-                                 .astype(np.float64))
+        out = table.with_column(self.prediction_col,
+                                self.booster.predict(x, device=self.device)
+                                .astype(np.float64))
+        return self._leaf_output(out, x)

@@ -1,7 +1,9 @@
 """Leaf-wise tree growth — port of the dense branch of ``synapseml_tpu/gbdt/grow.py``.
 
-Single device, dense (n, d) bins, numeric splits only (no categorical sets,
-no voting, no leaf-local gathers). The algorithm is the reference's:
+Single device, dense (n, d) bins. Growth makes numeric splits only (no
+categorical sets, no voting, no leaf-local gathers); :func:`predict_binned`
+also replays the reference's categorical splits. The algorithm is the
+reference's:
 
 - ``num_leaves`` leaf slots and ``num_leaves - 1`` split steps; a step whose
   best gain is not above ``min_gain_to_split`` is inert and records parent -1;
@@ -20,7 +22,7 @@ GPU a whole tree is queued without a synchronisation.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -52,6 +54,9 @@ class GrownTree(NamedTuple):
     gain: torch.Tensor        # (L-1,) f32
     leaf_value: torch.Tensor  # (L,) f32 (unshrunk)
     leaf_hess: torch.Tensor   # (L,) f32
+    # (L-1, B) int8 left-going category membership of the splits with
+    # bin < 0; None: every split is numeric
+    cat_set: Optional[torch.Tensor] = None
 
 
 def _thresh_l1(g, l1: float):
@@ -154,12 +159,25 @@ def grow_tree(binned: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
 
 
 def predict_binned(tree: GrownTree, binned: torch.Tensor) -> torch.Tensor:
-    """Replay the splits over a binned matrix -> leaf index per row (n,) int32."""
+    """Replay the splits over a binned matrix -> leaf index per row (n,) int32.
+
+    With ``tree.cat_set``, a split with ``bin < 0`` is categorical: a row goes
+    left when ``cat_set[s, col] > 0``, indexed as the reference's
+    ``jnp.take`` does (a negative ``col`` counts from the end; one outside
+    ``[-B, B)`` is in no set)."""
     n = binned.shape[0]
     node = torch.zeros(n, dtype=torch.int32, device=binned.device)
     for s in range(tree.parent.shape[0]):
         p = tree.parent[s]
         col = torch.index_select(binned, 1, tree.feature[s].reshape(1).long())[:, 0]
-        go_right = (node == p) & (col.to(torch.int64) > tree.bin[s]) & (p >= 0)
+        col = col.to(torch.int64)
+        go_left = col <= tree.bin[s]
+        if tree.cat_set is not None:
+            B = tree.cat_set.shape[-1]
+            idx = torch.where(col < 0, col + B, col)
+            inside = (idx >= 0) & (idx < B)
+            in_set = inside & (tree.cat_set[s][idx.clamp(0, B - 1)] > 0)
+            go_left = torch.where(tree.bin[s] < 0, in_set, go_left)
+        go_right = (node == p) & ~go_left & (p >= 0)
         node = torch.where(go_right, s + 1, node).to(torch.int32)
     return node

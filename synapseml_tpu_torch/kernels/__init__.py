@@ -9,4 +9,5 @@ def all_kernels():
     from ..parallel import flash
 
     return {k.name: k for k in (histogram.HIST_KERNEL, device_predict.SCORE_KERNEL,
-                                flash.FLASH_KERNEL, flash.FLASH_F32_KERNEL)}
+                                device_predict.LEAF_KERNEL, flash.FLASH_KERNEL,
+                                flash.FLASH_F32_KERNEL)}

@@ -10,7 +10,10 @@ import pytest
 import torch
 
 from synapseml_tpu_torch.gbdt.boost import _preround
-from synapseml_tpu_torch.gbdt.device_predict import SCORE_KERNEL, device_raw_scores, raw_scores_plain
+from synapseml_tpu_torch.gbdt.device_predict import (LEAF_KERNEL, SCORE_KERNEL,
+                                                     device_leaf_indices, device_raw_scores,
+                                                     leaf_indices_plain, pack_trees,
+                                                     raw_scores_plain)
 from synapseml_tpu_torch.gbdt.histogram import HIST_KERNEL, histogram, histogram_plain
 from synapseml_tpu_torch.parallel.flash import (FLASH_F32_KERNEL, KERNEL_HEAD_DIMS,
                                                 dense_attention, flash_attention, kernel_for)
@@ -61,6 +64,76 @@ def test_score_kernel_bit_equal(cuda):
                            bins.to(cuda).int(), leaf.to(cuda),
                            torch.tensor(scale, dtype=torch.float32, device=cuda))
     torch.testing.assert_close(out, ref, rtol=0, atol=0)
+
+
+def _replay_lists(seed, T, C, S, d, n_bins, n_cat=0):
+    """Replay lists with -1 at any position and splits of leaves that do not
+    exist yet (dead), the first ``n_cat`` features categorical (bin -1)."""
+    rng = np.random.default_rng(seed)
+    parent = np.zeros((T, C, S), np.int32)
+    for s in range(S):
+        parent[:, :, s] = rng.integers(-1, s + 2, size=(T, C))
+    feature = rng.integers(0, d, size=(T, C, S)).astype(np.int32)
+    bins = rng.integers(0, n_bins - 1, size=(T, C, S)).astype(np.int32)
+    cat_set = None
+    if n_cat:
+        bins[feature < n_cat] = -1
+        cat_set = (rng.random((T, C, S, n_bins)) < 0.5).astype(np.int8)
+    leaf = rng.standard_normal((T, C, S + 1)).astype(np.float32)
+    return parent, feature, bins, cat_set, leaf, rng.uniform(0.05, 0.3, size=T)
+
+
+def _check_tree_kernels(cuda, binned, parent, feature, bins, cat_set, leaf, scale):
+    """Both entries of kernel B, one launch each, bit-equal to the replay."""
+    before = SCORE_KERNEL.launches, LEAF_KERNEL.launches
+    out = device_raw_scores(binned, parent, feature, bins, leaf, scale, cat_set)
+    leaves = device_leaf_indices(binned, parent, feature, bins, cat_set)
+    torch.cuda.synchronize()
+    assert (SCORE_KERNEL.launches, LEAF_KERNEL.launches) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(out, raw_scores_plain(binned, parent, feature, bins, leaf, scale,
+                                             cat_set))
+    assert torch.equal(leaves, leaf_indices_plain(binned, parent, feature, bins, cat_set))
+
+
+@pytest.mark.parametrize("dtype,n_bins,d", [(torch.int8, 64, 28), (torch.int16, 256, 28),
+                                            (torch.int32, 4096, 30)])
+@pytest.mark.parametrize("C", [1, 3, 9])
+def test_tree_kernels_bit_equal(cuda, dtype, n_bins, d, C):
+    """n = 50,001 is no multiple of the 1024-row tile, T = 13 of no tree chunk."""
+    g = torch.Generator(device="cpu").manual_seed(5)
+    binned = torch.randint(0, n_bins, (50_001, d), generator=g).to(dtype).to(cuda)
+    _check_tree_kernels(cuda, binned, *_replay_lists(C, 13, C, 30, d, n_bins))
+
+
+@pytest.mark.parametrize("C", [1, 3])
+def test_tree_kernels_categorical(cuda, C):
+    g = torch.Generator(device="cpu").manual_seed(6)
+    binned = torch.randint(0, 256, (20_000, 28), generator=g).to(torch.int16).to(cuda)
+    binned[:100, :4] = -3  # negative bins index a category set from its end
+    _check_tree_kernels(cuda, binned, *_replay_lists(7 + C, 9, C, 62, 28, 256, n_cat=4))
+
+
+@pytest.mark.parametrize("case", ["no_splits", "one_row", "chain", "wide_rows", "big_tree",
+                                  "wide_records"])
+def test_tree_kernels_edge_shapes(cuda, case):
+    """S = 0; one row; a chain of 40 splits; rows too wide to stage in shared
+    memory (read from global); a tree of 8191 splits, too large for the ring;
+    thresholds past int16 (16-byte records)."""
+    T, C, S, n, d, n_bins, dtype = {
+        "no_splits": (5, 2, 0, 3000, 8, 64, torch.int8),
+        "one_row": (6, 3, 20, 1, 8, 64, torch.int8),
+        "chain": (4, 1, 40, 3000, 8, 64, torch.int8),
+        "wide_rows": (7, 2, 30, 5000, 300, 64, torch.int8),
+        "big_tree": (3, 1, 8191, 3000, 8, 64, torch.int8),
+        "wide_records": (5, 2, 30, 3000, 8, 40_000, torch.int32)}[case]
+    g = torch.Generator(device="cpu").manual_seed(8)
+    binned = torch.randint(0, n_bins, (n, d), generator=g).to(dtype).to(cuda)
+    parent, feature, bins, cat_set, leaf, scale = _replay_lists(9, T, C, S, d, n_bins)
+    if case == "chain":
+        parent = np.broadcast_to(np.arange(S, dtype=np.int32), (T, C, S)).copy()
+        assert int(pack_trees(parent, feature, bins).depth.max()) == S
+    assert pack_trees(parent, feature, bins).narrow == (case != "wide_records")
+    _check_tree_kernels(cuda, binned, parent, feature, bins, cat_set, leaf, scale)
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5), (torch.bfloat16, 5e-2)])
