@@ -11,7 +11,22 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    max_bin=63)`` fit on 4,194,304 x 28 synthetic HIGGS-width rows, then
    transform on 1,048,576 held-out rows; the launch counts of the histogram
    and tree-scoring kernels must be > 0, the held-out AUC > 0.9, and a small
-   fit on the card must grow the same trees as the plain CPU path;
+   fit on the card must grow the same trees as the plain CPU path; binning
+   (kernel D) and the split search (kernel E) must launch in the fit;
+2b. ``gbdt_adult_cat``: rows at the UCI Adult Census schema (6 numeric and 8
+   categorical columns with Adult's cardinalities, NaN where the files hold
+   '?', codes unseen in training among the held-out rows), 4,194,304
+   training and 1,048,576 held-out rows, ``categorical_slot_indexes``,
+   255 bins, 31 leaves, 10 iterations; held-out AUC > ADULT_AUC_FLOOR, the
+   trees must hold categorical splits, kernels D and E must launch, and a
+   small fit must grow the same trees (``cat_set`` included) on the card
+   and the CPU;
+2c. ``gbdt_covertype_multiclass``: rows at the UCI Covertype schema (10
+   numeric columns, Wilderness_Area and Soil_Type as two categorical
+   columns), 581,012 rows split 80/20, 7 classes, 255 bins, 31 leaves, 10
+   iterations (70 trees); held-out accuracy > COVTYPE_ACC_FLOOR, kernel B
+   scores C=7 with categorical splits, and a small fit must grow the same
+   trees on the card and the CPU;
 3. flash attention's entry point, all causal: in bf16 (the wgmma kernel) at
    the headline shape (B=1, S=32768, H=8, D=64), the grouped-query serving
    shape (B=8, S=8192, H=8, H_kv=2, D=64), the headline length at D=128, and
@@ -32,7 +47,14 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    SM clock; (v) a ``LightGBMClassificationModel`` around (ii)'s trees
    transforms the held-out rows without and with ``leaf_prediction_col``
    (wall s, rows/s; both kernel-B entries must launch, and the output must
-   equal (ii)'s); flash within 5e-2 (bf16) and 2e-5
+   equal (ii)'s); kernel D bit-equal at the HIGGS and Adult fits' rows and
+   on edge cases (values on every rounded edge, +-inf, NaN, -0.0, unseen
+   codes, f64 edges whose f32 rounding goes up) at each output type;
+   kernel E bit-equal on histograms on the pre-rounded grid (numeric,
+   mixed categorical, max_cat_threshold binding, empty bins, exact ties
+   across features and bins, NaN gains, masks with l1/l2, B at 64, 256
+   and kernel A's largest) and, off the grid, the same split wherever the
+   runner-up is more than one ulp below the best; flash within 5e-2 (bf16) and 2e-5
    (f32, at the two f32 shapes and two short ragged ones) of the f32 plain
    version, and in bf16 also within FLASH_ROW_TOL of it as an error
    relative to each output row's norm (a limit the script first shows to
@@ -75,6 +97,22 @@ N_TRAIN = 4_194_304
 N_TEST = 1_048_576
 N_FEATURES = 28               # HIGGS width
 GBDT = dict(num_iterations=10, num_leaves=31, max_bin=63)
+# Adult (BASELINE.json config #2; 32,561 rows) scaled up as HIGGS is, and
+# Covertype at its full 581,012 rows, split 80/20
+N_ADULT_TRAIN, N_ADULT_TEST = 4_194_304, 1_048_576
+N_COVTYPE = 581_012
+N_COVTYPE_TRAIN = 464_810
+# Floors that say wrong, not slow, far above chance (AUC 0.5; the majority
+# class 0.42) and below what the reference's pre-rounding allows at these
+# row counts: its grid (_preround, the next power of two over the rows)
+# makes binary gradients multiples of 0.5 at 4,194,304 rows. On seed 0's
+# held-out rows the label's own probabilities give AUC 0.867 and the fit
+# 0.848 (0.866 on a 2^16 grid); the label's logits give accuracy 0.785 and
+# the 464,810-row fit 0.687 (0.758 on a 2^14 grid): tools/preround_probe.py
+# on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md).
+ADULT_AUC_FLOOR = 0.80
+COVTYPE_ACC_FLOOR = 0.60
+SMALL_FIT_ROWS = 16_384
 # trees, classes, leaves of LightGBM's Higgs experiment (docs/Experiments.rst:
 # 500 trees, num_leaves=255, max_bin=255)
 HIGGS500 = (500, 1, 255)
@@ -134,6 +172,25 @@ def timed_once(fn):
     return out, start.elapsed_time(end)
 
 
+def device_ms(fn, reps: int) -> float:
+    """Device time of one call of ``fn``: the kernels' own time in a
+    ``torch.profiler`` trace of ``reps`` calls, so the host's launch cost
+    (which sets the wall time of a call this small) is left out."""
+    from synapseml_tpu_torch.tools.profile_fit import _device_us
+
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(_device_us(e) for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    if us <= 0:
+        fail("the profiler saw no device time")
+    return us / 1e3 / reps
+
+
 def bound(n_bytes: float, n_ops: float, peak_ops: float):
     """(least time in ms, what bounds it): bytes at the memory rate against
     operations at the peak rate of their type."""
@@ -189,6 +246,53 @@ def causal_pairs(s_q: int, s_k: int) -> int:
     return s_q * (s_q + 1) // 2 + diag * s_q
 
 
+def reset(kernels) -> None:
+    torch.cuda.synchronize()
+    for k in kernels.values():
+        k.launches = 0
+
+
+def counts(kernels) -> dict:
+    torch.cuda.synchronize()
+    return {name: k.launches for name, k in kernels.items()}
+
+
+def fit_and_transform(kernels, estimator, train_table, test_table):
+    """Fit, then transform, each with the launch counts set to 0 just before
+    it and read just after. Returns (model, output, fit s, transform s, fit
+    launches, transform launches)."""
+    reset(kernels)
+    t0 = time.perf_counter()
+    model = estimator.fit(train_table)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    fit_counts = counts(kernels)
+    reset(kernels)
+    t0 = time.perf_counter()
+    out = model.transform(test_table)
+    torch.cuda.synchronize()
+    transform_s = time.perf_counter() - t0
+    return model, out, fit_s, transform_s, fit_counts, counts(kernels)
+
+
+def small_fit_same_trees(cls, params, x, y, probe_x, col="rawPrediction") -> float:
+    """The same fit on a small slice on the card and through the plain CPU
+    path: identical trees (``cat_set`` included), else the run fails.
+    Returns the largest difference of the two models' outputs on ``probe_x``."""
+    from synapseml_tpu_torch.core import Table
+
+    small = Table({"features": x, "label": y})
+    gpu_m = cls(**params).fit(small)
+    cpu_m = cls(device="cpu", **params).fit(small)
+    for field in ("parent", "feature", "bin", "cat_set"):
+        a, b = getattr(gpu_m.booster, field), getattr(cpu_m.booster, field)
+        if not ((a is None and b is None) or np.array_equal(a, b)):
+            fail(f"small fit: tree {field} differs between the card and the CPU path")
+    probe = Table({"features": probe_x})
+    return float(np.abs(np.asarray(gpu_m.transform(probe)[col])
+                        - np.asarray(cpu_m.transform(probe)[col])).max())
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -200,20 +304,32 @@ def main() -> int:
         return 2
 
     from synapseml_tpu_torch.core import Table
-    from synapseml_tpu_torch.gbdt.binning import BinMapper
+    from synapseml_tpu_torch.gbdt.binning import BinMapper, torch_bin_dtype
     from synapseml_tpu_torch.gbdt.boost import GBDTBooster, _preround, _sigmoid
-    from synapseml_tpu_torch.gbdt.device_predict import (device_leaf_indices,
+    from synapseml_tpu_torch.gbdt.device_predict import (device_bin_cat,
+                                                         device_bin_cat_plain,
+                                                         device_leaf_indices,
                                                          device_raw_scores,
-                                                         leaf_indices_plain, pack_trees,
+                                                         leaf_indices_plain,
+                                                         pack_feature_table, pack_trees,
                                                          raw_scores_plain)
     from synapseml_tpu_torch.gbdt.estimators import (LightGBMClassificationModel,
                                                      LightGBMClassifier)
     from synapseml_tpu_torch.gbdt.histogram import histogram, histogram_plain
+    from synapseml_tpu_torch.gbdt.split_search import (split_gains_plain, split_search,
+                                                       split_search_plain)
     from synapseml_tpu_torch.kernels import all_kernels
     from synapseml_tpu_torch.kernels.build import build
     from synapseml_tpu_torch.parallel.flash import (KEY_TILE_BY_HEAD_DIM, dense_attention,
                                                     flash_attention, kernel_for)
     from synapseml_tpu_torch.runtime.device import card_info
+    from synapseml_tpu_torch.tools.kernel_cases import (bin_edge_case, check_left_sets,
+                                                        check_offgrid, offgrid_split_case,
+                                                        split_cases)
+    from synapseml_tpu_torch.tools.schema_data import (ADULT_CATEGORICAL,
+                                                       COVTYPE_CATEGORICAL, COVTYPE_CLASSES,
+                                                       adult_rows, adult_unseen_codes,
+                                                       covertype_rows)
     from synapseml_tpu_torch.tools.score_bench import (INT32_LANES_PER_SM, N_SMS,
                                                        max_sm_clock_hz, path_visits,
                                                        random_trees, tree_bound, tree_bytes)
@@ -243,22 +359,16 @@ def main() -> int:
     log(f"phase 2 data: {N_TRAIN}+{N_TEST} x {N_FEATURES} in "
         f"{time.perf_counter() - t0:.1f} s")
 
-    for k in kernels.values():
-        k.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    model = LightGBMClassifier(**GBDT).fit(train_table)
-    torch.cuda.synchronize()
-    fit_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    out = model.transform(test_table)
-    torch.cuda.synchronize()
-    transform_s = time.perf_counter() - t0
-    gbdt_launches = {name: k.launches for name, k in kernels.items()}
-    log(f"phase 2 launches: {gbdt_launches}")
-    for name in ("gbdt_histogram", "gbdt_tree_score"):
-        if gbdt_launches[name] < 1:
-            fail(f"the main path never launched {name}")
+    model, out, fit_s, transform_s, fit_launches, transform_launches = fit_and_transform(
+        kernels, LightGBMClassifier(**GBDT), train_table, test_table)
+    gbdt_launches = {name: fit_launches[name] + transform_launches[name] for name in kernels}
+    log(f"phase 2 launches: fit {fit_launches}, transform {transform_launches}")
+    for name in ("gbdt_histogram", "gbdt_split_search", "gbdt_bin_features"):
+        if fit_launches[name] < 1:
+            fail(f"the main path's fit never launched {name}")
+    for name in ("gbdt_tree_score", "gbdt_bin_features"):
+        if transform_launches[name] < 1:
+            fail(f"the main path's transform never launched {name}")
 
     prob = np.asarray(out["probability"])
     raw = np.asarray(out["rawPrediction"])
@@ -279,20 +389,100 @@ def main() -> int:
         fail(f"held-out AUC {test_auc:.4f} <= 0.9")
 
     # the same fit on a small slice, on the card and through the plain CPU path
-    n_small = 16_384
-    small = Table({"features": x_tr[:n_small], "label": y_tr[:n_small]})
-    small_params = dict(num_iterations=3, num_leaves=31, max_bin=63)
-    gpu_m = LightGBMClassifier(**small_params).fit(small)
-    cpu_m = LightGBMClassifier(device="cpu", **small_params).fit(small)
-    for field in ("parent", "feature", "bin"):
-        if not np.array_equal(getattr(gpu_m.booster, field), getattr(cpu_m.booster, field)):
-            fail(f"small fit: tree {field} differs between the card and the CPU path")
-    probe = Table({"features": x_te[:n_small]})
-    small_err = float(np.abs(gpu_m.transform(probe)["rawPrediction"]
-                             - cpu_m.transform(probe)["rawPrediction"]).max())
+    n_small = SMALL_FIT_ROWS
+    small_err = small_fit_same_trees(LightGBMClassifier, dict(GBDT, num_iterations=3),
+                                     x_tr[:n_small], y_tr[:n_small], x_te[:n_small])
     log(f"phase 2 small fit card vs CPU: identical trees, raw max|diff| {small_err:.3g}")
     if not small_err <= 1e-4:
         fail(f"small fit: raw scores differ by {small_err} (> 1e-4) between card and CPU")
+
+    # -- phase 2b: categorical features, Adult Census schema ----------------------------
+    t0 = time.perf_counter()
+    x_a, y_a, p_a = adult_rows(args.seed, N_ADULT_TRAIN + N_ADULT_TEST)
+    xa_tr, ya_tr = x_a[:N_ADULT_TRAIN], y_a[:N_ADULT_TRAIN]
+    xa_te = adult_unseen_codes(x_a[N_ADULT_TRAIN:], args.seed + 1, 0.005)
+    ya_te = y_a[N_ADULT_TRAIN:]
+    label_auc = auc(ya_te, p_a[N_ADULT_TRAIN:])
+    del x_a, y_a, p_a
+    log(f"phase 2b data: {N_ADULT_TRAIN}+{N_ADULT_TEST} x 14 in "
+        f"{time.perf_counter() - t0:.1f} s")
+    adult_gbdt = dict(num_iterations=10, num_leaves=31, max_bin=255,
+                      categorical_slot_indexes=ADULT_CATEGORICAL)
+    model_a, out_a, fit_a, trans_a, fit_la, trans_la = fit_and_transform(
+        kernels, LightGBMClassifier(**adult_gbdt), Table({"features": xa_tr, "label": ya_tr}),
+        Table({"features": xa_te}))
+    prob_a = np.asarray(out_a["probability"])
+    adult_auc = auc(ya_te, prob_a[:, 1])
+    n_cat_splits = int(((model_a.booster.bin < 0) & (model_a.booster.parent >= 0)).sum())
+    small_err_a = small_fit_same_trees(LightGBMClassifier, dict(adult_gbdt, num_iterations=3),
+                                       xa_tr[:n_small], ya_tr[:n_small], xa_te[:n_small])
+    adult = {"phase": "gbdt_adult_cat", "rows_train": N_ADULT_TRAIN, "rows_test": N_ADULT_TEST,
+             "features": 14, "categorical": len(ADULT_CATEGORICAL), **adult_gbdt,
+             "fit_s": fit_a, "transform_s": trans_a,
+             "transform_rows_per_s": N_ADULT_TEST / trans_a,
+             "heldout_auc": adult_auc, "label_probability_auc": label_auc,
+             "auc_floor": ADULT_AUC_FLOOR,
+             "categorical_splits": n_cat_splits, "fit_launches": fit_la,
+             "transform_launches": trans_la, "small_fit_raw_max_diff": small_err_a}
+    log(json.dumps(adult))
+    if prob_a.shape != (N_ADULT_TEST, 2) or not np.isfinite(prob_a).all():
+        fail(f"adult transform: probability {prob_a.shape}, finite {np.isfinite(prob_a).all()}")
+    if not adult_auc > ADULT_AUC_FLOOR:
+        fail(f"adult held-out AUC {adult_auc:.4f} <= {ADULT_AUC_FLOOR}")
+    if n_cat_splits < 1 or model_a.booster.cat_set is None:
+        fail("adult fit took no categorical split")
+    for name in ("gbdt_bin_features", "gbdt_split_search", "gbdt_histogram"):
+        if fit_la[name] < 1:
+            fail(f"the adult fit never launched {name}")
+    for name in ("gbdt_bin_features", "gbdt_tree_score"):
+        if trans_la[name] < 1:
+            fail(f"the adult transform never launched {name}")
+    if not small_err_a <= 1e-4:
+        fail(f"adult small fit: raw scores differ by {small_err_a} (> 1e-4) card vs CPU")
+    del out_a, prob_a
+
+    # -- phase 2c: multiclass, Covertype schema -----------------------------------------
+    x_c, y_c, logit_c = covertype_rows(args.seed, N_COVTYPE)
+    label_acc = float((logit_c[N_COVTYPE_TRAIN:].argmax(1) == y_c[N_COVTYPE_TRAIN:]).mean())
+    xc_tr, yc_tr = x_c[:N_COVTYPE_TRAIN], y_c[:N_COVTYPE_TRAIN]
+    xc_te, yc_te = x_c[N_COVTYPE_TRAIN:], y_c[N_COVTYPE_TRAIN:]
+    cov_gbdt = dict(num_iterations=10, num_leaves=31, max_bin=255,
+                    categorical_slot_indexes=COVTYPE_CATEGORICAL)
+    model_c, out_c, fit_c, trans_c, fit_lc, trans_lc = fit_and_transform(
+        kernels, LightGBMClassifier(**cov_gbdt), Table({"features": xc_tr, "label": yc_tr}),
+        Table({"features": xc_te}))
+    prob_c = np.asarray(out_c["probability"])
+    acc_c = float((np.asarray(out_c["prediction"]) == yc_te).mean())
+    bc = model_c.booster
+    small_err_c = small_fit_same_trees(LightGBMClassifier, dict(cov_gbdt, num_iterations=2),
+                                       xc_tr[:n_small], yc_tr[:n_small], xc_te[:n_small],
+                                       col="probability")
+    n_cov_test = N_COVTYPE - N_COVTYPE_TRAIN
+    cov = {"phase": "gbdt_covertype_multiclass", "rows_train": N_COVTYPE_TRAIN,
+           "rows_test": n_cov_test, "features": 12, "classes": COVTYPE_CLASSES, **cov_gbdt,
+           "trees": int(bc.parent.shape[0] * bc.parent.shape[1]),
+           "fit_s": fit_c, "transform_s": trans_c,
+           "transform_rows_per_s": n_cov_test / trans_c,
+           "heldout_accuracy": acc_c, "label_logit_accuracy": label_acc,
+           "accuracy_floor": COVTYPE_ACC_FLOOR,
+           "categorical_splits": int(((bc.bin < 0) & (bc.parent >= 0)).sum()),
+           "fit_launches": fit_lc, "transform_launches": trans_lc,
+           "small_fit_prob_max_diff": small_err_c}
+    log(json.dumps(cov))
+    if bc.num_class != COVTYPE_CLASSES or bc.parent.shape[:2] != (10, COVTYPE_CLASSES):
+        fail(f"covertype booster: {bc.num_class} classes, trees {bc.parent.shape}")
+    if prob_c.shape != (n_cov_test, COVTYPE_CLASSES) or not np.isfinite(prob_c).all():
+        fail(f"covertype transform: probability {prob_c.shape}")
+    if not acc_c > COVTYPE_ACC_FLOOR:
+        fail(f"covertype held-out accuracy {acc_c:.4f} <= {COVTYPE_ACC_FLOOR}")
+    for name in ("gbdt_split_search", "gbdt_histogram", "gbdt_bin_features"):
+        if fit_lc[name] < 1:
+            fail(f"the covertype fit never launched {name}")
+    if trans_lc["gbdt_tree_score"] < 1:
+        fail("the covertype transform never launched gbdt_tree_score")
+    if not small_err_c <= 1e-5:
+        fail(f"covertype small fit: probabilities differ by {small_err_c} card vs CPU")
+    del out_c, prob_c, x_c, y_c, logit_c
 
     # -- phase 3: flash attention's entry point -----------------------------------------
     gen = torch.Generator(device=dev).manual_seed(args.seed)
@@ -516,6 +706,97 @@ def main() -> int:
                visits=main["visits"], shapes=tree_rows[name],
                higgs500_transform=e2e)
     del binned_255
+
+    # D: device binning at the two fits' rows (HIGGS width, int8; Adult
+    # schema with 8 categorical columns, int16) and on the edge cases at each
+    # output type. Bound: read each f32 once, write each bin once. Library:
+    # the one torch.searchsorted over the f32 table, on rows already
+    # transposed to (d, n), that the port used before (numeric features).
+    bin_shapes = {}
+    for key, (m, xs) in {"higgs_fit": (mapper, x_tr),
+                         "adult_fit": (model_a.booster.mapper, xa_tr)}.items():
+        xd = torch.from_numpy(xs).to(dev)
+        table, lens, flags = m.device_table(dev)
+        out_dt = torch_bin_dtype(m.n_bins)
+        run = lambda: device_bin_cat(xd, table, lens, flags, m.missing_bin, out_dt)
+        got = run()
+        want, plain_ms = timed_once(lambda: device_bin_cat_plain(xd, table, lens, flags,
+                                                                 m.missing_bin, out_dt))
+        if not torch.equal(got, want):
+            fail(f"binning kernel ({key}) differs from the plain version in "
+                 f"{int((got != want).sum())} bins")
+        del want
+        ms = time_ms(run, 20)
+        xt_d = xd.t().contiguous()
+        lib_ms = time_ms(lambda: torch.searchsorted(table, xt_d, side="left"), 20)
+        n_rows, d = xs.shape
+        b = bound(n_rows * d * (4 + got.element_size()), 0, F32_FLOPS)
+        bin_shapes[key] = {"shape": f"n={n_rows} d={d} Emax={table.shape[1]} {got.dtype}"
+                                    f" {int(flags.sum())} categorical",
+                           "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                           "bound_ms": b[0], "bound_by": b[1], "max_abs_err": 0.0}
+        log(json.dumps({"binning": key, **bin_shapes[key]}))
+        del xd, xt_d, got
+    m_edge, probe = bin_edge_case(args.seed + 5)
+    edge_args = [torch.from_numpy(a).to(dev) for a in (probe, *pack_feature_table(m_edge))]
+    host_bins = m_edge.transform(probe)
+    for out_dt in (torch.int8, torch.int16, torch.int32):
+        got = device_bin_cat(*edge_args, m_edge.missing_bin, out_dt)
+        if not (torch.equal(got, device_bin_cat_plain(*edge_args, m_edge.missing_bin, out_dt))
+                and np.array_equal(got.cpu().numpy(), host_bins)):
+            fail(f"binning kernel differs from the plain version on the edge cases ({out_dt})")
+    log("phase 4 binning edge cases: bit-equal at int8, int16 and int32")
+    main_b = bin_shapes["higgs_fit"]
+    record("gbdt_bin_features", gbdt_launches["gbdt_bin_features"], 0.0, main_b["ms"],
+           main_b["plain_ms"], (main_b["bound_ms"], main_b["bound_by"]),
+           main_b["library_ms"], shape=main_b["shape"], shapes=bin_shapes,
+           launches_adult_fit=fit_la["gbdt_bin_features"],
+           launches_covertype_fit=fit_lc["gbdt_bin_features"])
+
+    # E: split search, bit-equal on grid histograms, the off-grid rule, and
+    # timed at the HIGGS fit's shape (L=31, d=28, B=64) and the Adult fit's
+    # (L=31, d=14, B=256, 8 categorical). Bound: read the histograms once
+    # (12 bytes a cell); launch latency, not the card, sets the time, and
+    # in a fit the host's cost of each call.
+    cases = split_cases(args.seed)
+    for key, (hh, fm, cm, n_active, cfg) in cases.items():
+        t_args = [None if a is None else torch.from_numpy(a).to(dev) for a in (hh, fm, cm)]
+        got = split_search(*t_args, n_active, cfg)
+        want = split_search_plain(*t_args, n_active, cfg)
+        for a, w_, what in zip(got, want, ("gain", "feature", "bin")):
+            if not (torch.equal(a.isnan(), w_.isnan())
+                    and torch.equal(a.nan_to_num(), w_.nan_to_num())):
+                fail(f"split kernel ({key}) differs from the plain version in {what}")
+        check_left_sets(t_args[0], t_args[2], n_active, cfg, got)
+    hh, fm, cm, n_active, cfg = offgrid_split_case(args.seed + 1)
+    t_args = [torch.from_numpy(a).to(dev) for a in (hh, fm, cm)]
+    held, close = check_offgrid(split_gains_plain(*t_args, cfg),
+                                split_search(*t_args, n_active, cfg))
+    log(f"phase 4 split search: bit-equal on {sorted(cases)}; off the grid the same split "
+        f"in {held} leaves, {close} with a runner-up within one ulp")
+    split_shapes = {}
+    for key in ("numeric", "mixed_cat"):
+        hh, fm, cm, n_active, cfg = cases[key]
+        t_args = [None if a is None else torch.from_numpy(a).to(dev) for a in (hh, fm, cm)]
+        kern = lambda: split_search(*t_args, n_active, cfg)
+        plain = lambda: split_search_plain(*t_args, n_active, cfg)
+        # device time (profiler) and time a call from the host (events over
+        # back-to-back calls: the host's launch cost sets it)
+        ms, plain_ms = device_ms(kern, 100), device_ms(plain, 20)
+        call_ms, plain_call_ms = time_ms(kern, 200), time_ms(plain, 20)
+        L_, d_, B_, _ = hh.shape
+        b = bound(L_ * d_ * B_ * 12, 0, F32_FLOPS)
+        split_shapes[key] = {"shape": f"L={L_} d={d_} B={B_}" + (
+            f" {int(cm.sum())} categorical" if cm is not None else ""), "ms": ms,
+            "plain_ms": plain_ms, "call_ms": call_ms, "plain_call_ms": plain_call_ms,
+            "bound_ms": b[0], "bound_by": b[1], "max_abs_err": 0.0}
+        log(json.dumps({"split_search": key, **split_shapes[key]}))
+    main_e = split_shapes["numeric"]
+    record("gbdt_split_search", gbdt_launches["gbdt_split_search"], 0.0, main_e["ms"],
+           main_e["plain_ms"], (main_e["bound_ms"], main_e["bound_by"]), None,
+           shape=main_e["shape"], shapes=split_shapes, offgrid_leaves_held=held,
+           offgrid_leaves_close=close, launches_adult_fit=fit_la["gbdt_split_search"],
+           launches_covertype_fit=fit_lc["gbdt_split_search"])
 
     # C: flash attention at the entry point's shapes (bf16, then f32)
     sdpa = torch.nn.functional.scaled_dot_product_attention

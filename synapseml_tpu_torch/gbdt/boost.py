@@ -1,19 +1,22 @@
 """Boosting loop, objectives and the serializable booster.
 
-Port of ``synapseml_tpu/gbdt/boost.py`` for the main path: objectives
-``binary`` and ``regression`` (l2), plain ``gbdt`` boosting, one device. The
-reference runs the loop as one ``lax.scan`` program; here it is a Python loop
-over iterations whose body (objective gradients -> pre-rounding -> tree growth
--> score update) queues on the device without reading anything back, so the
+Port of ``synapseml_tpu/gbdt/boost.py`` for plain ``gbdt`` boosting on one
+device: the objectives ``binary``, ``multiclass`` (softmax, one tree per class
+and iteration), ``regression`` (l2), ``l1``, ``huber``, ``poisson``,
+``quantile`` and ``tweedie`` (``l1`` and ``quantile`` renew their leaf values
+as residual percentiles), numeric and categorical features. The reference
+runs the loop as one ``lax.scan`` program; here it is a Python loop over
+iterations whose body (objective gradients -> pre-rounding -> tree growth ->
+score update) queues on the device without reading anything back, so the
 trees come to the host once, after the last iteration.
 
 Gradients are pre-rounded to a summation-exact grid (:func:`_preround`, the
 reference's ``boost.py:1148``), so every histogram cell is exact in any
-summation order: the GPU kernel's atomics reproduce the reference's trees.
+summation order: the GPU kernels reproduce the reference's trees.
 
 Not ported yet, and refused with ``NotImplementedError`` when set away from
-their defaults: bagging, feature_fraction, GOSS, dart, rf, categorical
-features, eval sets and early stopping, and the other objectives.
+their defaults: bagging, feature_fraction, GOSS, dart, rf, eval sets and
+early stopping, and lambdarank.
 """
 
 from __future__ import annotations
@@ -59,8 +62,89 @@ def _obj_l2():
     return init, grads
 
 
+def _obj_l1():
+    def init(y, w):
+        return float(np.median(y))
+
+    def grads(score, y, w):
+        return torch.sign(score - y) * w, w
+
+    return init, grads
+
+
+def _obj_huber(alpha=0.9):
+    def init(y, w):
+        return float(np.average(y, weights=w))
+
+    def grads(score, y, w):
+        return torch.clamp(score - y, -alpha, alpha) * w, w
+
+    return init, grads
+
+
+def _obj_poisson():
+    def init(y, w):
+        return float(np.log(max(np.average(y, weights=w), 1e-8)))
+
+    def grads(score, y, w):
+        mu = torch.exp(score)
+        return (mu - y) * w, mu * w
+
+    return init, grads
+
+
+def _obj_quantile(alpha=0.5):
+    def init(y, w):
+        return float(np.quantile(y, alpha))
+
+    def grads(score, y, w):
+        g = torch.where(score - y >= 0, 1.0 - alpha, -alpha)
+        return g * w, w
+
+    return init, grads
+
+
+def _obj_tweedie(rho=1.5):
+    def init(y, w):
+        return float(np.log(max(np.average(y, weights=w), 1e-8)))
+
+    def grads(score, y, w):
+        e1, e2 = torch.exp((1 - rho) * score), torch.exp((2 - rho) * score)
+        g = -y * e1 + e2
+        h = -y * (1 - rho) * e1 + (2 - rho) * e2
+        return g * w, torch.clamp(h, min=1e-16) * w
+
+    return init, grads
+
+
+def _obj_multiclass(num_class):
+    def init(y, w):
+        # per-class log prior (boost_from_average for softmax)
+        pri = np.array([max(float(np.average(y == c, weights=w)), 1e-8)
+                        for c in range(num_class)])
+        return np.log(pri / pri.sum())
+
+    def grads(score, y, w):
+        # score (n, C); y (n,) class indices
+        p = torch.exp(score - torch.max(score, dim=1, keepdim=True).values)
+        p = p / p.sum(dim=1, keepdim=True)
+        onehot = (y[:, None] == torch.arange(score.shape[1], device=score.device)
+                  ).to(p.dtype)
+        g = (p - onehot) * w[:, None]
+        h = p * (1 - p) * 2.0 * w[:, None]  # LightGBM doubles the softmax hessian
+        return g, h
+
+    return init, grads
+
+
+# the reference's table (``boost.py:323-336``), plus two l2 aliases
 OBJECTIVES = {"binary": _obj_binary, "regression": _obj_l2, "l2": _obj_l2,
-              "mse": _obj_l2, "regression_l2": _obj_l2}
+              "mean_squared_error": _obj_l2, "mse": _obj_l2, "regression_l2": _obj_l2,
+              "l1": _obj_l1, "mae": _obj_l1, "huber": _obj_huber,
+              "poisson": _obj_poisson, "quantile": _obj_quantile,
+              "tweedie": _obj_tweedie, "multiclass": _obj_multiclass,
+              "softmax": _obj_multiclass}
+_MULTICLASS = ("multiclass", "softmax")
 
 _DEFAULTS = dict(
     objective="regression", num_iterations=100, learning_rate=0.1, num_leaves=31,
@@ -83,8 +167,7 @@ _DEFAULTS = dict(
 # parameters of the reference that change training and are not ported yet:
 # training refuses them unless they hold their default
 _NOT_PORTED = ("feature_fraction", "bagging_fraction", "bagging_freq", "boosting",
-               "pos_bagging_fraction", "neg_bagging_fraction", "max_bin_by_feature",
-               "categorical_feature", "early_stopping_round", "num_class")
+               "pos_bagging_fraction", "neg_bagging_fraction", "early_stopping_round")
 
 # LightGBM parameter aliases (config.h alias table, the commonly used rows)
 _ALIASES = {
@@ -159,6 +242,46 @@ def _preround(x: torch.Tensor, n_bound: int) -> torch.Tensor:
     return (x + factor) - factor
 
 
+def _resolve_objective(p):
+    """(init, grads) of the objective named in ``p`` (the reference's
+    ``_resolve_objective``, ``boost.py:1097-1109``)."""
+    name = p["objective"]
+    if name not in OBJECTIVES:
+        raise NotImplementedError(f"objective {name!r} is not ported yet "
+                                  f"(ported: {sorted(OBJECTIVES)})")
+    if name in _MULTICLASS:
+        return OBJECTIVES[name](int(p["num_class"]))
+    if name in ("huber", "quantile"):
+        return OBJECTIVES[name](float(p["alpha"]))
+    if name == "tweedie":
+        return OBJECTIVES[name](float(p["tweedie_variance_power"]))
+    return OBJECTIVES[name]()
+
+
+def _renewed_leaf_values(node, yv, raw_col, weight, alpha: float, L: int):
+    """Leaf outputs as the weighted ``alpha``-percentile of the leaf's
+    residuals (LightGBM's ``RenewTreeOutput`` for quantile and L1; the
+    reference's ``_renewed_leaf_values``, ``boost.py:1112-1146``): rows
+    grouped by (leaf, residual) with two stable sorts, then each leaf's
+    percentile position by ``searchsorted`` over the cumulative weight."""
+    r = yv - raw_col
+    order1 = torch.argsort(r, stable=True)
+    order2 = torch.argsort(node[order1], stable=True)
+    perm = order1[order2]                    # leaf-major, residual ascending
+    node_s, r_s = node[perm].contiguous(), r[perm]
+    cw = torch.cumsum(weight[perm], dim=0)
+    leaves = torch.arange(L, dtype=node_s.dtype, device=node.device)
+    starts = torch.searchsorted(node_s, leaves, side="left")
+    ends = torch.searchsorted(node_s, leaves, side="right")
+    offset = torch.where(starts > 0, cw[(starts - 1).clamp(min=0)], 0.0)
+    total = torch.where(ends > 0, cw[(ends - 1).clamp(min=0)], 0.0) - offset
+    target = offset + alpha * total
+    pos = torch.searchsorted(cw, target, side="left")
+    pos = torch.minimum(torch.maximum(pos, starts), torch.maximum(ends - 1, starts))
+    vals = r_s[pos.clamp(0, r_s.shape[0] - 1)]
+    return torch.where(total > 0, vals, 0.0).to(torch.float32)
+
+
 # ---------------------------------------------------------------------------------
 # Booster
 # ---------------------------------------------------------------------------------
@@ -175,7 +298,8 @@ class GBDTBooster:
                  base_score, parent, feature, threshold, bin_, gain, leaf_value,
                  leaf_hess, tree_scale, boosting: str = "gbdt",
                  best_iteration: Optional[int] = None,
-                 feature_names: Optional[List[str]] = None):
+                 feature_names: Optional[List[str]] = None,
+                 cat_set: Optional[np.ndarray] = None):
         self.mapper = mapper
         self.objective = objective
         self.num_class = num_class
@@ -191,6 +315,7 @@ class GBDTBooster:
         self.boosting = boosting
         self.best_iteration = best_iteration
         self.feature_names = feature_names
+        self.cat_set = cat_set        # (T, C, L-1, B) int8 or None: category sets
         self._device_trees: Dict[Any, tuple] = {}
 
     @property
@@ -211,10 +336,14 @@ class GBDTBooster:
         key = (T, str(dev))
         if key not in self._device_trees:
             self._device_trees[key] = (
-                pack_trees(self.parent[:T], self.feature[:T], self.bin[:T], device=dev),
+                pack_trees(self.parent[:T], self.feature[:T], self.bin[:T],
+                           self._cat_sets(T), device=dev),
                 torch.as_tensor(self.leaf_value[:T], dtype=torch.float32, device=dev),
                 torch.as_tensor(self.tree_scale[:T].astype(np.float32), device=dev))
         return self._device_trees[key]
+
+    def _cat_sets(self, T: int):
+        return None if self.cat_set is None else self.cat_set[:T]
 
     def _binned_on(self, x, device):
         dev = resolve_device(device)
@@ -240,7 +369,8 @@ class GBDTBooster:
             else:
                 packed, leaf_value, scale = None, self.leaf_value[:T], self.tree_scale[:T]
             scores = device_raw_scores(binned, self.parent[:T], self.feature[:T],
-                                       self.bin[:T], leaf_value, scale, packed=packed)
+                                       self.bin[:T], leaf_value, scale, self._cat_sets(T),
+                                       packed=packed)
             out = base + scores.cpu().numpy().astype(np.float64)
         return out[:, 0] if self.num_class == 1 else out
 
@@ -259,11 +389,11 @@ class GBDTBooster:
         dev, binned = self._binned_on(x, device)
         packed = self._trees_on(T, dev)[0] if dev.type == "cuda" else None
         leaves = device_leaf_indices(binned, self.parent[:T], self.feature[:T],
-                                     self.bin[:T], packed=packed)        # (T, C, n)
+                                     self.bin[:T], self._cat_sets(T), packed=packed)
         return leaves.permute(2, 0, 1).reshape(n, T * self.num_class).cpu().numpy()
 
     def predict(self, x, num_iteration: Optional[int] = None, device=None) -> np.ndarray:
-        """Probability for binary, value for regression."""
+        """Probability for binary and multiclass, value for regression."""
         return self.activate(self.raw_predict(x, num_iteration, device=device))
 
     def activate(self, raw: np.ndarray) -> np.ndarray:
@@ -271,6 +401,11 @@ class GBDTBooster:
         if self.objective == "binary":
             return np.where(raw >= 0, 1 / (1 + np.exp(-np.abs(raw))),
                             np.exp(-np.abs(raw)) / (1 + np.exp(-np.abs(raw))))
+        if self.objective in _MULTICLASS:
+            p = np.exp(raw - raw.max(axis=1, keepdims=True))
+            return p / p.sum(axis=1, keepdims=True)
+        if self.objective in ("poisson", "tweedie"):
+            return np.exp(raw)
         return raw
 
     # -- persistence ---------------------------------------------------------------
@@ -285,14 +420,12 @@ class GBDTBooster:
             "objective": self.objective, "num_class": self.num_class,
             "boosting": self.boosting, "best_iteration": self.best_iteration,
             "feature_names": self.feature_names, "mapper": self.mapper.to_dict(),
-            "cat_set": None,
+            "cat_set": self.cat_set,
         }
 
     @staticmethod
     def from_state_dict(d: Dict[str, Any]) -> "GBDTBooster":
         """Build a booster from a ``state_dict`` — this port's or the reference's."""
-        if d.get("cat_set") is not None:
-            raise NotImplementedError("categorical (cat_set) splits are not ported yet")
         if d["objective"] not in OBJECTIVES:
             raise NotImplementedError(f"objective {d['objective']!r} is not ported yet")
         if d.get("boosting", "gbdt") != "gbdt":
@@ -315,7 +448,21 @@ class GBDTBooster:
             boosting="gbdt",
             best_iteration=d.get("best_iteration"),
             feature_names=list(d["feature_names"]) if d.get("feature_names") else None,
+            cat_set=(np.asarray(d["cat_set"], dtype=np.int8)
+                     if d.get("cat_set") is not None else None),
         )
+
+
+def _categorical_indices(cats, feature_names) -> List[int]:
+    """``categorical_feature`` as sorted column indices: indices, or names
+    looked up in ``feature_names`` (the reference's rule, ``boost.py:1659-1665``)."""
+    cat_raw = list(cats or [])
+    if any(not isinstance(c, (int, np.integer)) for c in cat_raw):
+        if not feature_names:
+            raise ValueError("categorical_feature names require feature_names")
+        cat_raw = [list(feature_names).index(c) if isinstance(c, str) else int(c)
+                   for c in cat_raw]
+    return sorted({int(c) for c in cat_raw})
 
 
 def train(params: Dict[str, Any], x, y, weight: Optional[np.ndarray] = None,
@@ -324,29 +471,34 @@ def train(params: Dict[str, Any], x, y, weight: Optional[np.ndarray] = None,
     plain PyTorch versions of the kernels).
 
     ``x`` is an (n, d) float matrix (numpy or tensor), ``y`` and ``weight``
-    (n,) numpy arrays."""
+    (n,) numpy arrays (``y`` holds class indices for multiclass)."""
     dev = resolve_device(device)
     p = dict(_DEFAULTS)
-    params_c = _canonicalize_params(params)
-    p.update(params_c)
+    p.update(_canonicalize_params(params))
     for k in _NOT_PORTED:
-        if p[k] != _DEFAULTS[k] and not (k == "categorical_feature" and not p[k]):
+        if p[k] != _DEFAULTS[k]:
             raise NotImplementedError(f"parameter {k}={p[k]!r} is not ported yet")
     obj_name = p["objective"]
-    if obj_name not in OBJECTIVES:
-        raise NotImplementedError(f"objective {obj_name!r} is not ported yet "
-                                  f"(ported: {sorted(OBJECTIVES)})")
-    init_fn, grad_fn = OBJECTIVES[obj_name]()
+    init_fn, grad_fn = _resolve_objective(p)
+    C = int(p["num_class"]) if obj_name in _MULTICLASS else 1
 
     xt = torch.as_tensor(x)
     n, d = xt.shape
     y = np.asarray(y, dtype=np.float64)
     w_np = np.ones(n) if weight is None else np.asarray(weight, dtype=np.float64) + 0.0
 
+    cat_features = _categorical_indices(p["categorical_feature"], feature_names)
     mapper = BinMapper(max_bin=int(p["max_bin"]), seed=int(p["seed"]),
-                       sample_cnt=int(p["bin_sample_count"]))
+                       sample_cnt=int(p["bin_sample_count"]),
+                       max_bin_by_feature=p["max_bin_by_feature"],
+                       categorical_features=cat_features)
     mapper.fit(xt.numpy() if xt.device.type == "cpu" else xt.cpu().numpy())
-    binned = mapper.transform_torch(xt.to(dev))  # int8/int16 per bin_dtype
+    binned = mapper.transform_torch(xt.to(dev))  # kernel D where exact
+    has_cat = bool(mapper.categorical_features)
+    cat_mask = None
+    if has_cat:
+        cat_mask = torch.zeros(d, dtype=torch.float32, device=dev)
+        cat_mask[mapper.categorical_features] = 1.0
 
     base = np.atleast_1d(np.asarray(init_fn(y, w_np), dtype=np.float64))
     if not p["boost_from_average"]:
@@ -358,33 +510,46 @@ def train(params: Dict[str, Any], x, y, weight: Optional[np.ndarray] = None,
         min_data_in_leaf=float(p["min_data_in_leaf"]),
         min_sum_hessian=float(p["min_sum_hessian_in_leaf"]),
         min_gain_to_split=float(p["min_gain_to_split"]),
+        cat_smooth=float(p["cat_smooth"]), max_cat_threshold=int(p["max_cat_threshold"]),
         max_depth=int(p["max_depth"]), max_delta_step=float(p["max_delta_step"]))
     L = cfg.num_leaves
     # summation-exact rounding bound: the next power of two over the row count
     n_bound = 1 << max(int(n) - 1, 1).bit_length()
+    # percentile leaf renewal: quantile at its alpha, l1 at the median
+    renew_alpha = {"quantile": float(p["alpha"]), "l1": 0.5, "mae": 0.5}.get(obj_name)
 
     y_d = torch.as_tensor(y, dtype=torch.float32, device=dev)
     w_d = torch.as_tensor(w_np, dtype=torch.float32, device=dev)
-    raw = torch.zeros(n, dtype=torch.float32, device=dev) + torch.as_tensor(
+    raw = torch.zeros(n, C, dtype=torch.float32, device=dev) + torch.as_tensor(
         base, dtype=torch.float32, device=dev)
     ones = torch.ones(n, dtype=torch.float32, device=dev)
     fmask = torch.ones(d, dtype=torch.float32, device=dev)
 
-    trees = []
+    trees = []  # per iteration, C trees
     for _ in range(int(p["num_iterations"])):
-        g, h = grad_fn(raw, y_d, w_d)
-        g = _preround(g.to(torch.float32)[:, None], n_bound)[:, 0]
-        h = _preround(h.to(torch.float32)[:, None], n_bound)[:, 0]
-        tree, node = grow_tree(binned, g, h, ones, fmask, cfg)
-        trees.append(tree)
-        raw = raw + lr * tree.leaf_value[node.long()]
+        g, h = grad_fn(raw[:, 0] if C == 1 else raw, y_d, w_d)
+        g = _preround(g.to(torch.float32).reshape(n, C), n_bound)
+        h = _preround(h.to(torch.float32).reshape(n, C), n_bound)
+        grown = []
+        for c in range(C):
+            tree, node = grow_tree(binned, g[:, c].contiguous(), h[:, c].contiguous(), ones,
+                                   fmask, cfg, cat_mask=cat_mask)
+            if renew_alpha is not None and C == 1:
+                tree = tree._replace(leaf_value=_renewed_leaf_values(
+                    node, y_d, raw[:, 0], w_d, renew_alpha, L))
+            grown.append((tree, node))
+        # every class's tree grows from the same margins; then all update
+        for c, (tree, node) in enumerate(grown):
+            raw[:, c] = raw[:, c] + lr * tree.leaf_value[node.long()]
+        trees.append([tree for tree, _ in grown])
 
     T = len(trees)
 
     def stack(field, shape_tail, dtype):
         if not T:
-            return np.zeros((0, 1) + shape_tail, dtype)
-        return torch.stack([getattr(t, field) for t in trees])[:, None].cpu().numpy()
+            return np.zeros((0, C) + shape_tail, dtype)
+        return torch.stack([torch.stack([getattr(t, field) for t in it])
+                            for it in trees]).cpu().numpy().astype(dtype)
 
     parent = stack("parent", (L - 1,), np.int32)
     feature = stack("feature", (L - 1,), np.int32)
@@ -392,12 +557,13 @@ def train(params: Dict[str, Any], x, y, weight: Optional[np.ndarray] = None,
     gain = stack("gain", (L - 1,), np.float32)
     leaf_value = stack("leaf_value", (L,), np.float32)
     leaf_hess = stack("leaf_hess", (L,), np.float32)
+    cat_set = stack("cat_set", (L - 1, mapper.n_bins), np.int8) if has_cat else None
     threshold = np.zeros(parent.shape, dtype=np.float64)
     for t, c, s in zip(*np.nonzero(parent >= 0)):
         threshold[t, c, s] = mapper.bin_upper_value(int(feature[t, c, s]), bins[t, c, s])
     return GBDTBooster(
-        mapper=mapper, objective=obj_name, num_class=1, base_score=base,
+        mapper=mapper, objective=obj_name, num_class=C, base_score=base,
         parent=parent, feature=feature, threshold=threshold, bin_=bins, gain=gain,
         leaf_value=leaf_value, leaf_hess=leaf_hess,
         tree_scale=np.full(T, lr, dtype=np.float64), boosting="gbdt",
-        feature_names=list(feature_names) if feature_names else None)
+        feature_names=list(feature_names) if feature_names else None, cat_set=cat_set)

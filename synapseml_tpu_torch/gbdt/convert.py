@@ -23,22 +23,21 @@ __all__ = ["booster_from_state", "model_from_state"]
 def booster_from_state(state: Dict[str, Any]) -> GBDTBooster:
     """Port booster from a reference ``GBDTBooster.state_dict()``.
 
-    Raises ``NotImplementedError`` for what the port does not score yet
-    (categorical splits, multiclass, objectives other than binary/l2, boosting
-    other than gbdt)."""
-    if int(state["num_class"]) != 1:
-        raise NotImplementedError("multiclass boosters are not ported yet")
+    Takes numeric and categorical (``cat_set``) splits and any class count;
+    raises ``NotImplementedError`` for what the port does not score yet
+    (lambdarank, boosting other than gbdt)."""
     return GBDTBooster.from_state_dict(dict(state))
 
 
 def model_from_state(state: Dict[str, Any], labels: Optional[Sequence] = None,
                      device: Optional[str] = None, **params):
     """Fitted port stage from a reference booster's ``state_dict()``: a
-    :class:`LightGBMClassificationModel` for ``binary`` (``labels``: the class
-    values in index order, as the reference model keeps them) or a
-    :class:`LightGBMRegressionModel` otherwise."""
+    :class:`LightGBMClassificationModel` for ``binary``, ``multiclass`` and
+    ``softmax`` (``labels``: the class values in index order, as the
+    reference model keeps them) or a :class:`LightGBMRegressionModel`
+    otherwise."""
     booster = booster_from_state(state)
-    if booster.objective == "binary":
+    if booster.objective in ("binary", "multiclass", "softmax"):
         return LightGBMClassificationModel(
             booster=booster, device=device,
             labels=None if labels is None else np.asarray(labels), **params)

@@ -14,6 +14,11 @@ the trees top-down in the layout :func:`pack_trees` builds; on a CPU tensor
 they run the plain PyTorch versions :func:`raw_scores_plain` and
 :func:`leaf_indices_plain`, which replay the split lists through
 :func:`~.grow.predict_binned` and never read the packed layout.
+
+:func:`device_bin_cat` (kernel D, ``csrc/bin_features.cu``) bins raw f32
+rows against the table :func:`pack_feature_table` builds from a
+``BinMapper``; on a CPU tensor it runs :func:`device_bin_cat_plain`, the
+reference's broadcast compare.
 """
 
 from __future__ import annotations
@@ -28,7 +33,9 @@ from ..kernels.build import CudaKernel
 from .grow import GrownTree, predict_binned
 
 __all__ = ["PackedTrees", "pack_trees", "device_raw_scores", "device_leaf_indices",
-           "raw_scores_plain", "leaf_indices_plain", "SCORE_KERNEL", "LEAF_KERNEL"]
+           "raw_scores_plain", "leaf_indices_plain", "SCORE_KERNEL", "LEAF_KERNEL",
+           "cats_f32_representable", "pack_feature_table", "device_bin_cat",
+           "device_bin_cat_plain", "BIN_KERNEL"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -40,6 +47,10 @@ LEAF_KERNEL = CudaKernel(
     name="gbdt_tree_leaf", source="tree_score", symbol="smt_tree_leaf",
     argtypes=[_P, _I, ctypes.c_longlong, _I, _P, _I, _I, _I, _I, _I, _I, _P, _P],
     replaces="synapseml_tpu/gbdt/device_predict.py:25 (_leaf_kernel)")
+BIN_KERNEL = CudaKernel(
+    name="gbdt_bin_features", source="bin_features", symbol="smt_bin_features",
+    argtypes=[_P, _P, _P, _P, _I, _P, ctypes.c_longlong, _I, _I, _I, _P],
+    replaces="synapseml_tpu/gbdt/device_predict.py:208 (device_bin_cat)")
 
 _CAT = 1 << 31  # record flag: categorical split
 _I16 = (-(1 << 15), (1 << 15) - 1)
@@ -277,4 +288,118 @@ def device_leaf_indices(binned: torch.Tensor, parent, feature, bins, cat_set=Non
                     packed.nodes.data_ptr(), packed.units, int(packed.narrow), T, C, S,
                     packed.cat_bins,
                     out.data_ptr(), stream)
+    return out
+
+
+# ---------------------------------------------------------------------------------
+# Device binning (kernel D)
+# ---------------------------------------------------------------------------------
+
+def cats_f32_representable(mapper) -> bool:
+    """True when every category value survives an f32 round trip: the
+    precondition for binning categories on the device."""
+    for vals in mapper.cat_values.values():
+        v64 = np.asarray(vals, dtype=np.float64)
+        if not np.array_equal(v64.astype(np.float32).astype(np.float64), v64):
+            return False
+    return True
+
+
+def pack_feature_table(mapper):
+    """Per-feature bin tables -> padded (d, Emax) f32 table, (d,) int32
+    lengths and (d,) int8 categorical flags (the reference's
+    ``pack_feature_table``, ``device_predict.py:150-206``).
+
+    Numeric rows hold the upper edges, categorical rows the sorted category
+    values; padding is +inf, which no finite value exceeds. The f64 edges
+    are rounded DOWN to f32 (never up): for an f32 value ``v``,
+    ``floor_f32(e) < v`` iff ``e < v``, so counting the rounded edges below
+    ``v`` gives the host's bin. Category values must be exactly f32
+    (check :func:`cats_f32_representable` first); a lossy one raises."""
+    edges = mapper.upper_edges
+    sizes = [len(mapper.cat_values[j]) if j in mapper.cat_values else len(e)
+             for j, e in enumerate(edges)]
+    emax = max(max(sizes), 1)
+    out = np.full((len(edges), emax), np.inf, dtype=np.float32)
+    lens = np.empty(len(edges), dtype=np.int32)
+    cat_flags = np.zeros(len(edges), dtype=np.int8)
+    for j, e in enumerate(edges):
+        if j in mapper.cat_values:
+            vals = np.asarray(mapper.cat_values[j], dtype=np.float64)
+            v32 = vals.astype(np.float32)
+            if not np.array_equal(v32.astype(np.float64), vals):
+                raise ValueError(f"categorical feature {j} has values that are not "
+                                 "exactly f32; device binning would mis-code them")
+            out[j, : len(vals)] = v32
+            lens[j] = len(vals)
+            cat_flags[j] = 1
+            continue
+        e64 = np.asarray(e, dtype=np.float64)
+        e32 = e64.astype(np.float32)
+        out[j, : len(e)] = np.where(e32.astype(np.float64) > e64,
+                                    np.nextafter(e32, np.float32(-np.inf)), e32)
+        lens[j] = len(e)
+    return out, lens, cat_flags
+
+
+def device_bin_cat_plain(x: torch.Tensor, table: torch.Tensor, lens: torch.Tensor,
+                         cat_flags: torch.Tensor, missing_bin: int,
+                         out_dtype=torch.int32) -> torch.Tensor:
+    """Plain PyTorch version: the reference's broadcast compare, in row chunks.
+
+    Numeric: the count of table entries below ``v``, clamped to ``len - 1``;
+    categorical: that count where an entry equals ``v`` (count below !=
+    count at or below), else the missing bin; non-finite -> missing bin."""
+    n, d = x.shape
+    out = torch.empty(n, d, dtype=out_dtype, device=x.device)
+    has_cat = bool((cat_flags > 0).any())
+    lens = lens.to(torch.int64)
+    step = max(1, (1 << 24) // max(table.numel(), 1))
+    for i in range(0, n, step):
+        xc = x[i:i + step]
+        lt = (table[None] < xc[:, :, None]).sum(-1)
+        bins = torch.minimum(lt, lens[None] - 1)
+        if has_cat:
+            le = (table[None] <= xc[:, :, None]).sum(-1)
+            cat_bins = torch.where(lt != le, lt, missing_bin)
+            bins = torch.where(cat_flags[None] > 0, cat_bins, bins)
+        out[i:i + step] = torch.where(torch.isfinite(xc), bins, missing_bin).to(out_dtype)
+    return out
+
+
+def device_bin_cat(x: torch.Tensor, table: torch.Tensor, lens: torch.Tensor,
+                   cat_flags: torch.Tensor, missing_bin: int,
+                   out_dtype=torch.int32) -> torch.Tensor:
+    """(n, d) f32 rows -> (n, d) bins of ``out_dtype`` (int8, int16 or int32).
+
+    ``table`` (d, Emax) f32, ``lens`` (d,) int32 and ``cat_flags`` (d,) int8
+    from :func:`pack_feature_table`, on ``x``'s device. Equal to
+    ``BinMapper.transform`` for f32 values. CPU tensors take the plain
+    version; CUDA tensors launch kernel D."""
+    if x.dim() != 2 or x.dtype != torch.float32:
+        raise TypeError(f"x must be a 2-D float32 tensor, got {x.dtype} of shape "
+                        f"{tuple(x.shape)}")
+    n, d = x.shape
+    if (table.dim() != 2 or table.shape[0] != d or table.dtype != torch.float32
+            or lens.shape != (d,) or lens.dtype != torch.int32
+            or cat_flags.shape != (d,) or cat_flags.dtype != torch.int8):
+        raise TypeError("table must be (d, Emax) float32, lens (d,) int32 and "
+                        "cat_flags (d,) int8")
+    if out_dtype not in (torch.int8, torch.int16, torch.int32):
+        raise TypeError(f"out_dtype must be int8, int16 or int32, got {out_dtype}")
+    if not all(t.device == x.device for t in (table, lens, cat_flags)):
+        raise ValueError("x, table, lens and cat_flags must lie on one device")
+    if x.device.type == "cpu":
+        return device_bin_cat_plain(x, table, lens, cat_flags, missing_bin, out_dtype)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    x, table = x.contiguous(), table.contiguous()
+    out = torch.empty(n, d, dtype=out_dtype, device=x.device)
+    if n == 0 or d == 0:
+        return out
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        BIN_KERNEL(x.data_ptr(), table.data_ptr(), lens.data_ptr(), cat_flags.data_ptr(),
+                   int(table.shape[1]), out.data_ptr(), n, d, out.element_size(),
+                   int(missing_bin), stream)
     return out

@@ -1,12 +1,13 @@
 """LightGBM-style estimator stages over Tables — the port's dense subset.
 
 Port of ``synapseml_tpu/gbdt/estimators.py``: ``LightGBMClassifier`` /
-``LightGBMClassificationModel`` (binary) and ``LightGBMRegressor`` /
-``LightGBMRegressionModel`` (l2), dense feature columns. Params keep the
-reference's names and defaults; those whose behaviour is not ported yet
-(bagging, feature fraction, goss/dart/rf, categorical slots, early stopping,
-validation columns, batches) are refused by ``train`` or here when set away
-from their defaults.
+``LightGBMClassificationModel`` (binary or multiclass, from the label count)
+and ``LightGBMRegressor`` / ``LightGBMRegressionModel`` (l2, l1, huber,
+poisson, quantile, tweedie), dense feature columns, categorical slots by
+index or by slot name. Params keep the reference's names and defaults; those
+whose behaviour is not ported yet (bagging, feature fraction, goss/dart/rf,
+early stopping, validation columns, batches) are refused by ``train`` when
+set away from their defaults.
 
 ``device`` picks where fit and transform run: the GPU by default, ``"cpu"``
 for the plain PyTorch versions of the kernels.
@@ -76,6 +77,14 @@ class _LightGBMBase(Estimator):
     min_gain_to_split = Param("min split gain", float, default=0.0)
     early_stopping_round = Param("early stopping rounds (not ported yet)", int, default=0)
     seed = Param("random seed (bin sampling)", int, default=0)
+    categorical_slot_names = Param("feature names treated as categorical "
+                                   "(reference categoricalSlotNames)", list, default=[])
+    categorical_slot_indexes = Param("feature indices treated as categorical "
+                                     "(reference categoricalSlotIndexes)", list, default=[])
+    cat_smooth = Param("categorical split smoothing (reference catSmooth)", float,
+                       default=10.0)
+    max_cat_threshold = Param("max categories in the left set of a categorical split "
+                              "(reference maxCatThreshold)", int, default=32)
 
     objective = Param("training objective", str, default="regression")
 
@@ -101,6 +110,9 @@ class _LightGBMBase(Estimator):
             "min_data_in_leaf": self.min_data_in_leaf,
             "min_gain_to_split": self.min_gain_to_split,
             "early_stopping_round": self.early_stopping_round, "seed": self.seed,
+            "categorical_feature": (list(self.categorical_slot_indexes)
+                                    + list(self.categorical_slot_names)) or None,
+            "cat_smooth": self.cat_smooth, "max_cat_threshold": self.max_cat_threshold,
         }
 
     def _fit_booster(self, table: Table, extra_params: Optional[dict] = None
@@ -112,7 +124,13 @@ class _LightGBMBase(Estimator):
              if self.weight_col else None)
         params = self._train_params()
         params.update(extra_params or {})
+        # categorical_slot_names resolve against the features column's
+        # slot-name metadata, as in the reference
         slot_names = table.meta.get(self.features_col, {}).get("slot_names")
+        if slot_names is None and self.categorical_slot_names:
+            raise ValueError(
+                "categorical_slot_names requires slot-name metadata on the features "
+                f"column: Table(meta={{{self.features_col!r}: {{'slot_names': [...]}}}})")
         return train(params, x, y, weight=w, device=self.device,
                      feature_names=list(slot_names) if slot_names is not None else None)
 
@@ -147,10 +165,11 @@ class _LightGBMModelBase(Model):
 
 
 class LightGBMClassifier(_LightGBMBase):
-    """Binary classifier (reference ``LightGBMClassifier.scala:26``); labels may
-    be any two values, predictions carry them back."""
+    """Classifier (reference ``LightGBMClassifier.scala:26``): binary for two
+    labels, multiclass for more; labels may be any values, predictions carry
+    them back."""
 
-    objective = Param("binary (auto from labels if unset)", str, default="")
+    objective = Param("binary | multiclass (auto from labels if unset)", str, default="")
     probability_col = Param("probability output column", str, default="probability")
     raw_prediction_col = Param("raw margin output column", str, default="rawPrediction")
 
@@ -161,13 +180,15 @@ class LightGBMClassifier(_LightGBMBase):
     def _fit(self, table: Table) -> "LightGBMClassificationModel":
         self._validate_input(table, self.features_col, self.label_col)
         classes, y_idx = np.unique(np.asarray(table[self.label_col]), return_inverse=True)
-        if len(classes) != 2:
-            raise NotImplementedError(
-                f"label column has {len(classes)} classes; only binary "
-                "classification is ported yet")
-        obj = self.objective or "binary"
+        n_class = len(classes)
+        if n_class < 2:
+            raise ValueError(f"need >= 2 classes, label column has {n_class}")
+        obj = self.objective or ("binary" if n_class == 2 else "multiclass")
+        extra = {"objective": obj}
+        if obj in ("multiclass", "softmax"):
+            extra["num_class"] = n_class
         tbl = table.with_column(self.label_col, y_idx.astype(np.float64))
-        booster = self._fit_booster(tbl, {"objective": obj})
+        booster = self._fit_booster(tbl, extra)
         return LightGBMClassificationModel(
             booster=booster, labels=classes.astype(np.float64)
             if np.issubdtype(classes.dtype, np.number) else classes,
@@ -194,10 +215,14 @@ class LightGBMClassificationModel(_LightGBMModelBase):
         x = _features(table, self.features_col)
         b: GBDTBooster = self.booster
         raw = b.raw_predict(x, device=self.device)
-        prob = b.activate(raw)
-        raw2 = np.stack([-raw, raw], axis=1)
-        prob2 = np.stack([1 - prob, prob], axis=1)
-        idx = (prob >= 0.5).astype(np.int64)
+        prob = b.activate(raw)  # one scoring pass feeds both output columns
+        if b.num_class == 1:  # binary: 2-class vectors, as the reference emits
+            raw2 = np.stack([-raw, raw], axis=1)
+            prob2 = np.stack([1 - prob, prob], axis=1)
+            idx = (prob >= 0.5).astype(np.int64)
+        else:
+            raw2, prob2 = raw, prob
+            idx = prob.argmax(axis=1)
         labels = self.labels
         pred = np.asarray(labels)[idx] if labels is not None else idx.astype(np.float64)
         out = table.with_column(self.raw_prediction_col, raw2.astype(np.float32))
@@ -206,12 +231,16 @@ class LightGBMClassificationModel(_LightGBMModelBase):
 
 
 class LightGBMRegressor(_LightGBMBase):
-    """l2 regressor (reference ``LightGBMRegressor.scala:38``)."""
+    """Regressor (reference ``LightGBMRegressor.scala:38``; objectives
+    regression/l1/huber/quantile/poisson/tweedie)."""
 
-    objective = Param("regression objective (l2 only so far)", str, default="regression")
+    objective = Param("regression objective", str, default="regression")
+    alpha = Param("huber/quantile alpha", float, default=0.9)
+    tweedie_variance_power = Param("tweedie variance power in [1, 2)", float, default=1.5)
 
     def _fit(self, table: Table) -> "LightGBMRegressionModel":
-        booster = self._fit_booster(table)
+        booster = self._fit_booster(table, {
+            "alpha": self.alpha, "tweedie_variance_power": self.tweedie_variance_power})
         return LightGBMRegressionModel(booster=booster, features_col=self.features_col,
                                        prediction_col=self.prediction_col,
                                        leaf_prediction_col=self.leaf_prediction_col,

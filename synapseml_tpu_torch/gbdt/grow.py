@@ -1,23 +1,23 @@
 """Leaf-wise tree growth — port of the dense branch of ``synapseml_tpu/gbdt/grow.py``.
 
-Single device, dense (n, d) bins. Growth makes numeric splits only (no
-categorical sets, no voting, no leaf-local gathers); :func:`predict_binned`
-also replays the reference's categorical splits. The algorithm is the
-reference's:
+Single device, dense (n, d) bins, numeric and categorical splits (no voting,
+no leaf-local gathers). The algorithm is the reference's:
 
 - ``num_leaves`` leaf slots and ``num_leaves - 1`` split steps; a step whose
   best gain is not above ``min_gain_to_split`` is inert and records parent -1;
 - the tree is a replay list of splits (parent leaf, feature, bin): split ``s``
   turns leaf ``parent[s]`` into (``parent[s]``, ``s + 1``), rows with
-  ``bin > bin[s]`` going right;
+  ``bin > bin[s]`` going right; a categorical split has ``bin == -1`` and
+  sends left the rows whose bin is in its category set ``cat_set[s]``;
 - leaf-wise: each step splits the best-gain leaf anywhere in the tree;
 - parent subtraction: each step builds ONE histogram (the new right child,
   kernel A through :func:`~.histogram.histogram`) and derives the left side
-  as parent minus child.
+  as parent minus child;
+- the search for each leaf's best split is kernel E
+  (:func:`~.split_search.split_search`) on the GPU.
 
-Split selection stays in plain PyTorch ops (``cumsum`` over bins, then
-``argmax``). The step loop never reads a value back to the host, so on the
-GPU a whole tree is queued without a synchronisation.
+The step loop never reads a value back to the host, so on the GPU a whole
+tree is queued without a synchronisation.
 """
 
 from __future__ import annotations
@@ -27,8 +27,9 @@ from typing import NamedTuple, Optional
 import torch
 
 from .histogram import histogram
+from .split_search import _thresh_l1, category_key, split_search
 
-__all__ = ["TreeConfig", "GrownTree", "grow_tree", "predict_binned"]
+__all__ = ["TreeConfig", "GrownTree", "grow_tree", "left_set", "predict_binned"]
 
 
 class TreeConfig(NamedTuple):
@@ -41,6 +42,8 @@ class TreeConfig(NamedTuple):
     min_data_in_leaf: float = 20.0
     min_sum_hessian: float = 1e-3
     min_gain_to_split: float = 0.0
+    cat_smooth: float = 10.0
+    max_cat_threshold: int = 32
     max_depth: int = -1          # <= 0: unlimited
     max_delta_step: float = 0.0  # > 0: clamp leaf outputs
 
@@ -50,7 +53,7 @@ class GrownTree(NamedTuple):
 
     parent: torch.Tensor      # (L-1,) int32; -1 = inert step
     feature: torch.Tensor     # (L-1,) int32
-    bin: torch.Tensor         # (L-1,) int32; numeric split 'bin <= b goes left'
+    bin: torch.Tensor         # (L-1,) int32; 'bin <= b goes left', -1: categorical
     gain: torch.Tensor        # (L-1,) f32
     leaf_value: torch.Tensor  # (L,) f32 (unshrunk)
     leaf_hess: torch.Tensor   # (L,) f32
@@ -59,54 +62,45 @@ class GrownTree(NamedTuple):
     cat_set: Optional[torch.Tensor] = None
 
 
-def _thresh_l1(g, l1: float):
-    return torch.sign(g) * torch.clamp(g.abs() - l1, min=0.0)
+def left_set(row: torch.Tensor, is_cat, b, cfg: TreeConfig) -> torch.Tensor:
+    """(B,) left membership of split ``b`` of one leaf's (B, 3) histogram row
+    (the reference's ``split_detail``): bins ``<= b`` for a numeric feature;
+    for a categorical one, the bins of rank ``<= b`` in kernel E's order
+    that hold rows of the leaf (an empty bin stays right, where unseen
+    categories go)."""
+    pos = torch.arange(row.shape[0], device=row.device)
+    order = torch.argsort(category_key(row[:, 0], row[:, 1], cfg.cat_smooth), stable=True)
+    rank = torch.empty_like(order)
+    rank[order] = pos
+    return torch.where(is_cat, (rank <= b) & (row[:, 2] > 0), pos <= b)
 
 
 def grow_tree(binned: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
-              row_weight: torch.Tensor, feature_mask: torch.Tensor, cfg: TreeConfig):
+              row_weight: torch.Tensor, feature_mask: torch.Tensor, cfg: TreeConfig,
+              cat_mask: Optional[torch.Tensor] = None):
     """Grow one tree. Returns (GrownTree, node_of_row (n,) int32).
 
     ``binned`` (n, d) int8/int16/int32; ``grad``/``hess``/``row_weight`` (n,)
-    f32; ``feature_mask`` (d,) f32 in {0, 1}. All on one device."""
+    f32; ``feature_mask`` (d,) f32 in {0, 1}; ``cat_mask`` (d,) f32 in {0, 1}
+    marks the categorical features (None: all numeric), and then the tree
+    carries ``cat_set``. All on one device."""
     n, d = binned.shape
     L, B = cfg.num_leaves, cfg.n_bins
     l1, l2 = cfg.lambda_l1, cfg.lambda_l2
     dev = binned.device
+    has_cat = cat_mask is not None
     pos = torch.arange(B, device=dev)
-    leaf_ids = torch.arange(L, device=dev)
     neg_inf = torch.tensor(float("-inf"), device=dev)
 
     def hist_of(weight):
         return histogram(binned, grad, hess, weight, B)
 
-    def gain_term(G, H):
-        return _thresh_l1(G, l1) ** 2 / (H + l2)
-
-    def gain_table(hists):
-        """(L, d, B, 3) histograms -> (L, d, B) gains of the 'bin <= b' splits."""
-        G, H, C = hists[..., 0], hists[..., 1], hists[..., 2]
-        GT = G.sum(-1, keepdim=True)
-        HT = H.sum(-1, keepdim=True)
-        CT = C.sum(-1, keepdim=True)
-        cum = torch.cumsum(hists, dim=-2)
-        GL, HL, CL = cum[..., 0], cum[..., 1], cum[..., 2]
-        GR, HR, CR = GT - GL, HT - HL, CT - CL
-        g = gain_term(GL, HL) + gain_term(GR, HR) - gain_term(GT, HT)
-        valid = ((pos < B - 1)
-                 & (CL >= cfg.min_data_in_leaf) & (CR >= cfg.min_data_in_leaf)
-                 & (HL >= cfg.min_sum_hessian) & (HR >= cfg.min_sum_hessian)
-                 & (feature_mask[:, None] > 0))
-        return torch.where(valid, g, neg_inf)
-
-    def best_splits(hists, n_active: int):
-        """Best (gain, feature, bin) per leaf, (L,) each."""
-        flat = gain_table(hists).reshape(L, d * B)
-        # torch.argmax and jnp.argmax both pick the FIRST maximal index
-        idx = torch.argmax(flat, dim=-1)
-        best_gain = flat.gather(1, idx[:, None])[:, 0]
-        best_gain = torch.where(leaf_ids < n_active, best_gain, neg_inf)
-        return best_gain, torch.div(idx, B, rounding_mode="floor"), idx % B
+    def split_detail(hists, l, f_sel, b_sel):
+        """(B,) left membership of the chosen split and its categorical flag."""
+        if not has_cat:
+            return pos <= b_sel, torch.zeros((), dtype=torch.bool, device=dev)
+        is_cat = cat_mask[f_sel] > 0
+        return left_set(hists[l, f_sel], is_cat, b_sel, cfg), is_cat
 
     root = hist_of(row_weight)
     hists = torch.zeros((L, d, B, 3), dtype=torch.float32, device=dev)
@@ -116,20 +110,22 @@ def grow_tree(binned: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
     feat = torch.zeros(L - 1, dtype=torch.int32, device=dev)
     bin_ = torch.zeros(L - 1, dtype=torch.int32, device=dev)
     gains = torch.zeros(L - 1, dtype=torch.float32, device=dev)
+    cat_sets = torch.zeros((L - 1, B), dtype=torch.int8, device=dev) if has_cat else None
     depth = torch.zeros(L, dtype=torch.int32, device=dev)
     min_gain = max(cfg.min_gain_to_split, 0.0)
 
     for s in range(L - 1):
-        leaf_gain, leaf_f, leaf_b = best_splits(hists, s + 1)
+        leaf_gain, leaf_f, leaf_b = split_search(hists, feature_mask, cat_mask, s + 1, cfg)
         if cfg.max_depth > 0:
             leaf_gain = torch.where(depth < cfg.max_depth, leaf_gain, neg_inf)
         l = torch.argmax(leaf_gain)
         g_best = leaf_gain[l]
         ok = g_best > min_gain
-        f_sel = leaf_f[l]
-        b_sel = leaf_b[l]
+        f_sel = leaf_f[l].to(torch.int64)
+        b_sel = leaf_b[l].to(torch.int64)
+        in_set, is_cat = split_detail(hists, l, f_sel, b_sel)
         col = torch.index_select(binned, 1, f_sel.reshape(1))[:, 0]
-        go_left = col.to(torch.int64) <= b_sel
+        go_left = in_set[col.to(torch.int64)]
         went_right = (node == l) & ~go_left & ok
         node = torch.where(went_right, torch.tensor(s + 1, dtype=torch.int32, device=dev),
                            node)
@@ -140,8 +136,10 @@ def grow_tree(binned: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
         hists = torch.where(ok, updated, hists)
         parent[s] = torch.where(ok, l, -1).to(torch.int32)
         feat[s] = f_sel.to(torch.int32)
-        bin_[s] = b_sel.to(torch.int32)
+        bin_[s] = torch.where(is_cat, -1, b_sel).to(torch.int32)
         gains[s] = torch.where(ok, g_best, 0.0).to(torch.float32)
+        if has_cat:
+            cat_sets[s] = (in_set & is_cat & ok).to(torch.int8)
         child_depth = torch.where(ok, depth[l] + 1, depth[l]).to(torch.int32)
         new_depth = depth.clone()
         new_depth[s + 1] = child_depth
@@ -155,7 +153,7 @@ def grow_tree(binned: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
     leaf_value = torch.where(H_leaf > 0, leaf_value, 0.0)
     if cfg.max_delta_step > 0:
         leaf_value = torch.clamp(leaf_value, -cfg.max_delta_step, cfg.max_delta_step)
-    return GrownTree(parent, feat, bin_, gains, leaf_value, H_leaf), node
+    return GrownTree(parent, feat, bin_, gains, leaf_value, H_leaf, cat_sets), node
 
 
 def predict_binned(tree: GrownTree, binned: torch.Tensor) -> torch.Tensor:

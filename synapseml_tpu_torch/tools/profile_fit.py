@@ -5,9 +5,10 @@
 Fits ``train`` at the shape ``chip_smoke.py`` uses (28 f32 features, 63 bins,
 31 leaves, 10 iterations) and prints one JSON object: the wall time of the
 whole fit, of its two binning steps (``BinMapper.fit`` on the host,
-``transform_torch`` on the card), the device time of every kernel name in a
-``torch.profiler`` trace of a second fit, the device's busy and idle share
-of that fit, and the card's name and power limit. Needs a CUDA device.
+``transform_torch`` on the card), the device time and launch count of every
+kernel name in a ``torch.profiler`` trace of a second fit, the device's busy
+and idle share of that fit, its kernel launches (in all, and per split
+step), and the card's name and power limit. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -78,12 +79,16 @@ def main() -> int:
         kernels = [(e.key, _device_us(e), e.count) for e in prof.key_averages()
                    if _device_us(e) > 0]
     busy_us = sum(us for _, us, _ in kernels)
+    launches = sum(c for _, _, c in kernels)
     kernels.sort(key=lambda k: -k[1])
     print(json.dumps({
         "card": card_info(), "rows": args.rows, **PARAMS,
         "fit_s": fit_s, "bin_fit_s": bin_fit_s, "bin_transform_s": bin_transform_s,
         "traced_fit_s": traced_s, "device_busy_s": busy_us / 1e6,
         "device_idle_share": 1 - busy_us / 1e6 / traced_s,
+        "device_launches": launches,
+        "launches_per_split_step": launches / (PARAMS["num_iterations"]
+                                               * (PARAMS["num_leaves"] - 1)),
         "kernels": [{"name": k[:80], "device_ms": us / 1e3, "count": c}
                     for k, us, c in kernels[:args.top]],
     }))

@@ -1,0 +1,124 @@
+"""Rows at the schemas of two public tabular datasets, made from a seed.
+
+The datasets' files are not in the repository, so ``chip_smoke.py`` drives
+the categorical and multiclass paths on rows generated at their schemas:
+
+- :func:`adult_rows`: UCI Adult Census (``BASELINE.json`` config #2), 14
+  columns in the dataset's order, 6 numeric and 8 categorical with Adult's
+  cardinalities, NaN where the files hold '?' (workclass, occupation,
+  native-country); the label depends on a set of occupation codes and on
+  education-num and capital-gain;
+- :func:`covertype_rows`: UCI Covertype, the 10 numeric columns and the 44
+  one-hot columns carried as the two categorical columns they encode
+  (Wilderness_Area, 4 codes; Soil_Type, 40 codes), 7 classes whose
+  frequencies follow the dataset's, the class set by elevation, soil and
+  wilderness.
+
+Distributions are rough matches of the published summaries; the schemas
+(column count, types, cardinalities, class count) are exact.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+
+__all__ = ["ADULT_COLUMNS", "ADULT_CARDINALITY", "ADULT_CATEGORICAL", "ADULT_SETS",
+           "adult_rows", "adult_unseen_codes", "COVTYPE_COLUMNS", "COVTYPE_CATEGORICAL",
+           "COVTYPE_CLASSES", "covertype_rows"]
+
+ADULT_COLUMNS = ["age", "workclass", "fnlwgt", "education", "education-num",
+                 "marital-status", "occupation", "relationship", "race", "sex",
+                 "capital-gain", "capital-loss", "hours-per-week", "native-country"]
+ADULT_CARDINALITY = {"workclass": 9, "education": 16, "marital-status": 7,
+                     "occupation": 15, "relationship": 6, "race": 5, "sex": 2,
+                     "native-country": 42}
+ADULT_CATEGORICAL = [ADULT_COLUMNS.index(c) for c in ADULT_CARDINALITY]
+# occupation codes that raise the odds of the positive label
+ADULT_SETS = (3, 4, 9, 11)
+
+COVTYPE_COLUMNS = ["Elevation", "Aspect", "Slope", "Horizontal_Distance_To_Hydrology",
+                   "Vertical_Distance_To_Hydrology", "Horizontal_Distance_To_Roadways",
+                   "Hillshade_9am", "Hillshade_Noon", "Hillshade_3pm",
+                   "Horizontal_Distance_To_Fire_Points", "Wilderness_Area", "Soil_Type"]
+COVTYPE_CATEGORICAL = [10, 11]
+COVTYPE_CLASSES = 7
+
+
+def _rngs(seed: int):
+    """(structure, rows) generators: the schema's fixed parts (code
+    frequencies, maps, effects) come from the first, so they do not depend
+    on the row count."""
+    return np.random.default_rng([seed, 0]), np.random.default_rng([seed, 1])
+
+
+def _zipf_codes(structure, rng, n: int, k: int, s: float) -> np.ndarray:
+    p = 1.0 / np.arange(1, k + 1) ** s
+    return structure.permutation(k)[rng.choice(k, size=n, p=p / p.sum())].astype(np.float32)
+
+
+def adult_rows(seed: int, n: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(n, 14) f32 rows, (n,) 0/1 labels and (n,) f64 true probabilities."""
+    structure, rng = _rngs(seed)
+    x = np.empty((n, 14), np.float32)
+    for name, k in ADULT_CARDINALITY.items():
+        x[:, ADULT_COLUMNS.index(name)] = _zipf_codes(
+            structure, rng, n, k, 2.0 if name == "native-country" else 1.1)
+    edu = x[:, ADULT_COLUMNS.index("education")].astype(np.int64)
+    x[:, 0] = np.clip(np.round(rng.normal(38.6, 13.6, n)), 17, 90)
+    x[:, 2] = np.round(rng.lognormal(12.0, 0.5, n))
+    x[:, 4] = structure.permutation(16)[edu] + 1            # a function of education
+    gain = np.where(rng.random(n) < 0.917, 0.0, np.round(rng.lognormal(8.5, 1.0, n)))
+    x[:, 10] = np.minimum(gain, 99999)
+    x[:, 11] = np.where(rng.random(n) < 0.953, 0.0, np.round(rng.normal(1870, 370, n)))
+    x[:, 12] = np.clip(np.round(rng.normal(40.4, 12.3, n)), 1, 99)
+    for name in ("workclass", "occupation", "native-country"):
+        j = ADULT_COLUMNS.index(name)
+        x[rng.random(n) < 0.02, j] = np.nan
+    occ = x[:, ADULT_COLUMNS.index("occupation")]
+    logit = (-2.2 + 1.3 * np.isin(occ, ADULT_SETS) + 0.35 * (x[:, 4] - 10)
+             + 2.0 * (x[:, 10] > 5000))
+    prob = 1.0 / (1.0 + np.exp(-logit))
+    y = (rng.random(n) < prob).astype(np.float64)
+    return x, y, prob
+
+
+def adult_unseen_codes(x: np.ndarray, seed: int, share: float) -> np.ndarray:
+    """A copy of Adult rows where ``share`` of them carry occupation and
+    native-country codes past the cardinality (categories no fit saw)."""
+    rng = np.random.default_rng(seed)
+    x = x.copy()
+    for name in ("occupation", "native-country"):
+        rows = rng.random(len(x)) < share
+        x[rows, ADULT_COLUMNS.index(name)] = (ADULT_CARDINALITY[name]
+                                              + rng.integers(0, 3, int(rows.sum())))
+    return x
+
+
+def covertype_rows(seed: int, n: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(n, 12) f32 rows, (n,) class labels 0..6 and (n, 7) true logits."""
+    structure, rng = _rngs(seed)
+    soil = structure.normal(0.0, 0.8, (40, COVTYPE_CLASSES))
+    wild = structure.normal(0.0, 0.6, (4, COVTYPE_CLASSES))
+    x = np.empty((n, 12), np.float32)
+    x[:, 0] = np.clip(np.round(rng.normal(2959, 280, n)), 1859, 3858)
+    x[:, 1] = rng.integers(0, 361, n)
+    x[:, 2] = np.clip(np.round(rng.gamma(3.0, 4.7, n)), 0, 66)
+    x[:, 3] = np.minimum(np.round(rng.exponential(270, n)), 1397)
+    x[:, 4] = np.round(rng.normal(46, 58, n))
+    x[:, 5] = np.minimum(np.round(rng.exponential(2350, n)), 7117)
+    x[:, 6] = np.clip(np.round(rng.normal(212, 27, n)), 0, 254)
+    x[:, 7] = np.clip(np.round(rng.normal(223, 20, n)), 0, 254)
+    x[:, 8] = np.clip(np.round(rng.normal(142, 38, n)), 0, 254)
+    x[:, 9] = np.minimum(np.round(rng.exponential(1980, n)), 7173)
+    x[:, 10] = rng.choice(4, size=n, p=[0.45, 0.05, 0.44, 0.06])
+    x[:, 11] = _zipf_codes(structure, rng, n, 40, 1.0)
+    # class elevation centres and log frequencies near the dataset's
+    centre = np.array([3130, 2920, 2390, 2220, 2790, 2420, 3360], np.float64)
+    freq = np.array([0.365, 0.488, 0.062, 0.005, 0.016, 0.030, 0.035])
+    logits = (np.log(freq)[None] - ((x[:, :1] - centre[None]) / 160.0) ** 2
+              + soil[x[:, 11].astype(np.int64)] + wild[x[:, 10].astype(np.int64)]
+              - 0.002 * x[:, 3:4] * (np.arange(COVTYPE_CLASSES) % 2)[None])
+    y = np.argmax(logits + rng.gumbel(size=logits.shape), axis=1).astype(np.float64)
+    return x, y, logits

@@ -178,4 +178,4 @@ def test_device_rule_and_unported_params():
     with pytest.raises(NotImplementedError, match="bagging_fraction"):
         train({"bagging_fraction": 0.5, "bagging_freq": 1}, x, y, device="cpu")
     with pytest.raises(NotImplementedError, match="objective"):
-        train({"objective": "poisson"}, x, y, device="cpu")
+        train({"objective": "lambdarank"}, x, y, device="cpu")

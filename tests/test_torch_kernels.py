@@ -9,14 +9,21 @@ import numpy as np
 import pytest
 import torch
 
+from synapseml_tpu_torch.gbdt.binning import BinMapper
 from synapseml_tpu_torch.gbdt.boost import _preround
-from synapseml_tpu_torch.gbdt.device_predict import (LEAF_KERNEL, SCORE_KERNEL,
+from synapseml_tpu_torch.gbdt.device_predict import (BIN_KERNEL, LEAF_KERNEL, SCORE_KERNEL,
+                                                     device_bin_cat, device_bin_cat_plain,
                                                      device_leaf_indices, device_raw_scores,
-                                                     leaf_indices_plain, pack_trees,
-                                                     raw_scores_plain)
+                                                     leaf_indices_plain, pack_feature_table,
+                                                     pack_trees, raw_scores_plain)
 from synapseml_tpu_torch.gbdt.histogram import HIST_KERNEL, histogram, histogram_plain
+from synapseml_tpu_torch.gbdt.split_search import (SPLIT_KERNEL, split_gains_plain,
+                                                   split_search, split_search_plain)
 from synapseml_tpu_torch.parallel.flash import (FLASH_F32_KERNEL, KERNEL_HEAD_DIMS,
                                                 dense_attention, flash_attention, kernel_for)
+from synapseml_tpu_torch.tools.kernel_cases import (bin_edge_case, check_left_sets,
+                                                    check_offgrid, offgrid_split_case,
+                                                    split_cases)
 
 pytestmark = pytest.mark.cuda
 
@@ -244,3 +251,76 @@ def test_histogram_kernel_skip_rule(cuda, case):
     if case == "all_zero":
         assert (out == 0).all() and not torch.signbit(out).any()
     assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.int8, torch.int16, torch.int32])
+def test_bin_kernel_edge_cases(cuda, out_dtype):
+    """Kernel D bit-equal to its plain version on values on every rounded edge,
+    +-inf, NaN, -0.0, unseen categories and edges whose f32 rounding goes up,
+    and to the host binning."""
+    mapper, probe = bin_edge_case()
+    table, lens, flags = (torch.from_numpy(a).to(cuda) for a in pack_feature_table(mapper))
+    x = torch.from_numpy(probe).to(cuda)
+    before = BIN_KERNEL.launches
+    out = device_bin_cat(x, table, lens, flags, mapper.missing_bin, out_dtype)
+    torch.cuda.synchronize()
+    assert BIN_KERNEL.launches == before + 1 and out.dtype == out_dtype
+    assert torch.equal(out, device_bin_cat_plain(x, table, lens, flags, mapper.missing_bin,
+                                                 out_dtype))
+    np.testing.assert_array_equal(out.cpu().numpy(), mapper.transform(probe))
+
+
+@pytest.mark.parametrize("d,max_bin,n_cat", [(28, 63, 0), (14, 255, 8), (300, 255, 10)])
+def test_bin_kernel_random_rows(cuda, d, max_bin, n_cat):
+    """Whole mappers at the main path's widths (int8 and int16 out), and one
+    whose table is too large for shared memory (read through the cache)."""
+    rng = np.random.default_rng(d)
+    n = 100_003
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    x[:, :n_cat] = rng.integers(0, 40, size=(n, n_cat))
+    x[rng.random((n, d)) < 0.01] = np.nan
+    mapper = BinMapper(max_bin=max_bin, sample_cnt=20_000,
+                       categorical_features=list(range(n_cat))).fit(x[: n // 2])
+    xt = torch.from_numpy(x).to(cuda)
+    before = BIN_KERNEL.launches
+    out = mapper.transform_torch(xt)
+    torch.cuda.synchronize()
+    assert BIN_KERNEL.launches == before + 1
+    table, lens, flags = mapper.device_table(xt.device)
+    assert torch.equal(out, device_bin_cat_plain(xt, table, lens, flags, mapper.missing_bin,
+                                                 out.dtype))
+    np.testing.assert_array_equal(out.cpu().numpy(), mapper.transform(x))
+
+
+@pytest.mark.parametrize("case", ["numeric", "mixed_cat", "max_cat_threshold", "empty_bins",
+                                  "ties", "cat_ties", "nan_gain", "masked_l1_l2",
+                                  "largest_B"])
+def test_split_kernel_bit_equal(cuda, case):
+    """Kernel E bit-equal (gain, feature, bin) to its plain version on
+    histograms on the exact grid."""
+    hists, fmask, cmask, n_active, cfg = split_cases()[case]
+    args = [None if a is None else torch.from_numpy(a).to(cuda) for a in (hists, fmask, cmask)]
+    before = SPLIT_KERNEL.launches
+    got = split_search(*args, n_active, cfg)
+    torch.cuda.synchronize()
+    assert SPLIT_KERNEL.launches == before + 1
+    want = split_search_plain(*args, n_active, cfg)
+    for a, b, name in zip(got, want, ("gain", "feature", "bin")):
+        assert torch.equal(a.isnan(), b.isnan()), name
+        assert torch.equal(a.nan_to_num(), b.nan_to_num()), name
+    if case == "nan_gain":
+        assert want[0].isnan().any()
+    if case in ("ties", "cat_ties"):
+        assert (want[1] == (2 if case == "ties" else 1)).all()
+    # the left set growth rebuilds has the gain the kernel reports
+    assert check_left_sets(args[0], args[2], n_active, cfg, got) > 0 or case == "nan_gain"
+
+
+def test_split_kernel_off_grid(cuda):
+    """Off the grid the sums round in another order; wherever the runner-up
+    is more than one ulp below the best, the split is the same."""
+    hists, fmask, cmask, n_active, cfg = offgrid_split_case()
+    args = [torch.from_numpy(a).to(cuda) for a in (hists, fmask, cmask)]
+    got = split_search(*args, n_active, cfg)
+    held, close = check_offgrid(split_gains_plain(*args, cfg), got)
+    assert held >= 25
