@@ -12,7 +12,8 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    transform on 1,048,576 held-out rows; the launch counts of the histogram
    and tree-scoring kernels must be > 0, the held-out AUC > 0.9, and a small
    fit on the card must grow the same trees as the plain CPU path; binning
-   (kernel D) and the split search (kernel E) must launch in the fit;
+   (kernel D) must launch in the fit, and the split search (kernel E) once
+   a split step (300 launches), as in 2b (300) and 2c (2,100);
 2b. ``gbdt_adult_cat``: rows at the UCI Adult Census schema (6 numeric and 8
    categorical columns with Adult's cardinalities, NaN where the files hold
    '?', codes unseen in training among the held-out rows), 4,194,304
@@ -49,12 +50,17 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    (wall s, rows/s; both kernel-B entries must launch, and the output must
    equal (ii)'s); kernel D bit-equal at the HIGGS and Adult fits' rows and
    on edge cases (values on every rounded edge, +-inf, NaN, -0.0, unseen
-   codes, f64 edges whose f32 rounding goes up) at each output type;
-   kernel E bit-equal on histograms on the pre-rounded grid (numeric,
-   mixed categorical, max_cat_threshold binding, empty bins, exact ties
-   across features and bins, NaN gains, masks with l1/l2, B at 64, 256
-   and kernel A's largest) and, off the grid, the same split wherever the
-   runner-up is more than one ulp below the best; flash within 5e-2 (bf16) and 2e-5
+   codes, f64 edges whose f32 rounding goes up, and ragged tails at d = 1,
+   13 and 300) at each output type;
+   kernel E's full-table entry bit-equal on histograms on the pre-rounded
+   grid (numeric, mixed categorical, max_cat_threshold binding, empty bins,
+   exact ties across features and bins, NaN gains, masks with l1/l2, B at
+   64, 256 and kernel A's largest, Covertype's layout) and, off the grid,
+   the same split wherever the runner-up is more than one ulp below the
+   best; its step entry bit-equal to the plain step over every step of
+   whole trees on those cases and on an inert step, a depth cap and B = 100,
+   timed beside the full table at the HIGGS, Adult and Covertype shapes;
+   flash within 5e-2 (bf16) and 2e-5
    (f32, at the two f32 shapes and two short ragged ones) of the f32 plain
    version, and in bf16 also within FLASH_ROW_TOL of it as an error
    relative to each output row's norm (a limit the script first shows to
@@ -96,7 +102,6 @@ EX2_PER_S = 132 * 16 * 1.83e9
 N_TRAIN = 4_194_304
 N_TEST = 1_048_576
 N_FEATURES = 28               # HIGGS width
-GBDT = dict(num_iterations=10, num_leaves=31, max_bin=63)
 # Adult (BASELINE.json config #2; 32,561 rows) scaled up as HIGGS is, and
 # Covertype at its full 581,012 rows, split 80/20
 N_ADULT_TRAIN, N_ADULT_TEST = 4_194_304, 1_048_576
@@ -209,15 +214,6 @@ def auc(y: np.ndarray, score: np.ndarray) -> float:
     return float((ranks[pos].sum() - n_pos * (n_pos + 1) / 2.0) / (n_pos * n_neg))
 
 
-def higgs_width_data(seed: int, n: int):
-    """(n, 28) f32 features and the label x0 + 0.4*x5 + 0.2*N(0,1) > 0."""
-    rng = np.random.default_rng(seed)
-    x = rng.standard_normal((n, N_FEATURES), dtype=np.float32)
-    noise = rng.standard_normal(n, dtype=np.float32)
-    y = (x[:, 0] + 0.4 * x[:, 5] + 0.2 * noise > 0).astype(np.float64)
-    return x, y
-
-
 def row_rel_err(out: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
     """|out - ref|_2 / |ref|_2 over the head dim, for every (b, s, h) row."""
     out, ref = out.float(), ref.float()
@@ -316,20 +312,22 @@ def main() -> int:
     from synapseml_tpu_torch.gbdt.estimators import (LightGBMClassificationModel,
                                                      LightGBMClassifier)
     from synapseml_tpu_torch.gbdt.histogram import histogram, histogram_plain
-    from synapseml_tpu_torch.gbdt.split_search import (split_gains_plain, split_search,
+    from synapseml_tpu_torch.gbdt.split_search import (SplitWorkspace, left_set,
+                                                       split_gains_plain, split_search,
                                                        split_search_plain)
     from synapseml_tpu_torch.kernels import all_kernels
     from synapseml_tpu_torch.kernels.build import build
     from synapseml_tpu_torch.parallel.flash import (KEY_TILE_BY_HEAD_DIM, dense_attention,
                                                     flash_attention, kernel_for)
     from synapseml_tpu_torch.runtime.device import card_info
-    from synapseml_tpu_torch.tools.kernel_cases import (bin_edge_case, check_left_sets,
-                                                        check_offgrid, offgrid_split_case,
-                                                        split_cases)
-    from synapseml_tpu_torch.tools.schema_data import (ADULT_CATEGORICAL,
-                                                       COVTYPE_CATEGORICAL, COVTYPE_CLASSES,
-                                                       adult_rows, adult_unseen_codes,
-                                                       covertype_rows)
+    from synapseml_tpu_torch.tools.kernel_cases import (bin_edge_case, bin_ragged_case,
+                                                        check_left_sets, check_offgrid,
+                                                        diff_runs, grow_synthetic,
+                                                        offgrid_split_case, split_cases,
+                                                        step_cases)
+    from synapseml_tpu_torch.tools.schema_data import (ADULT_CATEGORICAL, COVTYPE_CLASSES,
+                                                       FITS, adult_rows, adult_unseen_codes,
+                                                       covertype_rows, higgs_width_rows)
     from synapseml_tpu_torch.tools.score_bench import (INT32_LANES_PER_SM, N_SMS,
                                                        max_sm_clock_hz, path_visits,
                                                        random_trees, tree_bound, tree_bytes)
@@ -349,10 +347,15 @@ def main() -> int:
     print("\n".join(build_log), file=sys.stderr, flush=True)
     log(f"phase 1 build: {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
     kernels = all_kernels()
+    GBDT, adult_gbdt, cov_gbdt = (FITS[key][2] for key in ("higgs", "adult", "covertype"))
+
+    def split_steps(params, classes=1):
+        """Growth steps of a fit: one launch of kernel E's step entry each."""
+        return params["num_iterations"] * classes * (params["num_leaves"] - 1)
 
     # -- phase 2: main path, LightGBMClassifier fit -> transform ------------------------
     t0 = time.perf_counter()
-    x, y = higgs_width_data(args.seed, N_TRAIN + N_TEST)
+    x, y = higgs_width_rows(args.seed, N_TRAIN + N_TEST)
     x_tr, y_tr, x_te, y_te = x[:N_TRAIN], y[:N_TRAIN], x[N_TRAIN:], y[N_TRAIN:]
     train_table = Table({"features": x_tr, "label": y_tr})
     test_table = Table({"features": x_te})
@@ -366,6 +369,9 @@ def main() -> int:
     for name in ("gbdt_histogram", "gbdt_split_search", "gbdt_bin_features"):
         if fit_launches[name] < 1:
             fail(f"the main path's fit never launched {name}")
+    if fit_launches["gbdt_split_search"] != split_steps(GBDT):
+        fail(f"kernel E launched {fit_launches['gbdt_split_search']} times in the fit, not "
+             f"once a split step ({split_steps(GBDT)})")
     for name in ("gbdt_tree_score", "gbdt_bin_features"):
         if transform_launches[name] < 1:
             fail(f"the main path's transform never launched {name}")
@@ -406,8 +412,6 @@ def main() -> int:
     del x_a, y_a, p_a
     log(f"phase 2b data: {N_ADULT_TRAIN}+{N_ADULT_TEST} x 14 in "
         f"{time.perf_counter() - t0:.1f} s")
-    adult_gbdt = dict(num_iterations=10, num_leaves=31, max_bin=255,
-                      categorical_slot_indexes=ADULT_CATEGORICAL)
     model_a, out_a, fit_a, trans_a, fit_la, trans_la = fit_and_transform(
         kernels, LightGBMClassifier(**adult_gbdt), Table({"features": xa_tr, "label": ya_tr}),
         Table({"features": xa_te}))
@@ -434,6 +438,9 @@ def main() -> int:
     for name in ("gbdt_bin_features", "gbdt_split_search", "gbdt_histogram"):
         if fit_la[name] < 1:
             fail(f"the adult fit never launched {name}")
+    if fit_la["gbdt_split_search"] != split_steps(adult_gbdt):
+        fail(f"kernel E launched {fit_la['gbdt_split_search']} times in the adult fit, not "
+             f"once a split step ({split_steps(adult_gbdt)})")
     for name in ("gbdt_bin_features", "gbdt_tree_score"):
         if trans_la[name] < 1:
             fail(f"the adult transform never launched {name}")
@@ -446,8 +453,6 @@ def main() -> int:
     label_acc = float((logit_c[N_COVTYPE_TRAIN:].argmax(1) == y_c[N_COVTYPE_TRAIN:]).mean())
     xc_tr, yc_tr = x_c[:N_COVTYPE_TRAIN], y_c[:N_COVTYPE_TRAIN]
     xc_te, yc_te = x_c[N_COVTYPE_TRAIN:], y_c[N_COVTYPE_TRAIN:]
-    cov_gbdt = dict(num_iterations=10, num_leaves=31, max_bin=255,
-                    categorical_slot_indexes=COVTYPE_CATEGORICAL)
     model_c, out_c, fit_c, trans_c, fit_lc, trans_lc = fit_and_transform(
         kernels, LightGBMClassifier(**cov_gbdt), Table({"features": xc_tr, "label": yc_tr}),
         Table({"features": xc_te}))
@@ -478,6 +483,9 @@ def main() -> int:
     for name in ("gbdt_split_search", "gbdt_histogram", "gbdt_bin_features"):
         if fit_lc[name] < 1:
             fail(f"the covertype fit never launched {name}")
+    if fit_lc["gbdt_split_search"] != split_steps(cov_gbdt, COVTYPE_CLASSES):
+        fail(f"kernel E launched {fit_lc['gbdt_split_search']} times in the covertype fit, "
+             f"not once a split step ({split_steps(cov_gbdt, COVTYPE_CLASSES)})")
     if trans_lc["gbdt_tree_score"] < 1:
         fail("the covertype transform never launched gbdt_tree_score")
     if not small_err_c <= 1e-5:
@@ -745,7 +753,19 @@ def main() -> int:
         if not (torch.equal(got, device_bin_cat_plain(*edge_args, m_edge.missing_bin, out_dt))
                 and np.array_equal(got.cpu().numpy(), host_bins)):
             fail(f"binning kernel differs from the plain version on the edge cases ({out_dt})")
-    log("phase 4 binning edge cases: bit-equal at int8, int16 and int32")
+    # ragged tails: n*d not a multiple of the 4 elements a thread loads at once
+    for n_rows, d in ((1001, 1), (4099, 13), (333, 300)):
+        m_r, x_r = bin_ragged_case(n_rows, d, args.seed + 7)
+        xr = torch.from_numpy(x_r).to(dev)
+        table, lens, flags = m_r.device_table(dev)
+        for out_dt in (torch.int8, torch.int16, torch.int32):
+            got = device_bin_cat(xr, table, lens, flags, m_r.missing_bin, out_dt)
+            if not torch.equal(got, device_bin_cat_plain(xr, table, lens, flags,
+                                                         m_r.missing_bin, out_dt)):
+                fail(f"binning kernel differs from the plain version at n={n_rows} d={d} "
+                     f"({out_dt})")
+    log("phase 4 binning edge cases and ragged tails (d = 1, 13, 300): bit-equal at int8, "
+        "int16 and int32")
     main_b = bin_shapes["higgs_fit"]
     record("gbdt_bin_features", gbdt_launches["gbdt_bin_features"], 0.0, main_b["ms"],
            main_b["plain_ms"], (main_b["bound_ms"], main_b["bound_by"]),
@@ -753,11 +773,17 @@ def main() -> int:
            launches_adult_fit=fit_la["gbdt_bin_features"],
            launches_covertype_fit=fit_lc["gbdt_bin_features"])
 
-    # E: split search, bit-equal on grid histograms, the off-grid rule, and
-    # timed at the HIGGS fit's shape (L=31, d=28, B=64) and the Adult fit's
-    # (L=31, d=14, B=256, 8 categorical). Bound: read the histograms once
-    # (12 bytes a cell); launch latency, not the card, sets the time, and
-    # in a fit the host's cost of each call.
+    # E: split search. Both entries on the card: the full table bit-equal on
+    # histograms on the pre-rounded grid and, off the grid, the same split
+    # wherever the runner-up is more than one ulp below the best; the step
+    # entry (the one the fits launch, once a split step) bit-equal to the
+    # plain step over every step of whole trees. Timed at the three fits'
+    # shapes (L=31; HIGGS d=28 B=64; Adult d=14 B=256, 8 categorical;
+    # Covertype d=12 B=256, 2 categorical): device time from the profiler,
+    # and time a call from the host (events over back-to-back calls). The
+    # step is timed at step 15 of a grown tree, which rescores two leaves.
+    # Bound: the histograms the call reads, once (12 bytes a cell); launch
+    # latency, not the card, sets the time, and in a fit the host's cost.
     cases = split_cases(args.seed)
     for key, (hh, fm, cm, n_active, cfg) in cases.items():
         t_args = [None if a is None else torch.from_numpy(a).to(dev) for a in (hh, fm, cm)]
@@ -772,31 +798,68 @@ def main() -> int:
     t_args = [torch.from_numpy(a).to(dev) for a in (hh, fm, cm)]
     held, close = check_offgrid(split_gains_plain(*t_args, cfg),
                                 split_search(*t_args, n_active, cfg))
-    log(f"phase 4 split search: bit-equal on {sorted(cases)}; off the grid the same split "
-        f"in {held} leaves, {close} with a runner-up within one ulp")
+    steps_by_case = step_cases(args.seed)
+    workspaces = {}
+    for key, (hh, fm, cm, _, cfg) in steps_by_case.items():
+        runs = []
+        for on in (dev, torch.device("cpu")):
+            t_args = [None if a is None else torch.from_numpy(a).to(on) for a in (hh, fm, cm)]
+            ws = SplitWorkspace(t_args[0].shape[1], t_args[1], t_args[2], cfg, on)
+            runs.append(grow_synthetic(ws, t_args[0]))
+            if on.type == "cuda":
+                workspaces[key] = (ws, t_args)
+        differ = diff_runs(*runs)
+        if differ:
+            fail(f"split step kernel ({key}) differs from the plain step in {differ}")
+    log(f"phase 4 split search: full table bit-equal on {sorted(cases)}; off the grid the "
+        f"same split in {held} leaves, {close} with a runner-up within one ulp; the step "
+        f"entry bit-equal to the plain step over whole trees on {sorted(steps_by_case)}")
     split_shapes = {}
-    for key in ("numeric", "mixed_cat"):
+    for key in ("numeric", "mixed_cat", "covertype"):
         hh, fm, cm, n_active, cfg = cases[key]
         t_args = [None if a is None else torch.from_numpy(a).to(dev) for a in (hh, fm, cm)]
+        ws, _ = workspaces[key]
+        s_t = 15
+        n_scored = 2 if int(ws.record.parent[s_t - 1]) >= 0 else 1
+
+        def plain_step():
+            """The step as torch ops on the card: every active leaf scored,
+            the argmax over leaves and the left set of the choice."""
+            gain, feat, bins = split_search_plain(ws.hists, ws.fmask, ws.cmask, s_t + 1, cfg)
+            leaf = torch.argmax(gain)
+            f_sel = feat[leaf].long()
+            is_cat = (ws.cmask[f_sel] > 0) if ws.cmask is not None else torch.tensor(
+                False, device=dev)
+            return left_set(ws.hists[leaf, f_sel], is_cat, bins[leaf], cfg)
+
         kern = lambda: split_search(*t_args, n_active, cfg)
         plain = lambda: split_search_plain(*t_args, n_active, cfg)
-        # device time (profiler) and time a call from the host (events over
-        # back-to-back calls: the host's launch cost sets it)
+        step = lambda: ws.step(s_t)
         ms, plain_ms = device_ms(kern, 100), device_ms(plain, 20)
         call_ms, plain_call_ms = time_ms(kern, 200), time_ms(plain, 20)
+        step_ms, plain_step_ms = device_ms(step, 200), device_ms(plain_step, 20)
+        step_call_ms, plain_step_call_ms = time_ms(step, 500), time_ms(plain_step, 20)
         L_, d_, B_, _ = hh.shape
         b = bound(L_ * d_ * B_ * 12, 0, F32_FLOPS)
+        b_step = bound(n_scored * d_ * B_ * 12, 0, F32_FLOPS)
         split_shapes[key] = {"shape": f"L={L_} d={d_} B={B_}" + (
             f" {int(cm.sum())} categorical" if cm is not None else ""), "ms": ms,
             "plain_ms": plain_ms, "call_ms": call_ms, "plain_call_ms": plain_call_ms,
-            "bound_ms": b[0], "bound_by": b[1], "max_abs_err": 0.0}
+            "bound_ms": b[0], "bound_by": b[1], "step_ms": step_ms,
+            "plain_step_ms": plain_step_ms, "step_call_ms": step_call_ms,
+            "plain_step_call_ms": plain_step_call_ms, "step_leaves_scored": n_scored,
+            "step_bound_ms": b_step[0], "step_bound_by": b_step[1], "max_abs_err": 0.0}
         log(json.dumps({"split_search": key, **split_shapes[key]}))
+    del workspaces
     main_e = split_shapes["numeric"]
-    record("gbdt_split_search", gbdt_launches["gbdt_split_search"], 0.0, main_e["ms"],
-           main_e["plain_ms"], (main_e["bound_ms"], main_e["bound_by"]), None,
-           shape=main_e["shape"], shapes=split_shapes, offgrid_leaves_held=held,
-           offgrid_leaves_close=close, launches_adult_fit=fit_la["gbdt_split_search"],
-           launches_covertype_fit=fit_lc["gbdt_split_search"])
+    record("gbdt_split_search", gbdt_launches["gbdt_split_search"], 0.0, main_e["step_ms"],
+           main_e["plain_step_ms"], (main_e["step_bound_ms"], main_e["step_bound_by"]), None,
+           shape=main_e["shape"] + ", step entry at step 15", shapes=split_shapes,
+           offgrid_leaves_held=held, offgrid_leaves_close=close,
+           launches_adult_fit=fit_la["gbdt_split_search"],
+           launches_covertype_fit=fit_lc["gbdt_split_search"],
+           split_steps={"higgs": split_steps(GBDT), "adult": split_steps(adult_gbdt),
+                        "covertype": split_steps(cov_gbdt, COVTYPE_CLASSES)})
 
     # C: flash attention at the entry point's shapes (bf16, then f32)
     sdpa = torch.nn.functional.scaled_dot_product_attention

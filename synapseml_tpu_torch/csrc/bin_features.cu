@@ -22,14 +22,21 @@
 // pass): n*d*(4 + out bytes). The search is log2(Emax) shared-memory loads.
 //
 // Design: the table, the lengths and the flags are staged in shared memory
-// once per block (28 x 256 entries is 28 KB); a table too large for that is
-// read through the cache instead. Blocks walk tiles of kRowsPerTile rows; a
-// thread takes the elements t, t + blockDim, ... of its tile's row-major
-// (rows x d) slice, so neighbouring threads read neighbouring floats
-// (coalesced) and write neighbouring bins. Each thread keeps its element's
-// feature index up to date by adding blockDim mod d, with no division per
-// element. The search is branch-free: binary lifting over the power-of-two
-// steps of Emax.
+// once per block (28 x 63 entries is 7 KB); a table too large for that is
+// read through the cache instead. The (n, d) elements are one flat stream
+// cut into groups of 4 consecutive elements (n*d need not be a multiple of
+// 4: the last 0-3 elements take a scalar tail). Each thread takes two groups
+// a pass, blockDim groups apart, with 16-byte loads (neighbouring threads on
+// neighbouring 16 bytes), issues both loads before any search, then walks
+// the eight binary searches together, step by step, so their shared-memory
+// loads overlap; that keeps 32 bytes in flight a thread where one 4-byte
+// load and its dependent search held the first version to 25-30 % of the
+// bytes bound. A group's 4 bins leave in one store (int8: 32 bits; int16:
+// 64; int32: 128). Each thread keeps its groups' feature index up to date
+// by adding the pass's stride mod d, with no division per element. The
+// search is branch-free: binary lifting over the power-of-two steps of Emax.
+// What remains is the searches' shared-memory loads, whose addresses depend
+// on the data, so a warp's lanes hit banks at random (PERF.md, Findings).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -37,7 +44,66 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kRowsPerTile = 64;
+constexpr int kGroups = 2;  // groups of 4 elements a thread a pass
+
+// 4 bins as one store of the output type
+template <typename OutT> struct Packed;
+template <> struct Packed<int8_t> {
+  using T = uint32_t;
+  __device__ static T make(const int* b) {
+    return (uint32_t)(b[0] & 0xff) | (uint32_t)(b[1] & 0xff) << 8 |
+           (uint32_t)(b[2] & 0xff) << 16 | (uint32_t)(b[3] & 0xff) << 24;
+  }
+};
+template <> struct Packed<int16_t> {
+  using T = uint2;
+  __device__ static T make(const int* b) {
+    return make_uint2((uint32_t)(b[0] & 0xffff) | (uint32_t)(b[1] & 0xffff) << 16,
+                      (uint32_t)(b[2] & 0xffff) | (uint32_t)(b[3] & 0xffff) << 16);
+  }
+};
+template <> struct Packed<int32_t> {
+  using T = int4;
+  __device__ static T make(const int* b) { return make_int4(b[0], b[1], b[2], b[3]); }
+};
+
+// j + e mod d, for j < d and e < 4
+__device__ __forceinline__ int wrap(int j, int d) {
+  if (j >= d) j -= d;
+  if (j >= d) j %= d;  // only when d < 4
+  return j;
+}
+
+// The bins of kN values v[e] of features j[e]: numeric, #(entries < v)
+// clamped to len - 1; categorical, that count where the entry equals v, else
+// the missing bin; non-finite v, the missing bin. The kN searches advance
+// together, one lifting step at a time.
+template <int kN>
+__device__ __forceinline__ void bin_values(const float* v, const int* j, const float* tab,
+                                           const int* len, const int8_t* cat, int emax,
+                                           int missing, int top_step, int* out) {
+  int pos[kN];
+#pragma unroll
+  for (int e = 0; e < kN; ++e) pos[e] = 0;
+  for (int step = top_step; step > 0; step >>= 1) {
+#pragma unroll
+    for (int e = 0; e < kN; ++e) {
+      const int q = pos[e] + step;  // the row is sorted, padded with +inf
+      if (q <= emax && tab[(size_t)j[e] * emax + q - 1] < v[e]) pos[e] = q;
+    }
+  }
+#pragma unroll
+  for (int e = 0; e < kN; ++e) {
+    const int lj = len[j[e]];
+    int b;
+    if (cat[j[e]]) {
+      b = (pos[e] < lj && tab[(size_t)j[e] * emax + pos[e]] == v[e]) ? pos[e] : missing;
+    } else {
+      b = pos[e] < lj - 1 ? pos[e] : lj - 1;
+    }
+    out[e] = isfinite(v[e]) ? b : missing;
+  }
+}
 
 template <typename OutT, bool kShared>
 __global__ void __launch_bounds__(kThreads)
@@ -63,35 +129,50 @@ bin_features_kernel(const float* __restrict__ x, const float* __restrict__ table
     len = s_len;
     cat = s_cat;
   }
-  const long long n_tiles = (n + kRowsPerTile - 1) / kRowsPerTile;
-  const int j_step = blockDim.x % d;
-  for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const long long row0 = tile * kRowsPerTile;
-    const long long rows = n - row0 < kRowsPerTile ? n - row0 : kRowsPerTile;
-    const int count = (int)rows * d;
-    const float* xt = x + row0 * d;
-    OutT* ot = out + row0 * d;
-    int j = threadIdx.x % d;
-    for (int k = threadIdx.x; k < count; k += blockDim.x) {
-      const float v = xt[k];
-      int b = missing;
-      if (isfinite(v)) {
-        const float* r = tab + (size_t)j * emax;
-        int pos = 0;  // #(entries < v): the row is sorted, padded with +inf
-        for (int step = top_step; step > 0; step >>= 1) {
-          if (pos + step <= emax && r[pos + step - 1] < v) pos += step;
-        }
-        const int lj = len[j];
-        if (cat[j]) {
-          b = (pos < lj && r[pos] == v) ? pos : missing;
-        } else {
-          b = pos < lj - 1 ? pos : lj - 1;
-        }
-      }
-      ot[k] = (OutT)b;
-      j += j_step;
-      if (j >= d) j -= d;
+  using P = Packed<OutT>;
+  const long long total = n * d;
+  const long long groups = total >> 2;
+  const long long per_pass = (long long)kGroups * blockDim.x;  // groups a block a pass
+  // the first group of this thread, and the feature of its first element
+  long long g = (long long)blockIdx.x * per_pass + threadIdx.x;
+  int j0 = (int)((4 * g) % d);
+  const int j_lane = (int)((4LL * blockDim.x) % d);                 // group k -> k+1
+  const int j_pass = (int)((4 * per_pass * gridDim.x) % d);          // pass -> pass
+  const float4* x4 = reinterpret_cast<const float4*>(x);
+  typename P::T* o4 = reinterpret_cast<typename P::T*>(out);
+  for (; g < groups; g += per_pass * gridDim.x) {
+    float v[4 * kGroups];
+    int j[4 * kGroups];
+    int jg = j0;
+#pragma unroll
+    for (int k = 0; k < kGroups; ++k) {
+      const long long gk = g + (long long)k * blockDim.x;
+      const float4 f = gk < groups ? __ldcs(x4 + gk) : make_float4(0.f, 0.f, 0.f, 0.f);
+      v[4 * k] = f.x;
+      v[4 * k + 1] = f.y;
+      v[4 * k + 2] = f.z;
+      v[4 * k + 3] = f.w;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) j[4 * k + e] = wrap(jg + e, d);
+      jg = wrap(jg + j_lane, d);
     }
+    int b[4 * kGroups];
+    bin_values<4 * kGroups>(v, j, tab, len, cat, emax, missing, top_step, b);
+#pragma unroll
+    for (int k = 0; k < kGroups; ++k) {
+      const long long gk = g + (long long)k * blockDim.x;
+      if (gk < groups) __stcs(o4 + gk, P::make(b + 4 * k));
+    }
+    j0 = wrap(j0 + j_pass, d);
+  }
+  // the last total mod 4 elements, one a thread of block 0
+  const long long tail = 4 * groups + threadIdx.x;
+  if (blockIdx.x == 0 && tail < total) {
+    const float v = x[tail];
+    const int j = (int)(tail % d);
+    int b;
+    bin_values<1>(&v, &j, tab, len, cat, emax, missing, top_step, &b);
+    out[tail] = (OutT)b;
   }
 }
 
@@ -114,11 +195,13 @@ cudaError_t launch_one(const float* x, const float* table, const int* lens,
   if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kThreads,
                                                            smem)) != cudaSuccess)
     return err;
-  const long long n_tiles = (n + kRowsPerTile - 1) / kRowsPerTile;
+  const long long per_pass = (long long)kGroups * kThreads;
+  const long long passes = ((n * d >> 2) + per_pass - 1) / per_pass;
   long long grid = (long long)sms * (per_sm > 0 ? per_sm : 1);
-  if (grid > n_tiles) grid = n_tiles;
-  bin_features_kernel<OutT, kShared><<<(unsigned)grid, kThreads, smem, s>>>(
-      x, table, lens, cat, emax, (OutT*)out, n, d, missing, top_step);
+  if (grid > passes) grid = passes;
+  if (grid < 1) grid = 1;  // fewer than 4 elements: block 0 takes the tail
+  kern<<<(unsigned)grid, kThreads, smem, s>>>(x, table, lens, cat, emax, (OutT*)out, n, d,
+                                              missing, top_step);
   return cudaGetLastError();
 }
 
@@ -147,8 +230,9 @@ extern "C" int smt_bin_features(const void* x, const void* table, const void* le
   const int8_t* cf = (const int8_t*)cat_flags;
   cudaStream_t s = (cudaStream_t)stream;
   if (n <= 0 || d <= 0) return 0;
-  // a tile's element count is a 32-bit int
-  if (emax < 1 || (long long)kRowsPerTile * d > (1LL << 30)) return (int)cudaErrorInvalidValue;
+  // 16-byte loads of x; one store of 4 bins (the output is a fresh tensor)
+  if (emax < 1 || (uintptr_t)x % 16 != 0 || (uintptr_t)out % (4 * out_bytes) != 0)
+    return (int)cudaErrorInvalidValue;
   switch (out_bytes) {
     case 1: return (int)launch<int8_t>(xf, tf, lf, cf, emax, out, n, d, missing, s);
     case 2: return (int)launch<int16_t>(xf, tf, lf, cf, emax, out, n, d, missing, s);

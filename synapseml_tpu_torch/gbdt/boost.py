@@ -32,6 +32,7 @@ from ..core.serialization import register_state_class
 from ..runtime.device import resolve_device
 from .binning import BinMapper
 from .grow import TreeConfig, grow_tree
+from .split_search import SplitWorkspace
 
 __all__ = ["GBDTBooster", "train", "OBJECTIVES"]
 
@@ -524,6 +525,7 @@ def train(params: Dict[str, Any], x, y, weight: Optional[np.ndarray] = None,
         base, dtype=torch.float32, device=dev)
     ones = torch.ones(n, dtype=torch.float32, device=dev)
     fmask = torch.ones(d, dtype=torch.float32, device=dev)
+    workspace = SplitWorkspace(d, fmask, cat_mask, cfg, dev)  # every tree of the fit
 
     trees = []  # per iteration, C trees
     for _ in range(int(p["num_iterations"])):
@@ -533,7 +535,7 @@ def train(params: Dict[str, Any], x, y, weight: Optional[np.ndarray] = None,
         grown = []
         for c in range(C):
             tree, node = grow_tree(binned, g[:, c].contiguous(), h[:, c].contiguous(), ones,
-                                   fmask, cfg, cat_mask=cat_mask)
+                                   fmask, cfg, cat_mask=cat_mask, workspace=workspace)
             if renew_alpha is not None and C == 1:
                 tree = tree._replace(leaf_value=_renewed_leaf_values(
                     node, y_d, raw[:, 0], w_d, renew_alpha, L))

@@ -394,6 +394,8 @@ def device_bin_cat(x: torch.Tensor, table: torch.Tensor, lens: torch.Tensor,
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     x, table = x.contiguous(), table.contiguous()
+    if x.data_ptr() % 16:  # the kernel reads x 16 bytes at a time
+        x = x.clone()
     out = torch.empty(n, d, dtype=out_dtype, device=x.device)
     if n == 0 or d == 0:
         return out

@@ -13,8 +13,10 @@ no leaf-local gathers). The algorithm is the reference's:
 - parent subtraction: each step builds ONE histogram (the new right child,
   kernel A through :func:`~.histogram.histogram`) and derives the left side
   as parent minus child;
-- the search for each leaf's best split is kernel E
-  (:func:`~.split_search.split_search`) on the GPU.
+- the decision half of each step (rescore the leaves the last step changed,
+  cap the depth, choose the leaf, write the record and the left set) is
+  kernel E's step entry (:meth:`~.split_search.SplitWorkspace.step`), one
+  launch a step on the GPU.
 
 The step loop never reads a value back to the host, so on the GPU a whole
 tree is queued without a synchronisation.
@@ -27,7 +29,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from .histogram import histogram
-from .split_search import _thresh_l1, category_key, split_search
+from .split_search import SplitWorkspace, _thresh_l1, left_set
 
 __all__ = ["TreeConfig", "GrownTree", "grow_tree", "left_set", "predict_binned"]
 
@@ -62,98 +64,54 @@ class GrownTree(NamedTuple):
     cat_set: Optional[torch.Tensor] = None
 
 
-def left_set(row: torch.Tensor, is_cat, b, cfg: TreeConfig) -> torch.Tensor:
-    """(B,) left membership of split ``b`` of one leaf's (B, 3) histogram row
-    (the reference's ``split_detail``): bins ``<= b`` for a numeric feature;
-    for a categorical one, the bins of rank ``<= b`` in kernel E's order
-    that hold rows of the leaf (an empty bin stays right, where unseen
-    categories go)."""
-    pos = torch.arange(row.shape[0], device=row.device)
-    order = torch.argsort(category_key(row[:, 0], row[:, 1], cfg.cat_smooth), stable=True)
-    rank = torch.empty_like(order)
-    rank[order] = pos
-    return torch.where(is_cat, (rank <= b) & (row[:, 2] > 0), pos <= b)
-
-
 def grow_tree(binned: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
               row_weight: torch.Tensor, feature_mask: torch.Tensor, cfg: TreeConfig,
-              cat_mask: Optional[torch.Tensor] = None):
+              cat_mask: Optional[torch.Tensor] = None,
+              workspace: Optional[SplitWorkspace] = None):
     """Grow one tree. Returns (GrownTree, node_of_row (n,) int32).
 
     ``binned`` (n, d) int8/int16/int32; ``grad``/``hess``/``row_weight`` (n,)
     f32; ``feature_mask`` (d,) f32 in {0, 1}; ``cat_mask`` (d,) f32 in {0, 1}
     marks the categorical features (None: all numeric), and then the tree
-    carries ``cat_set``. All on one device."""
+    carries ``cat_set``. All on one device. ``workspace``: kernel E's
+    :class:`~.split_search.SplitWorkspace` made for the same ``d``, masks,
+    ``cfg`` and device (a fit makes one and passes it to each tree); None
+    makes one for this tree."""
     n, d = binned.shape
     L, B = cfg.num_leaves, cfg.n_bins
-    l1, l2 = cfg.lambda_l1, cfg.lambda_l2
     dev = binned.device
-    has_cat = cat_mask is not None
-    pos = torch.arange(B, device=dev)
-    neg_inf = torch.tensor(float("-inf"), device=dev)
-
-    def hist_of(weight):
-        return histogram(binned, grad, hess, weight, B)
-
-    def split_detail(hists, l, f_sel, b_sel):
-        """(B,) left membership of the chosen split and its categorical flag."""
-        if not has_cat:
-            return pos <= b_sel, torch.zeros((), dtype=torch.bool, device=dev)
-        is_cat = cat_mask[f_sel] > 0
-        return left_set(hists[l, f_sel], is_cat, b_sel, cfg), is_cat
-
-    root = hist_of(row_weight)
-    hists = torch.zeros((L, d, B, 3), dtype=torch.float32, device=dev)
-    hists[0] = root
+    ws = workspace if workspace is not None else SplitWorkspace(d, feature_mask, cat_mask,
+                                                                 cfg, dev)
+    if ws.hists.shape != (L, d, B, 3) or ws.hists.device != dev:
+        raise ValueError(f"workspace made for {tuple(ws.hists.shape)} histograms on "
+                         f"{ws.hists.device}, not ({L}, {d}, {B}, 3) on {dev}")
+    hists = ws.hists
+    rec = ws.begin_tree()
+    hists[0] = histogram(binned, grad, hess, row_weight, B)
     node = torch.zeros(n, dtype=torch.int32, device=dev)
-    parent = torch.full((L - 1,), -1, dtype=torch.int32, device=dev)
-    feat = torch.zeros(L - 1, dtype=torch.int32, device=dev)
-    bin_ = torch.zeros(L - 1, dtype=torch.int32, device=dev)
-    gains = torch.zeros(L - 1, dtype=torch.float32, device=dev)
-    cat_sets = torch.zeros((L - 1, B), dtype=torch.int8, device=dev) if has_cat else None
-    depth = torch.zeros(L, dtype=torch.int32, device=dev)
-    min_gain = max(cfg.min_gain_to_split, 0.0)
 
     for s in range(L - 1):
-        leaf_gain, leaf_f, leaf_b = split_search(hists, feature_mask, cat_mask, s + 1, cfg)
-        if cfg.max_depth > 0:
-            leaf_gain = torch.where(depth < cfg.max_depth, leaf_gain, neg_inf)
-        l = torch.argmax(leaf_gain)
-        g_best = leaf_gain[l]
-        ok = g_best > min_gain
-        f_sel = leaf_f[l].to(torch.int64)
-        b_sel = leaf_b[l].to(torch.int64)
-        in_set, is_cat = split_detail(hists, l, f_sel, b_sel)
-        col = torch.index_select(binned, 1, f_sel.reshape(1))[:, 0]
-        go_left = in_set[col.to(torch.int64)]
-        went_right = (node == l) & ~go_left & ok
-        node = torch.where(went_right, torch.tensor(s + 1, dtype=torch.int32, device=dev),
-                           node)
-        child = hist_of(row_weight * went_right.to(torch.float32))
-        updated = hists.clone()
-        updated[s + 1] = child
-        updated.index_add_(0, l.reshape(1), -child[None])
-        hists = torch.where(ok, updated, hists)
-        parent[s] = torch.where(ok, l, -1).to(torch.int32)
-        feat[s] = f_sel.to(torch.int32)
-        bin_[s] = torch.where(is_cat, -1, b_sel).to(torch.int32)
-        gains[s] = torch.where(ok, g_best, 0.0).to(torch.float32)
-        if has_cat:
-            cat_sets[s] = (in_set & is_cat & ok).to(torch.int8)
-        child_depth = torch.where(ok, depth[l] + 1, depth[l]).to(torch.int32)
-        new_depth = depth.clone()
-        new_depth[s + 1] = child_depth
-        new_depth.index_copy_(0, l.reshape(1), child_depth.reshape(1))
-        depth = torch.where(ok, new_depth, depth)
+        ws.step(s)  # kernel E: rescore, choose, write the record and ws.in_set
+        col = torch.index_select(binned, 1, ws.feature)[:, 0]
+        go_left = ws.in_set[col.to(torch.int64)]
+        went_right = (node == ws.leaf) & ~go_left & ws.ok
+        node = torch.where(went_right, s + 1, node)
+        child = histogram(binned, grad, hess, row_weight * went_right.to(torch.float32), B)
+        # an inert step changes no histogram: leaf s + 1 stays empty, and the
+        # split leaf loses +0.0 (x + -0.0 == x for every x, NaN included)
+        child = torch.where(ws.ok, child, 0.0)
+        hists[s + 1] = child
+        hists.index_add_(0, ws.leaf, child[None], alpha=-1)
 
     # leaf totals: the bins of any one feature cover every row exactly once
     G_leaf = hists[:, 0, :, 0].sum(-1)
     H_leaf = hists[:, 0, :, 1].sum(-1)
-    leaf_value = -_thresh_l1(G_leaf, l1) / (H_leaf + l2)
+    leaf_value = -_thresh_l1(G_leaf, cfg.lambda_l1) / (H_leaf + cfg.lambda_l2)
     leaf_value = torch.where(H_leaf > 0, leaf_value, 0.0)
     if cfg.max_delta_step > 0:
         leaf_value = torch.clamp(leaf_value, -cfg.max_delta_step, cfg.max_delta_step)
-    return GrownTree(parent, feat, bin_, gains, leaf_value, H_leaf, cat_sets), node
+    return GrownTree(rec.parent, rec.feature, rec.bin, rec.gain, leaf_value, H_leaf,
+                     rec.cat_set), node
 
 
 def predict_binned(tree: GrownTree, binned: torch.Tensor) -> torch.Tensor:

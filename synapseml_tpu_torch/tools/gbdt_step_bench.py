@@ -1,0 +1,240 @@
+"""Time kernels D (binning) and E (split search) of a tree, at the fits' shapes.
+
+    python synapseml_tpu_torch/tools/gbdt_step_bench.py [--tree DIR] [--seed 0]
+    python synapseml_tpu_torch/tools/gbdt_step_bench.py --ab DIR DIR ... [--rounds 2]
+
+Measures the ``synapseml_tpu_torch`` found in ``--tree`` (default: the tree
+holding this file), so the same command times an older tree unpacked beside
+this one; run it as a script, not with ``python -m``. ``--ab`` runs one
+process per tree and round, in the given order and reversed every other
+round (``--rounds 2`` over parent and change: parent, change, change,
+parent). One JSON line per measurement, with the card's name and power
+limit. Needs a CUDA device.
+
+- E, at the split steps of the three fits of ``chip_smoke.py`` (L=31; HIGGS
+  d=28 B=64; Adult d=14 B=256, 8 categorical; Covertype d=12 B=256, 2
+  categorical), on histograms on the pre-rounded grid: ``table``, the
+  full-table entry ``split_search`` over every leaf; ``step``, the decision
+  half of growth step 15 as the tree's grower takes it -- in a tree with
+  ``SplitWorkspace``, its step entry (one launch, rescoring two leaves), in
+  an older tree, ``split_search`` over the active leaves and the torch ops
+  that chose the split and wrote the record. Device time from a
+  ``torch.profiler`` trace of 200 calls (all the call's kernels), and time a
+  call from the host (CUDA events over 500 back-to-back calls).
+- D, at the HIGGS and Adult fits' training rows (4,194,304 x 28 f32 to int8,
+  63 bins; 4,194,304 x 14 to int16, 255 bins, 8 categorical): CUDA events
+  over 20 launches, beside its bound (each f32 read once, each bin written
+  once, at 3.35 TB/s) and the f32 ``torch.searchsorted`` over the packed
+  table on rows already transposed.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
+STEP = 15                     # the growth step timed (of 30)
+# name: (d, B, categorical features)
+SPLIT_SHAPES = {"higgs": (28, 64, []), "adult": (14, 256, [1, 3, 5, 6, 7, 8, 9, 13]),
+                "covertype": (12, 256, [10, 11])}
+
+
+def time_ms(fn, reps: int) -> float:
+    """Mean time of ``fn`` over ``reps`` back-to-back calls (CUDA events)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int) -> float:
+    """Device time of one call: its kernels' time in a profiler trace."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    from synapseml_tpu_torch.tools.profile_fit import _device_us
+
+    us = sum(_device_us(e) for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    return us / 1e3 / reps
+
+
+def grid_hists(rng, L, d, B, unit=2.0 ** -8):
+    """(L, d, B, 3) f32 histograms on a summation-exact grid, a fifth empty."""
+    G = rng.integers(-64, 65, size=(L, d, B)) * unit
+    H = rng.integers(1, 65, size=(L, d, B)) * unit
+    C = rng.integers(1, 60, size=(L, d, B)).astype(np.float64)
+    live = rng.random((L, d, B)) >= 0.2
+    return np.stack([G * live, H * live, C * live], -1).astype(np.float32)
+
+
+def old_step(split_search, left_set, hists, fmask, cmask, cfg, rec, s):
+    """The decision half of a growth step as the grower took it before the
+    step entry: the search over the active leaves, then torch ops."""
+    dev = hists.device
+    B = hists.shape[2]
+    parent, feat, bin_, gains, cat_sets, depth = rec
+    leaf_gain, leaf_f, leaf_b = split_search(hists, fmask, cmask, s + 1, cfg)
+    l = torch.argmax(leaf_gain)
+    g_best = leaf_gain[l]
+    ok = g_best > max(cfg.min_gain_to_split, 0.0)
+    f_sel = leaf_f[l].to(torch.int64)
+    b_sel = leaf_b[l].to(torch.int64)
+    if cmask is None:
+        in_set = torch.arange(B, device=dev) <= b_sel
+        is_cat = torch.zeros((), dtype=torch.bool, device=dev)
+    else:
+        is_cat = cmask[f_sel] > 0
+        in_set = left_set(hists[l, f_sel], is_cat, b_sel, cfg)
+    parent[s] = torch.where(ok, l, -1).to(torch.int32)
+    feat[s] = f_sel.to(torch.int32)
+    bin_[s] = torch.where(is_cat, -1, b_sel).to(torch.int32)
+    gains[s] = torch.where(ok, g_best, 0.0).to(torch.float32)
+    if cat_sets is not None:
+        cat_sets[s] = (in_set & is_cat & ok).to(torch.int8)
+    child_depth = torch.where(ok, depth[l] + 1, depth[l]).to(torch.int32)
+    new_depth = depth.clone()
+    new_depth[s + 1] = child_depth
+    new_depth.index_copy_(0, l.reshape(1), child_depth.reshape(1))
+    rec[5] = torch.where(ok, new_depth, depth)
+    return in_set
+
+
+def bench_split(card, seed, dev):
+    from synapseml_tpu_torch.gbdt import grow
+    from synapseml_tpu_torch.gbdt import split_search as ss
+
+    rng = np.random.default_rng(seed)
+    for name, (d, B, cats) in SPLIT_SHAPES.items():
+        L = 31
+        cfg = grow.TreeConfig(n_bins=B, num_leaves=L)
+        hists = torch.from_numpy(grid_hists(rng, L, d, B)).to(dev)
+        fmask = torch.ones(d, device=dev)
+        cmask = None
+        if cats:
+            cmask = torch.zeros(d, device=dev)
+            cmask[cats] = 1.0
+        rows = {"table": lambda: ss.split_search(hists, fmask, cmask, L, cfg)}
+        if hasattr(ss, "SplitWorkspace"):
+            ws = ss.SplitWorkspace(d, fmask, cmask, cfg, dev)
+            rec = ws.begin_tree()
+            ws.hists.copy_(hists)
+            for s in range(STEP):  # a tree to step 15; leaf 14's parent is split
+                ws.step(s)
+            rec.parent[STEP - 1] = 0
+            rows["step"] = lambda: ws.step(STEP)
+            leaves = 2
+            entry = "SplitWorkspace.step"
+        else:
+            rec = [torch.full((L - 1,), -1, dtype=torch.int32, device=dev),
+                   torch.zeros(L - 1, dtype=torch.int32, device=dev),
+                   torch.zeros(L - 1, dtype=torch.int32, device=dev),
+                   torch.zeros(L - 1, dtype=torch.float32, device=dev),
+                   None if cmask is None else torch.zeros((L - 1, B), dtype=torch.int8,
+                                                          device=dev),
+                   torch.zeros(L, dtype=torch.int32, device=dev)]
+            rows["step"] = lambda: old_step(ss.split_search, grow.left_set, hists, fmask,
+                                            cmask, cfg, rec, STEP)
+            leaves = L
+            entry = "split_search + torch decision ops"
+        for kind, fn in rows.items():
+            n_bytes = (L if kind == "table" else leaves) * d * B * 12
+            print(json.dumps({
+                "kernel": "E", "shape": name, "L": L, "d": d, "B": B, "categorical": len(cats),
+                "entry": "split_search" if kind == "table" else entry, "kind": kind,
+                "device_ms": device_ms(fn, 200), "call_ms": time_ms(fn, 500),
+                "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+                "card": card}), flush=True)
+
+
+def bench_bin(card, seed, dev):
+    from synapseml_tpu_torch.gbdt import binning
+    from synapseml_tpu_torch.gbdt import device_predict as dp
+    from synapseml_tpu_torch.tools import schema_data as sd
+
+    n = 4_194_304
+    x_h = np.random.default_rng(seed).standard_normal((n, 28), dtype=np.float32)
+    x_a = sd.adult_rows(seed, n)[0]
+    for name, x, mapper in (
+            ("higgs_fit", x_h, binning.BinMapper(max_bin=63)),
+            ("adult_fit", x_a, binning.BinMapper(max_bin=255,
+                                                 categorical_features=sd.ADULT_CATEGORICAL))):
+        mapper.fit(x)
+        xd = torch.from_numpy(x).to(dev)
+        table, lens, flags = mapper.device_table(dev)
+        out_dt = binning.torch_bin_dtype(mapper.n_bins)
+        run = lambda: dp.device_bin_cat(xd, table, lens, flags, mapper.missing_bin, out_dt)
+        got = run()
+        ms = time_ms(run, 20)
+        xt = xd.t().contiguous()
+        lib_ms = time_ms(lambda: torch.searchsorted(table, xt, side="left"), 20)
+        n_bytes = x.shape[0] * x.shape[1] * (4 + got.element_size())
+        print(json.dumps({
+            "kernel": "D", "shape": name, "n": x.shape[0], "d": x.shape[1],
+            "out": str(got.dtype), "ms": ms, "library_ms": lib_ms,
+            "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "card": card}), flush=True)
+        del xd, xt, got
+        torch.cuda.empty_cache()
+
+
+def run_ab(args) -> int:
+    rc = 0
+    for r in range(args.rounds):
+        for tree in (args.ab if r % 2 == 0 else args.ab[::-1]):
+            cmd = [sys.executable, __file__, "--tree", tree, "--seed", str(args.seed)]
+            res = subprocess.run(cmd, stdout=subprocess.PIPE, text=True, timeout=900)
+            rc = rc or res.returncode
+            for line in res.stdout.splitlines():
+                if line.startswith("{"):
+                    print(json.dumps({"round": r, "tree": tree, **json.loads(line)}),
+                          flush=True)
+    return rc
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--tree", default=str(Path(__file__).resolve().parents[2]),
+                    help="directory holding the synapseml_tpu_torch package to measure")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--ab", nargs="+", metavar="DIR", help="trees to time alternately")
+    ap.add_argument("--rounds", type=int, default=2)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("gbdt_step_bench: needs a CUDA device", file=sys.stderr)
+        return 2
+    if args.ab:
+        return run_ab(args)
+    tree = Path(args.tree).resolve()
+    sys.path.insert(0, str(tree))
+    import synapseml_tpu_torch as pkg
+    from synapseml_tpu_torch.runtime.device import card_info
+
+    if tree not in Path(pkg.__file__).resolve().parents:
+        print(f"gbdt_step_bench: imported {pkg.__file__}, not the package in {tree}",
+              file=sys.stderr)
+        return 2
+    card = card_info()
+    bench_split(card, args.seed, torch.device("cuda"))
+    bench_bin(card, args.seed, torch.device("cuda"))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,9 +1,9 @@
 """Edge-case inputs for kernels D (device binning) and E (split search).
 
 Shared by ``tests/test_torch_kernels.py`` (on the card),
-``tests/test_torch_categorical.py`` (the plain versions on the CPU) and
-``chip_smoke.py`` (phase 4), so the three check the same cases. Everything
-is made from a seed with numpy.
+``tests/test_torch_categorical.py`` and ``tests/test_torch_split_step.py``
+(the plain versions on the CPU) and ``chip_smoke.py`` (phase 4), so they
+check the same cases. Everything is made from a seed with numpy.
 """
 
 from __future__ import annotations
@@ -15,11 +15,12 @@ import torch
 
 from ..gbdt.binning import BinMapper
 from ..gbdt.device_predict import pack_feature_table
-from ..gbdt.grow import TreeConfig, left_set
-from ..gbdt.split_search import _thresh_l1
+from ..gbdt.grow import TreeConfig
+from ..gbdt.split_search import SplitWorkspace, _thresh_l1, left_set
 
-__all__ = ["bin_edge_case", "split_cases", "LARGEST_KERNEL_A_BINS", "offgrid_split_case",
-           "check_offgrid", "check_left_sets"]
+__all__ = ["bin_edge_case", "bin_ragged_case", "split_cases", "step_cases",
+           "LARGEST_KERNEL_A_BINS", "offgrid_split_case", "check_offgrid", "check_left_sets",
+           "synthetic_update", "grow_synthetic", "diff_runs"]
 
 # the most bins kernel A takes: one feature's (B, 3) f32 histogram plus a
 # word within 227 KB of shared memory (histogram.py)
@@ -46,6 +47,20 @@ def bin_edge_case(seed: int = 5) -> Tuple[BinMapper, np.ndarray]:
                   [99.0] * 4, [-4.0] * 4, [2.5] * 4]),
         rng.normal(size=(64, 4)) * 3]).astype(np.float32)
     return mapper, probe
+
+
+def bin_ragged_case(n: int, d: int, seed: int = 7) -> Tuple[BinMapper, np.ndarray]:
+    """A 63-bin mapper over ``d`` features (every third one from the second
+    categorical) and (n, d) f32 rows to bin with it, NaN and unseen codes
+    included: ``n * d`` need not be a multiple of 4, so kernel D's last
+    group of 4 elements is ragged."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, d)).astype(np.float32)
+    cats = list(range(1, d, 3))
+    x[:, cats] = rng.integers(-2, 30, size=(n, len(cats)))
+    x[rng.random((n, d)) < 0.02] = np.nan
+    mapper = BinMapper(max_bin=63, categorical_features=cats).fit(x[: max(n // 2, 1)])
+    return mapper, x
 
 
 def _grid_hists(rng, L, d, B, empty=0.2, k=64, unit=2.0 ** -8):
@@ -109,8 +124,78 @@ def split_cases(seed: int = 0) -> Dict[str, tuple]:
     h = _grid_hists(rng, 2, 3, B, k=8)
     out["largest_B"] = (h, np.ones(3), f32([0, 1, 0]), 2,
                         TreeConfig(n_bins=B, max_cat_threshold=B))
+    h = _grid_hists(rng, 31, 12, 256)
+    cm = f32([0] * 10 + [1] * 2)                              # Covertype's layout
+    out["covertype"] = (h, np.ones(12), cm, 31, TreeConfig(n_bins=256))
     return {k: (f32(v[0]), f32(v[1]), None if v[2] is None else f32(v[2])) + v[3:]
             for k, v in out.items()}
+
+
+def step_cases(seed: int = 0) -> Dict[str, tuple]:
+    """:func:`split_cases` plus cases for whole trees of growth steps: an
+    inert step (``min_gain_to_split`` above most leaves' gains), a depth cap,
+    and B = 100 (not a power of two) with categorical features. Each
+    case's histograms are the pool :func:`grow_synthetic` draws from."""
+    out = split_cases(seed)
+    rng = np.random.default_rng(seed + 100)
+    f32 = lambda a: np.asarray(a, np.float32)
+    h, fm, cm, n_active, cfg = out["numeric"]
+    out["inert"] = (h, fm, cm, n_active, cfg._replace(min_gain_to_split=2.5))
+    h, fm, cm, n_active, cfg = out["mixed_cat"]
+    out["max_depth"] = (h, fm, cm, n_active, cfg._replace(max_depth=2))
+    out["B100"] = (f32(_grid_hists(rng, 8, 5, 100)), f32(np.ones(5)), f32([1, 0, 1, 0, 0]),
+                   8, TreeConfig(n_bins=100, num_leaves=15))
+    return out
+
+
+def synthetic_update(ws: SplitWorkspace, pool: torch.Tensor, s: int) -> None:
+    """What routing and kernel A would do after step ``s``, from a pool of
+    (Lp, d, B, 3) histograms: when the step split leaf l, leaf ``s + 1``
+    takes ``pool[(s + 1) % Lp]`` and leaf l ``pool[(s + 2) % Lp]``, or on
+    every third step the same histogram as leaf ``s + 1`` (a tie across
+    leaves); an inert step leaves leaf ``s + 1`` empty."""
+    Lp = pool.shape[0]
+    if bool(ws.ok):
+        child = pool[(s + 1) % Lp]
+        ws.hists[s + 1] = child
+        ws.hists[int(ws.leaf)] = child if s % 3 == 0 else pool[(s + 2) % Lp]
+    else:
+        ws.hists[s + 1] = 0.0
+
+
+def grow_synthetic(ws: SplitWorkspace, pool: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Every step of one tree on ``ws``, leaf 0 starting as ``pool[0]`` and the
+    histograms changing as :func:`synthetic_update` says. Returns, on the
+    CPU, what the steps wrote: ``steps`` (per step: leaf, feature, ok, then
+    the left set), the record's fields, ``depth``, and the per-leaf bests of
+    the leaves the tree scored (leaf L - 1 is made by the last step)."""
+    ws.begin_tree()
+    ws.hists[0] = pool[0]
+    steps = []
+    for s in range(ws.cfg.num_leaves - 1):
+        ws.step(s)
+        steps.append(torch.cat([ws.choice, ws.ok.long(), ws.in_set.long()]))
+        synthetic_update(ws, pool, s)
+    scored = ws.cfg.num_leaves - 1
+    out = {"steps": torch.stack(steps), "depth": ws.depth,
+           **{k: v for k, v in ws.record._asdict().items() if v is not None},
+           **{k: getattr(ws, k)[:scored] for k in ("leaf_gain", "leaf_feat", "leaf_bin")}}
+    return {k: v.cpu() for k, v in out.items()}
+
+
+def diff_runs(a: Dict[str, torch.Tensor], b: Dict[str, torch.Tensor]) -> list:
+    """The names whose tensors differ in bits (NaN equal to NaN)."""
+    differ = []
+    for name, x in a.items():
+        y = b[name]
+        if x.is_floating_point():
+            same = torch.equal(x.isnan(), y.isnan()) and torch.equal(x.nan_to_num(),
+                                                                     y.nan_to_num())
+        else:
+            same = torch.equal(x, y)
+        if not same:
+            differ.append(name)
+    return differ
 
 
 def offgrid_split_case(seed: int = 1):

@@ -1,14 +1,18 @@
 """Where the time of one GBDT fit goes, on the GPU.
 
-    python -m synapseml_tpu_torch.tools.profile_fit [--rows 4194304] [--seed 0]
+    python -m synapseml_tpu_torch.tools.profile_fit [--schema higgs|adult|covertype]
+        [--seed 0]
 
-Fits ``train`` at the shape ``chip_smoke.py`` uses (28 f32 features, 63 bins,
-31 leaves, 10 iterations) and prints one JSON object: the wall time of the
-whole fit, of its two binning steps (``BinMapper.fit`` on the host,
-``transform_torch`` on the card), the device time and launch count of every
-kernel name in a ``torch.profiler`` trace of a second fit, the device's busy
-and idle share of that fit, its kernel launches (in all, and per split
-step), and the card's name and power limit. Needs a CUDA device.
+Fits ``train`` on the training rows of one of ``chip_smoke.py``'s three fits
+(``tools/schema_data.py`` ``FITS``: HIGGS width, 28 f32 features, 63 bins;
+the Adult schema, 8 of 14 columns categorical, 255 bins; the Covertype
+schema, 7 classes, 255 bins; 31 leaves and 10 iterations each) and prints
+one JSON object: the wall time of the whole fit, of its two binning steps
+(``BinMapper.fit`` on the host, ``transform_torch`` on the card), the device
+time and launch count of every kernel name in a ``torch.profiler`` trace of
+a second fit, the device's busy and idle share of that fit, its kernel
+launches (in all, and per split step: iterations x classes x (leaves - 1)
+steps), and the card's name and power limit. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -21,7 +25,17 @@ import time
 import numpy as np
 import torch
 
-PARAMS = dict(objective="binary", num_iterations=10, num_leaves=31, max_bin=63)
+from .schema_data import (ADULT_CATEGORICAL, COVTYPE_CATEGORICAL, COVTYPE_CLASSES, FITS,
+                          adult_rows, covertype_rows, higgs_width_rows)
+
+# train()'s parameters for each fit (the estimator's categorical_slot_indexes
+# is train's categorical_feature)
+_OBJECTIVE = {"higgs": dict(objective="binary"),
+              "adult": dict(objective="binary", categorical_feature=ADULT_CATEGORICAL),
+              "covertype": dict(objective="multiclass", num_class=COVTYPE_CLASSES,
+                                categorical_feature=COVTYPE_CATEGORICAL)}
+_ROWS = {"higgs": higgs_width_rows, "adult": lambda seed, n: adult_rows(seed, n)[:2],
+         "covertype": lambda seed, n: covertype_rows(seed, n)[:2]}
 
 
 def _device_us(evt) -> float:
@@ -33,7 +47,7 @@ def _device_us(evt) -> float:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--rows", type=int, default=4_194_304)
+    ap.add_argument("--schema", choices=sorted(FITS), default="higgs")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--top", type=int, default=12, help="kernel names to list")
     args = ap.parse_args()
@@ -45,17 +59,20 @@ def main() -> int:
     from ..gbdt.boost import train
     from ..runtime.device import card_info
 
-    rng = np.random.default_rng(args.seed)
-    x = rng.standard_normal((args.rows, 28), dtype=np.float32)
-    y = (x[:, 0] + 0.4 * x[:, 5] + 0.2 * rng.standard_normal(args.rows, dtype=np.float32)
-         > 0).astype(np.float64)
+    n_train, n_made, est_params = FITS[args.schema]
+    params = {k: v for k, v in est_params.items() if k != "categorical_slot_indexes"}
+    params.update(_OBJECTIVE[args.schema])
+    x, y = _ROWS[args.schema](args.seed, n_made)
+    x, y = np.ascontiguousarray(x[:n_train]), y[:n_train]
+    classes = params.get("num_class", 1)
     dev = torch.device("cuda")
 
-    train(dict(PARAMS, num_iterations=1), x[:65536], y[:65536])  # load the kernels
+    train(dict(params, num_iterations=1), x[:65536], y[:65536])  # load the kernels
     torch.cuda.synchronize()
 
     t0 = time.perf_counter()
-    mapper = BinMapper(max_bin=PARAMS["max_bin"]).fit(x)
+    mapper = BinMapper(max_bin=params["max_bin"],
+                       categorical_features=params.get("categorical_feature")).fit(x)
     bin_fit_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     mapper.transform_torch(torch.from_numpy(x).to(dev))
@@ -63,14 +80,14 @@ def main() -> int:
     bin_transform_s = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    train(PARAMS, x, y)
+    train(params, x, y)
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        train(PARAMS, x, y)
+        train(params, x, y)
         torch.cuda.synchronize()
         traced_s = time.perf_counter() - t0
     kernels = [(e.key, _device_us(e), e.count) for e in prof.key_averages()
@@ -81,14 +98,14 @@ def main() -> int:
     busy_us = sum(us for _, us, _ in kernels)
     launches = sum(c for _, _, c in kernels)
     kernels.sort(key=lambda k: -k[1])
+    steps = params["num_iterations"] * classes * (params["num_leaves"] - 1)
     print(json.dumps({
-        "card": card_info(), "rows": args.rows, **PARAMS,
+        "card": card_info(), "schema": args.schema, "rows": n_train, **params,
         "fit_s": fit_s, "bin_fit_s": bin_fit_s, "bin_transform_s": bin_transform_s,
         "traced_fit_s": traced_s, "device_busy_s": busy_us / 1e6,
         "device_idle_share": 1 - busy_us / 1e6 / traced_s,
-        "device_launches": launches,
-        "launches_per_split_step": launches / (PARAMS["num_iterations"]
-                                               * (PARAMS["num_leaves"] - 1)),
+        "device_launches": launches, "split_steps": steps,
+        "launches_per_split_step": launches / steps,
         "kernels": [{"name": k[:80], "device_ms": us / 1e3, "count": c}
                     for k, us, c in kernels[:args.top]],
     }))

@@ -1,8 +1,11 @@
-"""Rows at the schemas of two public tabular datasets, made from a seed.
+"""Rows at the schemas of public tabular datasets, made from a seed.
 
 The datasets' files are not in the repository, so ``chip_smoke.py`` drives
-the categorical and multiclass paths on rows generated at their schemas:
+its three fits (:data:`FITS`, which ``tools/profile_fit.py`` profiles too)
+on rows generated at their schemas:
 
+- :func:`higgs_width_rows`: HIGGS's width (28 f32 features), standard normal,
+  with the label ``x0 + 0.4*x5 + 0.2*N(0,1) > 0``;
 - :func:`adult_rows`: UCI Adult Census (``BASELINE.json`` config #2), 14
   columns in the dataset's order, 6 numeric and 8 categorical with Adult's
   cardinalities, NaN where the files hold '?' (workclass, occupation,
@@ -26,7 +29,7 @@ import numpy as np
 
 __all__ = ["ADULT_COLUMNS", "ADULT_CARDINALITY", "ADULT_CATEGORICAL", "ADULT_SETS",
            "adult_rows", "adult_unseen_codes", "COVTYPE_COLUMNS", "COVTYPE_CATEGORICAL",
-           "COVTYPE_CLASSES", "covertype_rows"]
+           "COVTYPE_CLASSES", "covertype_rows", "HIGGS_WIDTH", "higgs_width_rows", "FITS"]
 
 ADULT_COLUMNS = ["age", "workclass", "fnlwgt", "education", "education-num",
                  "marital-status", "occupation", "relationship", "race", "sex",
@@ -44,6 +47,19 @@ COVTYPE_COLUMNS = ["Elevation", "Aspect", "Slope", "Horizontal_Distance_To_Hydro
                    "Horizontal_Distance_To_Fire_Points", "Wilderness_Area", "Soil_Type"]
 COVTYPE_CATEGORICAL = [10, 11]
 COVTYPE_CLASSES = 7
+HIGGS_WIDTH = 28
+
+# chip_smoke.py's three fits: (training rows, rows made, the estimator's
+# parameters); the rows past the training rows are held out. HIGGS has 11M
+# rows, cut to the smoke's time limit; Adult's 32,561 are scaled up as
+# HIGGS is; Covertype's 581,012 are split 80/20.
+FITS = {
+    "higgs": (4_194_304, 5_242_880, dict(num_iterations=10, num_leaves=31, max_bin=63)),
+    "adult": (4_194_304, 5_242_880, dict(num_iterations=10, num_leaves=31, max_bin=255,
+                                         categorical_slot_indexes=ADULT_CATEGORICAL)),
+    "covertype": (464_810, 581_012, dict(num_iterations=10, num_leaves=31, max_bin=255,
+                                         categorical_slot_indexes=COVTYPE_CATEGORICAL)),
+}
 
 
 def _rngs(seed: int):
@@ -56,6 +72,15 @@ def _rngs(seed: int):
 def _zipf_codes(structure, rng, n: int, k: int, s: float) -> np.ndarray:
     p = 1.0 / np.arange(1, k + 1) ** s
     return structure.permutation(k)[rng.choice(k, size=n, p=p / p.sum())].astype(np.float32)
+
+
+def higgs_width_rows(seed: int, n: int) -> Tuple[np.ndarray, np.ndarray]:
+    """(n, 28) f32 features and the label x0 + 0.4*x5 + 0.2*N(0,1) > 0."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((n, HIGGS_WIDTH), dtype=np.float32)
+    noise = rng.standard_normal(n, dtype=np.float32)
+    y = (x[:, 0] + 0.4 * x[:, 5] + 0.2 * noise > 0).astype(np.float64)
+    return x, y
 
 
 def adult_rows(seed: int, n: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:

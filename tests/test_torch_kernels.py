@@ -17,13 +17,16 @@ from synapseml_tpu_torch.gbdt.device_predict import (BIN_KERNEL, LEAF_KERNEL, SC
                                                      leaf_indices_plain, pack_feature_table,
                                                      pack_trees, raw_scores_plain)
 from synapseml_tpu_torch.gbdt.histogram import HIST_KERNEL, histogram, histogram_plain
-from synapseml_tpu_torch.gbdt.split_search import (SPLIT_KERNEL, split_gains_plain,
-                                                   split_search, split_search_plain)
+from synapseml_tpu_torch.gbdt.split_search import (SPLIT_KERNEL, SplitWorkspace,
+                                                   split_gains_plain, split_search,
+                                                   split_search_plain)
 from synapseml_tpu_torch.parallel.flash import (FLASH_F32_KERNEL, KERNEL_HEAD_DIMS,
                                                 dense_attention, flash_attention, kernel_for)
-from synapseml_tpu_torch.tools.kernel_cases import (bin_edge_case, check_left_sets,
-                                                    check_offgrid, offgrid_split_case,
-                                                    split_cases)
+from synapseml_tpu_torch.tools.kernel_cases import (bin_edge_case, bin_ragged_case,
+                                                    check_left_sets, check_offgrid,
+                                                    diff_runs, grow_synthetic,
+                                                    offgrid_split_case,
+                                                    split_cases, step_cases)
 
 pytestmark = pytest.mark.cuda
 
@@ -270,6 +273,28 @@ def test_bin_kernel_edge_cases(cuda, out_dtype):
     np.testing.assert_array_equal(out.cpu().numpy(), mapper.transform(probe))
 
 
+@pytest.mark.parametrize("out_dtype", [torch.int8, torch.int16, torch.int32])
+@pytest.mark.parametrize("n,d", [(1001, 1), (4099, 13), (333, 300), (3, 1)])
+def test_bin_kernel_ragged_tails(cuda, out_dtype, n, d):
+    """Kernel D reads 4 elements a load and stores 4 bins at once: n*d not a
+    multiple of 4 (or of the 64 rows the first version tiled by), d = 1, 13
+    and 300, fewer than 4 elements, and rows that start off a 16-byte
+    boundary (the wrapper copies them)."""
+    mapper, x_np = bin_ragged_case(n, d)
+    table, lens, flags = mapper.device_table(cuda)
+    x = torch.from_numpy(x_np).to(cuda)
+    shifted = torch.cat([torch.zeros(1, device=cuda), x.reshape(-1)])[1:].view(n, d)
+    assert shifted.data_ptr() % 16
+    want = device_bin_cat_plain(x, table, lens, flags, mapper.missing_bin, out_dtype)
+    np.testing.assert_array_equal(want.cpu().numpy(), mapper.transform(x_np))
+    for rows in (x, shifted):
+        before = BIN_KERNEL.launches
+        out = device_bin_cat(rows, table, lens, flags, mapper.missing_bin, out_dtype)
+        torch.cuda.synchronize()
+        assert BIN_KERNEL.launches == before + 1
+        assert torch.equal(out, want)
+
+
 @pytest.mark.parametrize("d,max_bin,n_cat", [(28, 63, 0), (14, 255, 8), (300, 255, 10)])
 def test_bin_kernel_random_rows(cuda, d, max_bin, n_cat):
     """Whole mappers at the main path's widths (int8 and int16 out), and one
@@ -294,7 +319,7 @@ def test_bin_kernel_random_rows(cuda, d, max_bin, n_cat):
 
 @pytest.mark.parametrize("case", ["numeric", "mixed_cat", "max_cat_threshold", "empty_bins",
                                   "ties", "cat_ties", "nan_gain", "masked_l1_l2",
-                                  "largest_B"])
+                                  "largest_B", "covertype"])
 def test_split_kernel_bit_equal(cuda, case):
     """Kernel E bit-equal (gain, feature, bin) to its plain version on
     histograms on the exact grid."""
@@ -324,3 +349,23 @@ def test_split_kernel_off_grid(cuda):
     got = split_search(*args, n_active, cfg)
     held, close = check_offgrid(split_gains_plain(*args, cfg), got)
     assert held >= 25
+
+
+@pytest.mark.parametrize("case", ["numeric", "mixed_cat", "max_cat_threshold", "empty_bins",
+                                  "ties", "cat_ties", "nan_gain", "masked_l1_l2",
+                                  "largest_B", "covertype", "inert", "max_depth", "B100"])
+def test_split_step_kernel_bit_equal(cuda, case):
+    """Kernel E's step entry over every step of a whole tree (histograms
+    changing as ``kernel_cases.synthetic_update`` says): one launch a step,
+    and the decisions, left sets, record, depths and per-leaf bests bit-equal
+    to the plain step on the CPU."""
+    hists, fm, cm, _, cfg = step_cases()[case]
+    runs = []
+    for dev in (cuda, torch.device("cpu")):
+        t = [None if a is None else torch.from_numpy(a).to(dev) for a in (hists, fm, cm)]
+        ws = SplitWorkspace(t[0].shape[1], t[1], t[2], cfg, dev)
+        before = SPLIT_KERNEL.launches
+        runs.append(grow_synthetic(ws, t[0]))
+        if dev.type == "cuda":
+            assert SPLIT_KERNEL.launches == before + cfg.num_leaves - 1
+    assert not diff_runs(*runs), "the kernel and the plain step differ"
