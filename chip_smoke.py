@@ -28,6 +28,21 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    iterations (70 trees); held-out accuracy > COVTYPE_ACC_FLOOR, kernel B
    scores C=7 with categorical splits, and a small fit must grow the same
    trees on the card and the CPU;
+2d. training controls through ``LightGBMClassifier`` at the main path's
+   rows and parameters (``schema_data.SAMPLED_MODES``): (a) bagging (0.5,
+   every iteration) with feature fraction 0.8, the held-out rows passed as
+   validation rows (``validation_indicator_col``) and watched by AUC with
+   early stopping after 3 rounds; (b) GOSS at its defaults; (c) DART with
+   ``skip_drop=0, drop_rate=0.3``; (d) rf with bagging 0.7. Each fit must
+   launch kernels A, D and E (E once a split step; D also on (a)'s eval
+   rows) and each transform kernel B, the held-out AUC must pass 0.9, and
+   (a)'s eval AUC of every iteration must equal the numpy AUC of the model
+   cut there within 1e-4. Then the plain torch work the controls add is
+   timed (a threefry draw and a GOSS cut over the training rows, a device
+   AUC and an eval routing pass over the held-out rows, a DART replay over
+   the training rows), the draw must be bit-equal on the card and the CPU,
+   and a small fit of each mode must give identical trees, tree scales and
+   bags on the card and the CPU;
 3. flash attention's entry point, all causal: in bf16 (the wgmma kernel) at
    the headline shape (B=1, S=32768, H=8, D=64), the grouped-query serving
    shape (B=8, S=8192, H=8, H_kv=2, D=64), the headline length at D=128, and
@@ -177,10 +192,11 @@ def timed_once(fn):
     return out, start.elapsed_time(end)
 
 
-def device_ms(fn, reps: int) -> float:
-    """Device time of one call of ``fn``: the kernels' own time in a
-    ``torch.profiler`` trace of ``reps`` calls, so the host's launch cost
-    (which sets the wall time of a call this small) is left out."""
+def profiled(fn, reps: int):
+    """(device ms, kernel launches) of one call of ``fn``: the kernels' own
+    time in a ``torch.profiler`` trace of ``reps`` calls after one warm-up,
+    so the host's launch cost (which sets the wall time of a call this
+    small) is left out."""
     from synapseml_tpu_torch.tools.profile_fit import _device_us
 
     fn()
@@ -189,11 +205,16 @@ def device_ms(fn, reps: int) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = sum(_device_us(e) for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
-    if us <= 0:
+    evts = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and _device_us(e) > 0]
+    if not evts:
         fail("the profiler saw no device time")
-    return us / 1e3 / reps
+    return (sum(_device_us(e) for e in evts) / 1e3 / reps,
+            sum(e.count for e in evts) / reps)
+
+
+def device_ms(fn, reps: int) -> float:
+    return profiled(fn, reps)[0]
 
 
 def bound(n_bytes: float, n_ops: float, peak_ops: float):
@@ -271,22 +292,157 @@ def fit_and_transform(kernels, estimator, train_table, test_table):
     return model, out, fit_s, transform_s, fit_counts, counts(kernels)
 
 
-def small_fit_same_trees(cls, params, x, y, probe_x, col="rawPrediction") -> float:
+def small_fit_same_trees(cls, params, x, y, probe_x, col="rawPrediction",
+                         validation=None) -> float:
     """The same fit on a small slice on the card and through the plain CPU
-    path: identical trees (``cat_set`` included), else the run fails.
-    Returns the largest difference of the two models' outputs on ``probe_x``."""
+    path: identical trees (``cat_set`` included), tree scales, sampled row
+    counts, ``best_iteration`` and, with ``validation`` (a bool column of
+    validation rows), eval series within 1e-5 (f32 metric sums in another
+    order), else the run fails. Returns the largest difference of the two
+    models' outputs on ``probe_x``."""
     from synapseml_tpu_torch.core import Table
 
-    small = Table({"features": x, "label": y})
+    cols = {"features": x, "label": y}
+    if validation is not None:
+        cols["validation"] = validation
+    small = Table(cols)
     gpu_m = cls(**params).fit(small)
     cpu_m = cls(device="cpu", **params).fit(small)
-    for field in ("parent", "feature", "bin", "cat_set"):
-        a, b = getattr(gpu_m.booster, field), getattr(cpu_m.booster, field)
+    gb, cb = gpu_m.booster, cpu_m.booster
+    for field in ("parent", "feature", "bin", "cat_set", "tree_scale", "sampled_rows"):
+        a, b = getattr(gb, field), getattr(cb, field)
         if not ((a is None and b is None) or np.array_equal(a, b)):
-            fail(f"small fit: tree {field} differs between the card and the CPU path")
+            fail(f"small fit: {field} differs between the card and the CPU path")
+    if gb.best_iteration != cb.best_iteration:
+        fail(f"small fit: best_iteration {gb.best_iteration} on the card, "
+             f"{cb.best_iteration} on the CPU")
+    if validation is not None:
+        series = [np.array([[v for k, v in r.items() if k != "iteration"]
+                            for r in b.evals_result]) for b in (gb, cb)]
+        if series[0].shape != series[1].shape or not len(series[0]) or \
+                not np.abs(series[0] - series[1]).max() <= 1e-5:
+            fail(f"small fit: eval series differ between the card and the CPU: {series}")
     probe = Table({"features": probe_x})
     return float(np.abs(np.asarray(gpu_m.transform(probe)[col])
                         - np.asarray(cpu_m.transform(probe)[col])).max())
+
+
+def sampled_fits(kernels, gbdt_params, x_tr, y_tr, x_te, y_te, split_steps, dev) -> dict:
+    """Phase 2d: ``LightGBMClassifier`` at HIGGS width under each training
+    control of ``schema_data.SAMPLED_MODES`` (bagging with feature fraction
+    and an eval set with early stopping, GOSS, DART, rf), each fit and
+    transform with the launch counts set to 0 just before and read just
+    after; then the plain torch work the controls add, timed on the card,
+    and a small fit of each mode on the card and the CPU."""
+    from synapseml_tpu_torch.core import Table
+    from synapseml_tpu_torch.gbdt.estimators import LightGBMClassifier
+    from synapseml_tpu_torch.gbdt.grow import predict_binned
+    from synapseml_tpu_torch.gbdt.metrics import METRICS, device_metric
+    from synapseml_tpu_torch.gbdt.sampling import goss_cut, prng_key, uniform
+    from synapseml_tpu_torch.tools.schema_data import SAMPLED_MODES
+
+    n_train, n_test = len(y_tr), len(y_te)
+    auc_np = METRICS["auc"][0]
+    results, boosters = {}, {}
+    for mode, extra in SAMPLED_MODES.items():
+        params = dict(gbdt_params, **extra)
+        if mode == "bagged_eval":  # the held-out rows as validation rows
+            params["validation_indicator_col"] = "validation"
+            table = Table({"features": np.concatenate([x_tr, x_te]),
+                           "label": np.concatenate([y_tr, y_te]),
+                           "validation": np.arange(n_train + n_test) >= n_train})
+        else:
+            table = Table({"features": x_tr, "label": y_tr})
+        est = LightGBMClassifier(**params)
+        model, out, fit_s, transform_s, fit_l, trans_l = fit_and_transform(
+            kernels, est, table, Table({"features": x_te}))
+        del table
+        b = model.booster
+        boosters[mode] = b
+        prob = np.asarray(out["probability"])
+        if prob.shape != (n_test, 2) or not np.isfinite(prob).all():
+            fail(f"{mode}: transform probability {prob.shape}, finite {np.isfinite(prob).all()}")
+        heldout = auc(y_te, prob[:, 1])
+        rec = {"phase": "gbdt_sampled", "mode": mode, **extra, "rows_train": n_train,
+               "rows_test": n_test, "fit_s": fit_s, "transform_s": transform_s,
+               "transform_rows_per_s": n_test / transform_s, "heldout_auc": heldout,
+               "trees": b.num_trees, "fit_launches": fit_l, "transform_launches": trans_l}
+        if b.sampled_rows is not None:
+            share = b.sampled_rows / n_train
+            rec.update(histogram_root_live_share=share.tolist(),
+                       histogram_root_live_share_mean=float(share.mean()))
+        if mode == "dart":
+            rec["tree_scale"] = b.tree_scale.tolist()
+            rec["trees_rescaled"] = int((b.tree_scale < est.learning_rate - 1e-12).sum())
+        del out, prob
+        if mode == "bagged_eval":
+            series = [r["eval0_auc"] for r in b.evals_result]
+            check = [auc_np(y_te, b.raw_predict(x_te, num_iteration=i + 1), np.ones(n_test))
+                     for i in range(len(series))]
+            err = float(np.abs(np.array(series) - np.array(check)).max())
+            rec.update(eval_auc=series, best_iteration=b.best_iteration,
+                       eval_vs_model_auc_max_diff=err)
+            if not err <= 1e-4:
+                fail(f"{mode}: eval AUC series differs from the model's AUC by {err} (> 1e-4)")
+            if b.best_iteration is None or len(series) != b.num_trees:
+                fail(f"{mode}: best_iteration {b.best_iteration}, {len(series)} eval records "
+                     f"for {b.num_trees} trees")
+            if fit_l["gbdt_bin_features"] < 2:
+                fail(f"{mode}: kernel D did not bin the eval rows")
+        log(json.dumps(rec))
+        results[mode] = rec
+        if not heldout > 0.9:
+            fail(f"{mode}: held-out AUC {heldout:.4f} <= 0.9")
+        for name in ("gbdt_histogram", "gbdt_split_search", "gbdt_bin_features"):
+            if fit_l[name] < 1:
+                fail(f"the {mode} fit never launched {name}")
+        # every iteration trains 30 split steps (early stopping trains the
+        # whole 10-iteration chunk before it stops)
+        if fit_l["gbdt_split_search"] != split_steps(gbdt_params):
+            fail(f"kernel E launched {fit_l['gbdt_split_search']} times in the {mode} fit, "
+                 f"not once a split step ({split_steps(gbdt_params)})")
+        if trans_l["gbdt_tree_score"] < 1 or trans_l["gbdt_bin_features"] < 1:
+            fail(f"the {mode} transform launched {trans_l}")
+
+    # the plain torch work the controls add, on the card: one draw over the
+    # training rows, one GOSS cut over them, one device AUC over the
+    # held-out rows, and one routing pass of a tree (DART's replay over the
+    # training rows, the eval margins' over the held-out rows)
+    binned_tr = boosters["dart"].mapper.transform_torch(torch.from_numpy(x_tr).to(dev))
+    binned_te = boosters["dart"].mapper.transform_torch(torch.from_numpy(x_te).to(dev))
+    key = prng_key(3)
+    g_abs = (torch.rand(n_train, device=dev) * 4).round() / 4
+    score = torch.from_numpy(boosters["bagged_eval"].raw_predict(x_te).astype(np.float32)).to(dev)
+    y_d, w_d = torch.from_numpy(y_te).to(dev, torch.float32), torch.ones(n_test, device=dev)
+    tree = _grown_tree(boosters["dart"], 0, dev)
+    work = {
+        "uniform_train_rows": lambda: uniform(key, n_train, dev),
+        "goss_cut_train_rows": lambda: goss_cut(g_abs, 0.8),
+        "device_auc_heldout_rows": lambda: device_metric("auc")(y_d, score, w_d),
+        "dart_replay_train_rows": lambda: tree.leaf_value[predict_binned(tree, binned_tr).long()],
+        "eval_routing_heldout_rows": lambda: tree.leaf_value[predict_binned(tree, binned_te)
+                                                            .long()],
+    }
+    timings = {}
+    for name, fn in work.items():
+        ms, launches = profiled(fn, 3)
+        timings[name] = {"ms": time_ms(fn, 10), "device_ms": ms, "launches": launches}
+    on_cpu = uniform(key, n_train + 3, "cpu")
+    if not torch.equal(uniform(key, n_train + 3, dev).cpu(), on_cpu):
+        fail("uniform draws differ between the card and the CPU")
+    log(json.dumps({"phase": "gbdt_sampled_ops", "card_equals_cpu_uniform_rows": n_train + 3,
+                    **timings}))
+    del binned_tr, binned_te, g_abs, score
+    return {"fits": results, "ops": timings}
+
+
+def _grown_tree(booster, t: int, dev):
+    """Tree ``t`` (class 0) of a booster as a ``GrownTree`` on ``dev``."""
+    from synapseml_tpu_torch.gbdt.grow import GrownTree
+
+    arr = lambda a: torch.from_numpy(np.ascontiguousarray(a[t, 0])).to(dev)
+    return GrownTree(arr(booster.parent), arr(booster.feature), arr(booster.bin),
+                     arr(booster.gain), arr(booster.leaf_value), arr(booster.leaf_hess), None)
 
 
 def main() -> int:
@@ -326,8 +482,9 @@ def main() -> int:
                                                         offgrid_split_case, split_cases,
                                                         step_cases)
     from synapseml_tpu_torch.tools.schema_data import (ADULT_CATEGORICAL, COVTYPE_CLASSES,
-                                                       FITS, adult_rows, adult_unseen_codes,
-                                                       covertype_rows, higgs_width_rows)
+                                                       FITS, SAMPLED_MODES, adult_rows,
+                                                       adult_unseen_codes, covertype_rows,
+                                                       higgs_width_rows)
     from synapseml_tpu_torch.tools.score_bench import (INT32_LANES_PER_SM, N_SMS,
                                                        max_sm_clock_hz, path_visits,
                                                        random_trees, tree_bound, tree_bytes)
@@ -492,6 +649,27 @@ def main() -> int:
         fail(f"covertype small fit: probabilities differ by {small_err_c} card vs CPU")
     del out_c, prob_c, x_c, y_c, logit_c
 
+    # -- phase 2d: training controls at HIGGS width -------------------------------------
+    t0 = time.perf_counter()
+    sampled = sampled_fits(kernels, GBDT, x_tr, y_tr, x_te, y_te, split_steps, dev)
+    small_sampled = {}
+    for mode, extra in SAMPLED_MODES.items():
+        params = dict(GBDT, **extra, num_iterations=3)
+        xs, ys, val = x_tr[:n_small], y_tr[:n_small], None
+        if mode == "bagged_eval":
+            params["validation_indicator_col"] = "validation"
+            xs = np.concatenate([xs, x_te[:n_small // 4]])
+            ys = np.concatenate([ys, y_te[:n_small // 4]])
+            val = np.arange(len(ys)) >= n_small
+        small_sampled[mode] = small_fit_same_trees(LightGBMClassifier, params, xs, ys,
+                                                   x_te[:n_small], validation=val)
+        if not small_sampled[mode] <= 1e-4:
+            fail(f"{mode} small fit: raw scores differ by {small_sampled[mode]} card vs CPU")
+    log(json.dumps({"phase": "gbdt_sampled_small_fits", "rows": n_small,
+                    "identical_trees_card_cpu": sorted(small_sampled),
+                    "raw_max_diff": small_sampled,
+                    "phase_s": time.perf_counter() - t0}))
+
     # -- phase 3: flash attention's entry point -----------------------------------------
     gen = torch.Generator(device=dev).manual_seed(args.seed)
 
@@ -521,6 +699,11 @@ def main() -> int:
 
     def record(name, launches, err, ms, plain_ms, b, library_ms, **extra):
         k = kernels[name]
+        # launches in phase 2d's fit and transform of each training control
+        per_mode = {mode: r["fit_launches"][name] + r["transform_launches"][name]
+                    for mode, r in sampled["fits"].items()}
+        if any(per_mode.values()):
+            extra["launches_sampled_fits"] = per_mode
         rows.append({"name": name, "route": "cuda",
                      "source": f"synapseml_tpu_torch/csrc/{k.source}.cu",
                      "replaces": k.replaces.split()[0], "launches": launches,

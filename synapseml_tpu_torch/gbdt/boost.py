@@ -1,29 +1,35 @@
 """Boosting loop, objectives and the serializable booster.
 
-Port of ``synapseml_tpu/gbdt/boost.py`` for plain ``gbdt`` boosting on one
-device: the objectives ``binary``, ``multiclass`` (softmax, one tree per class
-and iteration), ``regression`` (l2), ``l1``, ``huber``, ``poisson``,
-``quantile`` and ``tweedie`` (``l1`` and ``quantile`` renew their leaf values
-as residual percentiles), numeric and categorical features. The reference
+Port of ``synapseml_tpu/gbdt/boost.py`` on one device: ``gbdt``, ``goss``,
+``dart`` and ``rf`` boosting with bagging (plain and class-aware) and
+feature fraction, eval sets with early stopping, the objectives ``binary``,
+``multiclass`` (softmax, one tree per class and iteration), ``regression``
+(l2), ``l1``, ``huber``, ``poisson``, ``quantile`` and ``tweedie`` (``l1``
+and ``quantile`` renew their leaf values as residual percentiles), numeric
+and categorical features. The reference
 runs the loop as one ``lax.scan`` program; here it is a Python loop over
 iterations whose body (objective gradients -> pre-rounding -> tree growth ->
 score update) queues on the device without reading anything back, so the
-trees come to the host once, after the last iteration.
+trees come to the host once, after the last iteration. The random masks are
+the reference's own streams (:mod:`.sampling`), so sampled fits grow its
+trees too; eval metrics run on the device (:mod:`.metrics`) and their panel
+is read back once per chunk of at most 32 iterations. DART draws its drops
+from the host's numpy generator, as the reference does, and replays dropped
+trees on the device.
 
 Gradients are pre-rounded to a summation-exact grid (:func:`_preround`, the
 reference's ``boost.py:1148``), so every histogram cell is exact in any
 summation order: the GPU kernels reproduce the reference's trees.
 
-Not ported yet, and refused with ``NotImplementedError`` when set away from
-their defaults: bagging, feature_fraction, GOSS, dart, rf, eval sets and
-early stopping, and lambdarank.
+Not ported yet: lambdarank (refused with ``NotImplementedError``),
+continued training and batch training.
 """
 
 from __future__ import annotations
 
 import json
 import warnings
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -31,7 +37,9 @@ import torch
 from ..core.serialization import register_state_class
 from ..runtime.device import resolve_device
 from .binning import BinMapper
-from .grow import TreeConfig, grow_tree
+from .grow import GrownTree, TreeConfig, grow_tree, predict_binned
+from .metrics import DEFAULT_METRIC, METRICS, device_metric
+from .sampling import Sampler
 from .split_search import SplitWorkspace
 
 __all__ = ["GBDTBooster", "train", "OBJECTIVES"]
@@ -164,11 +172,6 @@ _DEFAULTS = dict(
     early_stopping_min_delta=0.0,
     alpha=0.9, tweedie_variance_power=1.5, verbose=0,
 )
-
-# parameters of the reference that change training and are not ported yet:
-# training refuses them unless they hold their default
-_NOT_PORTED = ("feature_fraction", "bagging_fraction", "bagging_freq", "boosting",
-               "pos_bagging_fraction", "neg_bagging_fraction", "early_stopping_round")
 
 # LightGBM parameter aliases (config.h alias table, the commonly used rows)
 _ALIASES = {
@@ -317,6 +320,10 @@ class GBDTBooster:
         self.best_iteration = best_iteration
         self.feature_names = feature_names
         self.cat_set = cat_set        # (T, C, L-1, B) int8 or None: category sets
+        # set by train: a record per iteration of the eval sets' metrics, and
+        # the rows with non-zero bagging/GOSS weight per iteration (or None)
+        self.evals_result: List[Dict[str, Any]] = []
+        self.sampled_rows: Optional[np.ndarray] = None
         self._device_trees: Dict[Any, tuple] = {}
 
     @property
@@ -354,7 +361,8 @@ class GBDTBooster:
     def raw_predict(self, x, num_iteration: Optional[int] = None,
                     device=None) -> np.ndarray:
         """Raw margin, shape (n,) or (n, C): bins ``x`` and scores the trees on
-        ``device`` (default: the GPU, through kernel B), then adds the base score."""
+        ``device`` (default: the GPU, through kernel B), then adds the base
+        score; an rf model averages its trees."""
         from .device_predict import device_raw_scores
 
         T = self._used_trees(num_iteration)
@@ -373,6 +381,8 @@ class GBDTBooster:
                                        self.bin[:T], leaf_value, scale, self._cat_sets(T),
                                        packed=packed)
             out = base + scores.cpu().numpy().astype(np.float64)
+            if self.boosting == "rf":  # rf averages its trees
+                out = base + (out - base) / T
         return out[:, 0] if self.num_class == 1 else out
 
     def predict_leaf(self, x, num_iteration: Optional[int] = None,
@@ -429,8 +439,9 @@ class GBDTBooster:
         """Build a booster from a ``state_dict`` — this port's or the reference's."""
         if d["objective"] not in OBJECTIVES:
             raise NotImplementedError(f"objective {d['objective']!r} is not ported yet")
-        if d.get("boosting", "gbdt") != "gbdt":
-            raise NotImplementedError(f"boosting {d['boosting']!r} is not ported yet")
+        boosting = str(d.get("boosting", "gbdt"))
+        if boosting not in ("gbdt", "goss", "dart", "rf"):
+            raise NotImplementedError(f"boosting {boosting!r} is not ported yet")
         mapper = d["mapper"]
         if not isinstance(mapper, dict):  # JSON round-trip may hand back a string
             mapper = json.loads(str(mapper))
@@ -446,7 +457,7 @@ class GBDTBooster:
             leaf_value=np.asarray(d["leaf_value"], dtype=np.float32),
             leaf_hess=np.asarray(d["leaf_hess"], dtype=np.float32),
             tree_scale=np.asarray(d["tree_scale"], dtype=np.float64),
-            boosting="gbdt",
+            boosting=boosting,
             best_iteration=d.get("best_iteration"),
             feature_names=list(d["feature_names"]) if d.get("feature_names") else None,
             cat_set=(np.asarray(d["cat_set"], dtype=np.int8)
@@ -466,22 +477,70 @@ def _categorical_indices(cats, feature_names) -> List[int]:
     return sorted({int(c) for c in cat_raw})
 
 
+def _check_boosting(p: Dict[str, Any], obj_name: str) -> str:
+    """The reference's checks of the boosting type and its sampling
+    parameters (``boost.py:1755-1780``)."""
+    boosting = p["boosting"]
+    if boosting not in ("gbdt", "goss", "dart", "rf"):
+        raise ValueError(f"boosting must be gbdt|goss|dart|rf, got {boosting!r}")
+    if boosting == "dart" and int(p["early_stopping_round"]) > 0:
+        # DART rescales earlier trees after the best iteration, so a model cut
+        # at best_iteration cannot reproduce the margins that were evaluated
+        warnings.warn("early_stopping_round is ignored with boosting='dart': "
+                      "DART rescales earlier trees after the best iteration, so "
+                      "truncating at best_iteration is not reproducible", stacklevel=3)
+    class_bagging = (float(p["pos_bagging_fraction"]) < 1.0
+                     or float(p["neg_bagging_fraction"]) < 1.0)
+    if class_bagging and obj_name != "binary":
+        raise ValueError("pos/neg_bagging_fraction require objective='binary'")
+    if boosting == "rf" and not ((float(p["bagging_fraction"]) < 1.0 or class_bagging)
+                                 and int(p["bagging_freq"]) > 0):
+        # without bagging every rf tree sees the same gradients
+        raise ValueError("boosting='rf' requires bagging_fraction < 1.0 (or "
+                         "class-aware pos/neg fractions) and bagging_freq > 0")
+    return boosting
+
+
+class _EvalSet:
+    """One eval set on the device: its bins, labels, unit weights and margins
+    (f32; f64 under DART, whose margins the reference keeps in numpy f64)."""
+
+    def __init__(self, mapper: BinMapper, x, y, base: np.ndarray, dev, dtype):
+        self.binned = mapper.transform_torch(torch.as_tensor(x).to(dev))
+        self.y_np = np.asarray(y, dtype=np.float64)
+        self.y = torch.as_tensor(self.y_np, dtype=torch.float32, device=dev)
+        self.w = torch.ones(len(self.y_np), dtype=torch.float32, device=dev)
+        self.raw = torch.zeros(len(self.y_np), len(base), dtype=dtype, device=dev) + \
+            torch.as_tensor(base, dtype=dtype, device=dev)
+
+    def leaf_values(self, tree: GrownTree) -> torch.Tensor:
+        """The tree's (unscaled) leaf value for every row: one routing pass."""
+        return tree.leaf_value[predict_binned(tree, self.binned).long()]
+
+
 def train(params: Dict[str, Any], x, y, weight: Optional[np.ndarray] = None,
-          device=None, feature_names: Optional[List[str]] = None) -> GBDTBooster:
+          device=None, feature_names: Optional[List[str]] = None,
+          eval_set: Optional[Sequence[Tuple[Any, Any]]] = None) -> GBDTBooster:
     """Train a booster on ``device`` (default: the GPU; ``"cpu"`` runs the
     plain PyTorch versions of the kernels).
 
     ``x`` is an (n, d) float matrix (numpy or tensor), ``y`` and ``weight``
-    (n,) numpy arrays (``y`` holds class indices for multiclass)."""
+    (n,) numpy arrays (``y`` holds class indices for multiclass).
+    ``eval_set``: ``(x, y)`` pairs scored after every iteration with
+    ``metric``; the first one drives early stopping. The booster's
+    ``evals_result`` holds a record per iteration
+    (``{"iteration": i, "eval0_<metric>": value, ...}``)."""
     dev = resolve_device(device)
     p = dict(_DEFAULTS)
     p.update(_canonicalize_params(params))
-    for k in _NOT_PORTED:
-        if p[k] != _DEFAULTS[k]:
-            raise NotImplementedError(f"parameter {k}={p[k]!r} is not ported yet")
     obj_name = p["objective"]
     init_fn, grad_fn = _resolve_objective(p)
     C = int(p["num_class"]) if obj_name in _MULTICLASS else 1
+    boosting = _check_boosting(p, obj_name)
+    metric_name = p["metric"] or DEFAULT_METRIC.get(obj_name, "l2")
+    if metric_name not in METRICS:
+        raise ValueError(f"unknown metric {metric_name!r}; available: {sorted(METRICS)}")
+    metric_fn, higher_better = METRICS[metric_name]
 
     xt = torch.as_tensor(x)
     n, d = xt.shape
@@ -504,7 +563,8 @@ def train(params: Dict[str, Any], x, y, weight: Optional[np.ndarray] = None,
     base = np.atleast_1d(np.asarray(init_fn(y, w_np), dtype=np.float64))
     if not p["boost_from_average"]:
         base = np.zeros_like(base)
-    lr = float(p["learning_rate"])
+    # rf averages trees that each fit the base score's residual
+    lr = float(p["learning_rate"]) if boosting != "rf" else 1.0
     cfg = TreeConfig(
         n_bins=mapper.n_bins, num_leaves=int(p["num_leaves"]),
         lambda_l1=float(p["lambda_l1"]), lambda_l2=float(p["lambda_l2"]),
@@ -526,24 +586,136 @@ def train(params: Dict[str, Any], x, y, weight: Optional[np.ndarray] = None,
     ones = torch.ones(n, dtype=torch.float32, device=dev)
     fmask = torch.ones(d, dtype=torch.float32, device=dev)
     workspace = SplitWorkspace(d, fmask, cat_mask, cfg, dev)  # every tree of the fit
+    sampler = Sampler(p, y_d, d, goss=boosting == "goss")
 
-    trees = []  # per iteration, C trees
-    for _ in range(int(p["num_iterations"])):
+    dart = boosting == "dart"
+    evals_in = [_EvalSet(mapper, ex, ey, base, dev, torch.float64 if dart else torch.float32)
+                for ex, ey in (eval_set or ())]
+    dev_metric = device_metric(metric_name)
+    base_d = torch.as_tensor(base, dtype=torch.float32, device=dev)[None, :]
+    patience = 0 if dart else int(p["early_stopping_round"])
+    min_delta = float(p["early_stopping_min_delta"])
+    num_iter = int(p["num_iterations"])
+    # device eval: the metric panel is read back once per chunk of iterations
+    chunk = num_iter if patience == 0 else min(num_iter, 32)
+    best_metric = -np.inf if higher_better else np.inf
+    best_iter = 0
+    rng = np.random.default_rng(int(p["seed"]))  # DART's drops, as the reference draws them
+
+    def replay(tree: GrownTree) -> torch.Tensor:
+        """A stored tree's leaf value for every training row (DART)."""
+        return tree.leaf_value[predict_binned(tree, binned).long()]
+
+    trees: List[List[GrownTree]] = []  # per iteration, C trees
+    tree_scales: List[float] = []
+    sampled: List[torch.Tensor] = []   # rows with non-zero weight, per iteration
+    evals: List[Dict[str, Any]] = []
+    pending: List[torch.Tensor] = []   # metric rows not yet read back
+    for it in range(num_iter):
+        k1, k2 = sampler.keys(it)
+        dropped: List[int] = []
+        if dart and trees and rng.random() >= float(p["skip_drop"]):
+            u = rng.random(len(trees))
+            if bool(p["uniform_drop"]):
+                mask = u < float(p["drop_rate"])
+            else:  # drop chance proportional to the tree's weight (dart.cpp)
+                ts = np.asarray(tree_scales, np.float64)
+                mask = u < float(p["drop_rate"]) * ts * (len(ts) / max(ts.sum(), 1e-12))
+            dropped = list(np.nonzero(mask)[0][:int(p["max_drop"])])
+            # the reference's f32 roundings: the Python-float scale rounds to
+            # f32 once, then one f32 product and one f32 difference
+            for t in dropped:
+                for c in range(C):
+                    raw[:, c] = raw[:, c] - (lr * tree_scales[t]) * replay(trees[t][c])
+
         g, h = grad_fn(raw[:, 0] if C == 1 else raw, y_d, w_d)
         g = _preround(g.to(torch.float32).reshape(n, C), n_bound)
         h = _preround(h.to(torch.float32).reshape(n, C), n_bound)
+        fm = sampler.feature_mask(k2)
+        if fm is not None:  # kernel E reads ws.fmask through its packed pointer
+            workspace.fmask.copy_(fm.pin_memory() if dev.type == "cuda" else fm,
+                                  non_blocking=True)
+        bw = sampler.row_weights(k1, it, g)
+        if bw is None:
+            bw = ones
+        else:
+            sampled.append(torch.count_nonzero(bw))
         grown = []
         for c in range(C):
-            tree, node = grow_tree(binned, g[:, c].contiguous(), h[:, c].contiguous(), ones,
-                                   fmask, cfg, cat_mask=cat_mask, workspace=workspace)
+            tree, node = grow_tree(binned, g[:, c].contiguous(), h[:, c].contiguous(), bw,
+                                   workspace.fmask, cfg, cat_mask=cat_mask,
+                                   workspace=workspace)
             if renew_alpha is not None and C == 1:
                 tree = tree._replace(leaf_value=_renewed_leaf_values(
-                    node, y_d, raw[:, 0], w_d, renew_alpha, L))
-            grown.append((tree, node))
+                    node, y_d, raw[:, 0], w_d * bw, renew_alpha, L))
+            grown.append((tree, tree.leaf_value[node.long()]))
         # every class's tree grows from the same margins; then all update
-        for c, (tree, node) in enumerate(grown):
-            raw[:, c] = raw[:, c] + lr * tree.leaf_value[node.long()]
-        trees.append([tree for tree, _ in grown])
+        if boosting != "rf":
+            for c, (_, delta) in enumerate(grown):
+                raw[:, c] = raw[:, c] + lr * delta
+        new_trees = [tree for tree, _ in grown]
+
+        scale = 1.0
+        if dropped:
+            k = len(dropped)
+            if bool(p["xgboost_dart_mode"]):  # new tree lr/(k+lr), dropped k/(k+lr)
+                scale, factor = 1.0 / (k + lr), k / (k + lr)
+            else:
+                scale, factor = 1.0 / (k + 1), k / (k + 1.0)
+            for c, (_, delta) in enumerate(grown):
+                raw[:, c] = raw[:, c] - ((1.0 - scale) * lr) * delta
+            for t in dropped:
+                old = tree_scales[t]
+                tree_scales[t] = old * factor
+                for c in range(C):
+                    raw[:, c] = raw[:, c] + (lr * old * factor) * replay(trees[t][c])
+                    for e in evals_in:
+                        e.raw[:, c] += ((lr * old * (factor - 1.0))
+                                        * e.leaf_values(trees[t][c])).double()
+        tree_scales.append(scale)
+        trees.append(new_trees)
+
+        if not evals_in:
+            continue
+        if dart:
+            # the reference's host metric: f64 margins, numpy metric each iteration
+            rec = {"iteration": it}
+            for ei, e in enumerate(evals_in):
+                for c, tree in enumerate(new_trees):
+                    e.raw[:, c] += ((lr * scale) * e.leaf_values(tree)).double()
+                score = e.raw.cpu().numpy()
+                rec[f"eval{ei}_{metric_name}"] = metric_fn(
+                    e.y_np, score[:, 0] if C == 1 else score, np.ones(len(e.y_np)))
+            evals.append(rec)
+            continue
+        row = []
+        for e in evals_in:
+            for c, tree in enumerate(new_trees):
+                e.raw[:, c] = e.raw[:, c] + lr * e.leaf_values(tree)
+            score = e.raw
+            if boosting == "rf":  # rf averages its trees
+                score = base_d + (score - base_d) / torch.full((), it + 1.0, device=dev)
+            row.append(dev_metric(e.y, score[:, 0] if C == 1 else score, e.w))
+        pending.append(torch.stack(row))
+        if len(pending) < chunk and it < num_iter - 1:
+            continue
+        it0 = it + 1 - len(pending)
+        panel = torch.stack(pending).cpu().numpy()  # the chunk's one read-back
+        pending = []
+        stop = False
+        for j, ms in enumerate(panel):
+            rec = {"iteration": it0 + j}
+            rec.update({f"eval{ei}_{metric_name}": float(m) for ei, m in enumerate(ms)})
+            evals.append(rec)
+            m = rec[f"eval0_{metric_name}"]
+            if (m > best_metric + min_delta) if higher_better else (m < best_metric - min_delta):
+                best_metric, best_iter = m, it0 + j + 1
+            elif patience and it0 + j + 1 - best_iter >= patience:
+                stop = True  # drop the chunk's overshoot: the reference's stop point
+                del trees[it0 + j + 1:], tree_scales[it0 + j + 1:]
+                break
+        if stop:
+            break
 
     T = len(trees)
 
@@ -563,9 +735,13 @@ def train(params: Dict[str, Any], x, y, weight: Optional[np.ndarray] = None,
     threshold = np.zeros(parent.shape, dtype=np.float64)
     for t, c, s in zip(*np.nonzero(parent >= 0)):
         threshold[t, c, s] = mapper.bin_upper_value(int(feature[t, c, s]), bins[t, c, s])
-    return GBDTBooster(
+    booster = GBDTBooster(
         mapper=mapper, objective=obj_name, num_class=C, base_score=base,
         parent=parent, feature=feature, threshold=threshold, bin_=bins, gain=gain,
         leaf_value=leaf_value, leaf_hess=leaf_hess,
-        tree_scale=np.full(T, lr, dtype=np.float64), boosting="gbdt",
+        tree_scale=np.asarray(tree_scales, dtype=np.float64) * lr, boosting=boosting,
+        best_iteration=best_iter if (patience and evals_in) else None,
         feature_names=list(feature_names) if feature_names else None, cat_set=cat_set)
+    booster.evals_result = evals
+    booster.sampled_rows = (torch.stack(sampled[:T]).cpu().numpy() if sampled else None)
+    return booster

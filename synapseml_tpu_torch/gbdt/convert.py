@@ -23,9 +23,10 @@ __all__ = ["booster_from_state", "model_from_state"]
 def booster_from_state(state: Dict[str, Any]) -> GBDTBooster:
     """Port booster from a reference ``GBDTBooster.state_dict()``.
 
-    Takes numeric and categorical (``cat_set``) splits and any class count;
-    raises ``NotImplementedError`` for what the port does not score yet
-    (lambdarank, boosting other than gbdt)."""
+    Takes numeric and categorical (``cat_set``) splits, any class count and
+    gbdt, goss, dart and rf models (rf averages its trees); raises
+    ``NotImplementedError`` for what the port does not score yet
+    (lambdarank)."""
     return GBDTBooster.from_state_dict(dict(state))
 
 

@@ -4,10 +4,11 @@ Port of ``synapseml_tpu/gbdt/estimators.py``: ``LightGBMClassifier`` /
 ``LightGBMClassificationModel`` (binary or multiclass, from the label count)
 and ``LightGBMRegressor`` / ``LightGBMRegressionModel`` (l2, l1, huber,
 poisson, quantile, tweedie), dense feature columns, categorical slots by
-index or by slot name. Params keep the reference's names and defaults; those
-whose behaviour is not ported yet (bagging, feature fraction, goss/dart/rf,
-early stopping, validation columns, batches) are refused by ``train`` when
-set away from their defaults.
+index or by slot name; gbdt, goss, dart and rf boosting with bagging and
+feature fraction; validation rows (``validation_indicator_col``) scored with
+``metric`` after every iteration, with early stopping. Params keep the
+reference's names and defaults. Not ported yet: ``init_score_col``,
+``num_batches`` and continued training.
 
 ``device`` picks where fit and transform run: the GPU by default, ``"cpu"``
 for the plain PyTorch versions of the kernels.
@@ -48,10 +49,13 @@ class _LightGBMBase(Estimator):
     label_col = Param("label column", str, default="label")
     prediction_col = Param("prediction output column", str, default="prediction")
     weight_col = Param("optional sample-weight column", str, default=None)
+    validation_indicator_col = Param(
+        "optional bool column marking validation rows (reference "
+        "validationIndicatorCol)", str, default=None)
     leaf_prediction_col = Param("optional leaf-index output column", str, default=None)
     device = Param("'cuda[:i]' (default: the GPU) or 'cpu'", str, default=None)
 
-    boosting_type = Param("gbdt (rf | dart | goss not ported yet)", str, default="gbdt",
+    boosting_type = Param("gbdt | rf | dart | goss", str, default="gbdt",
                           validator=ParamValidators.in_list(["gbdt", "rf", "dart", "goss"]))
     num_iterations = Param("boosting iterations", int, default=100,
                            validator=ParamValidators.gt_eq(0))
@@ -66,17 +70,35 @@ class _LightGBMBase(Estimator):
                     validator=ParamValidators.gt(1))
     bin_sample_count = Param("rows sampled for bin-edge estimation", int,
                              default=200_000, validator=ParamValidators.gt(0))
-    bagging_fraction = Param("row subsample fraction (not ported yet)", float, default=1.0)
-    bagging_freq = Param("bag every k iterations (not ported yet)", int, default=0)
-    feature_fraction = Param("feature subsample fraction (not ported yet)", float,
-                             default=1.0)
+    bagging_fraction = Param("row subsample fraction", float, default=1.0)
+    pos_bagging_fraction = Param("positive-row subsample fraction (reference "
+                                 "posBaggingFraction)", float, default=1.0)
+    neg_bagging_fraction = Param("negative-row subsample fraction (reference "
+                                 "negBaggingFraction)", float, default=1.0)
+    bagging_freq = Param("bag every k iterations (0 = off)", int, default=0)
+    bagging_seed = Param("bagging seed", int, default=3)
+    feature_fraction = Param("feature subsample fraction per tree", float, default=1.0)
     lambda_l1 = Param("L1 regularization", float, default=0.0)
     lambda_l2 = Param("L2 regularization", float, default=0.0)
     min_sum_hessian_in_leaf = Param("min hessian mass per leaf", float, default=1e-3)
     min_data_in_leaf = Param("min rows per leaf", int, default=20)
     min_gain_to_split = Param("min split gain", float, default=0.0)
-    early_stopping_round = Param("early stopping rounds (not ported yet)", int, default=0)
-    seed = Param("random seed (bin sampling)", int, default=0)
+    early_stopping_round = Param("stop after k rounds without improvement (0 = off)",
+                                 int, default=0)
+    improvement_tolerance = Param("min metric delta counted as improvement "
+                                  "(reference improvementTolerance)", float, default=0.0)
+    top_rate = Param("goss: top-gradient keep fraction", float, default=0.2)
+    other_rate = Param("goss: small-gradient sample fraction", float, default=0.1)
+    drop_rate = Param("dart: tree dropout rate", float, default=0.1)
+    max_drop = Param("dart: max trees dropped per iteration", int, default=50)
+    skip_drop = Param("dart: probability of skipping dropout", float, default=0.5)
+    uniform_drop = Param("dart: drop uniformly instead of weight-proportional "
+                         "(reference uniformDrop)", bool, default=False)
+    xgboost_dart_mode = Param("dart: xgboost normalization lr/(k+lr) "
+                              "(reference xgboostDartMode)", bool, default=False)
+    metric = Param("eval metric name ('' = objective default)", str, default="")
+    seed = Param("random seed (bin sampling, feature fraction, DART drops)", int,
+                 default=0)
     categorical_slot_names = Param("feature names treated as categorical "
                                    "(reference categoricalSlotNames)", list, default=[])
     categorical_slot_indexes = Param("feature indices treated as categorical "
@@ -93,6 +115,8 @@ class _LightGBMBase(Estimator):
                 self.label_col: ColumnSpec("float", "scalar")}
         if self.weight_col:
             cols[self.weight_col] = ColumnSpec("float", "scalar")
+        if self.validation_indicator_col:
+            cols[self.validation_indicator_col] = ColumnSpec("any", "scalar")
         return TableSchema(cols)
 
     def _train_params(self) -> dict:
@@ -103,27 +127,50 @@ class _LightGBMBase(Estimator):
             "max_delta_step": self.max_delta_step,
             "boost_from_average": self.boost_from_average, "max_bin": self.max_bin,
             "bin_sample_count": self.bin_sample_count,
-            "bagging_fraction": self.bagging_fraction, "bagging_freq": self.bagging_freq,
+            "bagging_fraction": self.bagging_fraction,
+            "pos_bagging_fraction": self.pos_bagging_fraction,
+            "neg_bagging_fraction": self.neg_bagging_fraction,
+            "bagging_freq": self.bagging_freq, "bagging_seed": self.bagging_seed,
             "feature_fraction": self.feature_fraction,
             "lambda_l1": self.lambda_l1, "lambda_l2": self.lambda_l2,
             "min_sum_hessian_in_leaf": self.min_sum_hessian_in_leaf,
             "min_data_in_leaf": self.min_data_in_leaf,
             "min_gain_to_split": self.min_gain_to_split,
-            "early_stopping_round": self.early_stopping_round, "seed": self.seed,
+            "early_stopping_round": self.early_stopping_round,
+            "early_stopping_min_delta": self.improvement_tolerance,
+            "top_rate": self.top_rate, "other_rate": self.other_rate,
+            "drop_rate": self.drop_rate, "max_drop": self.max_drop,
+            "skip_drop": self.skip_drop, "uniform_drop": self.uniform_drop,
+            "xgboost_dart_mode": self.xgboost_dart_mode, "metric": self.metric or None,
+            "seed": self.seed,
             "categorical_feature": (list(self.categorical_slot_indexes)
                                     + list(self.categorical_slot_names)) or None,
             "cat_smooth": self.cat_smooth, "max_cat_threshold": self.max_cat_threshold,
         }
 
+    def _split_validation(self, table: Table):
+        """(training rows, validation rows or None) by ``validation_indicator_col``."""
+        vcol = self.validation_indicator_col
+        if vcol:
+            self._validate_input(table, vcol)
+            mask = np.asarray(table[vcol], dtype=bool)
+            return table.filter(~mask), table.filter(mask)
+        return table, None
+
     def _fit_booster(self, table: Table, extra_params: Optional[dict] = None
                      ) -> GBDTBooster:
         self._validate_input(table, self.features_col, self.label_col)
-        x = _features(table, self.features_col)
-        y = np.asarray(table[self.label_col], dtype=np.float64)
-        w = (np.asarray(table[self.weight_col], dtype=np.float64)
+        tr, val = self._split_validation(table)
+        x = _features(tr, self.features_col)
+        y = np.asarray(tr[self.label_col], dtype=np.float64)
+        w = (np.asarray(tr[self.weight_col], dtype=np.float64)
              if self.weight_col else None)
         params = self._train_params()
         params.update(extra_params or {})
+        eval_set = None
+        if val is not None and val.num_rows:
+            eval_set = [(_features(val, self.features_col),
+                         np.asarray(val[self.label_col], dtype=np.float64))]
         # categorical_slot_names resolve against the features column's
         # slot-name metadata, as in the reference
         slot_names = table.meta.get(self.features_col, {}).get("slot_names")
@@ -132,7 +179,8 @@ class _LightGBMBase(Estimator):
                 "categorical_slot_names requires slot-name metadata on the features "
                 f"column: Table(meta={{{self.features_col!r}: {{'slot_names': [...]}}}})")
         return train(params, x, y, weight=w, device=self.device,
-                     feature_names=list(slot_names) if slot_names is not None else None)
+                     feature_names=list(slot_names) if slot_names is not None else None,
+                     eval_set=eval_set)
 
 
 class _LightGBMModelBase(Model):

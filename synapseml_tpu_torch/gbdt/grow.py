@@ -120,20 +120,20 @@ def predict_binned(tree: GrownTree, binned: torch.Tensor) -> torch.Tensor:
     With ``tree.cat_set``, a split with ``bin < 0`` is categorical: a row goes
     left when ``cat_set[s, col] > 0``, indexed as the reference's
     ``jnp.take`` does (a negative ``col`` counts from the end; one outside
-    ``[-B, B)`` is in no set)."""
+    ``[-B, B)`` is in no set). An inert step (parent -1) moves no row, since
+    every row's node is >= 0. Reads nothing back to the host."""
     n = binned.shape[0]
     node = torch.zeros(n, dtype=torch.int32, device=binned.device)
+    feats = tree.feature.long()
     for s in range(tree.parent.shape[0]):
-        p = tree.parent[s]
-        col = torch.index_select(binned, 1, tree.feature[s].reshape(1).long())[:, 0]
-        col = col.to(torch.int64)
-        go_left = col <= tree.bin[s]
+        col = torch.index_select(binned, 1, feats[s:s + 1])[:, 0]
+        go_right = col > tree.bin[s]
         if tree.cat_set is not None:
             B = tree.cat_set.shape[-1]
+            col = col.to(torch.int64)
             idx = torch.where(col < 0, col + B, col)
             inside = (idx >= 0) & (idx < B)
             in_set = inside & (tree.cat_set[s][idx.clamp(0, B - 1)] > 0)
-            go_left = torch.where(tree.bin[s] < 0, in_set, go_left)
-        go_right = (node == p) & ~go_left & (p >= 0)
-        node = torch.where(go_right, s + 1, node).to(torch.int32)
+            go_right = torch.where(tree.bin[s] < 0, ~in_set, go_right)
+        node = torch.where((node == tree.parent[s]) & go_right, s + 1, node)
     return node

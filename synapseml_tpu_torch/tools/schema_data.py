@@ -29,7 +29,8 @@ import numpy as np
 
 __all__ = ["ADULT_COLUMNS", "ADULT_CARDINALITY", "ADULT_CATEGORICAL", "ADULT_SETS",
            "adult_rows", "adult_unseen_codes", "COVTYPE_COLUMNS", "COVTYPE_CATEGORICAL",
-           "COVTYPE_CLASSES", "covertype_rows", "HIGGS_WIDTH", "higgs_width_rows", "FITS"]
+           "COVTYPE_CLASSES", "covertype_rows", "HIGGS_WIDTH", "higgs_width_rows", "FITS",
+           "SAMPLED_MODES"]
 
 ADULT_COLUMNS = ["age", "workclass", "fnlwgt", "education", "education-num",
                  "marital-status", "occupation", "relationship", "race", "sex",
@@ -59,6 +60,19 @@ FITS = {
                                          categorical_slot_indexes=ADULT_CATEGORICAL)),
     "covertype": (464_810, 581_012, dict(num_iterations=10, num_leaves=31, max_bin=255,
                                          categorical_slot_indexes=COVTYPE_CATEGORICAL)),
+}
+
+# chip_smoke.py's phase 2d: the HIGGS fit's parameters under each training
+# control, as the estimator takes them. "bagged_eval" also passes the
+# held-out rows as validation rows, watched by AUC with early stopping.
+# DART's defaults (skip_drop=0.5, drop_rate=0.1) drop few trees in 10
+# iterations, so it drops more here.
+SAMPLED_MODES = {
+    "bagged_eval": dict(bagging_fraction=0.5, bagging_freq=1, feature_fraction=0.8,
+                        metric="auc", early_stopping_round=3),
+    "goss": dict(boosting_type="goss"),
+    "dart": dict(boosting_type="dart", skip_drop=0.0, drop_rate=0.3),
+    "rf": dict(boosting_type="rf", bagging_fraction=0.7, bagging_freq=1),
 }
 
 

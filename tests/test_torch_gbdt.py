@@ -175,7 +175,7 @@ def test_device_rule_and_unported_params():
     x, y, _ = _data(5, n=200)
     with pytest.raises(DeviceUnavailableError):
         LightGBMClassifier(num_iterations=1).fit(Table({"features": x, "label": y}))
-    with pytest.raises(NotImplementedError, match="bagging_fraction"):
-        train({"bagging_fraction": 0.5, "bagging_freq": 1}, x, y, device="cpu")
+    with pytest.raises(ValueError, match="boosting must be"):
+        train({"boosting": "gbrt"}, x, y, device="cpu")
     with pytest.raises(NotImplementedError, match="objective"):
         train({"objective": "lambdarank"}, x, y, device="cpu")

@@ -10,13 +10,15 @@ import pytest
 import torch
 
 from synapseml_tpu_torch.gbdt.binning import BinMapper
-from synapseml_tpu_torch.gbdt.boost import _preround
+from synapseml_tpu_torch.gbdt import sampling
+from synapseml_tpu_torch.gbdt.boost import _preround, train
 from synapseml_tpu_torch.gbdt.device_predict import (BIN_KERNEL, LEAF_KERNEL, SCORE_KERNEL,
                                                      device_bin_cat, device_bin_cat_plain,
                                                      device_leaf_indices, device_raw_scores,
                                                      leaf_indices_plain, pack_feature_table,
                                                      pack_trees, raw_scores_plain)
 from synapseml_tpu_torch.gbdt.histogram import HIST_KERNEL, histogram, histogram_plain
+from synapseml_tpu_torch.gbdt.metrics import METRICS
 from synapseml_tpu_torch.gbdt.split_search import (SPLIT_KERNEL, SplitWorkspace,
                                                    split_gains_plain, split_search,
                                                    split_search_plain)
@@ -27,6 +29,7 @@ from synapseml_tpu_torch.tools.kernel_cases import (bin_edge_case, bin_ragged_ca
                                                     diff_runs, grow_synthetic,
                                                     offgrid_split_case,
                                                     split_cases, step_cases)
+from synapseml_tpu_torch.tools.schema_data import SAMPLED_MODES, higgs_width_rows
 
 pytestmark = pytest.mark.cuda
 
@@ -369,3 +372,62 @@ def test_split_step_kernel_bit_equal(cuda, case):
         if dev.type == "cuda":
             assert SPLIT_KERNEL.launches == before + cfg.num_leaves - 1
     assert not diff_runs(*runs), "the kernel and the plain step differ"
+
+
+def test_threefry_uniform_card_equals_cpu(cuda):
+    """The reference's stream drawn on the card: bit-equal to the CPU's at
+    4M + 3 rows (counters past 2**22, a ragged tail)."""
+    key = sampling.fold_in(sampling.prng_key(3), 7)
+    n = (1 << 22) + 3
+    got = sampling.uniform(key, n, cuda)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), sampling.uniform(key, n, "cpu"))
+
+
+def _train_params(extra):
+    """schema_data.SAMPLED_MODES' estimator params as train() takes them."""
+    params = {("boosting" if k == "boosting_type" else k): v for k, v in extra.items()}
+    return dict(objective="binary", num_iterations=3, num_leaves=31, max_bin=63, **params)
+
+
+@pytest.mark.parametrize("mode", sorted(SAMPLED_MODES))
+def test_sampled_fit_card_equals_cpu(cuda, mode):
+    """Each training control at 16,384 HIGGS-width rows: the same bags, GOSS
+    samples and feature masks on the card and the CPU, so identical trees,
+    tree scales and bag sizes, and (with the eval set) the same stop."""
+    x, y = higgs_width_rows(1, 16_384 + 4_096)
+    params = _train_params(SAMPLED_MODES[mode])
+    eval_set = [(x[16_384:], y[16_384:])] if mode == "bagged_eval" else None
+    before = SPLIT_KERNEL.launches
+    on_card = train(params, x[:16_384], y[:16_384], eval_set=eval_set, device=cuda)
+    torch.cuda.synchronize()
+    assert SPLIT_KERNEL.launches - before == 3 * 30
+    on_cpu = train(params, x[:16_384], y[:16_384], eval_set=eval_set, device="cpu")
+    for field in ("parent", "feature", "bin", "tree_scale", "sampled_rows"):
+        a, b = getattr(on_card, field), getattr(on_cpu, field)
+        assert (a is None and b is None) or np.array_equal(a, b), field
+    np.testing.assert_allclose(on_card.leaf_value, on_cpu.leaf_value, rtol=0, atol=0)
+    assert on_card.best_iteration == on_cpu.best_iteration
+    if eval_set is not None:
+        a = [r["eval0_auc"] for r in on_card.evals_result]
+        b = [r["eval0_auc"] for r in on_cpu.evals_result]
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-5)  # f32 sums in another order
+
+
+def test_goss_off_grid_card_close_to_cpu(cuda):
+    """GOSS with amp = 4.5 (top_rate=0.1, other_rate=0.2): g * amp leaves the
+    exact grid, so the card's atomics may sum a histogram cell in another
+    order than the CPU; the stated tolerance holds: held-out AUC within
+    0.01, and leaves within 1e-3 wherever the trees are identical."""
+    x, y = higgs_width_rows(2, 16_384 + 8_192)
+    params = dict(objective="binary", num_iterations=5, num_leaves=31, max_bin=63,
+                  boosting="goss", top_rate=0.1, other_rate=0.2)
+    on_card = train(params, x[:16_384], y[:16_384], device=cuda)
+    on_cpu = train(params, x[:16_384], y[:16_384], device="cpu")
+    xe, ye = x[16_384:], y[16_384:]
+    aucs = [METRICS["auc"][0](ye, b.raw_predict(xe, device=dev), np.ones(len(ye)))
+            for b, dev in ((on_card, cuda), (on_cpu, "cpu"))]
+    assert abs(aucs[0] - aucs[1]) <= 0.01
+    if all(np.array_equal(getattr(on_card, f), getattr(on_cpu, f))
+           for f in ("parent", "feature", "bin")):
+        np.testing.assert_allclose(on_card.leaf_value, on_cpu.leaf_value, rtol=0, atol=1e-3)

@@ -112,11 +112,15 @@ def test_objective_table_and_unported():
     assert {"l1", "mae", "huber", "poisson", "quantile", "tweedie", "multiclass",
             "softmax", "mean_squared_error"} <= set(OBJECTIVES)
     x, z, noise, _ = _data(2, n=300)
-    for bad in ({"objective": "lambdarank"}, {"bagging_fraction": 0.5, "bagging_freq": 1},
-                {"boosting": "dart"}, {"feature_fraction": 0.5},
-                {"early_stopping_round": 5}):
-        with pytest.raises(NotImplementedError):
-            train(dict(PARAMS, **bad), x, z, device="cpu")
+    with pytest.raises(NotImplementedError):
+        train(dict(PARAMS, objective="lambdarank"), x, z, device="cpu")
+    # sampling, dart and early stopping train now (without an eval set,
+    # early stopping has nothing to watch: every iteration is kept)
+    for ported in ({"bagging_fraction": 0.5, "bagging_freq": 1}, {"boosting": "dart"},
+                   {"feature_fraction": 0.5}, {"early_stopping_round": 5}):
+        booster = train(dict(PARAMS, **ported), x, z, device="cpu")
+        assert booster.num_trees == PARAMS["num_iterations"]
+        assert booster.best_iteration is None
 
 
 def _slot_table(table_cls, x, y=None):
