@@ -43,6 +43,23 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    the training rows), the draw must be bit-equal on the card and the CPU,
    and a small fit of each mode must give identical trees, tree scales and
    bags on the card and the CPU;
+2e. ``LightGBMRanker`` at MSLR-WEB30K Fold1's shape (``schema_data.mslr_rows``:
+   136 features, 18,919 training queries and 2,270,296 documents, the
+   6,306 validation queries' 747,218 documents as validation rows watched
+   by NDCG@10 with early stopping) at LightGBM's lambdarank example settings
+   (``FITS["mslr"]``), then transform of the validation rows: kernel F once
+   an iteration, A, D, E and B launched, held-out NDCG@10 at least 0.1 over
+   a random order's on the same queries, every iteration's eval NDCG equal
+   to the NDCG of the model cut there (margins summed as the eval path
+   sums them, from kernel B's leaf ids), and a ranker fit at ~16,384
+   rows giving the same trees, leaves and NDCG series on the card and the
+   CPU; then the model surface: ``features_shap_col`` on 65,536 held-out
+   rows of phase 2's HIGGS and phase 2b's Adult models (each row's
+   contributions add up to kernel B's margin within SHAP_TOL), a model
+   written by ``save_native_model`` and read by ``load_native_model``
+   scoring bit-equal on the card and the CPU (and within SHAP_TOL of the
+   model it came from), and the hand-written LightGBM texts
+   (zero_as_missing, default_left, ...) scoring on the card as on the CPU;
 3. flash attention's entry point, all causal: in bf16 (the wgmma kernel) at
    the headline shape (B=1, S=32768, H=8, D=64), the grouped-query serving
    shape (B=8, S=8192, H=8, H_kv=2, D=64), the headline length at D=128, and
@@ -67,6 +84,8 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    on edge cases (values on every rounded edge, +-inf, NaN, -0.0, unseen
    codes, f64 edges whose f32 rounding goes up, and ragged tails at d = 1,
    13 and 300) at each output type;
+   kernel F bit-equal to its plain version over phase 2e's training rows at
+   iteration 0 (every score tied) and at the fitted ranker's scores;
    kernel E's full-table entry bit-equal on histograms on the pre-rounded
    grid (numeric, mixed categorical, max_cat_threshold binding, empty bins,
    exact ties across features and bins, NaN gains, masks with l1/l2, B at
@@ -133,6 +152,13 @@ N_COVTYPE_TRAIN = 464_810
 ADULT_AUC_FLOOR = 0.80
 COVTYPE_ACC_FLOOR = 0.60
 SMALL_FIT_ROWS = 16_384
+# contributions (f64 TreeSHAP) against kernel B's f32 margin over 10 trees:
+# the margin's own rounding, a few f32 ulps of values of order 1 to 10
+SHAP_TOL = 1e-5
+SHAP_ROWS = 65_536
+# kernel F against its plain version, in f32 ulps: both take exp_f32 and sum
+# over j in j order, so the two agree bit for bit
+F_ULPS = 0
 # trees, classes, leaves of LightGBM's Higgs experiment (docs/Experiments.rst:
 # 500 trees, num_leaves=255, max_bin=255)
 HIGGS500 = (500, 1, 255)
@@ -196,19 +222,24 @@ def profiled(fn, reps: int):
     """(device ms, kernel launches) of one call of ``fn``: the kernels' own
     time in a ``torch.profiler`` trace of ``reps`` calls after one warm-up,
     so the host's launch cost (which sets the wall time of a call this
-    small) is left out."""
+    small) is left out. A trace that comes back without device events (the
+    tracer drops one now and then) is taken again, up to three times."""
     from synapseml_tpu_torch.tools.profile_fit import _device_us
 
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    evts = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA and _device_us(e) > 0]
-    if not evts:
-        fail("the profiler saw no device time")
+    for attempt in range(1, 4):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        evts = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA and _device_us(e) > 0]
+        if evts:
+            break
+        log(f"profiler: trace {attempt} of 3 held no device time")
+    else:
+        fail("the profiler saw no device time in 3 traces")
     return (sum(_device_us(e) for e in evts) / 1e3 / reps,
             sum(e.count for e in evts) / reps)
 
@@ -293,23 +324,24 @@ def fit_and_transform(kernels, estimator, train_table, test_table):
 
 
 def small_fit_same_trees(cls, params, x, y, probe_x, col="rawPrediction",
-                         validation=None) -> float:
+                         validation=None, extra_cols=None, fields=()) -> float:
     """The same fit on a small slice on the card and through the plain CPU
     path: identical trees (``cat_set`` included), tree scales, sampled row
-    counts, ``best_iteration`` and, with ``validation`` (a bool column of
-    validation rows), eval series within 1e-5 (f32 metric sums in another
-    order), else the run fails. Returns the largest difference of the two
-    models' outputs on ``probe_x``."""
+    counts, the ``fields`` named, ``best_iteration`` and, with
+    ``validation`` (a bool column of validation rows), eval series within
+    1e-5 (f32 metric sums in another order), else the run fails. Returns
+    the largest difference of the two models' outputs on ``probe_x``."""
     from synapseml_tpu_torch.core import Table
 
-    cols = {"features": x, "label": y}
+    cols = {"features": x, "label": y, **(extra_cols or {})}
     if validation is not None:
         cols["validation"] = validation
     small = Table(cols)
     gpu_m = cls(**params).fit(small)
     cpu_m = cls(device="cpu", **params).fit(small)
     gb, cb = gpu_m.booster, cpu_m.booster
-    for field in ("parent", "feature", "bin", "cat_set", "tree_scale", "sampled_rows"):
+    for field in ("parent", "feature", "bin", "cat_set", "tree_scale", "sampled_rows",
+                  *fields):
         a, b = getattr(gb, field), getattr(cb, field)
         if not ((a is None and b is None) or np.array_equal(a, b)):
             fail(f"small fit: {field} differs between the card and the CPU path")
@@ -436,6 +468,167 @@ def sampled_fits(kernels, gbdt_params, x_tr, y_tr, x_te, y_te, split_steps, dev)
     return {"fits": results, "ops": timings}
 
 
+def ranker_phase(kernels, seed: int, split_steps) -> dict:
+    """Phase 2e: ``LightGBMRanker`` at MSLR-WEB30K Fold1's shape, fit with
+    the validation queries watched by NDCG@10 and early stopping, then
+    transform of the validation rows, each with the launch counts set to 0
+    just before and read just after; then a ranker fit at ~16,384 rows on
+    the card and the CPU. Returns the phase's record and what phase 4 holds
+    kernel F to (the training rows' labels, query sizes and fitted margins)."""
+    from synapseml_tpu_torch.core import Table
+    from synapseml_tpu_torch.gbdt.estimators import LightGBMRanker
+    from synapseml_tpu_torch.gbdt.metrics import metric_ndcg
+    from synapseml_tpu_torch.tools.schema_data import FITS, MSLR_TRAIN, MSLR_VALID, mslr_rows
+
+    t0 = time.perf_counter()
+    x_tr, y_tr, s_tr = mslr_rows(seed, *MSLR_TRAIN)
+    x_va, y_va, s_va = mslr_rows(seed, *MSLR_VALID, part=1)
+    n_tr, n_va = len(y_tr), len(y_va)
+    data_s = time.perf_counter() - t0
+    fit_params = FITS["mslr"][2]
+    params = dict(fit_params, validation_indicator_col="validation", early_stopping_round=3)
+    table = Table({"features": np.concatenate([x_tr, x_va]),
+                   "label": np.concatenate([y_tr, y_va]),
+                   "group": np.repeat(np.arange(len(s_tr) + len(s_va)),
+                                      np.concatenate([s_tr, s_va])),
+                   "validation": np.arange(n_tr + n_va) >= n_tr})
+    model, out, fit_s, transform_s, fit_l, trans_l = fit_and_transform(
+        kernels, LightGBMRanker(**params), table, Table({"features": x_va}))
+    del table
+    b = model.booster
+    pred = np.asarray(out["prediction"])
+    if pred.shape != (n_va,) or not np.isfinite(pred).all():
+        fail(f"ranker transform: prediction {pred.shape}, finite {np.isfinite(pred).all()}")
+    ndcg = metric_ndcg(10)
+    heldout = ndcg(y_va, pred, None, s_va)
+    random_order = ndcg(y_va, np.random.default_rng(seed + 9).random(n_va), None, s_va)
+    series = [r["eval0_ndcg@10"] for r in b.evals_result]
+    trained = len(series)
+    # the model cut at each iteration, its margins as the eval path sums them:
+    # each tree's f32 scale-times-leaf (leaf ids from kernel B), added in f64
+    leaves = b.predict_leaf(x_va, num_iteration=b.num_trees)
+    terms = np.stack([b.leaf_value[t, 0][leaves[:, t]] * np.float32(b.tree_scale[t])
+                      for t in range(b.num_trees)], 1).astype(np.float64)
+    margins = np.cumsum(terms, axis=1)
+    cut = [ndcg(y_va, margins[:, i], None, s_va) for i in range(trained)]
+    cut_err = float(np.abs(np.array(series) - np.array(cut)).max())
+    # kernel B's f32 sums order near-ties otherwise: reported, not held
+    score_err = max(abs(series[i] - ndcg(y_va, b.raw_predict(x_va, num_iteration=i + 1),
+                                         None, s_va)) for i in range(trained))
+    del leaves, terms, margins
+    fitted = b.raw_predict(x_tr).astype(np.float32)  # the margins of the last iteration kept
+    # the same fit at ~16,384 rows on the card and the CPU
+    k = int(np.searchsorted(np.cumsum(s_tr), SMALL_FIT_ROWS, side="right"))
+    kv = int(np.searchsorted(np.cumsum(s_va), SMALL_FIT_ROWS // 4, side="right"))
+    n_small, nv_small = int(s_tr[:k].sum()), int(s_va[:kv].sum())
+    xv_small = x_va[:nv_small].copy()
+    del x_va, out
+    small_err = small_fit_same_trees(
+        LightGBMRanker, params, np.concatenate([x_tr[:n_small], xv_small]),
+        np.concatenate([y_tr[:n_small], y_va[:nv_small]]), xv_small, col="prediction",
+        validation=np.arange(n_small + nv_small) >= n_small,
+        extra_cols={"group": np.repeat(np.arange(k + kv), np.concatenate([s_tr[:k],
+                                                                            s_va[:kv]]))},
+        fields=("leaf_value", "leaf_hess"))
+    del x_tr, xv_small
+    rec = {"phase": "gbdt_mslr_ranker", "rows_train": n_tr, "queries_train": len(s_tr),
+           "rows_valid": n_va, "queries_valid": len(s_va), "features": 136,
+           "largest_query": int(max(s_tr.max(), s_va.max())), **fit_params,
+           "early_stopping_round": 3, "data_s": data_s, "fit_s": fit_s,
+           "transform_s": transform_s, "transform_rows_per_s": n_va / transform_s,
+           "heldout_ndcg10": heldout, "random_order_ndcg10": random_order,
+           "eval_ndcg10": series, "best_iteration": b.best_iteration, "trees": b.num_trees,
+           "eval_vs_model_ndcg_max_diff": cut_err,
+           "eval_vs_kernel_b_margin_ndcg_max_diff": score_err, "fit_launches": fit_l,
+           "transform_launches": trans_l, "small_fit_rows": n_small + nv_small,
+           "small_fit_prediction_max_diff": small_err}
+    log(json.dumps(rec))
+    if not heldout >= random_order + 0.1:
+        fail(f"ranker: held-out NDCG@10 {heldout:.4f} is not 0.1 over a random order's "
+             f"{random_order:.4f}")
+    if cut_err != 0.0:
+        fail(f"ranker: eval NDCG series differs from the models cut there by {cut_err}")
+    if fit_l["gbdt_lambdarank"] != trained:
+        fail(f"kernel F launched {fit_l['gbdt_lambdarank']} times in {trained} iterations")
+    if fit_l["gbdt_split_search"] != split_steps(dict(fit_params, num_iterations=trained)):
+        fail(f"kernel E launched {fit_l['gbdt_split_search']} times in the ranker fit")
+    if fit_l["gbdt_histogram"] < 1 or fit_l["gbdt_bin_features"] < 2:
+        fail(f"the ranker fit launched {fit_l}")
+    if trans_l["gbdt_tree_score"] < 1 or trans_l["gbdt_bin_features"] < 1:
+        fail(f"the ranker transform launched {trans_l}")
+    if not small_err <= 1e-6:
+        fail(f"ranker small fit: predictions differ by {small_err} card vs CPU")
+    return {"record": rec, "y": y_tr, "sizes": s_tr, "fitted": fitted,
+            "truncation": int(fit_params["lambdarank_truncation_level"])}
+
+
+def model_surface(kernels, higgs_model, adult_model, x_te, xa_te) -> dict:
+    """Phase 2e's model surface on the card: ``features_shap_col`` of the
+    HIGGS and Adult models on SHAP_ROWS held-out rows (contributions add up
+    to kernel B's margin within SHAP_TOL), the HIGGS model through
+    ``save_native_model`` / ``load_native_model`` (bit-equal on the card
+    and the CPU, within SHAP_TOL of the model it came from), and the
+    hand-written LightGBM texts scoring on the card as on the CPU."""
+    import os
+    import tempfile
+
+    from synapseml_tpu_torch.core import Table
+    from synapseml_tpu_torch.gbdt.boost import GBDTBooster
+    from synapseml_tpu_torch.gbdt.estimators import LightGBMClassificationModel
+    from synapseml_tpu_torch.tools.kernel_cases import native_texts
+
+    rec = {"phase": "gbdt_model_surface", "rows": SHAP_ROWS, "tolerance": SHAP_TOL}
+    for key, m, xs in (("higgs", higgs_model, x_te[:SHAP_ROWS]),
+                       ("adult", adult_model, xa_te[:SHAP_ROWS])):
+        stage = LightGBMClassificationModel(booster=m.booster, features_shap_col="shap")
+        reset(kernels)
+        t0 = time.perf_counter()
+        out = stage.transform(Table({"features": xs}))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = counts(kernels)
+        shap = np.asarray(out["shap"])
+        raw = np.asarray(out["rawPrediction"])[:, 1]
+        err = float(np.abs(shap.sum(axis=1) - raw).max())
+        rec[key] = {"transform_s": wall, "rows_per_s": len(xs) / wall,
+                    "additivity_max_err": err, "launches": launches}
+        if shap.shape != (len(xs), xs.shape[1] + 1) or not np.isfinite(shap).all():
+            fail(f"{key} contributions: shape {shap.shape}, finite {np.isfinite(shap).all()}")
+        if not err <= SHAP_TOL:
+            fail(f"{key} contributions add up to kernel B's margin within {err} > {SHAP_TOL}")
+        if launches["gbdt_bin_features"] < 2 or launches["gbdt_tree_score"] < 1:
+            fail(f"{key} transform with contributions launched {launches}")
+    xs = x_te[:SHAP_ROWS]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "higgs.txt")
+        LightGBMClassificationModel(booster=higgs_model.booster).save_native_model(path)
+        back = LightGBMClassificationModel.load_native_model(path).booster
+        rec["native_text_bytes"] = os.path.getsize(path)
+    reset(kernels)
+    raw_card = back.raw_predict(xs)
+    launches = counts(kernels)
+    raw_cpu = back.raw_predict(xs, device="cpu")
+    drift = float(np.abs(raw_card - higgs_model.booster.raw_predict(xs)).max())
+    rec["native_round_trip"] = {"launches": launches, "vs_original_max_diff": drift,
+                                "card_equals_cpu": bool(np.array_equal(raw_card, raw_cpu))}
+    if not np.array_equal(raw_card, raw_cpu):
+        fail("a model read back by load_native_model scores differently on the card and the CPU")
+    if not drift <= SHAP_TOL or launches["gbdt_bin_features"] < 1 or \
+            launches["gbdt_tree_score"] < 1:
+        fail(f"native round trip: {rec['native_round_trip']}")
+    probes = np.array([-2.0, -1.0, 0.0, 5e-36, -5e-36, 1e-35, 2e-35, 0.25, 1.5, 3.0, np.nan],
+                      np.float32)
+    for name, text in native_texts().items():
+        booster = GBDTBooster.from_native_model(text)
+        d = booster.mapper.n_features
+        grid = np.stack(np.meshgrid(*([probes] * d), indexing="ij"), -1).reshape(-1, d)
+        if not np.array_equal(booster.raw_predict(grid), booster.raw_predict(grid, device="cpu")):
+            fail(f"the hand-written LightGBM text {name!r} scores differently on the card")
+    rec["handwritten_texts_card_equals_cpu"] = sorted(native_texts())
+    log(json.dumps(rec))
+    return rec
+
+
 def _grown_tree(booster, t: int, dev):
     """Tree ``t`` (class 0) of a booster as a ``GrownTree`` on ``dev``."""
     from synapseml_tpu_torch.gbdt.grow import GrownTree
@@ -468,6 +661,8 @@ def main() -> int:
     from synapseml_tpu_torch.gbdt.estimators import (LightGBMClassificationModel,
                                                      LightGBMClassifier)
     from synapseml_tpu_torch.gbdt.histogram import histogram, histogram_plain
+    from synapseml_tpu_torch.gbdt.lambdarank import (QueryGroups, lambda_grads,
+                                                     lambda_grads_plain, pair_count)
     from synapseml_tpu_torch.gbdt.split_search import (SplitWorkspace, left_set,
                                                        split_gains_plain, split_search,
                                                        split_search_plain)
@@ -669,6 +864,12 @@ def main() -> int:
                     "identical_trees_card_cpu": sorted(small_sampled),
                     "raw_max_diff": small_sampled,
                     "phase_s": time.perf_counter() - t0}))
+
+    # -- phase 2e: LightGBMRanker at MSLR-WEB30K width, and the model surface ---------------
+    t0 = time.perf_counter()
+    ranker = ranker_phase(kernels, args.seed, split_steps)
+    surface = model_surface(kernels, model, model_a, x_te, xa_te)
+    log(f"phase 2e in {time.perf_counter() - t0:.1f} s")
 
     # -- phase 3: flash attention's entry point -----------------------------------------
     gen = torch.Generator(device=dev).manual_seed(args.seed)
@@ -1043,6 +1244,53 @@ def main() -> int:
            launches_covertype_fit=fit_lc["gbdt_split_search"],
            split_steps={"higgs": split_steps(GBDT), "adult": split_steps(adult_gbdt),
                         "covertype": split_steps(cov_gbdt, COVTYPE_CLASSES)})
+
+    # F: the LambdaRank gradient over phase 2e's training rows (18,919 queries
+    # of up to 1,251 documents), at iteration 0 (every score tied) and at the
+    # fitted ranker's margins: bit-equal to the plain version (the same
+    # exp_f32, sums in j order). Bound: the rows' bytes (score, label,
+    # weight, gain in; g, h out) against one exponential a counted pair (its
+    # rho feeds both documents) at the SFU rate; no one PyTorch call computes
+    # the function (library null).
+    groups = QueryGroups(ranker["sizes"], ranker["y"], ranker["truncation"], dev)
+    n_rank = groups.n
+    y_rank = torch.from_numpy(ranker["y"].astype(np.float32)).to(dev)
+    w_rank = torch.ones(n_rank, device=dev)
+    rank_shapes = {}
+    for key, score_np in (("iteration0", np.zeros(n_rank, np.float32)),
+                          ("fitted", ranker["fitted"])):
+        score = torch.from_numpy(score_np).to(dev)
+        g_k, h_k = lambda_grads(score, y_rank, w_rank, groups)
+        (g_p, h_p), plain_ms = timed_once(lambda: lambda_grads_plain(score, y_rank, w_rank,
+                                                                     groups))
+        ulps = max(int((a.view(torch.int32).long() - b.view(torch.int32).long()).abs().max())
+                   for a, b in ((g_k, g_p), (h_k, h_p)))
+        if ulps > F_ULPS:
+            fail(f"lambdarank kernel ({key}) differs from the plain version by {ulps} ulps")
+        if not (torch.isfinite(g_k).all() and (h_k > 0).all()):
+            fail(f"lambdarank kernel ({key}): non-finite g or h <= 0")
+        # the rows whose g and h survive the reference's pre-rounding grid
+        # (the next power of two over the rows times max|g|, 24 bits)
+        n_bound_rank = 1 << (n_rank - 1).bit_length()
+        live = {f"{name}_nonzero_after_preround": float(
+            (_preround(t[:, None], n_bound_rank)[:, 0] != 0).float().mean())
+            for name, t in (("g", g_k), ("h", h_k))}
+        ms = time_ms(lambda: lambda_grads(score, y_rank, w_rank, groups), 10)
+        pairs = pair_count(ranker["sizes"], ranker["y"], ranker["truncation"], score_np)
+        b = bound(n_rank * 16, pairs, EX2_PER_S)
+        rank_shapes[key] = {"shape": f"n={n_rank} Q={len(ranker['sizes'])} G={groups.G} "
+                                     f"truncation={groups.truncation}",
+                            "ms": ms, "plain_ms": plain_ms, "pairs": pairs, "bound_ms": b[0],
+                            "bound_by": b[1], "max_ulps": ulps, "max_abs_err": 0.0,
+                            "max_abs_g": float(g_k.abs().max()), **live}
+        log(json.dumps({"lambdarank": key, **rank_shapes[key]}))
+        del g_k, h_k, g_p, h_p
+    main_f = rank_shapes["fitted"]
+    record("gbdt_lambdarank", ranker["record"]["fit_launches"]["gbdt_lambdarank"], 0.0,
+           main_f["ms"], main_f["plain_ms"], (main_f["bound_ms"], main_f["bound_by"]), None,
+           shape=main_f["shape"] + ", the fitted ranker's margins", shapes=rank_shapes,
+           ulp_tolerance=F_ULPS)
+    del groups, y_rank, w_rank
 
     # C: flash attention at the entry point's shapes (bf16, then f32)
     sdpa = torch.nn.functional.scaled_dot_product_attention

@@ -13,6 +13,8 @@ _LAZY = {
     "LightGBMClassificationModel": "estimators",
     "LightGBMRegressor": "estimators",
     "LightGBMRegressionModel": "estimators",
+    "LightGBMRanker": "estimators",
+    "LightGBMRankerModel": "estimators",
     "GBDTBooster": "boost",
     "train": "boost",
     "BinMapper": "binning",

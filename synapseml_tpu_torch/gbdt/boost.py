@@ -4,9 +4,14 @@ Port of ``synapseml_tpu/gbdt/boost.py`` on one device: ``gbdt``, ``goss``,
 ``dart`` and ``rf`` boosting with bagging (plain and class-aware) and
 feature fraction, eval sets with early stopping, the objectives ``binary``,
 ``multiclass`` (softmax, one tree per class and iteration), ``regression``
-(l2), ``l1``, ``huber``, ``poisson``, ``quantile`` and ``tweedie`` (``l1``
-and ``quantile`` renew their leaf values as residual percentiles), numeric
-and categorical features. The reference
+(l2), ``l1``, ``huber``, ``poisson``, ``quantile``, ``tweedie`` (``l1``
+and ``quantile`` renew their leaf values as residual percentiles) and
+``lambdarank`` (over contiguous query groups, its gradient kernel F of
+:mod:`.lambdarank`, evaluated by NDCG@k on the host), numeric and
+categorical features. The booster explains (``predict_contrib``: exact
+TreeSHAP or Saabas), ranks its features (``feature_importance``) and reads
+and writes LightGBM's text model (:mod:`.native_model`) and the reference's
+JSON model string. The reference
 runs the loop as one ``lax.scan`` program; here it is a Python loop over
 iterations whose body (objective gradients -> pre-rounding -> tree growth ->
 score update) queues on the device without reading anything back, so the
@@ -21,8 +26,8 @@ Gradients are pre-rounded to a summation-exact grid (:func:`_preround`, the
 reference's ``boost.py:1148``), so every histogram cell is exact in any
 summation order: the GPU kernels reproduce the reference's trees.
 
-Not ported yet: lambdarank (refused with ``NotImplementedError``),
-continued training and batch training.
+Not ported yet: continued training, batch training, sparse input and the
+mesh (distributed lambdarank included).
 """
 
 from __future__ import annotations
@@ -38,11 +43,12 @@ from ..core.serialization import register_state_class
 from ..runtime.device import resolve_device
 from .binning import BinMapper
 from .grow import GrownTree, TreeConfig, grow_tree, predict_binned
-from .metrics import DEFAULT_METRIC, METRICS, device_metric
+from .lambdarank import QueryGroups, lambda_grads
+from .metrics import DEFAULT_METRIC, METRICS, device_metric, metric_ndcg
 from .sampling import Sampler
 from .split_search import SplitWorkspace
 
-__all__ = ["GBDTBooster", "train", "OBJECTIVES"]
+__all__ = ["GBDTBooster", "train", "OBJECTIVES", "make_lambdarank"]
 
 
 def _sigmoid(z):
@@ -146,6 +152,24 @@ def _obj_multiclass(num_class):
     return init, grads
 
 
+def make_lambdarank(group_sizes, label, truncation: int = 30, sigma: float = 1.0,
+                    device="cpu"):
+    """(init, grads) of the LambdaRank objective over contiguous query groups
+    (the reference's ``make_lambdarank``, ``boost.py:214``): init 0, grads
+    kernel F's (:func:`.lambdarank.lambda_grads`). The rows' ``label`` comes
+    with the groups because the gains and ideal DCGs are built once, here,
+    on ``device``."""
+    groups = QueryGroups(group_sizes, label, truncation, device)
+
+    def init(y, w):
+        return 0.0
+
+    def grads(score, y, w):
+        return lambda_grads(score, y, w, groups, sigma)
+
+    return init, grads
+
+
 # the reference's table (``boost.py:323-336``), plus two l2 aliases
 OBJECTIVES = {"binary": _obj_binary, "regression": _obj_l2, "l2": _obj_l2,
               "mean_squared_error": _obj_l2, "mse": _obj_l2, "regression_l2": _obj_l2,
@@ -171,6 +195,7 @@ _DEFAULTS = dict(
     num_class=1, seed=0, bagging_seed=3, metric=None, early_stopping_round=0,
     early_stopping_min_delta=0.0,
     alpha=0.9, tweedie_variance_power=1.5, verbose=0,
+    lambdarank_truncation_level=30, sigmoid=1.0, ndcg_at=10,
 )
 
 # LightGBM parameter aliases (config.h alias table, the commonly used rows)
@@ -419,6 +444,123 @@ class GBDTBooster:
             return np.exp(raw)
         return raw
 
+    # -- explanation ---------------------------------------------------------------
+
+    def predict_contrib(self, x, num_iteration: Optional[int] = None,
+                        approximate: bool = False, device=None) -> np.ndarray:
+        """Per-feature contributions plus the expected value (last column):
+        (n, d+1), or (C, n, d+1) for multiclass; each row sums to
+        ``raw_predict``. Exact TreeSHAP by default (the reference's
+        ``featuresShap``), ``approximate=True`` for Saabas path attribution.
+
+        The rows are binned on ``device`` (kernel D on a GPU) and the bins
+        brought to the host, where the tree walks run in numpy. Saabas
+        departs from the reference twice (ROADMAP queue 3): a split with
+        ``bin < 0`` routes by its set's membership of the row's bin, as the
+        exact path does (the reference compares the raw value with the
+        threshold, which misroutes imported ``zero_as_missing`` splits), and
+        the refusal of categorical splits looks at the first ``T`` trees
+        only, the ones it walks."""
+        xv = torch.as_tensor(x)
+        n, d = xv.shape
+        binned = self._binned_on(xv, device)[1].cpu().numpy().astype(np.int32)
+        if not approximate:
+            out = self._contrib_shap_panel(binned, n, d, num_iteration)
+        else:
+            out = self._contrib_saabas_panel(xv.cpu().numpy().astype(np.float64), binned,
+                                             n, d, num_iteration)
+        out[:, :, d] += self.base_score[:, None]
+        return out[0] if self.num_class == 1 else out
+
+    def _contrib_saabas_panel(self, xv: np.ndarray, binned: np.ndarray, n: int, d: int,
+                              num_iteration) -> np.ndarray:
+        """Saabas attributions, (C, n, d+1) without the base score (the
+        reference's ``_contrib_saabas_panel``, ``boost.py:782``, with the two
+        departures of :meth:`predict_contrib`)."""
+        T = self._used_trees(num_iteration)
+        if self.cat_set is not None and bool(
+                ((self.bin[:T] < 0) & ~np.isfinite(self.threshold[:T])
+                 & (self.parent[:T] >= 0)).any()):
+            raise ValueError("approximate (Saabas) contributions don't support "
+                             "categorical splits; use approximate=False")
+        C = self.num_class
+        out = np.zeros((C, n, d + 1), dtype=np.float64)
+        for t in range(T):
+            sc = self.tree_scale[t] * (1.0 / T if self.boosting == "rf" else 1.0)
+            for c in range(C):
+                par = self.parent[t, c]
+                feat = self.feature[t, c]
+                thr = self.threshold[t, c]
+                V = self.leaf_value[t, c].astype(np.float64).copy()
+                Hs = np.maximum(self.leaf_hess[t, c].astype(np.float64), 1e-12).copy()
+                L1 = par.shape[0]
+                left_val = np.zeros(L1)
+                right_val = np.zeros(L1)
+                for s in range(L1 - 1, -1, -1):
+                    p = par[s]
+                    if p < 0:
+                        continue
+                    left_val[s], right_val[s] = V[p], V[s + 1]
+                    tot = Hs[p] + Hs[s + 1]
+                    V[p] = (V[p] * Hs[p] + V[s + 1] * Hs[s + 1]) / tot
+                    Hs[p] = tot
+                node = np.zeros(n, dtype=np.int32)
+                cur = np.full(n, V[0])
+                out[c, :, d] += V[0] * sc
+                for s in range(L1):
+                    p = par[s]
+                    if p < 0:
+                        continue
+                    col = xv[:, feat[s]]
+                    at_p = node == p
+                    if self.bin[t, c, s] < 0:  # a set split: left = the bin is in the set
+                        go_right = at_p & ~(self.cat_set[t, c, s][binned[:, feat[s]]] > 0)
+                    else:
+                        with np.errstate(invalid="ignore"):
+                            go_right = at_p & (np.isnan(col) | (col > thr[s]))
+                    go_left = at_p & ~go_right
+                    new = np.where(go_right, right_val[s], np.where(go_left, left_val[s], cur))
+                    out[c, at_p, feat[s]] += (new[at_p] - cur[at_p]) * sc
+                    node[go_right] = s + 1
+                    cur = new
+        return out
+
+    def _contrib_shap_panel(self, binned: np.ndarray, n: int, d: int,
+                            num_iteration) -> np.ndarray:
+        """Exact TreeSHAP, (C, n, d+1) without the base score; each row sums,
+        with the base, to ``raw_predict``."""
+        from .treeshap import build_explicit_tree, expected_value, tree_shap
+
+        T = self._used_trees(num_iteration)
+        C = self.num_class
+        out = np.zeros((C, n, d + 1), dtype=np.float64)
+        for t in range(T):
+            sc = self.tree_scale[t] * (1.0 / T if self.boosting == "rf" else 1.0)
+            for c in range(C):
+                root = build_explicit_tree(
+                    self.parent[t, c], self.feature[t, c], self.bin[t, c],
+                    self.leaf_value[t, c], self.leaf_hess[t, c],
+                    self.cat_set[t, c] if self.cat_set is not None else None)
+                out[c, :, :d] += sc * tree_shap(root, binned, d)
+                out[c, :, d] += sc * expected_value(root)
+        return out
+
+    def feature_importance(self, importance_type: str = "split",
+                           num_iteration: Optional[int] = None) -> np.ndarray:
+        """Per feature, the count of splits on it ('split') or the sum of
+        their gains ('gain'), over the first ``num_iteration`` trees."""
+        T = self._used_trees(num_iteration)
+        out = np.zeros(self.mapper.n_features)
+        used = self.parent[:T] >= 0
+        feats = self.feature[:T][used]
+        if importance_type == "split":
+            np.add.at(out, feats, 1.0)
+        elif importance_type == "gain":
+            np.add.at(out, feats, self.gain[:T][used].astype(np.float64))
+        else:
+            raise ValueError(f"importance_type must be 'split'|'gain', got {importance_type!r}")
+        return out
+
     # -- persistence ---------------------------------------------------------------
 
     def state_dict(self) -> Dict[str, Any]:
@@ -436,9 +578,8 @@ class GBDTBooster:
 
     @staticmethod
     def from_state_dict(d: Dict[str, Any]) -> "GBDTBooster":
-        """Build a booster from a ``state_dict`` — this port's or the reference's."""
-        if d["objective"] not in OBJECTIVES:
-            raise NotImplementedError(f"objective {d['objective']!r} is not ported yet")
+        """Build a booster from a ``state_dict`` — this port's or the reference's
+        (any objective: scoring reads it only for the link function)."""
         boosting = str(d.get("boosting", "gbdt"))
         if boosting not in ("gbdt", "goss", "dart", "rf"):
             raise NotImplementedError(f"boosting {boosting!r} is not ported yet")
@@ -463,6 +604,60 @@ class GBDTBooster:
             cat_set=(np.asarray(d["cat_set"], dtype=np.int8)
                      if d.get("cat_set") is not None else None),
         )
+
+
+    def save_native_model(self) -> str:
+        """LightGBM's text model (a stock LightGBM loads it; the reference's
+        ``save_native_model``, byte for byte)."""
+        from .native_model import booster_to_native
+
+        return booster_to_native(self)
+
+    @staticmethod
+    def from_native_model(model_str: str) -> "GBDTBooster":
+        """A booster from LightGBM's text model: its mapper's edges are the
+        model's own thresholds, so binned scoring (kernels D and B on a GPU)
+        takes the model's decisions."""
+        from .native_model import booster_from_native
+
+        return booster_from_native(model_str)
+
+    def to_json(self) -> str:
+        """The reference's JSON model string (``synapseml_tpu.gbdt.v1``), which
+        either package reads."""
+        return json.dumps({
+            "format": "synapseml_tpu.gbdt.v1",
+            "objective": self.objective,
+            "num_class": self.num_class,
+            "boosting": self.boosting,
+            "base_score": self.base_score.tolist(),
+            "best_iteration": self.best_iteration,
+            "feature_names": self.feature_names,
+            "mapper": self.mapper.to_dict(),
+            "tree_scale": self.tree_scale.tolist(),
+            "arrays": {k: getattr(self, k).tolist()
+                       for k in ("parent", "feature", "threshold", "bin", "gain",
+                                 "leaf_value", "leaf_hess")},
+            "cat_set": self.cat_set.tolist() if self.cat_set is not None else None,
+        })
+
+    @staticmethod
+    def from_json(s: str) -> "GBDTBooster":
+        d = json.loads(s)
+        if d.get("format") != "synapseml_tpu.gbdt.v1":
+            raise ValueError(f"not a gbdt model string (format={d.get('format')!r})")
+        return GBDTBooster.from_state_dict(dict(d["arrays"], **{
+            k: d.get(k) for k in ("objective", "num_class", "boosting", "base_score",
+                                  "best_iteration", "feature_names", "mapper",
+                                  "tree_scale", "cat_set")}))
+
+    @staticmethod
+    def from_model_string(s: str) -> "GBDTBooster":
+        """A booster from either model string, told apart by its first
+        character: the JSON one or LightGBM's text."""
+        if s.lstrip()[:1] == "{":
+            return GBDTBooster.from_json(s)
+        return GBDTBooster.from_native_model(s)
 
 
 def _categorical_indices(cats, feature_names) -> List[int]:
@@ -520,7 +715,9 @@ class _EvalSet:
 
 def train(params: Dict[str, Any], x, y, weight: Optional[np.ndarray] = None,
           device=None, feature_names: Optional[List[str]] = None,
-          eval_set: Optional[Sequence[Tuple[Any, Any]]] = None) -> GBDTBooster:
+          eval_set: Optional[Sequence[Tuple[Any, Any]]] = None,
+          group: Optional[np.ndarray] = None,
+          eval_group: Optional[Sequence[np.ndarray]] = None) -> GBDTBooster:
     """Train a booster on ``device`` (default: the GPU; ``"cpu"`` runs the
     plain PyTorch versions of the kernels).
 
@@ -529,23 +726,40 @@ def train(params: Dict[str, Any], x, y, weight: Optional[np.ndarray] = None,
     ``eval_set``: ``(x, y)`` pairs scored after every iteration with
     ``metric``; the first one drives early stopping. The booster's
     ``evals_result`` holds a record per iteration
-    (``{"iteration": i, "eval0_<metric>": value, ...}``)."""
+    (``{"iteration": i, "eval0_<metric>": value, ...}``).
+    ``objective="lambdarank"`` takes ``group``, the query sizes of the rows,
+    which are contiguous by query, and ``eval_group``, one such array per
+    eval set; its metric is ``ndcg@<ndcg_at>``."""
     dev = resolve_device(device)
     p = dict(_DEFAULTS)
     p.update(_canonicalize_params(params))
     obj_name = p["objective"]
-    init_fn, grad_fn = _resolve_objective(p)
-    C = int(p["num_class"]) if obj_name in _MULTICLASS else 1
-    boosting = _check_boosting(p, obj_name)
-    metric_name = p["metric"] or DEFAULT_METRIC.get(obj_name, "l2")
-    if metric_name not in METRICS:
-        raise ValueError(f"unknown metric {metric_name!r}; available: {sorted(METRICS)}")
-    metric_fn, higher_better = METRICS[metric_name]
-
     xt = torch.as_tensor(x)
     n, d = xt.shape
     y = np.asarray(y, dtype=np.float64)
     w_np = np.ones(n) if weight is None else np.asarray(weight, dtype=np.float64) + 0.0
+
+    ndcg_fn = None
+    if obj_name == "lambdarank":  # the reference's checks, boost.py:1631-1652, :2076-2082
+        if group is None:
+            raise ValueError("objective='lambdarank' requires group (query sizes, "
+                             "rows ordered by query)")
+        if int(np.sum(group)) != n:
+            raise ValueError(f"group sizes sum to {int(np.sum(group))}, expected {n}")
+        if eval_set and (eval_group is None or len(eval_group) != len(eval_set)):
+            raise ValueError("lambdarank eval_set requires matching eval_group")
+        init_fn, grad_fn = make_lambdarank(group, y, int(p["lambdarank_truncation_level"]),
+                                           float(p["sigmoid"]), dev)
+        metric_name = f"ndcg@{int(p['ndcg_at'])}"
+        ndcg_fn, metric_fn, higher_better = metric_ndcg(int(p["ndcg_at"])), None, True
+    else:
+        init_fn, grad_fn = _resolve_objective(p)
+        metric_name = p["metric"] or DEFAULT_METRIC.get(obj_name, "l2")
+        if metric_name not in METRICS:
+            raise ValueError(f"unknown metric {metric_name!r}; available: {sorted(METRICS)}")
+        metric_fn, higher_better = METRICS[metric_name]
+    C = int(p["num_class"]) if obj_name in _MULTICLASS else 1
+    boosting = _check_boosting(p, obj_name)
 
     cat_features = _categorical_indices(p["categorical_feature"], feature_names)
     mapper = BinMapper(max_bin=int(p["max_bin"]), seed=int(p["seed"]),
@@ -589,9 +803,12 @@ def train(params: Dict[str, Any], x, y, weight: Optional[np.ndarray] = None,
     sampler = Sampler(p, y_d, d, goss=boosting == "goss")
 
     dart = boosting == "dart"
-    evals_in = [_EvalSet(mapper, ex, ey, base, dev, torch.float64 if dart else torch.float32)
+    # DART (f64 margins) and ndcg (query groups) take the reference's host
+    # metric: numpy over f64 margins, every iteration
+    host_eval = dart or ndcg_fn is not None
+    evals_in = [_EvalSet(mapper, ex, ey, base, dev, torch.float64 if host_eval else torch.float32)
                 for ex, ey in (eval_set or ())]
-    dev_metric = device_metric(metric_name)
+    dev_metric = None if host_eval else device_metric(metric_name)
     base_d = torch.as_tensor(base, dtype=torch.float32, device=dev)[None, :]
     patience = 0 if dart else int(p["early_stopping_round"])
     min_delta = float(p["early_stopping_min_delta"])
@@ -677,42 +894,48 @@ def train(params: Dict[str, Any], x, y, weight: Optional[np.ndarray] = None,
 
         if not evals_in:
             continue
-        if dart:
+        if host_eval:
             # the reference's host metric: f64 margins, numpy metric each iteration
             rec = {"iteration": it}
             for ei, e in enumerate(evals_in):
                 for c, tree in enumerate(new_trees):
                     e.raw[:, c] += ((lr * scale) * e.leaf_values(tree)).double()
                 score = e.raw.cpu().numpy()
-                rec[f"eval{ei}_{metric_name}"] = metric_fn(
-                    e.y_np, score[:, 0] if C == 1 else score, np.ones(len(e.y_np)))
-            evals.append(rec)
-            continue
-        row = []
-        for e in evals_in:
-            for c, tree in enumerate(new_trees):
-                e.raw[:, c] = e.raw[:, c] + lr * e.leaf_values(tree)
-            score = e.raw
-            if boosting == "rf":  # rf averages its trees
-                score = base_d + (score - base_d) / torch.full((), it + 1.0, device=dev)
-            row.append(dev_metric(e.y, score[:, 0] if C == 1 else score, e.w))
-        pending.append(torch.stack(row))
-        if len(pending) < chunk and it < num_iter - 1:
-            continue
-        it0 = it + 1 - len(pending)
-        panel = torch.stack(pending).cpu().numpy()  # the chunk's one read-back
-        pending = []
+                if boosting == "rf":  # rf averages its trees
+                    score = base[None, :] + (score - base[None, :]) / (it + 1)
+                score = score[:, 0] if C == 1 else score
+                ones_e = np.ones(len(e.y_np))
+                rec[f"eval{ei}_{metric_name}"] = (
+                    metric_fn(e.y_np, score, ones_e) if ndcg_fn is None
+                    else ndcg_fn(e.y_np, score, ones_e, eval_group[ei]))
+            records = [rec]
+        else:
+            row = []
+            for e in evals_in:
+                for c, tree in enumerate(new_trees):
+                    e.raw[:, c] = e.raw[:, c] + lr * e.leaf_values(tree)
+                score = e.raw
+                if boosting == "rf":  # rf averages its trees
+                    score = base_d + (score - base_d) / torch.full((), it + 1.0, device=dev)
+                row.append(dev_metric(e.y, score[:, 0] if C == 1 else score, e.w))
+            pending.append(torch.stack(row))
+            if len(pending) < chunk and it < num_iter - 1:
+                continue
+            it0 = it + 1 - len(pending)
+            panel = torch.stack(pending).cpu().numpy()  # the chunk's one read-back
+            pending = []
+            records = [dict({"iteration": it0 + j},
+                            **{f"eval{ei}_{metric_name}": float(m) for ei, m in enumerate(ms)})
+                       for j, ms in enumerate(panel)]
         stop = False
-        for j, ms in enumerate(panel):
-            rec = {"iteration": it0 + j}
-            rec.update({f"eval{ei}_{metric_name}": float(m) for ei, m in enumerate(ms)})
+        for rec in records:
             evals.append(rec)
-            m = rec[f"eval0_{metric_name}"]
+            m, done = rec[f"eval0_{metric_name}"], rec["iteration"] + 1
             if (m > best_metric + min_delta) if higher_better else (m < best_metric - min_delta):
-                best_metric, best_iter = m, it0 + j + 1
-            elif patience and it0 + j + 1 - best_iter >= patience:
-                stop = True  # drop the chunk's overshoot: the reference's stop point
-                del trees[it0 + j + 1:], tree_scales[it0 + j + 1:]
+                best_metric, best_iter = m, done
+            elif patience and done - best_iter >= patience:
+                stop = True  # drop a chunk's overshoot: the reference's stop point
+                del trees[done:], tree_scales[done:]
                 break
         if stop:
             break

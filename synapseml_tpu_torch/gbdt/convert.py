@@ -15,7 +15,8 @@ from typing import Any, Dict, Optional, Sequence
 import numpy as np
 
 from .boost import GBDTBooster
-from .estimators import LightGBMClassificationModel, LightGBMRegressionModel
+from .estimators import (LightGBMClassificationModel, LightGBMRankerModel,
+                         LightGBMRegressionModel)
 
 __all__ = ["booster_from_state", "model_from_state"]
 
@@ -24,9 +25,9 @@ def booster_from_state(state: Dict[str, Any]) -> GBDTBooster:
     """Port booster from a reference ``GBDTBooster.state_dict()``.
 
     Takes numeric and categorical (``cat_set``) splits, any class count and
-    gbdt, goss, dart and rf models (rf averages its trees); raises
-    ``NotImplementedError`` for what the port does not score yet
-    (lambdarank)."""
+    objective (lambdarank included) and gbdt, goss, dart and rf models (rf
+    averages its trees); raises ``NotImplementedError`` for another
+    boosting type."""
     return GBDTBooster.from_state_dict(dict(state))
 
 
@@ -35,11 +36,13 @@ def model_from_state(state: Dict[str, Any], labels: Optional[Sequence] = None,
     """Fitted port stage from a reference booster's ``state_dict()``: a
     :class:`LightGBMClassificationModel` for ``binary``, ``multiclass`` and
     ``softmax`` (``labels``: the class values in index order, as the
-    reference model keeps them) or a :class:`LightGBMRegressionModel`
-    otherwise."""
+    reference model keeps them), a :class:`LightGBMRankerModel` for
+    ``lambdarank`` or a :class:`LightGBMRegressionModel` otherwise."""
     booster = booster_from_state(state)
     if booster.objective in ("binary", "multiclass", "softmax"):
         return LightGBMClassificationModel(
             booster=booster, device=device,
             labels=None if labels is None else np.asarray(labels), **params)
+    if booster.objective == "lambdarank":
+        return LightGBMRankerModel(booster=booster, device=device, **params)
     return LightGBMRegressionModel(booster=booster, device=device, **params)

@@ -1,14 +1,19 @@
 """LightGBM-style estimator stages over Tables — the port's dense subset.
 
 Port of ``synapseml_tpu/gbdt/estimators.py``: ``LightGBMClassifier`` /
-``LightGBMClassificationModel`` (binary or multiclass, from the label count)
-and ``LightGBMRegressor`` / ``LightGBMRegressionModel`` (l2, l1, huber,
-poisson, quantile, tweedie), dense feature columns, categorical slots by
+``LightGBMClassificationModel`` (binary or multiclass, from the label count),
+``LightGBMRegressor`` / ``LightGBMRegressionModel`` (l2, l1, huber,
+poisson, quantile, tweedie) and ``LightGBMRanker`` / ``LightGBMRankerModel``
+(lambdarank over ``group_col``), dense feature columns, categorical slots by
 index or by slot name; gbdt, goss, dart and rf boosting with bagging and
 feature fraction; validation rows (``validation_indicator_col``) scored with
-``metric`` after every iteration, with early stopping. Params keep the
-reference's names and defaults. Not ported yet: ``init_score_col``,
-``num_batches`` and continued training.
+``metric`` (the ranker: NDCG@``ndcg_at``) after every iteration, with early
+stopping. The models write per-feature contributions
+(``features_shap_col``), save and load LightGBM's text model
+(``save_native_model`` / ``load_native_model``) and report feature
+importances. Params keep the reference's names and defaults;
+``init_score_col`` is admitted in the input schema and not read, as in the
+reference. Not ported yet: ``num_batches`` and continued training.
 
 ``device`` picks where fit and transform run: the GPU by default, ``"cpu"``
 for the plain PyTorch versions of the kernels.
@@ -28,6 +33,7 @@ from .boost import GBDTBooster, train
 __all__ = [
     "LightGBMClassifier", "LightGBMClassificationModel",
     "LightGBMRegressor", "LightGBMRegressionModel",
+    "LightGBMRanker", "LightGBMRankerModel",
 ]
 
 _FEATURES_SPEC = ColumnSpec("any", "vector")
@@ -52,7 +58,11 @@ class _LightGBMBase(Estimator):
     validation_indicator_col = Param(
         "optional bool column marking validation rows (reference "
         "validationIndicatorCol)", str, default=None)
+    init_score_col = Param("optional initial raw-score column (admitted in the input "
+                           "schema, not read: the reference's rule)", str, default=None)
     leaf_prediction_col = Param("optional leaf-index output column", str, default=None)
+    features_shap_col = Param("optional per-feature contribution output column",
+                              str, default=None)
     device = Param("'cuda[:i]' (default: the GPU) or 'cpu'", str, default=None)
 
     boosting_type = Param("gbdt | rf | dart | goss", str, default="gbdt",
@@ -117,7 +127,15 @@ class _LightGBMBase(Estimator):
             cols[self.weight_col] = ColumnSpec("float", "scalar")
         if self.validation_indicator_col:
             cols[self.validation_indicator_col] = ColumnSpec("any", "scalar")
+        if self.init_score_col:
+            cols[self.init_score_col] = ColumnSpec("float", "any")
         return TableSchema(cols)
+
+    def _model_params(self) -> dict:
+        """The output params every fitted model takes from its estimator."""
+        return dict(features_col=self.features_col, prediction_col=self.prediction_col,
+                    leaf_prediction_col=self.leaf_prediction_col,
+                    features_shap_col=self.features_shap_col, device=self.device)
 
     def _train_params(self) -> dict:
         return {
@@ -157,8 +175,10 @@ class _LightGBMBase(Estimator):
             return table.filter(~mask), table.filter(mask)
         return table, None
 
-    def _fit_booster(self, table: Table, extra_params: Optional[dict] = None
-                     ) -> GBDTBooster:
+    def _fit_booster(self, table: Table, extra_params: Optional[dict] = None,
+                     group_sizes=None) -> GBDTBooster:
+        """Train on ``table``'s rows; ``group_sizes(rows)`` gives the query
+        sizes of the training rows and of the validation rows (lambdarank)."""
         self._validate_input(table, self.features_col, self.label_col)
         tr, val = self._split_validation(table)
         x = _features(tr, self.features_col)
@@ -168,9 +188,14 @@ class _LightGBMBase(Estimator):
         params = self._train_params()
         params.update(extra_params or {})
         eval_set = None
+        kw = {}
         if val is not None and val.num_rows:
             eval_set = [(_features(val, self.features_col),
                          np.asarray(val[self.label_col], dtype=np.float64))]
+            if group_sizes is not None:
+                kw["eval_group"] = [group_sizes(val)]
+        if group_sizes is not None:
+            kw["group"] = group_sizes(tr)
         # categorical_slot_names resolve against the features column's
         # slot-name metadata, as in the reference
         slot_names = table.meta.get(self.features_col, {}).get("slot_names")
@@ -180,7 +205,7 @@ class _LightGBMBase(Estimator):
                 f"column: Table(meta={{{self.features_col!r}: {{'slot_names': [...]}}}})")
         return train(params, x, y, weight=w, device=self.device,
                      feature_names=list(slot_names) if slot_names is not None else None,
-                     eval_set=eval_set)
+                     eval_set=eval_set, **kw)
 
 
 class _LightGBMModelBase(Model):
@@ -191,25 +216,55 @@ class _LightGBMModelBase(Model):
     features_col = Param("features column", str, default="features")
     prediction_col = Param("prediction output column", str, default="prediction")
     leaf_prediction_col = Param("optional leaf-index output column", str, default=None)
+    features_shap_col = Param("optional per-feature contribution output column",
+                              str, default=None)
     device = Param("'cuda[:i]' (default: the GPU) or 'cpu'", str, default=None)
     booster = ComplexParam("trained GBDTBooster", object, default=None)
 
     def input_schema(self) -> TableSchema:
         return TableSchema({self.features_col: _FEATURES_SPEC})
 
-    def _leaf_schema(self, schema: TableSchema) -> TableSchema:
+    def _extra_schema(self, schema: TableSchema) -> TableSchema:
         if self.leaf_prediction_col:
             schema = schema.with_column(self.leaf_prediction_col,
                                         ColumnSpec("float", "vector"))
+        if self.features_shap_col:
+            schema = schema.with_column(self.features_shap_col, ColumnSpec("any", "any"))
         return schema
 
-    def _leaf_output(self, out: Table, x: np.ndarray) -> Table:
-        """The leaf index of every row in every tree, (n, T*C) float64."""
+    def _extra_outputs(self, out: Table, x: np.ndarray) -> Table:
+        """The leaf index of every row in every tree, (n, T*C) float64, and
+        each row's contributions, (n, d+1) or, multiclass, (n, C*(d+1)) class
+        after class (the reference's layout)."""
         if self.leaf_prediction_col:
             out = out.with_column(self.leaf_prediction_col,
                                   self.booster.predict_leaf(x, device=self.device)
                                   .astype(np.float64))
+        if self.features_shap_col:
+            contrib = self.booster.predict_contrib(x, device=self.device)
+            if contrib.ndim == 3:
+                contrib = np.concatenate(list(contrib), axis=1)
+            out = out.with_column(self.features_shap_col, contrib)
         return out
+
+    def save_native_model(self, path: str, fmt: str = "lightgbm") -> None:
+        """Write the booster to ``path``: LightGBM's text model (``fmt='lightgbm'``,
+        which a stock LightGBM loads) or the JSON model string (``'json'``)."""
+        if fmt not in ("lightgbm", "json"):
+            raise ValueError(f"fmt must be lightgbm|json, got {fmt!r}")
+        with open(path, "w") as f:
+            f.write(self.booster.save_native_model() if fmt == "lightgbm"
+                    else self.booster.to_json())
+
+    @classmethod
+    def load_native_model(cls, path: str, **params):
+        """A model stage around the booster in ``path``, in either format."""
+        with open(path) as f:
+            text = f.read()
+        return cls(booster=GBDTBooster.from_model_string(text), **params)
+
+    def get_feature_importances(self, importance_type: str = "split") -> np.ndarray:
+        return self.booster.feature_importance(importance_type)
 
 
 class LightGBMClassifier(_LightGBMBase):
@@ -240,10 +295,8 @@ class LightGBMClassifier(_LightGBMBase):
         return LightGBMClassificationModel(
             booster=booster, labels=classes.astype(np.float64)
             if np.issubdtype(classes.dtype, np.number) else classes,
-            features_col=self.features_col, prediction_col=self.prediction_col,
             probability_col=self.probability_col,
-            raw_prediction_col=self.raw_prediction_col,
-            leaf_prediction_col=self.leaf_prediction_col, device=self.device)
+            raw_prediction_col=self.raw_prediction_col, **self._model_params())
 
 
 class LightGBMClassificationModel(_LightGBMModelBase):
@@ -253,7 +306,7 @@ class LightGBMClassificationModel(_LightGBMModelBase):
 
     def transform_schema(self, schema: TableSchema) -> TableSchema:
         self._check_schema(schema, self.input_schema())
-        return self._leaf_schema(
+        return self._extra_schema(
             schema.with_column(self.prediction_col, ColumnSpec("any", "scalar"))
             .with_column(self.raw_prediction_col, ColumnSpec("float", "vector"))
             .with_column(self.probability_col, ColumnSpec("float", "vector")))
@@ -275,7 +328,7 @@ class LightGBMClassificationModel(_LightGBMModelBase):
         pred = np.asarray(labels)[idx] if labels is not None else idx.astype(np.float64)
         out = table.with_column(self.raw_prediction_col, raw2.astype(np.float32))
         out = out.with_column(self.probability_col, prob2.astype(np.float32))
-        return self._leaf_output(out.with_column(self.prediction_col, pred), x)
+        return self._extra_outputs(out.with_column(self.prediction_col, pred), x)
 
 
 class LightGBMRegressor(_LightGBMBase):
@@ -289,16 +342,13 @@ class LightGBMRegressor(_LightGBMBase):
     def _fit(self, table: Table) -> "LightGBMRegressionModel":
         booster = self._fit_booster(table, {
             "alpha": self.alpha, "tweedie_variance_power": self.tweedie_variance_power})
-        return LightGBMRegressionModel(booster=booster, features_col=self.features_col,
-                                       prediction_col=self.prediction_col,
-                                       leaf_prediction_col=self.leaf_prediction_col,
-                                       device=self.device)
+        return LightGBMRegressionModel(booster=booster, **self._model_params())
 
 
 class LightGBMRegressionModel(_LightGBMModelBase):
     def transform_schema(self, schema: TableSchema) -> TableSchema:
         self._check_schema(schema, self.input_schema())
-        return self._leaf_schema(
+        return self._extra_schema(
             schema.with_column(self.prediction_col, ColumnSpec("float", "scalar")))
 
     def _transform(self, table: Table) -> Table:
@@ -307,4 +357,41 @@ class LightGBMRegressionModel(_LightGBMModelBase):
         out = table.with_column(self.prediction_col,
                                 self.booster.predict(x, device=self.device)
                                 .astype(np.float64))
-        return self._leaf_output(out, x)
+        return self._extra_outputs(out, x)
+
+
+class LightGBMRanker(_LightGBMBase):
+    """Ranker (reference ``LightGBMRanker.scala:25``): lambdarank over the
+    queries of ``group_col``. Rows are stable-sorted by group id, so a
+    query's rows are contiguous; the training and validation rows' query
+    sizes are the ``np.unique`` counts of their group ids."""
+
+    objective = Param("ranking objective", str, default="lambdarank")
+    group_col = Param("query/group id column", str, default="group")
+    ndcg_at = Param("NDCG truncation for eval", int, default=10)
+    lambdarank_truncation_level = Param("pairs beyond this rank are ignored", int,
+                                        default=30)
+    max_position = Param("accepted for API parity (maxPosition)", int, default=20)
+
+    def input_schema(self) -> TableSchema:
+        return super().input_schema().with_column(self.group_col, ColumnSpec("any", "scalar"))
+
+    def _fit(self, table: Table) -> "LightGBMRankerModel":
+        self._validate_input(table, self.group_col)
+        order = np.argsort(np.asarray(table[self.group_col]), kind="stable")
+
+        def sizes_of(t: Table) -> np.ndarray:
+            # np.unique sorts, and the rows are sorted by group: counts align
+            return np.unique(np.asarray(t[self.group_col]), return_counts=True)[1]
+
+        booster = self._fit_booster(
+            table.take(order),
+            {"lambdarank_truncation_level": self.lambdarank_truncation_level,
+             "ndcg_at": self.ndcg_at},
+            group_sizes=sizes_of)
+        return LightGBMRankerModel(booster=booster, **self._model_params())
+
+
+class LightGBMRankerModel(LightGBMRegressionModel):
+    """Fitted ranker: scores rows as the regression model does (the raw
+    margin in ``prediction_col``)."""

@@ -5,7 +5,10 @@ Port of ``METRICS``, ``_DEFAULT_METRIC`` and ``_dev_metric`` of
 versions (``name -> (fn, higher_better)``), which DART's host-side eval and
 the tests use; :func:`device_metric` returns each one's torch twin, which
 the boosting loop runs on the eval margins where they live (the GPU), so a
-metric panel is read back once per chunk of iterations.
+metric panel is read back once per chunk of iterations. :func:`metric_ndcg`
+(the reference's ``_metric_ndcg``, ``boost.py:304``) needs the query groups
+and has no device twin: lambdarank evaluates it on the host, as the
+reference does.
 """
 
 from __future__ import annotations
@@ -15,7 +18,7 @@ from typing import Callable, Dict, Tuple
 import numpy as np
 import torch
 
-__all__ = ["METRICS", "DEFAULT_METRIC", "device_metric"]
+__all__ = ["METRICS", "DEFAULT_METRIC", "device_metric", "metric_ndcg"]
 
 
 def _metric_auc(y, score, w):
@@ -75,6 +78,28 @@ METRICS: Dict[str, Tuple[Callable, bool]] = {
 # the objective's metric when ``metric`` is unset (else l2)
 DEFAULT_METRIC = {"binary": "binary_logloss", "multiclass": "multi_logloss",
                   "softmax": "multi_logloss", "l1": "l1", "mae": "l1", "quantile": "l1"}
+
+
+def metric_ndcg(k: int = 10) -> Callable:
+    """Mean NDCG@k over contiguous query groups: ``fn(y, score, w,
+    group_sizes)`` (``w`` is unused, as in the reference); a query whose
+    ideal DCG is 0 counts 0. Higher is better."""
+    def fn(y, score, w, group_sizes):
+        total, start = 0.0, 0
+        cnt = 0
+        for sz in group_sizes:
+            ys = y[start:start + sz]
+            ss = score[start:start + sz]
+            order = np.argsort(-ss, kind="stable")[:k]
+            dcg = ((2.0 ** ys[order] - 1) / np.log2(2 + np.arange(len(order)))).sum()
+            ideal = np.sort(ys)[::-1][:k]
+            idcg = ((2.0 ** ideal - 1) / np.log2(2 + np.arange(len(ideal)))).sum()
+            total += dcg / idcg if idcg > 0 else 0.0
+            cnt += 1
+            start += sz
+        return total / max(cnt, 1)
+
+    return fn
 
 
 def _wavg(v, w):

@@ -1,9 +1,11 @@
-"""Edge-case inputs for kernels D (device binning) and E (split search).
+"""Edge-case inputs for kernels D (device binning), E (split search) and F
+(the LambdaRank gradient).
 
 Shared by ``tests/test_torch_kernels.py`` (on the card),
-``tests/test_torch_categorical.py`` and ``tests/test_torch_split_step.py``
-(the plain versions on the CPU) and ``chip_smoke.py`` (phase 4), so they
-check the same cases. Everything is made from a seed with numpy.
+``tests/test_torch_categorical.py``, ``tests/test_torch_split_step.py`` and
+``tests/test_torch_ranker.py`` (the plain versions on the CPU) and
+``chip_smoke.py`` (phase 4), so they check the same cases. Everything is
+made from a seed with numpy.
 """
 
 from __future__ import annotations
@@ -20,7 +22,9 @@ from ..gbdt.split_search import SplitWorkspace, _thresh_l1, left_set
 
 __all__ = ["bin_edge_case", "bin_ragged_case", "split_cases", "step_cases",
            "LARGEST_KERNEL_A_BINS", "offgrid_split_case", "check_offgrid", "check_left_sets",
-           "synthetic_update", "grow_synthetic", "diff_runs"]
+           "synthetic_update", "grow_synthetic", "diff_runs", "rank_rows", "RANK_CASES",
+           "rank_case", "one_split_text", "TWO_TREES", "native_texts", "many_thresholds_text",
+           "many_thresholds_rows"]
 
 # the most bins kernel A takes: one feature's (B, 3) f32 histogram plus a
 # word within 227 KB of shared memory (histogram.py)
@@ -262,3 +266,162 @@ def check_left_sets(hists: torch.Tensor, cat_mask, n_active: int, cfg, got) -> i
             f"{float(gain[leaf])}")
         checked += 1
     return checked
+
+
+def rank_rows(seed: int = 0, n_queries: int = 150, d: int = 10):
+    """(x (n, d) f32, labels 0-4, query sizes): about 20 documents a query
+    (5-35), two queries of one document and two whose documents share one
+    label; the labels from a latent score, an integer count column with
+    heavy ties."""
+    rng = np.random.default_rng(seed)
+    sizes = rng.integers(5, 36, n_queries)
+    sizes[[3, n_queries // 2]] = 1
+    n = int(sizes.sum())
+    x = rng.normal(size=(n, d)).astype(np.float32)
+    x[:, 3] = rng.integers(0, 5, n)
+    latent = x[:, 0] + 0.5 * x[:, 1] + 0.3 * rng.normal(size=n)
+    y = np.clip(np.floor(latent + 1.5), 0, 4)
+    starts = np.cumsum(sizes) - sizes
+    for q in (7, n_queries - 5):
+        y[starts[q]:starts[q] + sizes[q]] = 2.0
+    return x, y, sizes
+
+
+# kernel F's edge cases: every case holds size-1 queries and queries of one
+# label; "large_query" adds one query of 20,000 documents (past the kernel's
+# shared memory: its global-memory path) and is for the card only
+RANK_CASES = ("ties", "all_tied", "truncation_below_size", "sigma", "zero_weights",
+              "large_query")
+
+
+def rank_case(case: str, seed: int = 1):
+    """(score f32, label f32, weight f32, sizes, truncation, sigma) of one of
+    :data:`RANK_CASES`; scores on a 0.1 grid, so documents tie."""
+    x, y, sizes = rank_rows(seed)
+    if case == "large_query":  # a query of 20,000 documents after the first ten
+        big = np.random.default_rng(seed + 100).integers(0, 5, 20_000).astype(np.float64)
+        head = int(sizes[:10].sum())
+        y = np.concatenate([y[:head], big, y[head:]])
+        sizes = np.concatenate([sizes[:10], [20_000], sizes[10:]])
+    n = len(y)
+    rng = np.random.default_rng(seed)
+    score = np.round(rng.normal(size=n), 1).astype(np.float32)
+    w = np.ones(n, np.float32)
+    truncation, sigma = 30, 1.0
+    if case == "all_tied":
+        score[:] = 0.0
+    elif case == "truncation_below_size":
+        truncation = 4
+    elif case == "sigma":
+        sigma = 2.5
+    elif case == "zero_weights":
+        w = rng.random(n).astype(np.float32)
+        w[rng.random(n) < 0.2] = 0.0
+    return score, y.astype(np.float32), w, sizes, truncation, sigma
+
+
+# -- LightGBM text models (the booster's import path) ------------------------------
+
+def one_split_text(dt: int, thr: float) -> str:
+    """A one-split LightGBM text on feature 0 with ``decision_type`` ``dt``."""
+    return "\n".join([
+        "tree", "num_class=1", "num_tree_per_iteration=1",
+        "max_feature_idx=0", "objective=regression", "",
+        "Tree=0", "num_leaves=2", "num_cat=0",
+        "split_feature=0", "split_gain=1",
+        f"threshold={thr}", f"decision_type={dt}",
+        "left_child=-1", "right_child=-2",
+        "leaf_value=-1.0 1.0", "leaf_weight=3 3", "",
+        "end of trees", "",
+    ])
+
+
+# tree 0 numeric, tree 1 a categorical bitset split
+TWO_TREES = "\n".join([
+    "tree", "num_class=1", "num_tree_per_iteration=1", "max_feature_idx=1",
+    "objective=regression", "",
+    "Tree=0", "num_leaves=2", "num_cat=0", "split_feature=0", "split_gain=1",
+    "threshold=0.5", "decision_type=8", "left_child=-1", "right_child=-2",
+    "leaf_value=-1.0 1.0", "leaf_weight=4 2", "",
+    "Tree=1", "num_leaves=2", "num_cat=1", "split_feature=1", "threshold=0",
+    "decision_type=1", "left_child=-1", "right_child=-2", "leaf_value=0.5 -0.5",
+    "leaf_weight=1 1", "cat_boundaries=0 1", "cat_threshold=5", "",
+    "end of trees", ""])
+
+
+def native_texts() -> Dict[str, str]:
+    """The hand-written LightGBM texts of ``tests/test_native_model.py`` (a
+    real dump with CRLF and extra fields, default_left, a categorical
+    bitset, zero_as_missing and missing_type None splits), by name."""
+    real_dump = "\r\n".join([
+        "tree", "version=v3", "num_class=1", "num_tree_per_iteration=1", "label_index=0",
+        "max_feature_idx=1", "objective=binary sigmoid:1", "feature_names=f0 f1",
+        "feature_infos=[-5:5] [-5:5]", "", "Tree=0", "num_leaves=3", "num_cat=0",
+        "split_feature=0 1", "split_gain=10 5", "threshold=1.5 -2.0000000000000001e-01",
+        "decision_type=8 8", "left_child=1 -1", "right_child=-3 -2",
+        "leaf_value=-0.5 2.5e-01 0.75", "leaf_weight=10 12 8", "leaf_count=10 12 8",
+        "internal_value=0 0.1", "internal_weight=30 22", "internal_count=30 22",
+        "is_linear=0", "shrinkage=0.1", "", "end of trees", "", "feature_importances:",
+        "f0=10", "", "parameters:", "[boosting: gbdt]", "end of parameters"])
+    default_left = "\n".join([
+        "tree", "version=v3", "num_class=1", "num_tree_per_iteration=1",
+        "max_feature_idx=1", "objective=regression", "feature_names=f0 f1", "",
+        "Tree=0", "num_leaves=3", "num_cat=0", "split_feature=0 1", "split_gain=10 5",
+        "threshold=1.5 0.0", "decision_type=10 8", "left_child=1 -1", "right_child=-3 -2",
+        "leaf_value=1.0 2.0 3.0", "leaf_weight=5 5 5", "", "end of trees", ""])
+    bitset = ("tree\nnum_class=1\nnum_tree_per_iteration=1\nmax_feature_idx=0\n"
+              "objective=regression\n\n"
+              "Tree=0\nnum_leaves=2\nnum_cat=1\nsplit_feature=0\nthreshold=0\n"
+              "decision_type=1\nleft_child=-1\nright_child=-2\n"
+              "leaf_value=1.0 -1.0\nleaf_weight=1 1\n"
+              "cat_boundaries=0 1\ncat_threshold=5\n\nend of trees\n")
+    out = {"real_dump": real_dump, "default_left": default_left, "bitset": bitset,
+           "two_trees": TWO_TREES}
+    for dt, thr in ((6, -1.0), (4, 1.0), (4, -1e-35), (10, 0.25), (0, -1.0), (2, -1.0),
+                    (0, 1.0), (2, 1.0), (10, -1.0), (8, 1.0)):
+        out[f"one_split_dt{dt}_t{thr}"] = one_split_text(dt, thr)
+    return out
+
+
+def many_thresholds_text(n_thr: int, seed: int = 0, zero_split: bool = False) -> str:
+    """A LightGBM text whose tree 0 is a comb of ``n_thr`` splits on feature
+    0 at distinct thresholds (``n_thr + 1`` bins; past 32,767 the bins are
+    int32 and kernel B's records wide); with ``zero_split`` a second tree
+    splits feature 1 with missing_type=Zero (a set split over all the bins)."""
+    rng = np.random.default_rng(seed)
+    thr = np.sort(rng.choice(np.arange(1, 50 * n_thr), n_thr, replace=False)) / 7.0 - 3.0 * n_thr
+    thr = thr.tolist()
+    left = [~k for k in range(n_thr)]
+    right = [k + 1 for k in range(n_thr - 1)] + [~n_thr]
+    leaves = np.round(rng.normal(size=n_thr + 1), 4).tolist()
+    lines = ["tree", "num_class=1", "num_tree_per_iteration=1", "max_feature_idx=1",
+             "objective=regression", "",
+             "Tree=0", f"num_leaves={n_thr + 1}", "num_cat=0",
+             "split_feature=" + " ".join(["0"] * n_thr),
+             "split_gain=" + " ".join(["1"] * n_thr),
+             "threshold=" + " ".join(repr(t) for t in thr),
+             "decision_type=" + " ".join(["8"] * n_thr),
+             "left_child=" + " ".join(map(str, left)),
+             "right_child=" + " ".join(map(str, right)),
+             "leaf_value=" + " ".join(map(repr, leaves)),
+             "leaf_weight=" + " ".join(["1"] * (n_thr + 1)), ""]
+    if zero_split:
+        lines += ["Tree=1", "num_leaves=3", "num_cat=0", "split_feature=1 1",
+                  "split_gain=1 1", "threshold=0.5 -0.25", "decision_type=6 4",
+                  "left_child=1 -1", "right_child=-3 -2", "leaf_value=0.25 -0.5 0.75",
+                  "leaf_weight=2 2 2", ""]
+    return "\n".join(lines + ["end of trees", ""])
+
+
+def many_thresholds_rows(text_booster, n: int, seed: int = 1) -> np.ndarray:
+    """f32 rows over the comb's range, with exact thresholds, zeros and NaN."""
+    rng = np.random.default_rng(seed)
+    edges = text_booster.mapper.upper_edges[0][:-1]
+    x = np.empty((n, 2), np.float32)
+    x[:, 0] = rng.uniform(edges[0] - 5, edges[-1] + 5, n)
+    x[: n // 8, 0] = edges[rng.integers(0, len(edges), n // 8)]
+    x[:, 1] = rng.normal(size=n)
+    x[::5, 1] = 0.0
+    x[::11, 1] = np.nan
+    x[::13, 0] = np.nan
+    return x

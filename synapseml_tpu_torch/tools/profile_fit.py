@@ -1,12 +1,14 @@
 """Where the time of one GBDT fit goes, on the GPU.
 
-    python -m synapseml_tpu_torch.tools.profile_fit [--schema higgs|adult|covertype]
+    python -m synapseml_tpu_torch.tools.profile_fit [--schema higgs|adult|covertype|mslr]
         [--boosting gbdt|goss|dart|rf] [--bagging FRACTION] [--eval] [--seed 0]
 
-Fits ``train`` on the training rows of one of ``chip_smoke.py``'s three fits
+Fits ``train`` on the training rows of one of ``chip_smoke.py``'s fits
 (``tools/schema_data.py`` ``FITS``: HIGGS width, 28 f32 features, 63 bins;
 the Adult schema, 8 of 14 columns categorical, 255 bins; the Covertype
-schema, 7 classes, 255 bins; 31 leaves and 10 iterations each) and prints
+schema, 7 classes, 255 bins; MSLR-WEB30K's schema, lambdarank over 18,919
+queries, 136 features, 255 bins, its validation queries as the eval set
+with ``--eval``; 31 leaves and 10 iterations each) and prints
 one JSON object: the wall time of the whole fit, of its two binning steps
 (``BinMapper.fit`` on the host, ``transform_torch`` on the card), the device
 time and launch count of every kernel name in a ``torch.profiler`` trace of
@@ -19,7 +21,10 @@ The training controls of ``chip_smoke.py``'s phase 2d: ``--boosting``
 (dart with its ``skip_drop=0, drop_rate=0.3``), ``--bagging`` (that
 fraction, every iteration) and ``--eval`` (the held-out rows as an eval
 set, AUC or multi_logloss with ``early_stopping_round=3``). Without them
-the fit is plain gbdt, as before.
+the fit is plain gbdt, as before. With ``--eval`` on a fit whose metric runs
+on the host (lambdarank's NDCG), the object also holds each iteration's
+wall time of that metric in the first timed fit, and the wall time of the
+same fit without its eval set, so that the eval's share of the fit shows.
 """
 
 from __future__ import annotations
@@ -33,16 +38,34 @@ import numpy as np
 import torch
 
 from .schema_data import (ADULT_CATEGORICAL, COVTYPE_CATEGORICAL, COVTYPE_CLASSES, FITS,
-                          SAMPLED_MODES, adult_rows, covertype_rows, higgs_width_rows)
+                          MSLR_TRAIN, MSLR_VALID, SAMPLED_MODES, adult_rows, covertype_rows,
+                          higgs_width_rows, mslr_rows)
 
 # train()'s parameters for each fit (the estimator's categorical_slot_indexes
 # is train's categorical_feature)
 _OBJECTIVE = {"higgs": dict(objective="binary"),
               "adult": dict(objective="binary", categorical_feature=ADULT_CATEGORICAL),
               "covertype": dict(objective="multiclass", num_class=COVTYPE_CLASSES,
-                                categorical_feature=COVTYPE_CATEGORICAL)}
+                                categorical_feature=COVTYPE_CATEGORICAL),
+              "mslr": dict(objective="lambdarank")}
 _ROWS = {"higgs": higgs_width_rows, "adult": lambda seed, n: adult_rows(seed, n)[:2],
          "covertype": lambda seed, n: covertype_rows(seed, n)[:2]}
+
+
+def _mslr(seed: int):
+    """MSLR-WEB30K Fold1's training and validation documents, concatenated,
+    with their query sizes."""
+    x_tr, y_tr, s_tr = mslr_rows(seed, *MSLR_TRAIN)
+    x_va, y_va, s_va = mslr_rows(seed, *MSLR_VALID, part=1)
+    return np.concatenate([x_tr, x_va]), np.concatenate([y_tr, y_va]), s_tr, s_va
+
+
+def _head_groups(sizes: np.ndarray, n: int) -> np.ndarray:
+    """The sizes of the first queries, the last one cut so they sum to ``n``."""
+    k = int(np.searchsorted(np.cumsum(sizes), n))
+    head = sizes[:k + 1].copy()
+    head[-1] -= int(head.sum()) - n
+    return head
 
 
 def _device_us(evt) -> float:
@@ -50,6 +73,20 @@ def _device_us(evt) -> float:
         if hasattr(evt, attr):
             return float(getattr(evt, attr))
     return 0.0
+
+
+def _timed_metric_ndcg(make, times: list):
+    """``boost.metric_ndcg`` whose metrics append their wall time to ``times``."""
+    def factory(k):
+        fn = make(k)
+
+        def timed(*a):
+            t0 = time.perf_counter()
+            out = fn(*a)
+            times.append(time.perf_counter() - t0)
+            return out
+        return timed
+    return factory
 
 
 def _controls(args, params: dict) -> dict:
@@ -63,6 +100,8 @@ def _controls(args, params: dict) -> dict:
     if args.eval:
         out.update(metric="auc" if params["objective"] == "binary" else "multi_logloss",
                    early_stopping_round=3)
+        if params["objective"] == "lambdarank":
+            del out["metric"]  # lambdarank watches ndcg@ndcg_at
     return out
 
 
@@ -81,6 +120,7 @@ def main() -> int:
         print("profile_fit: needs a CUDA device", file=sys.stderr)
         return 2
 
+    from ..gbdt import boost
     from ..gbdt.binning import BinMapper
     from ..gbdt.boost import train
     from ..runtime.device import card_info
@@ -89,7 +129,14 @@ def main() -> int:
     params = {k: v for k, v in est_params.items() if k != "categorical_slot_indexes"}
     params.update(_OBJECTIVE[args.schema])
     params.update(_controls(args, params))
-    x, y = _ROWS[args.schema](args.seed, n_made)
+    groups, small = {}, {}  # lambdarank: the query sizes of the rows
+    if args.schema == "mslr":
+        x, y, s_tr, s_va = _mslr(args.seed)
+        groups = dict(group=s_tr, eval_group=[s_va] if args.eval else None)
+        small = dict(group=_head_groups(s_tr, 65536),
+                     eval_group=[_head_groups(s_tr, 4096)] if args.eval else None)
+    else:
+        x, y = _ROWS[args.schema](args.seed, n_made)
     eval_set = [(x[n_train:], y[n_train:])] if args.eval else None
     x, y = np.ascontiguousarray(x[:n_train]), y[:n_train]
     classes = params.get("num_class", 1)
@@ -97,7 +144,7 @@ def main() -> int:
 
     small_eval = [(x[:4096], y[:4096])] if args.eval else None
     train(dict(params, num_iterations=1), x[:65536], y[:65536],
-          eval_set=small_eval)  # load the kernels
+          eval_set=small_eval, **small)  # load the kernels
     torch.cuda.synchronize()
 
     t0 = time.perf_counter()
@@ -109,15 +156,28 @@ def main() -> int:
     torch.cuda.synchronize()
     bin_transform_s = time.perf_counter() - t0
 
+    host_metric = args.eval and params["objective"] == "lambdarank"
+    metric_s, untimed = [], boost.metric_ndcg
+    if host_metric:
+        boost.metric_ndcg = _timed_metric_ndcg(untimed, metric_s)
     t0 = time.perf_counter()
-    booster = train(params, x, y, eval_set=eval_set)
+    booster = train(params, x, y, eval_set=eval_set, **groups)
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
+    eval_cost = {}
+    if host_metric:
+        boost.metric_ndcg = untimed
+        bare = {k: v for k, v in params.items() if k not in ("early_stopping_round", "metric")}
+        t0 = time.perf_counter()
+        train(bare, x, y, group=s_tr)
+        torch.cuda.synchronize()
+        eval_cost = {"host_metric_s": metric_s, "host_metric_s_total": sum(metric_s),
+                     "fit_without_eval_s": time.perf_counter() - t0}
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        train(params, x, y, eval_set=eval_set)
+        train(params, x, y, eval_set=eval_set, **groups)
         torch.cuda.synchronize()
         traced_s = time.perf_counter() - t0
     kernels = [(e.key, _device_us(e), e.count) for e in prof.key_averages()
@@ -131,9 +191,11 @@ def main() -> int:
               for direction in ("DtoH", "HtoD")}
     kernels.sort(key=lambda k: -k[1])
     iters = booster.num_trees
-    # early stopping trains to the end of the 32-iteration chunk it stops in
-    trained = (min(params["num_iterations"], -(-iters // 32) * 32) if args.eval
-               else params["num_iterations"])
+    # early stopping trains to the end of the 32-iteration chunk it stops in;
+    # the host metric (lambdarank's NDCG) stops where it decides
+    trained = (params["num_iterations"] if not args.eval
+               else len(booster.evals_result) if params["objective"] == "lambdarank"
+               else min(params["num_iterations"], -(-iters // 32) * 32))
     steps = trained * classes * (params["num_leaves"] - 1)
     print(json.dumps({
         "card": card_info(), "schema": args.schema, "rows": n_train,
@@ -143,7 +205,7 @@ def main() -> int:
         "sampled_row_share": (None if booster.sampled_rows is None
                               else (booster.sampled_rows / n_train).tolist()),
         "fit_s": fit_s, "bin_fit_s": bin_fit_s, "bin_transform_s": bin_transform_s,
-        "traced_fit_s": traced_s, "device_busy_s": busy_us / 1e6,
+        **eval_cost, "traced_fit_s": traced_s, "device_busy_s": busy_us / 1e6,
         "device_idle_share": 1 - busy_us / 1e6 / traced_s,
         "device_launches": launches, "split_steps": steps,
         "launches_per_split_step": launches / steps,

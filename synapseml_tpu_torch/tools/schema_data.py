@@ -15,7 +15,10 @@ on rows generated at their schemas:
   one-hot columns carried as the two categorical columns they encode
   (Wilderness_Area, 4 codes; Soil_Type, 40 codes), 7 classes whose
   frequencies follow the dataset's, the class set by elevation, soil and
-  wilderness.
+  wilderness;
+- :func:`mslr_rows`: MSLR-WEB30K (Qin & Liu 2013, "Introducing LETOR 4.0
+  datasets", and the MSLR-WEB30K release), 136 numeric features, rows
+  contiguous by query, relevance 0-4 (see its docstring).
 
 Distributions are rough matches of the published summaries; the schemas
 (column count, types, cardinalities, class count) are exact.
@@ -30,7 +33,8 @@ import numpy as np
 __all__ = ["ADULT_COLUMNS", "ADULT_CARDINALITY", "ADULT_CATEGORICAL", "ADULT_SETS",
            "adult_rows", "adult_unseen_codes", "COVTYPE_COLUMNS", "COVTYPE_CATEGORICAL",
            "COVTYPE_CLASSES", "covertype_rows", "HIGGS_WIDTH", "higgs_width_rows", "FITS",
-           "SAMPLED_MODES"]
+           "SAMPLED_MODES", "MSLR_FEATURES", "MSLR_MAX_QUERY", "MSLR_TRAIN", "MSLR_VALID",
+           "MSLR_SHARES", "mslr_rows"]
 
 ADULT_COLUMNS = ["age", "workclass", "fnlwgt", "education", "education-num",
                  "marital-status", "occupation", "relationship", "race", "sex",
@@ -60,6 +64,12 @@ FITS = {
                                          categorical_slot_indexes=ADULT_CATEGORICAL)),
     "covertype": (464_810, 581_012, dict(num_iterations=10, num_leaves=31, max_bin=255,
                                          categorical_slot_indexes=COVTYPE_CATEGORICAL)),
+    # MSLR-WEB30K Fold1 (training and validation documents), at LightGBM's
+    # lambdarank example settings (examples/lambdarank/train.conf), 10 iterations
+    "mslr": (2_270_296, 3_017_514, dict(
+        num_iterations=10, num_leaves=31, max_bin=255, min_data_in_leaf=50,
+        min_sum_hessian_in_leaf=5.0, learning_rate=0.1, lambdarank_truncation_level=30,
+        ndcg_at=10)),
 }
 
 # chip_smoke.py's phase 2d: the HIGGS fit's parameters under each training
@@ -161,3 +171,72 @@ def covertype_rows(seed: int, n: int) -> Tuple[np.ndarray, np.ndarray, np.ndarra
               - 0.002 * x[:, 3:4] * (np.arange(COVTYPE_CLASSES) % 2)[None])
     y = np.argmax(logits + rng.gumbel(size=logits.shape), axis=1).astype(np.float64)
     return x, y, logits
+
+
+MSLR_FEATURES = 136
+MSLR_MAX_QUERY = 1_251
+# (queries, documents) of MSLR-WEB30K Fold1's training and validation files
+MSLR_TRAIN = (18_919, 2_270_296)
+MSLR_VALID = (6_306, 747_218)
+# relevance 0..4: about half 0, a third 1, an eighth 2, a few percent 3 and 4
+# (the released labels' shares, rounded)
+MSLR_SHARES = (0.515, 0.325, 0.134, 0.018, 0.008)
+
+
+def _mslr_sizes(rng, n_queries: int, n_docs: int) -> np.ndarray:
+    """Query sizes in [1, MSLR_MAX_QUERY] summing to ``n_docs``: lognormal
+    (median ~ 0.73 of the mean, a long tail clipped at the largest query),
+    1 % of them 1-10 documents, then moved one document at a time to the
+    exact total."""
+    mean = n_docs / n_queries
+    sizes = np.clip(np.round(rng.lognormal(np.log(mean) - 0.32, 0.8, n_queries)),
+                    1, MSLR_MAX_QUERY).astype(np.int64)
+    tiny = rng.random(n_queries) < 0.01          # a few queries of 1-10 documents
+    sizes[tiny] = rng.integers(1, 11, int(tiny.sum()))
+    while sizes.sum() != n_docs:
+        diff = n_docs - int(sizes.sum())
+        pick = rng.integers(0, n_queries, min(abs(diff), n_queries))
+        sizes[pick] = np.clip(sizes[pick] + np.sign(diff), 1, MSLR_MAX_QUERY)
+    return sizes
+
+
+def mslr_rows(seed: int, n_queries: int, n_docs: int = None,
+              part: int = 0) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(n, 136) f32 features, (n,) relevance labels 0..4 (f64) and (Q,) query
+    sizes, rows contiguous by query, at MSLR-WEB30K's schema.
+
+    ``n_docs`` defaults to about 120 a query, MSLR's mean; sizes run from 1
+    to 1,251 with MSLR's mean. ``part`` picks a stream of rows (0 training,
+    1 validation) over one structure (feature scales, the label's weights),
+    so a model fit on part 0 ranks part 1. Columns: 60 integer count
+    features (term-frequency-like: ``floor(Exp * mean)``, means 0.3-20, many
+    zeros and heavy ties), 60 continuous scores (BM25/LMIR-like), 16 ratios
+    on eighths (quality and coverage). The label is a latent score over six
+    of them plus noise and a per-query effect, quantised within each query
+    at :data:`MSLR_SHARES`: a query's top documents by latent score take the
+    highest grades (queries of 1-2 documents take 0-1, so some queries have
+    one label only)."""
+    structure, _ = _rngs(seed)
+    rng = np.random.default_rng([seed, 2 + part])
+    n_docs = int(round(n_queries * 120.0)) if n_docs is None else int(n_docs)
+    sizes = _mslr_sizes(rng, n_queries, n_docs)
+    means = structure.uniform(np.log(0.3), np.log(20.0), 60)
+    scales = structure.uniform(0.5, 3.0, 60).astype(np.float32)
+    x = np.empty((n_docs, MSLR_FEATURES), np.float32)
+    counts = rng.standard_exponential((n_docs, 60), dtype=np.float32)
+    x[:, :60] = np.floor(counts * np.exp(means).astype(np.float32))
+    del counts
+    x[:, 60:120] = rng.standard_normal((n_docs, 60), dtype=np.float32) * scales
+    x[:, 120:] = rng.integers(0, 9, (n_docs, 16)).astype(np.float32) / 8
+    qid = np.repeat(np.arange(n_queries), sizes)
+    effect = rng.normal(0.0, 0.5, n_queries)[qid]
+    latent = (0.9 * x[:, 60] / scales[0] + 0.6 * np.log1p(x[:, 3]) + 0.5 * x[:, 120]
+              + 0.4 * x[:, 75] / scales[15] - 0.3 * np.log1p(x[:, 17]) + 0.3 * x[:, 130]
+              + effect + rng.normal(0.0, 1.0, n_docs))
+    order = np.lexsort((-latent, qid))            # per query, highest latent first
+    starts = np.repeat(np.cumsum(sizes) - sizes, sizes)
+    top = (np.arange(n_docs) - starts + 0.5) / np.repeat(sizes, sizes)  # (rank + 0.5) / m
+    cum = np.cumsum(MSLR_SHARES[::-1])[:-1]        # shares of grades 4, 3, 2, 1 from the top
+    y = np.empty(n_docs, np.float64)
+    y[order] = 4 - np.searchsorted(cum, top, side="right")
+    return x, y, sizes

@@ -11,7 +11,7 @@ import torch
 
 from synapseml_tpu_torch.gbdt.binning import BinMapper
 from synapseml_tpu_torch.gbdt import sampling
-from synapseml_tpu_torch.gbdt.boost import _preround, train
+from synapseml_tpu_torch.gbdt.boost import GBDTBooster, _preround, train
 from synapseml_tpu_torch.gbdt.device_predict import (BIN_KERNEL, LEAF_KERNEL, SCORE_KERNEL,
                                                      device_bin_cat, device_bin_cat_plain,
                                                      device_leaf_indices, device_raw_scores,
@@ -24,12 +24,18 @@ from synapseml_tpu_torch.gbdt.split_search import (SPLIT_KERNEL, SplitWorkspace,
                                                    split_search_plain)
 from synapseml_tpu_torch.parallel.flash import (FLASH_F32_KERNEL, KERNEL_HEAD_DIMS,
                                                 dense_attention, flash_attention, kernel_for)
-from synapseml_tpu_torch.tools.kernel_cases import (bin_edge_case, bin_ragged_case,
-                                                    check_left_sets, check_offgrid,
-                                                    diff_runs, grow_synthetic,
-                                                    offgrid_split_case,
+from synapseml_tpu_torch.gbdt.lambdarank import (LAMBDARANK_KERNEL, QueryGroups,
+                                                 lambda_grads, lambda_grads_plain)
+from synapseml_tpu_torch.tools.kernel_cases import (RANK_CASES, bin_edge_case,
+                                                    bin_ragged_case, check_left_sets,
+                                                    check_offgrid, diff_runs, grow_synthetic,
+                                                    many_thresholds_rows,
+                                                    many_thresholds_text, native_texts,
+                                                    offgrid_split_case, rank_case,
                                                     split_cases, step_cases)
-from synapseml_tpu_torch.tools.schema_data import SAMPLED_MODES, higgs_width_rows
+from synapseml_tpu_torch.tools.schema_data import (ADULT_CATEGORICAL, SAMPLED_MODES,
+                                                   adult_rows, adult_unseen_codes,
+                                                   higgs_width_rows, mslr_rows)
 
 pytestmark = pytest.mark.cuda
 
@@ -431,3 +437,87 @@ def test_goss_off_grid_card_close_to_cpu(cuda):
     if all(np.array_equal(getattr(on_card, f), getattr(on_cpu, f))
            for f in ("parent", "feature", "bin")):
         np.testing.assert_allclose(on_card.leaf_value, on_cpu.leaf_value, rtol=0, atol=1e-3)
+
+
+@pytest.mark.parametrize("case", RANK_CASES)
+def test_lambdarank_kernel_bit_equal(cuda, case):
+    """Kernel F against its plain version on the card and on the CPU: ties,
+    size-1 queries, queries of one label, truncation below the size, sigma
+    2.5, zero weights, and one query of 20,000 documents (the global-memory
+    path). Same bits: both sum in j order and share exp_f32."""
+    score, y, w, sizes, truncation, sigma = rank_case(case)
+    rows = [torch.from_numpy(a) for a in (score, y, w)]
+    on_card = QueryGroups(sizes, y, truncation, cuda)
+    before = LAMBDARANK_KERNEL.launches
+    g, h = lambda_grads(*(a.to(cuda) for a in rows), on_card, sigma)
+    torch.cuda.synchronize()
+    assert LAMBDARANK_KERNEL.launches == before + 1
+    g_plain, h_plain = lambda_grads_plain(*(a.to(cuda) for a in rows), on_card, sigma)
+    assert torch.equal(g, g_plain) and torch.equal(h, h_plain)
+    g_cpu, h_cpu = lambda_grads_plain(*rows, QueryGroups(sizes, y, truncation), sigma,
+                                      cap=1 << 27)
+    assert torch.equal(g.cpu(), g_cpu) and torch.equal(h.cpu(), h_cpu)
+
+
+def test_ranker_fit_card_equals_cpu(cuda):
+    """A lambdarank fit at the MSLR schema with an eval set and early
+    stopping: kernel F once an iteration, and the CPU's trees, leaves and
+    NDCG series."""
+    x, y, sizes = mslr_rows(2, 60, 4000)
+    xe, ye, se = mslr_rows(2, 20, 1200, part=1)
+    params = dict(objective="lambdarank", num_iterations=6, num_leaves=15, max_bin=63,
+                  min_data_in_leaf=20, early_stopping_round=2)
+    kw = dict(group=sizes, eval_set=[(xe, ye)], eval_group=[se])
+    before = LAMBDARANK_KERNEL.launches
+    on_card = train(params, x, y, **kw)
+    torch.cuda.synchronize()
+    assert LAMBDARANK_KERNEL.launches - before == len(on_card.evals_result)
+    on_cpu = train(params, x, y, device="cpu", **kw)
+    for field in ("parent", "feature", "bin", "leaf_value", "leaf_hess"):
+        np.testing.assert_array_equal(getattr(on_card, field), getattr(on_cpu, field))
+    assert on_card.evals_result == on_cpu.evals_result
+    assert on_card.best_iteration == on_cpu.best_iteration
+
+
+def test_contrib_on_card_binned_rows_equals_cpu(cuda):
+    """TreeSHAP and Saabas of an Adult-schema model (8 categorical columns,
+    unseen codes among the probes) on rows binned by kernel D equal the
+    CPU's."""
+    x, y, _ = adult_rows(0, 20_000)
+    booster = train(dict(objective="binary", num_iterations=4, num_leaves=15, max_bin=255,
+                         categorical_feature=ADULT_CATEGORICAL), x[:16_384], y[:16_384],
+                    device="cpu")
+    probe = adult_unseen_codes(x[16_384:], 1, 0.01)
+    before = BIN_KERNEL.launches
+    on_card = booster.predict_contrib(probe, device="cuda")
+    assert BIN_KERNEL.launches == before + 1
+    np.testing.assert_array_equal(on_card, booster.predict_contrib(probe, device="cpu"))
+
+
+@pytest.mark.parametrize("name", sorted(native_texts()))
+def test_imported_text_scores_on_card_as_cpu(cuda, name):
+    booster = GBDTBooster.from_native_model(native_texts()[name])
+    d = booster.mapper.n_features
+    probes = np.array([-2.0, -1.0, 0.0, 5e-36, -5e-36, 1e-35, 2e-35, 0.25, 1.5, 3.0, np.nan],
+                      np.float32)
+    grid = np.stack(np.meshgrid(*([probes] * d), indexing="ij"), -1).reshape(-1, d)
+    np.testing.assert_array_equal(booster.raw_predict(grid), booster.raw_predict(grid,
+                                                                                 device="cpu"))
+
+
+@pytest.mark.parametrize("n_thr,zero_split", [(3000, True), (33000, False)])
+def test_imported_many_thresholds_card_equals_cpu(cuda, n_thr, zero_split):
+    """Thousands of thresholds on one feature: kernel D's table past its
+    shared memory, int16 and int32 bins, kernel B's narrow and wide records,
+    a set split over 3,000 bins."""
+    booster = GBDTBooster.from_native_model(many_thresholds_text(n_thr, zero_split=zero_split))
+    x = many_thresholds_rows(booster, 50_000)
+    before = (BIN_KERNEL.launches, SCORE_KERNEL.launches, LEAF_KERNEL.launches)
+    raw, leaves = booster.raw_predict(x), booster.predict_leaf(x)
+    torch.cuda.synchronize()
+    assert (BIN_KERNEL.launches, SCORE_KERNEL.launches, LEAF_KERNEL.launches) == tuple(
+        b + k for b, k in zip(before, (2, 1, 1)))
+    packed = booster._trees_on(booster.num_trees, cuda)[0]
+    assert packed.narrow == (n_thr < 32767)
+    np.testing.assert_array_equal(raw, booster.raw_predict(x, device="cpu"))
+    np.testing.assert_array_equal(leaves, booster.predict_leaf(x, device="cpu"))
