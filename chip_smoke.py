@@ -85,7 +85,9 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    codes, f64 edges whose f32 rounding goes up, and ragged tails at d = 1,
    13 and 300) at each output type;
    kernel F bit-equal to its plain version over phase 2e's training rows at
-   iteration 0 (every score tied) and at the fitted ranker's scores;
+   iteration 0 (every score tied), at the fitted ranker's scores, and there
+   with the truncation at the largest query (the kernel's second loop), each
+   with its counted pairs, cells visited and the first design's visits;
    kernel E's full-table entry bit-equal on histograms on the pre-rounded
    grid (numeric, mixed categorical, max_cat_threshold binding, empty bins,
    exact ties across features and bins, NaN gains, masks with l1/l2, B at
@@ -661,7 +663,7 @@ def main() -> int:
     from synapseml_tpu_torch.gbdt.estimators import (LightGBMClassificationModel,
                                                      LightGBMClassifier)
     from synapseml_tpu_torch.gbdt.histogram import histogram, histogram_plain
-    from synapseml_tpu_torch.gbdt.lambdarank import (QueryGroups, lambda_grads,
+    from synapseml_tpu_torch.gbdt.lambdarank import (QueryGroups, cell_count, lambda_grads,
                                                      lambda_grads_plain, pair_count)
     from synapseml_tpu_torch.gbdt.split_search import (SplitWorkspace, left_set,
                                                        split_gains_plain, split_search,
@@ -1247,18 +1249,24 @@ def main() -> int:
 
     # F: the LambdaRank gradient over phase 2e's training rows (18,919 queries
     # of up to 1,251 documents), at iteration 0 (every score tied) and at the
-    # fitted ranker's margins: bit-equal to the plain version (the same
-    # exp_f32, sums in j order). Bound: the rows' bytes (score, label,
-    # weight, gain in; g, h out) against one exponential a counted pair (its
-    # rho feeds both documents) at the SFU rate; no one PyTorch call computes
-    # the function (library null).
-    groups = QueryGroups(ranker["sizes"], ranker["y"], ranker["truncation"], dev)
-    n_rank = groups.n
+    # fitted ranker's margins, then at those margins with the truncation at
+    # G (every document top: queries over TOP_MAX documents take the kernel's
+    # two-sided second loop): bit-equal to the plain version (the same
+    # exp_f32, sums in j order). Each shape prints the counted pairs, the
+    # first design's visits (sum m^2) and the cells the kernel visits. Bound:
+    # the rows' bytes (score, label, weight, gain in; g, h out) against one
+    # exponential a counted pair (its rho feeds both documents) at the SFU
+    # rate; no one PyTorch call computes the function (library null).
     y_rank = torch.from_numpy(ranker["y"].astype(np.float32)).to(dev)
+    n_rank = len(y_rank)
     w_rank = torch.ones(n_rank, device=dev)
+    G_rank = int(ranker["sizes"].max())
     rank_shapes = {}
-    for key, score_np in (("iteration0", np.zeros(n_rank, np.float32)),
-                          ("fitted", ranker["fitted"])):
+    for key, score_np, trunc in (
+            ("iteration0", np.zeros(n_rank, np.float32), ranker["truncation"]),
+            ("fitted", ranker["fitted"], ranker["truncation"]),
+            ("fitted_truncation_G", ranker["fitted"], G_rank)):
+        groups = QueryGroups(ranker["sizes"], ranker["y"], trunc, dev)
         score = torch.from_numpy(score_np).to(dev)
         g_k, h_k = lambda_grads(score, y_rank, w_rank, groups)
         (g_p, h_p), plain_ms = timed_once(lambda: lambda_grads_plain(score, y_rank, w_rank,
@@ -1276,21 +1284,24 @@ def main() -> int:
             (_preround(t[:, None], n_bound_rank)[:, 0] != 0).float().mean())
             for name, t in (("g", g_k), ("h", h_k))}
         ms = time_ms(lambda: lambda_grads(score, y_rank, w_rank, groups), 10)
-        pairs = pair_count(ranker["sizes"], ranker["y"], ranker["truncation"], score_np)
+        pairs = pair_count(ranker["sizes"], ranker["y"], trunc, score_np)
+        cells, visits_first = cell_count(ranker["sizes"], trunc)
         b = bound(n_rank * 16, pairs, EX2_PER_S)
         rank_shapes[key] = {"shape": f"n={n_rank} Q={len(ranker['sizes'])} G={groups.G} "
-                                     f"truncation={groups.truncation}",
-                            "ms": ms, "plain_ms": plain_ms, "pairs": pairs, "bound_ms": b[0],
+                                     f"truncation={trunc}",
+                            "ms": ms, "plain_ms": plain_ms, "pairs": pairs, "cells": cells,
+                            "visits_first_design": visits_first, "bound_ms": b[0],
                             "bound_by": b[1], "max_ulps": ulps, "max_abs_err": 0.0,
                             "max_abs_g": float(g_k.abs().max()), **live}
         log(json.dumps({"lambdarank": key, **rank_shapes[key]}))
-        del g_k, h_k, g_p, h_p
+        del g_k, h_k, g_p, h_p, groups
+        torch.cuda.empty_cache()
     main_f = rank_shapes["fitted"]
     record("gbdt_lambdarank", ranker["record"]["fit_launches"]["gbdt_lambdarank"], 0.0,
            main_f["ms"], main_f["plain_ms"], (main_f["bound_ms"], main_f["bound_by"]), None,
            shape=main_f["shape"] + ", the fitted ranker's margins", shapes=rank_shapes,
            ulp_tolerance=F_ULPS)
-    del groups, y_rank, w_rank
+    del y_rank, w_rank
 
     # C: flash attention at the entry point's shapes (bf16, then f32)
     sdpa = torch.nn.functional.scaled_dot_product_attention

@@ -2,8 +2,9 @@
 
 Port of ``synapseml_tpu/gbdt/boost.py::_lambda_grads`` (``:170-211``) over
 the group tables of ``_group_tables`` (``:156``). Rows are contiguous by
-query; :class:`QueryGroups` holds a fit's queries on its device: the row
-offsets, each row's gain ``2^label - 1``, each query's truncated ideal DCG
+query; :class:`QueryGroups` holds a fit's queries on its device: kernel
+F's blocks (each query's id, first row and size, the largest first), each
+row's gain ``2^label - 1``, each query's truncated ideal DCG
 (both depend on the labels only, so they are computed once a fit, on the
 host, where the reference recomputes them every iteration) and the discount
 table ``1 / log2(2 + r)``. All three tables are computed on the CPU in f32,
@@ -13,7 +14,9 @@ devices perform alike, so the card computes the CPU's gradients bit for bit
 (libm's and CUDA's ``expf`` differ in the last place).
 
 :func:`lambda_grads` launches ``csrc/lambdarank.cu`` on a CUDA tensor (one
-block a query, its documents in shared memory, ranks by counting) and runs
+block a query: ranks by a bitonic sort in shared memory, then each counted
+pair evaluated once, from the side of its document ranked above the
+truncation, into tables that both documents' sums read in j order) and runs
 the plain PyTorch version :func:`lambda_grads_plain` on a CPU tensor. The
 plain version is the reference's dense formulation, per chunk of queries
 padded to the chunk's largest: a (queries, i, j) block of pair terms, with
@@ -22,6 +25,14 @@ memory cap (a query larger than the cap alone is cut along i). Padding
 entries are masked, and each sum over j is taken in j order, so the result
 does not depend on the chunking, and the kernel, which sums in the same
 order, gives the same bits where its exponentials are the plain version's.
+
+Ranks are the stable descending order of a query's scores, -0.0 tied with
++0.0. A NaN score ranks after every other score of its query, in index
+order: ``torch.argsort(-s, stable=True)`` of the query alone. The plain
+version pads a query to its chunk's widest with -inf, and NaN sorts after
+that padding, so it agrees on NaN scores only where the query is its
+chunk's widest (``cap=1`` makes every query its own chunk); a pair with a
+NaN score has NaN terms either way.
 """
 
 from __future__ import annotations
@@ -35,17 +46,20 @@ import torch
 from ..kernels.build import CudaKernel
 
 __all__ = ["QueryGroups", "lambda_grads", "lambda_grads_plain", "LAMBDARANK_KERNEL",
-           "SMEM_DOCS", "pair_count", "exp_f32"]
+           "SMEM_DOCS", "TOP_MAX", "CHUNK_COLS", "pair_count", "cell_count", "exp_f32"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 LAMBDARANK_KERNEL = CudaKernel(
     name="gbdt_lambdarank", source="lambdarank", symbol="smt_lambdarank",
-    argtypes=[_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _P, _P, _P, _P],
+    argtypes=[_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P, _P, _P, _P],
     replaces="synapseml_tpu/gbdt/boost.py:170 (_lambda_grads)")
 
-SMEM_DOCS = 2048  # kSmemDocs of csrc/lambdarank.cu: larger queries use a global scratch
+# constants of csrc/lambdarank.cu (a CPU test holds them to the source)
+SMEM_DOCS = 2048  # kSmemDocs: larger queries sort in a global scratch
+TOP_MAX = 32      # kTopMax: a larger min(truncation, m) takes the two-sided second loop
+CHUNK_COLS = 96   # kCols: columns of a chunk of the main loop
 # elements of one (queries, i, j) block of the plain version: 64 MB of f32 on
 # the CPU, 512 MB on the card
 _PLAIN_CAP = {"cpu": 1 << 24, "cuda": 1 << 27}
@@ -102,7 +116,11 @@ class QueryGroups:
         lab = torch.from_numpy(label.astype(np.float32))
         gain = torch.exp2(lab) - 1.0
         disc = 1.0 / torch.log2(2.0 + torch.arange(max(self.G, 1), dtype=torch.float32))
-        self.offsets = torch.from_numpy(offsets.astype(np.int32)).to(dev)
+        # kernel F's blocks: {query, first row, size, 0}, the largest queries first
+        order = np.argsort(-sizes, kind="stable")
+        self.blocks = torch.from_numpy(np.stack(
+            [order, offsets[order], sizes[order], np.zeros_like(order)], 1).astype(np.int32)
+        ).to(dev)
         self.gain = gain.to(dev)
         self.disc = disc.to(dev)
         self.max_dcg = self._ideal_dcg(gain, disc).to(dev)
@@ -222,8 +240,8 @@ def _check(score, label, weight, groups: QueryGroups) -> None:
                             f"{tuple(t.shape)}")
         if t.device != score.device:
             raise ValueError(f"score on {score.device} but {name} on {t.device}")
-    if groups.offsets.device != score.device:
-        raise ValueError(f"query groups on {groups.offsets.device}, rows on {score.device}")
+    if groups.blocks.device != score.device:
+        raise ValueError(f"query groups on {groups.blocks.device}, rows on {score.device}")
 
 
 def lambda_grads(score: torch.Tensor, label: torch.Tensor, weight: torch.Tensor,
@@ -231,7 +249,8 @@ def lambda_grads(score: torch.Tensor, label: torch.Tensor, weight: torch.Tensor,
     """``(g * w, max(h, 1e-12) * w)``, each (n,) f32, of the LambdaRank
     objective at margins ``score`` over the rows' ``label`` and sample
     ``weight`` (all (n,) f32, rows contiguous by query as ``groups`` says).
-    CPU tensors take the plain version; CUDA tensors launch kernel F."""
+    CPU tensors take the plain version; CUDA tensors launch kernel F (once).
+    NaN scores rank last in their query (module docstring)."""
     _check(score, label, weight, groups)
     if score.device.type == "cpu":
         return lambda_grads_plain(score, label, weight, groups, sigma)
@@ -243,13 +262,15 @@ def lambda_grads(score: torch.Tensor, label: torch.Tensor, weight: torch.Tensor,
     h = torch.empty(n, dtype=torch.float32, device=score.device)
     if n == 0 or Q == 0:
         return g, h
-    scratch = (torch.empty(n, 4, dtype=torch.float32, device=score.device)
+    # queries over SMEM_DOCS sort their keys (16 bytes a row) and keep their
+    # ranks (4) in global memory
+    scratch = (torch.empty(5 * n, dtype=torch.int32, device=score.device)
                if groups.G > SMEM_DOCS else None)
     with torch.cuda.device(score.device):
         stream = torch.cuda.current_stream(score.device).cuda_stream
         LAMBDARANK_KERNEL(score.data_ptr(), label.data_ptr(), groups.gain.data_ptr(),
-                          weight.data_ptr(), groups.offsets.data_ptr(),
-                          groups.max_dcg.data_ptr(), groups.disc.data_ptr(), Q, groups.G,
+                          weight.data_ptr(), groups.blocks.data_ptr(), groups.max_dcg.data_ptr(),
+                          groups.disc.data_ptr(), n, Q, groups.G,
                           groups.truncation, float(np.float32(sigma)),
                           float(np.float32(sigma * sigma)),
                           None if scratch is None else scratch.data_ptr(), g.data_ptr(),
@@ -276,3 +297,16 @@ def pair_count(sizes, label, truncation: int, score=None) -> int:
         below = np.argsort(-s, kind="stable")[truncation:]  # rank >= truncation
         total += differing(lab) - differing(lab[below])
     return total
+
+
+def cell_count(sizes, truncation: int) -> Tuple[int, int]:
+    """(cells kernel F visits, visits of its first design): over a query of
+    m documents with T = min(truncation, m), the main loop's T(T-1)/2 top
+    pairs and T(m - T) top-by-rest cells (each counted pair among them
+    evaluated once), or m^2 where T > TOP_MAX (the two-sided second loop);
+    the first design walked all m^2 ordered (i, j) for every query. Cells
+    of one label are visited but not evaluated."""
+    m = np.asarray(sizes, dtype=np.int64)
+    t = np.clip(truncation, 0, m)
+    cells = np.where(t > TOP_MAX, m * m, t * (t - 1) // 2 + t * (m - t))
+    return int(cells.sum()), int((m * m).sum())

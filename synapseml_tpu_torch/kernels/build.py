@@ -43,24 +43,26 @@ def nvcc_path() -> str:
     return found
 
 
-def _lib_path(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
+def _lib_path(name: str, csrc: Path = CSRC_DIR) -> Path:
+    src = csrc / f"{name}.cu"
     h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{h[:16]}.so"
 
 
-def build(names: Optional[Iterable[str]] = None, log: Optional[List[str]] = None
-          ) -> Dict[str, Path]:
+def build(names: Optional[Iterable[str]] = None, log: Optional[List[str]] = None,
+          csrc: Path = CSRC_DIR) -> Dict[str, Path]:
     """Compile every named source (default: all of ``csrc/*.cu``) that has no
-    library for its current hash yet, all ``nvcc`` processes at once.
+    library for its current hash yet, all ``nvcc`` processes at once. ``csrc``
+    names another source directory (an older tree's, for an A/B in one
+    process); its libraries go to the same build directory, by hash.
 
     Returns ``{name: library path}``. ``log`` collects each compiler's
     output (``-Xptxas -v``: registers, shared memory and spills per kernel).
     Raises ``RuntimeError`` with the compiler's output when a build fails."""
     if names is None:
-        names = sorted(p.stem for p in CSRC_DIR.glob("*.cu"))
+        names = sorted(p.stem for p in csrc.glob("*.cu"))
     names = list(names)
-    out = {n: _lib_path(n) for n in names}
+    out = {n: _lib_path(n, csrc) for n in names}
     todo = [n for n in names if not out[n].exists()]
     if not todo:
         return out
@@ -70,7 +72,7 @@ def build(names: Optional[Iterable[str]] = None, log: Optional[List[str]] = None
     for n in todo:
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC_DIR / f"{n}.cu")]
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(csrc / f"{n}.cu")]
         procs.append((n, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     failed = []

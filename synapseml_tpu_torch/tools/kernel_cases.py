@@ -23,8 +23,8 @@ from ..gbdt.split_search import SplitWorkspace, _thresh_l1, left_set
 __all__ = ["bin_edge_case", "bin_ragged_case", "split_cases", "step_cases",
            "LARGEST_KERNEL_A_BINS", "offgrid_split_case", "check_offgrid", "check_left_sets",
            "synthetic_update", "grow_synthetic", "diff_runs", "rank_rows", "RANK_CASES",
-           "rank_case", "one_split_text", "TWO_TREES", "native_texts", "many_thresholds_text",
-           "many_thresholds_rows"]
+           "RANK_CASES_WIDE", "rank_case", "rank_nan_case", "one_split_text", "TWO_TREES",
+           "native_texts", "many_thresholds_text", "many_thresholds_rows"]
 
 # the most bins kernel A takes: one feature's (B, 3) f32 histogram plus a
 # word within 227 KB of shared memory (histogram.py)
@@ -288,21 +288,31 @@ def rank_rows(seed: int = 0, n_queries: int = 150, d: int = 10):
 
 
 # kernel F's edge cases: every case holds size-1 queries and queries of one
-# label; "large_query" adds one query of 20,000 documents (past the kernel's
-# shared memory: its global-memory path) and is for the card only
+# label; "signed_zeros" ties -0.0 with +0.0 across many documents;
+# "truncation_1" keeps one top document a query; "truncation_past_largest"
+# makes every document top (queries over the kernel's TOP_MAX documents take
+# its two-sided second loop); "one_label" gives every query a single label
+# (no pair counts); "smem_boundary" adds queries of exactly 2,048 and 2,049
+# documents (the last shared-memory query and the first global-scratch one);
+# "large_query" adds one query of 20,000 documents
 RANK_CASES = ("ties", "all_tied", "truncation_below_size", "sigma", "zero_weights",
-              "large_query")
+              "large_query", "signed_zeros", "truncation_1", "truncation_past_largest",
+              "one_label", "smem_boundary")
+# the cases whose reference (Q, G, G) tensors do not fit a CPU test: card and
+# plain-version tests only
+RANK_CASES_WIDE = ("large_query", "smem_boundary")
 
 
 def rank_case(case: str, seed: int = 1):
     """(score f32, label f32, weight f32, sizes, truncation, sigma) of one of
     :data:`RANK_CASES`; scores on a 0.1 grid, so documents tie."""
     x, y, sizes = rank_rows(seed)
-    if case == "large_query":  # a query of 20,000 documents after the first ten
-        big = np.random.default_rng(seed + 100).integers(0, 5, 20_000).astype(np.float64)
+    wide = {"large_query": [20_000], "smem_boundary": [2_048, 2_049]}.get(case)
+    if wide:  # the wide queries after the first ten
+        big = np.random.default_rng(seed + 100).integers(0, 5, sum(wide)).astype(np.float64)
         head = int(sizes[:10].sum())
         y = np.concatenate([y[:head], big, y[head:]])
-        sizes = np.concatenate([sizes[:10], [20_000], sizes[10:]])
+        sizes = np.concatenate([sizes[:10], wide, sizes[10:]])
     n = len(y)
     rng = np.random.default_rng(seed)
     score = np.round(rng.normal(size=n), 1).astype(np.float32)
@@ -317,7 +327,33 @@ def rank_case(case: str, seed: int = 1):
     elif case == "zero_weights":
         w = rng.random(n).astype(np.float32)
         w[rng.random(n) < 0.2] = 0.0
+    elif case == "signed_zeros":
+        zero = rng.random(n) < 0.4
+        score[zero] = np.where(rng.random(int(zero.sum())) < 0.5, -0.0, 0.0)
+    elif case == "truncation_1":
+        truncation = 1
+    elif case == "truncation_past_largest":
+        truncation = int(sizes.max()) + 5
+    elif case == "one_label":
+        y = np.repeat(np.arange(len(sizes)) % 5, sizes).astype(np.float64)
     return score, y.astype(np.float32), w, sizes, truncation, sigma
+
+
+def rank_nan_case(seed: int = 3):
+    """(score, label, weight, sizes, truncation 4): ``rank_case("ties")``'s
+    first 40 queries with NaN scores in five of them: one NaN, three, half
+    the query, and a query of NaN only (whose top documents are NaN)."""
+    score, y, w, sizes, _, _ = rank_case("ties", seed)
+    sizes = sizes[:40]
+    n = int(sizes.sum())
+    score, y, w = score[:n].copy(), y[:n], w[:n]
+    starts = np.cumsum(sizes) - sizes
+    rng = np.random.default_rng(seed)
+    for q in (0, 5, 9, 12, 20):
+        m = int(sizes[q])
+        k = {0: 1, 5: 3, 9: m, 12: 1, 20: max(1, m // 2)}[q]
+        score[starts[q] + rng.choice(m, k, replace=False)] = np.nan
+    return score, y, w, sizes, 4
 
 
 # -- LightGBM text models (the booster's import path) ------------------------------

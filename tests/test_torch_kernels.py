@@ -32,6 +32,7 @@ from synapseml_tpu_torch.tools.kernel_cases import (RANK_CASES, bin_edge_case,
                                                     many_thresholds_rows,
                                                     many_thresholds_text, native_texts,
                                                     offgrid_split_case, rank_case,
+                                                    rank_nan_case,
                                                     split_cases, step_cases)
 from synapseml_tpu_torch.tools.schema_data import (ADULT_CATEGORICAL, SAMPLED_MODES,
                                                    adult_rows, adult_unseen_codes,
@@ -443,8 +444,11 @@ def test_goss_off_grid_card_close_to_cpu(cuda):
 def test_lambdarank_kernel_bit_equal(cuda, case):
     """Kernel F against its plain version on the card and on the CPU: ties,
     size-1 queries, queries of one label, truncation below the size, sigma
-    2.5, zero weights, and one query of 20,000 documents (the global-memory
-    path). Same bits: both sum in j order and share exp_f32."""
+    2.5, zero weights, -0.0 tied with +0.0, truncation 1, truncation past the
+    largest query (the two-sided second loop beside the main loop), queries
+    of 2,048 and 2,049 documents (the shared-memory boundary) and one of
+    20,000 (the global scratch). Same bits: both sum in j order and share
+    exp_f32."""
     score, y, w, sizes, truncation, sigma = rank_case(case)
     rows = [torch.from_numpy(a) for a in (score, y, w)]
     on_card = QueryGroups(sizes, y, truncation, cuda)
@@ -457,6 +461,21 @@ def test_lambdarank_kernel_bit_equal(cuda, case):
     g_cpu, h_cpu = lambda_grads_plain(*rows, QueryGroups(sizes, y, truncation), sigma,
                                       cap=1 << 27)
     assert torch.equal(g.cpu(), g_cpu) and torch.equal(h.cpu(), h_cpu)
+
+
+def test_lambdarank_kernel_nan_scores(cuda):
+    """NaN scores rank after every other score of their query, in index
+    order: the plain version's order where each query is its own chunk
+    (``cap=1``). Rows agree bit for bit or are NaN in both."""
+    score, y, w, sizes, truncation = rank_nan_case()
+    rows = [torch.from_numpy(a).to(cuda) for a in (score, y, w)]
+    groups = QueryGroups(sizes, y, truncation, cuda)
+    got = lambda_grads(*rows, groups)
+    want = lambda_grads_plain(*rows, groups, cap=1)
+    for a, b in zip(got, want):
+        assert torch.isnan(a).any() and torch.equal(torch.isnan(a), torch.isnan(b))
+        ok = ~torch.isnan(b)
+        assert torch.equal(a[ok], b[ok])
 
 
 def test_ranker_fit_card_equals_cpu(cuda):

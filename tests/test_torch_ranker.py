@@ -36,7 +36,8 @@ from synapseml_tpu_torch.gbdt.estimators import LightGBMRanker, LightGBMRankerMo
 from synapseml_tpu_torch.gbdt.lambdarank import (QueryGroups, exp_f32, lambda_grads,
                                                  lambda_grads_plain, pair_count)
 from synapseml_tpu_torch.gbdt.metrics import metric_ndcg
-from synapseml_tpu_torch.tools.kernel_cases import RANK_CASES, rank_case, rank_rows
+from synapseml_tpu_torch.tools.kernel_cases import (RANK_CASES, RANK_CASES_WIDE, rank_case,
+                                                    rank_rows)
 from synapseml_tpu_torch.tools.schema_data import MSLR_FEATURES, MSLR_SHARES, mslr_rows
 from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
@@ -62,11 +63,11 @@ def _port_grads(score, y, w, sizes, truncation, sigma, **kw):
     return g.numpy(), h.numpy()
 
 
-@pytest.mark.parametrize("case", [c for c in RANK_CASES if c != "large_query"])
+@pytest.mark.parametrize("case", [c for c in RANK_CASES if c not in RANK_CASES_WIDE])
 def test_lambda_grads_match_reference(case):
     """Size-1 queries and queries of one label are in every case (the
-    20,000-document query is a card test: the reference's dense (Q, G, G)
-    tensors of it do not fit this test's memory)."""
+    queries of 2,048 to 20,000 documents are card tests: the reference's
+    dense (Q, G, G) tensors of them do not fit this test's memory)."""
     score, y, w, sizes, truncation, sigma = rank_case(case)
     g_ref, h_ref = _ref_grads(score, y, w, sizes, truncation, sigma)
     g, h = _port_grads(score, y, w, sizes, truncation, sigma)
