@@ -12,8 +12,10 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    transform on 1,048,576 held-out rows; the launch counts of the histogram
    and tree-scoring kernels must be > 0, the held-out AUC > 0.9, and a small
    fit on the card must grow the same trees as the plain CPU path; binning
-   (kernel D) must launch in the fit, and the split search (kernel E) once
-   a split step (300 launches), as in 2b (300) and 2c (2,100);
+   (kernel D) must launch in the fit, the split search (kernel E), the row
+   partition (kernel P) and kernel A's row-list entry once a split step
+   (300 launches; E also in 2b, 300, and 2c, 2,100) and kernel A's full
+   entry once a tree (the root histogram);
 2b. ``gbdt_adult_cat``: rows at the UCI Adult Census schema (6 numeric and 8
    categorical columns with Adult's cardinalities, NaN where the files hold
    '?', codes unseen in training among the held-out rows), 4,194,304
@@ -60,6 +62,16 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    scoring bit-equal on the card and the CPU (and within SHAP_TOL of the
    model it came from), and the hand-written LightGBM texts
    (zero_as_missing, default_left, ...) scoring on the card as on the CPU;
+2f. growth over the row partition against the full pass it replaced
+   (``kernel_cases.grow_full_pass``): ``train`` at phase 2's rows and
+   parameters both ways: identical trees and bit-equal held-out margins,
+   kernel P (the row partition) and kernel A's row-list entry once a split
+   step (A's full entry once a tree, the root), and each path's kernel A
+   launches, device ms a fit (traced fits in turns full pass, shipped,
+   shipped, full pass) and rows histogrammed a fit; then a continued-training
+   fit (``init_booster``, with an eval set) and ``num_batches=2`` fits of the
+   classifier and the regressor at 16,384 rows, each giving the same trees on
+   the card and the CPU;
 3. flash attention's entry point, all causal: in bf16 (the wgmma kernel) at
    the headline shape (B=1, S=32768, H=8, D=64), the grouped-query serving
    shape (B=8, S=8192, H=8, H_kv=2, D=64), the headline length at D=128, and
@@ -93,7 +105,9 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    exact ties across features and bins, NaN gains, masks with l1/l2, B at
    64, 256 and kernel A's largest, Covertype's layout) and, off the grid,
    the same split wherever the runner-up is more than one ulp below the
-   best; its step entry bit-equal to the plain step over every step of
+   best; kernel P at the fit's root split (the same segments as
+   sets, counts, smaller child and node as its plain version) and A's
+   row-list entry over that split's smaller child (bit-equal); its step entry bit-equal to the plain step over every step of
    whole trees on those cases and on an inert step, a depth cap and B = 100,
    timed beside the full table at the HIGGS, Adult and Covertype shapes;
    flash within 5e-2 (bf16) and 2e-5
@@ -117,6 +131,7 @@ the script exits 2 and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import sys
 import time
@@ -220,28 +235,33 @@ def timed_once(fn):
     return out, start.elapsed_time(end)
 
 
-def profiled(fn, reps: int):
-    """(device ms, kernel launches) of one call of ``fn``: the kernels' own
-    time in a ``torch.profiler`` trace of ``reps`` calls after one warm-up,
-    so the host's launch cost (which sets the wall time of a call this
-    small) is left out. A trace that comes back without device events (the
-    tracer drops one now and then) is taken again, up to three times."""
+def _device_events(fn) -> list:
+    """The device kernels' events in a ``torch.profiler`` trace of ``fn()``. A
+    trace that comes back without device events (the tracer drops one now
+    and then) is taken again, up to three times."""
     from synapseml_tpu_torch.tools.profile_fit import _device_us
 
-    fn()
     torch.cuda.synchronize()
     for attempt in range(1, 4):
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
+            fn()
             torch.cuda.synchronize()
         evts = [e for e in prof.key_averages()
                 if e.device_type == torch.autograd.DeviceType.CUDA and _device_us(e) > 0]
         if evts:
-            break
+            return evts
         log(f"profiler: trace {attempt} of 3 held no device time")
-    else:
-        fail("the profiler saw no device time in 3 traces")
+    fail("the profiler saw no device time in 3 traces")
+
+
+def profiled(fn, reps: int):
+    """(device ms, kernel launches) of one call of ``fn``: the kernels' own
+    time in a trace of ``reps`` calls after one warm-up, so the host's
+    launch cost (which sets the wall time of a call this small) is left out."""
+    from synapseml_tpu_torch.tools.profile_fit import _device_us
+
+    fn()
+    evts = _device_events(lambda: [fn() for _ in range(reps)])
     return (sum(_device_us(e) for e in evts) / 1e3 / reps,
             sum(e.count for e in evts) / reps)
 
@@ -631,6 +651,141 @@ def model_surface(kernels, higgs_model, adult_model, x_te, xa_te) -> dict:
     return rec
 
 
+def kernel_times(fn, keys) -> dict:
+    """{key: (device ms, launches)} of the kernels whose traced name holds
+    every part of each key (a tuple of substrings), in a trace of one call
+    of ``fn``."""
+    from synapseml_tpu_torch.tools.profile_fit import _device_us
+
+    evts = _device_events(fn)
+    hit = lambda key, e: all(part in e.key for part in key)
+    return {key: (sum(_device_us(e) for e in evts if hit(key, e)) / 1e3,
+                  sum(e.count for e in evts if hit(key, e))) for key in keys}
+
+
+def gathered_bytes(rows: torch.Tensor, row_bytes: int, first: int, width: int) -> int:
+    """Bytes of the distinct 32-byte sectors that reading ``width`` bytes at
+    offset ``first`` of each listed row (rows ``row_bytes`` apart) touches:
+    what a gather of those rows must move, however scattered or sequential
+    the rows are."""
+    start = rows.to(torch.int64) * row_bytes + first
+    s0, s1 = start // 32, (start + width - 1) // 32
+    if rows.numel() == 0:
+        return 0
+    sectors = s0[:, None] + torch.arange(int((s1 - s0).max()) + 1, device=rows.device)
+    return 32 * int(torch.unique(sectors[sectors <= s1[:, None]]).numel())
+
+
+def leaf_local_phase(kernels, gbdt, x_tr, y_tr, x_te, split_steps) -> dict:
+    """Phase 2f: ``train`` at the main path's rows and parameters, growing
+    over the row partition (as shipped) and through the full pass it
+    replaced (``kernel_cases.grow_full_pass``), each fit with the launch
+    counts set to 0 just before and read just after: identical trees and
+    bit-equal held-out margins, kernel P and A's row-list entry once a split
+    step as shipped (A's full entry once a tree, for the root), and each
+    path's kernel A launches, device ms a fit (a traced fit of each path, in
+    turns full pass, shipped, shipped, full pass) and rows histogrammed a
+    fit (from the trees: ``kernel_cases.rows_histogrammed``). Then a
+    continued-training fit and a ``num_batches=2`` fit at 16,384 rows on the
+    card and the CPU."""
+    from synapseml_tpu_torch.gbdt.boost import train
+    from synapseml_tpu_torch.gbdt.estimators import LightGBMClassifier, LightGBMRegressor
+    from synapseml_tpu_torch.gbdt.histogram import HIST_ROWS_TRACE, HIST_TRACE
+    from synapseml_tpu_torch.gbdt.partition import PARTITION_TRACE
+    from synapseml_tpu_torch.tools.kernel_cases import full_pass, rows_histogrammed
+
+    params = {k: v for k, v in gbdt.items()}
+    params["objective"] = "binary"
+    T, steps, n = params["num_iterations"], split_steps(params), len(y_tr)
+    growth = {"full_pass": full_pass, "shipped": contextlib.nullcontext}
+    paths = {}
+    for path, ctx in growth.items():
+        reset(kernels)
+        t0 = time.perf_counter()
+        with ctx():
+            booster = train(params, x_tr, y_tr)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        paths[path] = {"booster": booster, "fit_s": fit_s, "launches": counts(kernels)}
+    full, local = paths["full_pass"]["booster"], paths["shipped"]["booster"]
+    for field in ("parent", "feature", "bin", "gain", "leaf_value", "leaf_hess", "tree_scale"):
+        if not np.array_equal(getattr(full, field), getattr(local, field)):
+            fail(f"partitioned growth: {field} differs from the full pass's")
+    margins = {path: paths[path]["booster"].raw_predict(x_te) for path in paths}
+    if not np.array_equal(margins["full_pass"], margins["shipped"]):
+        fail("partitioned growth: held-out margins differ from the full pass's")
+    want = {"full_pass": {"gbdt_histogram": T + steps, "gbdt_histogram_rows": 0,
+                          "gbdt_partition": 0},
+            "shipped": {"gbdt_histogram": T, "gbdt_histogram_rows": steps,
+                        "gbdt_partition": steps}}
+    for path, w in want.items():
+        got = {k: paths[path]["launches"][k] for k in w}
+        if got != w or paths[path]["launches"]["gbdt_split_search"] != steps:
+            fail(f"{path} fit launched {paths[path]['launches']}, expected {w} and E {steps}")
+    leaves = local.predict_leaf(x_tr)
+    routed = right = small = 0
+    for t in range(T):
+        sums = rows_histogrammed(local.parent[t, 0],
+                                 np.bincount(leaves[:, t], minlength=params["num_leaves"]))
+        routed, right, small = routed + sums[0], right + sums[1], small + sums[2]
+    del leaves
+    traced = {path: [] for path in paths}
+    for path in ("full_pass", "shipped", "shipped", "full_pass"):
+        with growth[path]():
+            traced[path].append(kernel_times(lambda: train(params, x_tr, y_tr),
+                                             (HIST_TRACE, HIST_ROWS_TRACE, PARTITION_TRACE)))
+    rows = {"full_pass": {"rows_binned": T * n + right, "ghw_rows_read": (T + steps) * n},
+            "shipped": {"rows_binned": T * n + small, "ghw_rows_read": T * n + small,
+                        "rows_partitioned": routed}}
+    rec = {"phase": "gbdt_leaf_local", "rows_train": n, **params, "split_steps": steps}
+    for path in paths:
+        runs = traced[path]
+        rec[path] = {"fit_s": paths[path]["fit_s"],
+                     "kernel_a_launches": (paths[path]["launches"]["gbdt_histogram"]
+                                           + paths[path]["launches"]["gbdt_histogram_rows"]),
+                     "kernel_a_device_ms": [r[HIST_TRACE][0] + r[HIST_ROWS_TRACE][0]
+                                            for r in runs],
+                     "kernel_a_full_entry_device_ms": [r[HIST_TRACE][0] for r in runs],
+                     "kernel_a_row_list_device_ms": [r[HIST_ROWS_TRACE][0] for r in runs],
+                     "kernel_p_device_ms": [r[PARTITION_TRACE][0] for r in runs],
+                     "kernel_p_launches": paths[path]["launches"]["gbdt_partition"],
+                     **rows[path]}
+    rec["identical_trees_and_margins"] = True
+    log(json.dumps(rec))
+
+    # continued training (with an eval set) and num_batches=2 at 16,384
+    # rows: the same trees on the card and the CPU
+    n_small = SMALL_FIT_ROWS
+    xs, ys, xe = x_tr[:n_small], y_tr[:n_small], x_te[:4096]
+    small = dict(params, num_iterations=3)
+    fits = {}
+    for dev_name in ("cuda", "cpu"):
+        first = train(small, xs, ys, device=dev_name)
+        fits[dev_name] = train(small, xs, ys, device=dev_name, init_booster=first,
+                               eval_set=[(xe, (xe[:, 0] > 0).astype(np.float64))])
+    a, b = fits["cuda"], fits["cpu"]
+    for field in ("parent", "feature", "bin", "leaf_value", "leaf_hess", "tree_scale"):
+        if not np.array_equal(getattr(a, field), getattr(b, field)):
+            fail(f"continued training: {field} differs between the card and the CPU")
+    ea = np.array([r["eval0_binary_logloss"] for r in a.evals_result])
+    eb = np.array([r["eval0_binary_logloss"] for r in b.evals_result])
+    if a.num_trees != 6 or not np.abs(ea - eb).max() <= 1e-5:
+        fail(f"continued training: {a.num_trees} trees, eval series {ea} against {eb}")
+    cont_err = float(np.abs(a.raw_predict(xe) - b.raw_predict(xe, device="cpu")).max())
+    batch_err = {}
+    for cls in (LightGBMClassifier, LightGBMRegressor):
+        yb = ys if cls is LightGBMClassifier else xs[:, 0] + 0.5 * xs[:, 5]
+        batch_err[cls.__name__] = small_fit_same_trees(
+            cls, dict(gbdt, num_iterations=5, num_batches=2), xs, yb, xe,
+            col="rawPrediction" if cls is LightGBMClassifier else "prediction")
+    small_rec = {"phase": "gbdt_continued_and_batches", "rows": n_small,
+                 "continued_raw_max_diff": cont_err, "num_batches_raw_max_diff": batch_err}
+    log(json.dumps(small_rec))
+    if not (cont_err <= 1e-5 and max(batch_err.values()) <= 1e-5):
+        fail(f"continued or batch fits differ between the card and the CPU: {small_rec}")
+    return {"record": rec, "booster": local}
+
+
 def _grown_tree(booster, t: int, dev):
     """Tree ``t`` (class 0) of a booster as a ``GrownTree`` on ``dev``."""
     from synapseml_tpu_torch.gbdt.grow import GrownTree
@@ -662,7 +817,9 @@ def main() -> int:
                                                          raw_scores_plain)
     from synapseml_tpu_torch.gbdt.estimators import (LightGBMClassificationModel,
                                                      LightGBMClassifier)
-    from synapseml_tpu_torch.gbdt.histogram import histogram, histogram_plain
+    from synapseml_tpu_torch.gbdt.histogram import (histogram, histogram_plain, histogram_rows,
+                                                    histogram_rows_plain)
+    from synapseml_tpu_torch.gbdt.partition import PARTITION_TRACE, RowPartition, partition_plain
     from synapseml_tpu_torch.gbdt.lambdarank import (QueryGroups, cell_count, lambda_grads,
                                                      lambda_grads_plain, pair_count)
     from synapseml_tpu_torch.gbdt.split_search import (SplitWorkspace, left_set,
@@ -720,12 +877,17 @@ def main() -> int:
         kernels, LightGBMClassifier(**GBDT), train_table, test_table)
     gbdt_launches = {name: fit_launches[name] + transform_launches[name] for name in kernels}
     log(f"phase 2 launches: fit {fit_launches}, transform {transform_launches}")
-    for name in ("gbdt_histogram", "gbdt_split_search", "gbdt_bin_features"):
+    for name in ("gbdt_histogram", "gbdt_histogram_rows", "gbdt_partition",
+                 "gbdt_split_search", "gbdt_bin_features"):
         if fit_launches[name] < 1:
             fail(f"the main path's fit never launched {name}")
-    if fit_launches["gbdt_split_search"] != split_steps(GBDT):
-        fail(f"kernel E launched {fit_launches['gbdt_split_search']} times in the fit, not "
-             f"once a split step ({split_steps(GBDT)})")
+    for name in ("gbdt_split_search", "gbdt_partition", "gbdt_histogram_rows"):
+        if fit_launches[name] != split_steps(GBDT):
+            fail(f"{name} launched {fit_launches[name]} times in the fit, not once a split "
+                 f"step ({split_steps(GBDT)})")
+    if fit_launches["gbdt_histogram"] != GBDT["num_iterations"]:
+        fail(f"kernel A's full entry launched {fit_launches['gbdt_histogram']} times in the "
+             f"fit, not once a tree (the root)")
     for name in ("gbdt_tree_score", "gbdt_bin_features"):
         if transform_launches[name] < 1:
             fail(f"the main path's transform never launched {name}")
@@ -789,7 +951,8 @@ def main() -> int:
         fail(f"adult held-out AUC {adult_auc:.4f} <= {ADULT_AUC_FLOOR}")
     if n_cat_splits < 1 or model_a.booster.cat_set is None:
         fail("adult fit took no categorical split")
-    for name in ("gbdt_bin_features", "gbdt_split_search", "gbdt_histogram"):
+    for name in ("gbdt_bin_features", "gbdt_split_search", "gbdt_histogram",
+                 "gbdt_histogram_rows", "gbdt_partition"):
         if fit_la[name] < 1:
             fail(f"the adult fit never launched {name}")
     if fit_la["gbdt_split_search"] != split_steps(adult_gbdt):
@@ -834,7 +997,8 @@ def main() -> int:
         fail(f"covertype transform: probability {prob_c.shape}")
     if not acc_c > COVTYPE_ACC_FLOOR:
         fail(f"covertype held-out accuracy {acc_c:.4f} <= {COVTYPE_ACC_FLOOR}")
-    for name in ("gbdt_split_search", "gbdt_histogram", "gbdt_bin_features"):
+    for name in ("gbdt_split_search", "gbdt_histogram", "gbdt_histogram_rows",
+                 "gbdt_partition", "gbdt_bin_features"):
         if fit_lc[name] < 1:
             fail(f"the covertype fit never launched {name}")
     if fit_lc["gbdt_split_search"] != split_steps(cov_gbdt, COVTYPE_CLASSES):
@@ -872,6 +1036,11 @@ def main() -> int:
     ranker = ranker_phase(kernels, args.seed, split_steps)
     surface = model_surface(kernels, model, model_a, x_te, xa_te)
     log(f"phase 2e in {time.perf_counter() - t0:.1f} s")
+
+    # -- phase 2f: partitioned growth against the full pass; continued and batch training -
+    t0 = time.perf_counter()
+    leaf_local = leaf_local_phase(kernels, GBDT, x_tr, y_tr, x_te, split_steps)
+    log(f"phase 2f in {time.perf_counter() - t0:.1f} s")
 
     # -- phase 3: flash attention's entry point -----------------------------------------
     gen = torch.Generator(device=dev).manual_seed(args.seed)
@@ -982,6 +1151,95 @@ def main() -> int:
            (half["bound_ms"], half["bound_by"]), lib_ms,
            shape=f"n={N_TRAIN} d={N_FEATURES} B={n_bins} {binned_tr.dtype}, half the rows live",
            weightings=hist_runs, nonfinite_nan_cells=nan_cells)
+
+    # P: the row partition, at the fit's first split (the root: every
+    # training row routed), against its plain version (a stable boolean-mask
+    # partition) on the card: the same segments as sets, counts, smaller
+    # child and node. Bound: per routed row its id read and written (4 + 4
+    # bytes), the split feature's bins gathered and node written for the
+    # right rows, each counted as the distinct 32-byte sectors it touches
+    # (gathered_bytes). Library: the one torch call of a stable partition,
+    # argsort of the left/right key.
+    lb = leaf_local["booster"]
+    f0, b0 = int(lb.feature[0, 0, 0]), int(lb.bin[0, 0, 0])
+    choice = torch.tensor([0, f0], device=dev)
+    ok_t = torch.ones(1, dtype=torch.bool, device=dev)
+    in_set = torch.arange(n_bins, device=dev) <= b0
+    parts = {}
+    for key in ("kernel", "plain"):
+        part = RowPartition(N_TRAIN, lb.parent.shape[-1] + 1, dev)
+        node_p = torch.zeros(N_TRAIN, dtype=torch.int32, device=dev)
+        part.begin_tree()
+        if key == "kernel":
+            part.split(0, binned_tr, node_p, choice, ok_t, in_set)
+        else:
+            partition_plain(part, 0, binned_tr, node_p, choice, ok_t, in_set)
+        parts[key] = (part, node_p)
+    (pk, nk), (pp, npl) = parts["kernel"], parts["plain"]
+    torch.cuda.synchronize()
+    same = (torch.equal(pk.seg, pp.seg) and torch.equal(pk.small, pp.small)
+            and torch.equal(pk.smaller_right, pp.smaller_right) and torch.equal(nk, npl))
+    for b_, c_ in pp.seg[:2].tolist():
+        same = same and torch.equal(torch.sort(pk.order[b_:b_ + c_]).values,
+                                    torch.sort(pp.order[b_:b_ + c_]).values)
+    if not same:
+        fail("kernel P differs from its plain version at the root split")
+    n_left, n_right = (int(v) for v in pp.seg[:2, 1])
+
+    def p_step():
+        pk.begin_tree()
+        pk.split(0, binned_tr, nk, choice, ok_t, in_set)
+
+    p_ms = kernel_times(lambda: [p_step() for _ in range(20)],
+                        (PARTITION_TRACE,))[PARTITION_TRACE][0] / 20
+    p_plain_ms = time_ms(lambda: (pp.begin_tree(), partition_plain(
+        pp, 0, binned_tr, npl, choice, ok_t, in_set)), 3)
+    key_lr = (~in_set[binned_tr[:, f0].to(torch.int64)]).to(torch.uint8)
+    p_lib_ms = time_ms(lambda: torch.argsort(key_lr, stable=True), 5)
+    e_bin = binned_tr.element_size()
+    routed = torch.arange(N_TRAIN, device=dev)  # the root's segment
+    p_bytes = (8 * N_TRAIN + gathered_bytes(routed, N_FEATURES * e_bin, f0 * e_bin, e_bin)
+               + gathered_bytes(pp.order[n_left:], 4, 0, 4))
+    del routed
+    record("gbdt_partition", gbdt_launches["gbdt_partition"], 0.0, p_ms, p_plain_ms,
+           bound(p_bytes, 0, F32_FLOPS), p_lib_ms, bytes_moved=p_bytes,
+           shape=f"root split of n={N_TRAIN} rows, {binned_tr.dtype} bins, feature {f0}, "
+                 f"{n_left} left / {n_right} right")
+    del key_lr, parts, npl
+
+    # A's row-list entry over that split's smaller child, every row at weight
+    # 1 (a plain gbdt fit): bit-equal to its plain version. Bound: per listed
+    # row its id (4 bytes), its g, h and w and its row of bins gathered, each
+    # counted as the distinct 32-byte sectors it touches (gathered_bytes),
+    # the output once. Library: index_add_ over the gathered rows.
+    ones_w = weightings["all"]
+    cnt = int(pk.small[1])
+    h_rows = histogram_rows(binned_tr, g, h, ones_w, n_bins, pk.order, pk.small)
+    if not torch.equal(h_rows, histogram_rows_plain(binned_tr, g, h, ones_w, n_bins,
+                                                    pk.order, pk.small)):
+        fail("kernel A's row-list entry differs from its plain version")
+    rows_ms = time_ms(lambda: histogram_rows(binned_tr, g, h, ones_w, n_bins, pk.order,
+                                             pk.small), 20)
+    rows_plain_ms = time_ms(lambda: histogram_rows_plain(binned_tr, g, h, ones_w, n_bins,
+                                                         pk.order, pk.small), 3)
+    b_s, c_s = (int(v) for v in pk.small)
+    idx = pk.order[b_s:b_s + c_s].to(torch.int64)
+    flat = (binned_tr[idx].to(torch.int64)
+            + torch.arange(N_FEATURES, device=dev)[None, :] * n_bins).reshape(-1)
+    vals = torch.stack([g[idx], h[idx], ones_w[idx]], 1)[:, None, :].expand(
+        c_s, N_FEATURES, 3).reshape(-1, 3).contiguous()
+    h_lib = torch.zeros(N_FEATURES * n_bins, 3, device=dev)
+    rows_lib_ms = time_ms(lambda: h_lib.index_add_(0, flat, vals), 5)
+    rows_bytes = (4 * cnt + 3 * gathered_bytes(idx, 4, 0, 4)
+                  + gathered_bytes(idx, N_FEATURES * e_bin, 0, N_FEATURES * e_bin)
+                  + N_FEATURES * n_bins * 12)
+    del idx, flat, vals, h_lib
+    record("gbdt_histogram_rows", gbdt_launches["gbdt_histogram_rows"], 0.0, rows_ms,
+           rows_plain_ms, bound(rows_bytes, 3 * cnt * N_FEATURES, F32_FLOPS), rows_lib_ms,
+           bytes_moved=rows_bytes,
+           shape=f"the root split's smaller child: {cnt} of n={N_TRAIN} rows listed, "
+                 f"d={N_FEATURES} B={n_bins} {binned_tr.dtype}, every row at weight 1")
+    del pk, pp, nk, h_rows
     del binned_tr, g, h, w, weightings, y_d, p0, h_kern, h_plain
 
     # B: tree scoring, both entries, at five shapes: (i) the fitted model on

@@ -47,6 +47,17 @@
 // on the sparse weightings of split steps, which are 300 of a fit's 310
 // launches, and were not kept (PERF.md, Findings).
 //
+// The row-list entry (smt_histogram_rows) is the same kernel over the rows
+// order[begin .. begin + count), with (begin, count) read from the card
+// (kernel P's smaller child). It replaces leaf_hist_local's gather into a
+// power-of-two buffer (synapseml_tpu/gbdt/grow.py:223-250): a lane reads its
+// row id from the list (coalesced), then that row's g, h and w (gathered:
+// a 32-byte sector each), and the row id is broadcast with the values, so
+// each live row's bin segment is read from its own row. Its grid is the
+// occupancy's (the count is not known on the host); a block that added no
+// row skips the merge. Bound: per listed row 4 bytes of id, 3 gathered
+// sectors of g, h, w, and its bins; the output once.
+//
 // Sums are taken in an order that changes from run to run. On gradients that
 // were pre-rounded to a summation-exact grid (boost._preround), with 0/1
 // weights, every partial sum is exact, and the result is bit-equal to any
@@ -63,11 +74,12 @@ constexpr int kBatch = 4;                // live rows whose bins are loaded toge
 constexpr int kSmemBudget = 200 * 1024;  // bytes of one block's sub-histogram
 constexpr unsigned kAll = 0xffffffffu;
 
-template <typename BinT>
+template <typename BinT, bool kList>
 __global__ void __launch_bounds__(kThreads)
 hist_kernel(const BinT* __restrict__ bins, const float* __restrict__ grad,
             const float* __restrict__ hess, const float* __restrict__ weight,
-            float* __restrict__ out, long long n, int d, int n_bins, int tile) {
+            float* __restrict__ out, long long n, int d, int n_bins, int tile,
+            const int* __restrict__ order, const int* __restrict__ span) {
   extern __shared__ float sh[];
   const int f0 = blockIdx.y * tile;
   const int dt = min(tile, d - f0);
@@ -75,31 +87,50 @@ hist_kernel(const BinT* __restrict__ bins, const float* __restrict__ grad,
   for (int i = threadIdx.x; i < dt * fstride; i += blockDim.x) sh[i] = 0.f;
   __syncthreads();
 
+  // the row-list entry walks positions of order[begin, begin + count); the
+  // full entry walks rows 0..n-1 (position r is row r)
+  const int* ids = nullptr;
+  if constexpr (kList) {
+    ids = order + __ldg(span);
+    n = __ldg(span + 1);
+  }
+  auto row_at = [&](long long r) -> long long {
+    if constexpr (kList) return (long long)__ldg(ids + r);
+    return r;
+  };
+
   const int lane = threadIdx.x & 31;
   const long long n_groups = (n + 31) / 32;
   const long long step = (long long)gridDim.x * kWarps;
   long long grp = (long long)blockIdx.x * kWarps + threadIdx.x / 32;
   // g, h and w of the warp's next group are loaded one group ahead
   float ng = 0.f, nh = 0.f, nw = 0.f;
+  long long nrow = 0;
   if (grp < n_groups && grp * 32 + lane < n) {
-    ng = __ldg(grad + grp * 32 + lane);
-    nh = __ldg(hess + grp * 32 + lane);
-    nw = __ldg(weight + grp * 32 + lane);
+    nrow = row_at(grp * 32 + lane);
+    ng = __ldg(grad + nrow);
+    nh = __ldg(hess + nrow);
+    nw = __ldg(weight + nrow);
   }
+  bool touched = false;
   for (; grp < n_groups; grp += step) {
     const float g = ng, h = nh, w = nw;
+    const long long row = nrow;
     const long long r = grp * 32 + lane, r_next = r + step * 32;
     if (r_next < n) {
-      ng = __ldg(grad + r_next);
-      nh = __ldg(hess + r_next);
-      nw = __ldg(weight + r_next);
+      nrow = row_at(r_next);
+      ng = __ldg(grad + nrow);
+      nh = __ldg(hess + nrow);
+      nw = __ldg(weight + nrow);
     }
     const float gw = __fmul_rn(g, w), hw = __fmul_rn(h, w);
     const bool live = r < n && (w != 0.f || !isfinite(g) || !isfinite(h));
     unsigned mask = __ballot_sync(kAll, live);
-    const BinT* rows = bins + grp * 32 * d + f0;
+    touched |= mask != 0;
+    const BinT* rows = bins + grp * 32 * d + f0;  // the full entry's group
     while (mask) {
       int src[kBatch];
+      const BinT* at[kBatch];
       float vg[kBatch], vh[kBatch], vw[kBatch];
 #pragma unroll
       for (int u = 0; u < kBatch; ++u) {
@@ -109,12 +140,19 @@ hist_kernel(const BinT* __restrict__ bins, const float* __restrict__ grad,
         vg[u] = __shfl_sync(kAll, gw, s);
         vh[u] = __shfl_sync(kAll, hw, s);
         vw[u] = __shfl_sync(kAll, w, s);
+        if constexpr (kList)
+          at[u] = bins + __shfl_sync(kAll, (int)row, s) * (long long)d + f0;
       }
       for (int f = lane; f - lane < dt; f += 32) {
         int b[kBatch];
 #pragma unroll
-        for (int u = 0; u < kBatch; ++u)
-          b[u] = (src[u] >= 0 && f < dt) ? (int)rows[(long long)src[u] * d + f] : -1;
+        for (int u = 0; u < kBatch; ++u) {
+          const bool ld = src[u] >= 0 && f < dt;
+          if constexpr (kList)
+            b[u] = ld ? (int)at[u][f] : -1;
+          else
+            b[u] = ld ? (int)rows[(long long)src[u] * d + f] : -1;
+        }
 #pragma unroll
         for (int u = 0; u < kBatch; ++u) {
           if (b[u] < 0 || b[u] >= n_bins) continue;  // out-of-range bins are dropped
@@ -126,7 +164,9 @@ hist_kernel(const BinT* __restrict__ bins, const float* __restrict__ grad,
       }
     }
   }
-  __syncthreads();
+  // a block that added no row has nothing to merge (the row-list entry's
+  // grid does not shrink with a small list)
+  if (!__syncthreads_or(touched)) return;
 
   float* o = out + (long long)f0 * n_bins * 3;
   const int cells = dt * n_bins * 3;
@@ -136,15 +176,15 @@ hist_kernel(const BinT* __restrict__ bins, const float* __restrict__ grad,
   }
 }
 
-template <typename BinT>
+template <typename BinT, bool kList>
 cudaError_t launch(const void* bins, const float* grad, const float* hess,
                    const float* weight, float* out, long long n, int d, int n_bins,
-                   cudaStream_t stream) {
+                   const int* order, const int* span, cudaStream_t stream) {
   const int feat_bytes = (3 * n_bins + 1) * (int)sizeof(float);
   const int tile = min(d, max(1, kSmemBudget / feat_bytes));
   const int n_tiles = (d + tile - 1) / tile;
   const int smem = tile * feat_bytes;
-  auto kern = hist_kernel<BinT>;
+  auto kern = hist_kernel<BinT, kList>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -157,14 +197,32 @@ cudaError_t launch(const void* bins, const float* grad, const float* hess,
                                                            smem)) != cudaSuccess)
     return err;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  // the row-list entry's length is on the card: its grid is the occupancy's
   const long long work = ((n + 31) / 32 + kWarps - 1) / kWarps;  // blocks of 8 row groups
   long long gx = (long long)per_sm * sms / n_tiles;
   if (gx < 1) gx = 1;
-  if (gx > work) gx = work;
+  if (!kList && gx > work) gx = work;
   dim3 grid((unsigned)gx, (unsigned)n_tiles);
   kern<<<grid, kThreads, smem, stream>>>((const BinT*)bins, grad, hess, weight, out, n,
-                                         d, n_bins, tile);
+                                         d, n_bins, tile, order, span);
   return cudaGetLastError();
+}
+
+template <bool kList>
+int dispatch(const void* bins, int bin_bytes, const void* grad, const void* hess,
+             const void* weight, void* out, long long n, int d, int n_bins,
+             const int* order, const int* span, void* stream) {
+  const float* g = (const float*)grad;
+  const float* h = (const float*)hess;
+  const float* w = (const float*)weight;
+  float* o = (float*)out;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (bin_bytes) {
+    case 1: return (int)launch<int8_t, kList>(bins, g, h, w, o, n, d, n_bins, order, span, s);
+    case 2: return (int)launch<int16_t, kList>(bins, g, h, w, o, n, d, n_bins, order, span, s);
+    case 4: return (int)launch<int32_t, kList>(bins, g, h, w, o, n, d, n_bins, order, span, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -172,17 +230,18 @@ cudaError_t launch(const void* bins, const float* grad, const float* hess,
 extern "C" int smt_histogram(const void* bins, int bin_bytes, const void* grad,
                              const void* hess, const void* weight, void* out,
                              long long n, int d, int n_bins, void* stream) {
-  const float* g = (const float*)grad;
-  const float* h = (const float*)hess;
-  const float* w = (const float*)weight;
-  float* o = (float*)out;
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (bin_bytes) {
-    case 1: return (int)launch<int8_t>(bins, g, h, w, o, n, d, n_bins, s);
-    case 2: return (int)launch<int16_t>(bins, g, h, w, o, n, d, n_bins, s);
-    case 4: return (int)launch<int32_t>(bins, g, h, w, o, n, d, n_bins, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return dispatch<false>(bins, bin_bytes, grad, hess, weight, out, n, d, n_bins, nullptr,
+                         nullptr, stream);
+}
+
+// The histogram of the rows order[span[0] .. span[0] + span[1]), span read on
+// the card (kernel P's record of the smaller child).
+extern "C" int smt_histogram_rows(const void* bins, int bin_bytes, const void* grad,
+                                  const void* hess, const void* weight, void* out,
+                                  const int* order, const int* span, int d, int n_bins,
+                                  void* stream) {
+  return dispatch<true>(bins, bin_bytes, grad, hess, weight, out, 0, d, n_bins, order,
+                        span, stream);
 }
 
 extern "C" const char* smt_error_string(int err) {

@@ -24,9 +24,14 @@ trees on the device.
 
 Gradients are pre-rounded to a summation-exact grid (:func:`_preround`, the
 reference's ``boost.py:1148``), so every histogram cell is exact in any
-summation order: the GPU kernels reproduce the reference's trees.
+summation order: the GPU kernels reproduce the reference's trees, and the
+growth over a row partition (smaller-child histograms, the reference's
+``leaf_local``) grows its full pass's trees wherever the row weights keep
+the products on that grid (see :mod:`.grow`).
 
-Not ported yet: continued training, batch training, sparse input and the
+``train`` also takes a custom objective (``fobj``), a fitted ``mapper``,
+continued training from an ``init_booster`` and per-iteration
+``callbacks``, as the reference's does. Not ported yet: sparse input and the
 mesh (distributed lambdarank included).
 """
 
@@ -34,7 +39,7 @@ from __future__ import annotations
 
 import json
 import warnings
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -44,6 +49,7 @@ from ..runtime.device import resolve_device
 from .binning import BinMapper
 from .grow import GrownTree, TreeConfig, grow_tree, predict_binned
 from .lambdarank import QueryGroups, lambda_grads
+from .partition import RowPartition
 from .metrics import DEFAULT_METRIC, METRICS, device_metric, metric_ndcg
 from .sampling import Sampler
 from .split_search import SplitWorkspace
@@ -193,7 +199,8 @@ _DEFAULTS = dict(
     categorical_feature=None, cat_smooth=10.0, max_cat_threshold=32,
     parallelism="data_parallel", top_k=20,
     num_class=1, seed=0, bagging_seed=3, metric=None, early_stopping_round=0,
-    early_stopping_min_delta=0.0,
+    early_stopping_min_delta=0.0, hist_method="auto", hist_chunk=1 << 20,
+    leaf_local=False,
     alpha=0.9, tweedie_variance_power=1.5, verbose=0,
     lambdarank_truncation_level=30, sigmoid=1.0, ndcg_at=10,
 )
@@ -388,27 +395,37 @@ class GBDTBooster:
         """Raw margin, shape (n,) or (n, C): bins ``x`` and scores the trees on
         ``device`` (default: the GPU, through kernel B), then adds the base
         score; an rf model averages its trees."""
-        from .device_predict import device_raw_scores
-
         T = self._used_trees(num_iteration)
-        n = len(x)
-        base = np.tile(self.base_score, (n, 1)).astype(np.float64)
         if T == 0:
             resolve_device(device)
-            out = base
+            out = np.tile(self.base_score, (len(x), 1)).astype(np.float64)
         else:
             dev, binned = self._binned_on(x, device)
-            if dev.type == "cuda":
-                packed, leaf_value, scale = self._trees_on(T, dev)
-            else:
-                packed, leaf_value, scale = None, self.leaf_value[:T], self.tree_scale[:T]
-            scores = device_raw_scores(binned, self.parent[:T], self.feature[:T],
-                                       self.bin[:T], leaf_value, scale, self._cat_sets(T),
-                                       packed=packed)
-            out = base + scores.cpu().numpy().astype(np.float64)
-            if self.boosting == "rf":  # rf averages its trees
-                out = base + (out - base) / T
+            out = self._raw_of_binned(binned, T).cpu().numpy()
         return out[:, 0] if self.num_class == 1 else out
+
+    def _raw_of_binned(self, binned: torch.Tensor, T: int) -> torch.Tensor:
+        """(n, C) f64 raw margins of the first ``T`` trees over rows binned by
+        this booster's mapper, on their device: the trees' f32 scores (kernel
+        B on a GPU) plus the base score in f64, as :meth:`raw_predict` gives
+        them."""
+        from .device_predict import device_raw_scores
+
+        dev = binned.device
+        base = torch.as_tensor(self.base_score, dtype=torch.float64, device=dev)[None, :]
+        if T == 0:
+            return base.expand(binned.shape[0], -1).clone()
+        if dev.type == "cuda":
+            packed, leaf_value, scale = self._trees_on(T, dev)
+        else:
+            packed, leaf_value, scale = None, self.leaf_value[:T], self.tree_scale[:T]
+        scores = device_raw_scores(binned, self.parent[:T], self.feature[:T],
+                                   self.bin[:T], leaf_value, scale, self._cat_sets(T),
+                                   packed=packed)
+        out = base + scores.to(torch.float64)
+        if self.boosting == "rf":  # rf averages its trees
+            out = base + (out - base) / T
+        return out
 
     def predict_leaf(self, x, num_iteration: Optional[int] = None,
                      device=None) -> np.ndarray:
@@ -700,24 +717,80 @@ class _EvalSet:
     """One eval set on the device: its bins, labels, unit weights and margins
     (f32; f64 under DART, whose margins the reference keeps in numpy f64)."""
 
-    def __init__(self, mapper: BinMapper, x, y, base: np.ndarray, dev, dtype):
-        self.binned = mapper.transform_torch(torch.as_tensor(x).to(dev))
+    def __init__(self, mapper: BinMapper, x, y, base: np.ndarray, dev, dtype,
+                 init_booster: Optional["GBDTBooster"] = None):
+        xt = torch.as_tensor(x).to(dev)
+        self.binned = mapper.transform_torch(xt)
         self.y_np = np.asarray(y, dtype=np.float64)
         self.y = torch.as_tensor(self.y_np, dtype=torch.float32, device=dev)
         self.w = torch.ones(len(self.y_np), dtype=torch.float32, device=dev)
-        self.raw = torch.zeros(len(self.y_np), len(base), dtype=dtype, device=dev) + \
-            torch.as_tensor(base, dtype=dtype, device=dev)
+        if init_booster is None:
+            self.raw = torch.zeros(len(self.y_np), len(base), dtype=dtype, device=dev) + \
+                torch.as_tensor(base, dtype=dtype, device=dev)
+        else:  # continued training: the prior trees' margins
+            self.raw = _init_margins(init_booster, mapper, self.binned, xt).to(dtype)
 
     def leaf_values(self, tree: GrownTree) -> torch.Tensor:
         """The tree's (unscaled) leaf value for every row: one routing pass."""
         return tree.leaf_value[predict_binned(tree, self.binned).long()]
 
 
+def _init_margins(init_booster: "GBDTBooster", mapper: BinMapper, binned: torch.Tensor,
+                  x: torch.Tensor) -> torch.Tensor:
+    """(n, C) f64 margins of ``init_booster`` over the rows ``x`` (``binned``
+    by ``mapper``), scored on their device: the reference's
+    ``init_booster.raw_predict(x)``, without bringing ``x`` to the host."""
+    if init_booster.mapper is not mapper:
+        binned = init_booster.mapper.transform_torch(x)
+    return init_booster._raw_of_binned(binned, init_booster._used_trees(None))
+
+
+def _merge_boosters(a: GBDTBooster, b: GBDTBooster) -> GBDTBooster:
+    """``a``'s trees followed by ``b``'s, under ``b``'s mapper and ``a``'s base
+    score (the reference's ``_merge_boosters``, ``boost.py:2479``)."""
+    if a.num_class != b.num_class or a.objective != b.objective:
+        raise ValueError("cannot merge boosters with different objective/num_class")
+    merged = GBDTBooster(
+        mapper=b.mapper, objective=b.objective, num_class=b.num_class,
+        base_score=a.base_score,
+        parent=np.concatenate([a.parent, b.parent]),
+        feature=np.concatenate([a.feature, b.feature]),
+        threshold=np.concatenate([a.threshold, b.threshold]),
+        bin_=np.concatenate([a.bin, b.bin]),
+        gain=np.concatenate([a.gain, b.gain]),
+        leaf_value=np.concatenate([a.leaf_value, b.leaf_value]),
+        leaf_hess=np.concatenate([a.leaf_hess, b.leaf_hess]),
+        tree_scale=np.concatenate([a.tree_scale, b.tree_scale]),
+        boosting=b.boosting, best_iteration=None, feature_names=b.feature_names,
+        cat_set=_merge_cat_sets(a, b))
+    merged.evals_result = b.evals_result
+    if a.sampled_rows is not None and b.sampled_rows is not None:
+        merged.sampled_rows = np.concatenate([a.sampled_rows, b.sampled_rows])
+    return merged
+
+
+def _merge_cat_sets(a: GBDTBooster, b: GBDTBooster) -> Optional[np.ndarray]:
+    """The category sets of the merged trees; a booster without sets gets
+    empty rows of the other's width."""
+    if a.cat_set is None and b.cat_set is None:
+        return None
+
+    def expand(x: GBDTBooster, other: GBDTBooster) -> np.ndarray:
+        if x.cat_set is not None:
+            return x.cat_set
+        return np.zeros((x.parent.shape[0],) + other.cat_set.shape[1:], dtype=np.int8)
+
+    return np.concatenate([expand(a, b), expand(b, a)])
+
+
 def train(params: Dict[str, Any], x, y, weight: Optional[np.ndarray] = None,
           device=None, feature_names: Optional[List[str]] = None,
           eval_set: Optional[Sequence[Tuple[Any, Any]]] = None,
           group: Optional[np.ndarray] = None,
-          eval_group: Optional[Sequence[np.ndarray]] = None) -> GBDTBooster:
+          eval_group: Optional[Sequence[np.ndarray]] = None,
+          fobj: Optional[Callable] = None, mapper: Optional[BinMapper] = None,
+          init_booster: Optional[GBDTBooster] = None,
+          callbacks: Optional[Sequence[Callable]] = None) -> GBDTBooster:
     """Train a booster on ``device`` (default: the GPU; ``"cpu"`` runs the
     plain PyTorch versions of the kernels).
 
@@ -729,7 +802,31 @@ def train(params: Dict[str, Any], x, y, weight: Optional[np.ndarray] = None,
     (``{"iteration": i, "eval0_<metric>": value, ...}``).
     ``objective="lambdarank"`` takes ``group``, the query sizes of the rows,
     which are contiguous by query, and ``eval_group``, one such array per
-    eval set; its metric is ``ndcg@<ndcg_at>``."""
+    eval set; its metric is ``ndcg@<ndcg_at>``.
+
+    ``fobj(score, y, w) -> (grad, hess)`` is a custom objective (the
+    reference's hook): it gets the fit's device tensors, ``score`` (n,) f32
+    for one class or (n, C), and its output is cast to f32, shaped (n, C)
+    and pre-rounded like a built-in objective's; the named ``objective``
+    still sets the base score and the metric. ``mapper``: a fitted
+    :class:`~.binning.BinMapper` to bin with (its edges and categorical
+    features win over the binning parameters). ``init_booster`` continues
+    training: its mapper (unless ``mapper`` is given) and base score are
+    reused, the fit starts from its margins (scored on ``device``), the eval
+    sets' margins start from its trees, and the result holds its trees
+    followed by the new ones (``best_iteration`` None); a different
+    objective or ``num_class`` raises ``ValueError``. ``callbacks``: each is
+    called after an iteration's eval with ``{"iteration": it, "evals": the
+    iteration's eval record or None}``; a truthy return stops training after
+    that iteration, keeping its trees (eval sets are then scored on the host
+    each iteration, as the reference's host loop does).
+
+    Every tree grows over a row partition on the device, histogramming only
+    the smaller child of each split (:mod:`.grow`). ``leaf_local``,
+    ``hist_method`` and ``hist_chunk`` are accepted and have no effect: they
+    choose between the reference's XLA formulations (its full pass or its
+    leaf-local gather, scatter or one-hot histograms), and the port has one
+    growth path and one histogram kernel."""
     dev = resolve_device(device)
     p = dict(_DEFAULTS)
     p.update(_canonicalize_params(params))
@@ -760,23 +857,33 @@ def train(params: Dict[str, Any], x, y, weight: Optional[np.ndarray] = None,
         metric_fn, higher_better = METRICS[metric_name]
     C = int(p["num_class"]) if obj_name in _MULTICLASS else 1
     boosting = _check_boosting(p, obj_name)
+    if init_booster is not None and (init_booster.num_class != C or (
+            init_booster.num_trees and init_booster.objective != obj_name)):
+        raise ValueError("cannot merge boosters with different objective/num_class")
 
-    cat_features = _categorical_indices(p["categorical_feature"], feature_names)
-    mapper = BinMapper(max_bin=int(p["max_bin"]), seed=int(p["seed"]),
-                       sample_cnt=int(p["bin_sample_count"]),
-                       max_bin_by_feature=p["max_bin_by_feature"],
-                       categorical_features=cat_features)
-    mapper.fit(xt.numpy() if xt.device.type == "cpu" else xt.cpu().numpy())
-    binned = mapper.transform_torch(xt.to(dev))  # kernel D where exact
+    if mapper is None and init_booster is not None:
+        mapper = init_booster.mapper
+    if mapper is None:
+        cat_features = _categorical_indices(p["categorical_feature"], feature_names)
+        mapper = BinMapper(max_bin=int(p["max_bin"]), seed=int(p["seed"]),
+                           sample_cnt=int(p["bin_sample_count"]),
+                           max_bin_by_feature=p["max_bin_by_feature"],
+                           categorical_features=cat_features)
+        mapper.fit(xt.numpy() if xt.device.type == "cpu" else xt.cpu().numpy())
+    x_dev = xt.to(dev)
+    binned = mapper.transform_torch(x_dev)  # kernel D where exact
     has_cat = bool(mapper.categorical_features)
     cat_mask = None
     if has_cat:
         cat_mask = torch.zeros(d, dtype=torch.float32, device=dev)
         cat_mask[mapper.categorical_features] = 1.0
 
-    base = np.atleast_1d(np.asarray(init_fn(y, w_np), dtype=np.float64))
-    if not p["boost_from_average"]:
-        base = np.zeros_like(base)
+    if init_booster is not None:
+        base = init_booster.base_score.copy()
+    else:
+        base = np.atleast_1d(np.asarray(init_fn(y, w_np), dtype=np.float64))
+        if not p["boost_from_average"]:
+            base = np.zeros_like(base)
     # rf averages trees that each fit the base score's residual
     lr = float(p["learning_rate"]) if boosting != "rf" else 1.0
     cfg = TreeConfig(
@@ -791,22 +898,29 @@ def train(params: Dict[str, Any], x, y, weight: Optional[np.ndarray] = None,
     # summation-exact rounding bound: the next power of two over the row count
     n_bound = 1 << max(int(n) - 1, 1).bit_length()
     # percentile leaf renewal: quantile at its alpha, l1 at the median
-    renew_alpha = {"quantile": float(p["alpha"]), "l1": 0.5, "mae": 0.5}.get(obj_name)
+    renew_alpha = (None if fobj is not None
+                   else {"quantile": float(p["alpha"]), "l1": 0.5, "mae": 0.5}.get(obj_name))
 
     y_d = torch.as_tensor(y, dtype=torch.float32, device=dev)
     w_d = torch.as_tensor(w_np, dtype=torch.float32, device=dev)
-    raw = torch.zeros(n, C, dtype=torch.float32, device=dev) + torch.as_tensor(
-        base, dtype=torch.float32, device=dev)
+    if init_booster is not None:  # the prior trees' margins, scored on the device
+        raw = _init_margins(init_booster, mapper, binned, x_dev).to(torch.float32)
+    else:
+        raw = torch.zeros(n, C, dtype=torch.float32, device=dev) + torch.as_tensor(
+            base, dtype=torch.float32, device=dev)
+    del x_dev
     ones = torch.ones(n, dtype=torch.float32, device=dev)
     fmask = torch.ones(d, dtype=torch.float32, device=dev)
     workspace = SplitWorkspace(d, fmask, cat_mask, cfg, dev)  # every tree of the fit
+    partition = RowPartition(n, L, dev)  # every tree of the fit
     sampler = Sampler(p, y_d, d, goss=boosting == "goss")
 
     dart = boosting == "dart"
-    # DART (f64 margins) and ndcg (query groups) take the reference's host
-    # metric: numpy over f64 margins, every iteration
-    host_eval = dart or ndcg_fn is not None
-    evals_in = [_EvalSet(mapper, ex, ey, base, dev, torch.float64 if host_eval else torch.float32)
+    # DART (f64 margins), ndcg (query groups) and callbacks (a record each
+    # iteration) take the reference's host metric: numpy over f64 margins
+    host_eval = dart or ndcg_fn is not None or bool(callbacks)
+    evals_in = [_EvalSet(mapper, ex, ey, base, dev, torch.float64 if host_eval else torch.float32,
+                         init_booster)
                 for ex, ey in (eval_set or ())]
     dev_metric = None if host_eval else device_metric(metric_name)
     base_d = torch.as_tensor(base, dtype=torch.float32, device=dev)[None, :]
@@ -845,9 +959,9 @@ def train(params: Dict[str, Any], x, y, weight: Optional[np.ndarray] = None,
                 for c in range(C):
                     raw[:, c] = raw[:, c] - (lr * tree_scales[t]) * replay(trees[t][c])
 
-        g, h = grad_fn(raw[:, 0] if C == 1 else raw, y_d, w_d)
-        g = _preround(g.to(torch.float32).reshape(n, C), n_bound)
-        h = _preround(h.to(torch.float32).reshape(n, C), n_bound)
+        g, h = (fobj or grad_fn)(raw[:, 0] if C == 1 else raw, y_d, w_d)
+        g = _preround(torch.as_tensor(g, device=dev).to(torch.float32).reshape(n, C), n_bound)
+        h = _preround(torch.as_tensor(h, device=dev).to(torch.float32).reshape(n, C), n_bound)
         fm = sampler.feature_mask(k2)
         if fm is not None:  # kernel E reads ws.fmask through its packed pointer
             workspace.fmask.copy_(fm.pin_memory() if dev.type == "cuda" else fm,
@@ -861,7 +975,7 @@ def train(params: Dict[str, Any], x, y, weight: Optional[np.ndarray] = None,
         for c in range(C):
             tree, node = grow_tree(binned, g[:, c].contiguous(), h[:, c].contiguous(), bw,
                                    workspace.fmask, cfg, cat_mask=cat_mask,
-                                   workspace=workspace)
+                                   workspace=workspace, partition=partition)
             if renew_alpha is not None and C == 1:
                 tree = tree._replace(leaf_value=_renewed_leaf_values(
                     node, y_d, raw[:, 0], w_d * bw, renew_alpha, L))
@@ -892,9 +1006,9 @@ def train(params: Dict[str, Any], x, y, weight: Optional[np.ndarray] = None,
         tree_scales.append(scale)
         trees.append(new_trees)
 
-        if not evals_in:
-            continue
-        if host_eval:
+        stop = False
+        records: List[Dict[str, Any]] = []
+        if evals_in and host_eval:
             # the reference's host metric: f64 margins, numpy metric each iteration
             rec = {"iteration": it}
             for ei, e in enumerate(evals_in):
@@ -909,7 +1023,7 @@ def train(params: Dict[str, Any], x, y, weight: Optional[np.ndarray] = None,
                     metric_fn(e.y_np, score, ones_e) if ndcg_fn is None
                     else ndcg_fn(e.y_np, score, ones_e, eval_group[ei]))
             records = [rec]
-        else:
+        elif evals_in:
             row = []
             for e in evals_in:
                 for c, tree in enumerate(new_trees):
@@ -919,15 +1033,14 @@ def train(params: Dict[str, Any], x, y, weight: Optional[np.ndarray] = None,
                     score = base_d + (score - base_d) / torch.full((), it + 1.0, device=dev)
                 row.append(dev_metric(e.y, score[:, 0] if C == 1 else score, e.w))
             pending.append(torch.stack(row))
-            if len(pending) < chunk and it < num_iter - 1:
-                continue
-            it0 = it + 1 - len(pending)
-            panel = torch.stack(pending).cpu().numpy()  # the chunk's one read-back
-            pending = []
-            records = [dict({"iteration": it0 + j},
-                            **{f"eval{ei}_{metric_name}": float(m) for ei, m in enumerate(ms)})
-                       for j, ms in enumerate(panel)]
-        stop = False
+            if len(pending) == chunk or it == num_iter - 1:
+                it0 = it + 1 - len(pending)
+                panel = torch.stack(pending).cpu().numpy()  # the chunk's one read-back
+                pending = []
+                records = [dict({"iteration": it0 + j},
+                                **{f"eval{ei}_{metric_name}": float(m)
+                                   for ei, m in enumerate(ms)})
+                           for j, ms in enumerate(panel)]
         for rec in records:
             evals.append(rec)
             m, done = rec[f"eval0_{metric_name}"], rec["iteration"] + 1
@@ -937,6 +1050,12 @@ def train(params: Dict[str, Any], x, y, weight: Optional[np.ndarray] = None,
                 stop = True  # drop a chunk's overshoot: the reference's stop point
                 del trees[done:], tree_scales[done:]
                 break
+        if callbacks:
+            # a truthy return stops training after this iteration, keeping
+            # its trees (the reference's rule, boost.py:2402-2411)
+            asks = [bool(cb({"iteration": it, "evals": evals[-1] if evals else None}))
+                    for cb in callbacks]
+            stop = stop or any(asks)
         if stop:
             break
 
@@ -967,4 +1086,6 @@ def train(params: Dict[str, Any], x, y, weight: Optional[np.ndarray] = None,
         feature_names=list(feature_names) if feature_names else None, cat_set=cat_set)
     booster.evals_result = evals
     booster.sampled_rows = (torch.stack(sampled[:T]).cpu().numpy() if sampled else None)
+    if init_booster is not None and init_booster.num_trees:
+        booster = _merge_boosters(init_booster, booster)
     return booster

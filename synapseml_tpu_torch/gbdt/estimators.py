@@ -11,9 +11,14 @@ feature fraction; validation rows (``validation_indicator_col``) scored with
 stopping. The models write per-feature contributions
 (``features_shap_col``), save and load LightGBM's text model
 (``save_native_model`` / ``load_native_model``) and report feature
-importances. Params keep the reference's names and defaults;
-``init_score_col`` is admitted in the input schema and not read, as in the
-reference. Not ported yet: ``num_batches`` and continued training.
+importances. ``num_batches`` trains on consecutive row slices, each batch's
+booster continuing the last (``train``'s ``init_booster``); the classifier's
+``is_unbalance`` weights binary positives by the negative-to-positive ratio.
+Params keep the reference's names and defaults; ``init_score_col`` is
+admitted in the input schema and not read, and ``verbosity`` and
+``use_barrier_execution_mode`` are accepted for API parity, as in the
+reference. The sparse and distributed Params (``sparse_num_bits``;
+``mesh``, ``parallelism``, ``top_k``) come with those paths.
 
 ``device`` picks where fit and transform run: the GPU by default, ``"cpu"``
 for the plain PyTorch versions of the kernels.
@@ -78,6 +83,8 @@ class _LightGBMBase(Estimator):
     boost_from_average = Param("start from the label average", bool, default=True)
     max_bin = Param("max histogram bins per feature", int, default=255,
                     validator=ParamValidators.gt(1))
+    max_bin_by_feature = Param("per-feature max_bin overrides (reference "
+                               "maxBinByFeature; empty = max_bin)", list, default=[])
     bin_sample_count = Param("rows sampled for bin-edge estimation", int,
                              default=200_000, validator=ParamValidators.gt(0))
     bagging_fraction = Param("row subsample fraction", float, default=1.0)
@@ -117,6 +124,11 @@ class _LightGBMBase(Estimator):
                        default=10.0)
     max_cat_threshold = Param("max categories in the left set of a categorical split "
                               "(reference maxCatThreshold)", int, default=32)
+    use_barrier_execution_mode = Param("accepted for API parity (gang scheduling is "
+                                       "implicit in SPMD)", bool, default=False)
+    num_batches = Param("split training into k sequential batches with model "
+                        "continuation (reference numBatches)", int, default=0)
+    verbosity = Param("verbosity", int, default=-1)
 
     objective = Param("training objective", str, default="regression")
 
@@ -144,6 +156,7 @@ class _LightGBMBase(Estimator):
             "num_leaves": self.num_leaves, "max_depth": self.max_depth,
             "max_delta_step": self.max_delta_step,
             "boost_from_average": self.boost_from_average, "max_bin": self.max_bin,
+            "max_bin_by_feature": list(self.max_bin_by_feature) or None,
             "bin_sample_count": self.bin_sample_count,
             "bagging_fraction": self.bagging_fraction,
             "pos_bagging_fraction": self.pos_bagging_fraction,
@@ -176,15 +189,16 @@ class _LightGBMBase(Estimator):
         return table, None
 
     def _fit_booster(self, table: Table, extra_params: Optional[dict] = None,
-                     group_sizes=None) -> GBDTBooster:
+                     group_sizes=None, weight_col: Optional[str] = None) -> GBDTBooster:
         """Train on ``table``'s rows; ``group_sizes(rows)`` gives the query
-        sizes of the training rows and of the validation rows (lambdarank)."""
+        sizes of the training rows and of the validation rows (lambdarank);
+        ``weight_col`` names the weight column in place of ``self.weight_col``."""
         self._validate_input(table, self.features_col, self.label_col)
         tr, val = self._split_validation(table)
         x = _features(tr, self.features_col)
         y = np.asarray(tr[self.label_col], dtype=np.float64)
-        w = (np.asarray(tr[self.weight_col], dtype=np.float64)
-             if self.weight_col else None)
+        weight_col = weight_col or self.weight_col
+        w = np.asarray(tr[weight_col], dtype=np.float64) if weight_col else None
         params = self._train_params()
         params.update(extra_params or {})
         eval_set = None
@@ -203,9 +217,29 @@ class _LightGBMBase(Estimator):
             raise ValueError(
                 "categorical_slot_names requires slot-name metadata on the features "
                 f"column: Table(meta={{{self.features_col!r}: {{'slot_names': [...]}}}})")
-        return train(params, x, y, weight=w, device=self.device,
-                     feature_names=list(slot_names) if slot_names is not None else None,
-                     eval_set=eval_set, **kw)
+        kw.update(device=self.device, eval_set=eval_set,
+                  feature_names=list(slot_names) if slot_names is not None else None)
+        n_batches = int(self.num_batches)
+        if n_batches > 1 and group_sizes is not None:
+            raise NotImplementedError(
+                "num_batches > 1 is not supported for the ranker: row-slice "
+                "batches would split query groups")
+        if n_batches <= 1:
+            return train(params, x, y, weight=w, **kw)
+        # the reference's batch training: batch k's booster seeds batch k + 1
+        # (LightGBMBase.scala:46-61); the iterations are split as evenly as
+        # divmod splits them, and a batch of 0 iterations is skipped
+        base_per, rem = divmod(int(params["num_iterations"]), n_batches)
+        booster = None
+        for b in range(n_batches):
+            per = base_per + (1 if b < rem else 0)
+            if per == 0:
+                continue
+            lo, hi = b * len(x) // n_batches, (b + 1) * len(x) // n_batches
+            booster = train(dict(params, num_iterations=per), x[lo:hi], y[lo:hi],
+                            weight=None if w is None else w[lo:hi], init_booster=booster,
+                            **kw)
+        return booster
 
 
 class _LightGBMModelBase(Model):
@@ -275,6 +309,8 @@ class LightGBMClassifier(_LightGBMBase):
     objective = Param("binary | multiclass (auto from labels if unset)", str, default="")
     probability_col = Param("probability output column", str, default="probability")
     raw_prediction_col = Param("raw margin output column", str, default="rawPrediction")
+    is_unbalance = Param("rescale grad of minority class (reference isUnbalance)",
+                         bool, default=False)
 
     def input_schema(self) -> TableSchema:
         return super().input_schema().with_column(self.label_col,
@@ -291,7 +327,15 @@ class LightGBMClassifier(_LightGBMBase):
         if obj in ("multiclass", "softmax"):
             extra["num_class"] = n_class
         tbl = table.with_column(self.label_col, y_idx.astype(np.float64))
-        booster = self._fit_booster(tbl, extra)
+        weight_col = None
+        if self.is_unbalance and n_class == 2 and not self.weight_col:
+            # positives weighted by the negative-to-positive ratio (the
+            # reference's isUnbalance, estimators.py:462-472)
+            pos = max(int((y_idx == 1).sum()), 1)
+            neg = int((y_idx == 0).sum())
+            weight_col = "__unbalance_weight__"
+            tbl = tbl.with_column(weight_col, np.where(y_idx == 1, neg / pos, 1.0))
+        booster = self._fit_booster(tbl, extra, weight_col=weight_col)
         return LightGBMClassificationModel(
             booster=booster, labels=classes.astype(np.float64)
             if np.issubdtype(classes.dtype, np.number) else classes,

@@ -1,7 +1,7 @@
 """Leaf-wise tree growth — port of the dense branch of ``synapseml_tpu/gbdt/grow.py``.
 
-Single device, dense (n, d) bins, numeric and categorical splits (no voting,
-no leaf-local gathers). The algorithm is the reference's:
+Single device, dense (n, d) bins, numeric and categorical splits (no
+voting). The algorithm is the reference's:
 
 - ``num_leaves`` leaf slots and ``num_leaves - 1`` split steps; a step whose
   best gain is not above ``min_gain_to_split`` is inert and records parent -1;
@@ -10,9 +10,28 @@ no leaf-local gathers). The algorithm is the reference's:
   ``bin > bin[s]`` going right; a categorical split has ``bin == -1`` and
   sends left the rows whose bin is in its category set ``cat_set[s]``;
 - leaf-wise: each step splits the best-gain leaf anywhere in the tree;
-- parent subtraction: each step builds ONE histogram (the new right child,
-  kernel A through :func:`~.histogram.histogram`) and derives the left side
-  as parent minus child;
+- parent subtraction over a row partition: the rows stay grouped by leaf
+  in a :class:`~.partition.RowPartition` (kernel P, LightGBM's
+  ``DataPartition``), each step reads only the split leaf's rows, builds
+  ONE histogram, the smaller child's (kernel A's row-list entry,
+  :func:`~.histogram.histogram_rows`), and takes the sibling as parent minus
+  child: the reference's ``leaf_local`` growth (``leaf_hist_local``,
+  ``grow.py:384-414``), at every row count (the reference falls back to its
+  full pass at 2,048 rows and below, where its power-of-two buffers buy
+  nothing; the port reads the child's size on the device and needs no
+  buffer). Wherever every histogram cell is exact in any order, the trees
+  are those of the reference's full pass too (parent minus the smaller
+  child IS the other child). That holds when the gradients are finite and
+  every weighted product ``g * w`` and ``h * w`` stays on
+  ``boost._preround``'s grid: weights in {0, 1} (bagging) or a power of two
+  (GOSS's default amplification, 8). Otherwise (GOSS at, say,
+  ``top_rate=0.2, other_rate=0.3``: amplification 8/3) cells round, and the
+  trees are the reference's ``leaf_local`` ones, not its full pass's: leaf
+  values a few ulps apart (1.3e-6 seen), and a split can move where two
+  gains tie within that. A NaN gradient reaches the root histogram and
+  leaves every step inert on both reference paths; an infinite one can give
+  inf - inf in the child taken by subtraction, as in the reference's
+  ``leaf_local``;
 - the decision half of each step (rescore the leaves the last step changed,
   cap the depth, choose the leaf, write the record and the left set) is
   kernel E's step entry (:meth:`~.split_search.SplitWorkspace.step`), one
@@ -28,10 +47,11 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from .histogram import histogram
+from .histogram import histogram, histogram_rows
+from .partition import RowPartition
 from .split_search import SplitWorkspace, _thresh_l1, left_set
 
-__all__ = ["TreeConfig", "GrownTree", "grow_tree", "left_set", "predict_binned"]
+__all__ = ["TreeConfig", "GrownTree", "grow_tree", "finish_tree", "left_set", "predict_binned"]
 
 
 class TreeConfig(NamedTuple):
@@ -67,7 +87,8 @@ class GrownTree(NamedTuple):
 def grow_tree(binned: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
               row_weight: torch.Tensor, feature_mask: torch.Tensor, cfg: TreeConfig,
               cat_mask: Optional[torch.Tensor] = None,
-              workspace: Optional[SplitWorkspace] = None):
+              workspace: Optional[SplitWorkspace] = None,
+              partition: Optional[RowPartition] = None):
     """Grow one tree. Returns (GrownTree, node_of_row (n,) int32).
 
     ``binned`` (n, d) int8/int16/int32; ``grad``/``hess``/``row_weight`` (n,)
@@ -76,7 +97,9 @@ def grow_tree(binned: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
     carries ``cat_set``. All on one device. ``workspace``: kernel E's
     :class:`~.split_search.SplitWorkspace` made for the same ``d``, masks,
     ``cfg`` and device (a fit makes one and passes it to each tree); None
-    makes one for this tree."""
+    makes one for this tree. ``partition``: the fit's
+    :class:`~.partition.RowPartition` for ``n`` rows and ``cfg.num_leaves``
+    leaves on the same device (None makes one for this tree)."""
     n, d = binned.shape
     L, B = cfg.num_leaves, cfg.n_bins
     dev = binned.device
@@ -89,20 +112,25 @@ def grow_tree(binned: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
     rec = ws.begin_tree()
     hists[0] = histogram(binned, grad, hess, row_weight, B)
     node = torch.zeros(n, dtype=torch.int32, device=dev)
-
+    part = partition if partition is not None else RowPartition(n, L, dev)
+    part.begin_tree()
     for s in range(L - 1):
         ws.step(s)  # kernel E: rescore, choose, write the record and ws.in_set
-        col = torch.index_select(binned, 1, ws.feature)[:, 0]
-        go_left = ws.in_set[col.to(torch.int64)]
-        went_right = (node == ws.leaf) & ~go_left & ws.ok
-        node = torch.where(went_right, s + 1, node)
-        child = histogram(binned, grad, hess, row_weight * went_right.to(torch.float32), B)
-        # an inert step changes no histogram: leaf s + 1 stays empty, and the
-        # split leaf loses +0.0 (x + -0.0 == x for every x, NaN included)
-        child = torch.where(ws.ok, child, 0.0)
+        part.split(s, binned, node, ws.choice, ws.ok, ws.in_set)  # kernel P
+        h_small = histogram_rows(binned, grad, hess, row_weight, B, part.order, part.small)
+        # an inert step: P records an empty child on the right, so leaf s + 1
+        # stays empty and the split leaf loses +0.0 (x + -0.0 == x for every
+        # x, NaN included)
+        child = torch.where(part.smaller_right,
+                            h_small, torch.index_select(hists, 0, ws.leaf)[0] - h_small)
         hists[s + 1] = child
         hists.index_add_(0, ws.leaf, child[None], alpha=-1)
+    return finish_tree(hists, rec, cfg), node
 
+
+def finish_tree(hists: torch.Tensor, rec, cfg: TreeConfig) -> GrownTree:
+    """The grown tree from the final (L, d, B, 3) histograms and kernel E's
+    record: each leaf's value from its totals."""
     # leaf totals: the bins of any one feature cover every row exactly once
     G_leaf = hists[:, 0, :, 0].sum(-1)
     H_leaf = hists[:, 0, :, 1].sum(-1)
@@ -111,7 +139,7 @@ def grow_tree(binned: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
     if cfg.max_delta_step > 0:
         leaf_value = torch.clamp(leaf_value, -cfg.max_delta_step, cfg.max_delta_step)
     return GrownTree(rec.parent, rec.feature, rec.bin, rec.gain, leaf_value, H_leaf,
-                     rec.cat_set), node
+                     rec.cat_set)
 
 
 def predict_binned(tree: GrownTree, binned: torch.Tensor) -> torch.Tensor:

@@ -14,6 +14,11 @@ Summation order differs between the two (atomics), so raw gradients agree to
 float rounding; gradients pre-rounded by ``boost._preround``, with 0/1
 weights, make every cell exact in any order, and then the kernel is
 bit-equal to the plain version.
+
+:func:`histogram_rows` is kernel A's row-list entry: the histogram of the
+rows ``order[begin:begin + count]``, with ``(begin, count)`` read on the
+device (kernel P's smaller child, :mod:`.partition`), so a leaf-local growth
+step reads only that child's rows and never brings its size to the host.
 """
 
 from __future__ import annotations
@@ -24,7 +29,8 @@ import torch
 
 from ..kernels.build import CudaKernel
 
-__all__ = ["histogram", "histogram_plain", "HIST_CHANNELS", "HIST_KERNEL"]
+__all__ = ["histogram", "histogram_plain", "histogram_rows", "histogram_rows_plain",
+           "HIST_CHANNELS", "HIST_KERNEL", "HIST_ROWS_KERNEL", "HIST_TRACE", "HIST_ROWS_TRACE"]
 
 HIST_CHANNELS = 3  # grad, hess, count
 
@@ -36,6 +42,17 @@ HIST_KERNEL = CudaKernel(
               ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
               ctypes.c_int, ctypes.c_void_p],
     replaces="synapseml_tpu/gbdt/histogram.py:27 (_hist_scatter / _hist_onehot)")
+HIST_ROWS_KERNEL = CudaKernel(
+    name="gbdt_histogram_rows", source="histogram", symbol="smt_histogram_rows",
+    argtypes=[ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+              ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+    replaces="synapseml_tpu/gbdt/grow.py:223 (leaf_hist_local: the cumsum-scatter "
+             "compaction into a power-of-two buffer, then histogram_panel)")
+# the two entries' kernel names in a profiler trace (hist_kernel<BinT, kList>),
+# each as substrings that the name holds
+HIST_TRACE = ("hist_kernel<", "false>")
+HIST_ROWS_TRACE = ("hist_kernel<", "true>")
 
 
 def histogram_plain(binned: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
@@ -91,4 +108,50 @@ def histogram(binned: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
         HIST_KERNEL(binned.data_ptr(), binned.element_size(), grad.data_ptr(),
                     hess.data_ptr(), weight.data_ptr(), out.data_ptr(), n, d, n_bins,
                     stream)
+    return out
+
+
+def histogram_rows_plain(binned: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
+                         weight: torch.Tensor, n_bins: int, order: torch.Tensor,
+                         span: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of :func:`histogram_rows`: :func:`histogram_plain`
+    over the gathered rows."""
+    begin, count = int(span[0]), int(span[1])
+    idx = order[begin:begin + count].long()
+    return histogram_plain(binned[idx], grad[idx], hess[idx], weight[idx], n_bins)
+
+
+def histogram_rows(binned: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
+                   weight: torch.Tensor, n_bins: int, order: torch.Tensor,
+                   span: torch.Tensor) -> torch.Tensor:
+    """(d, B, 3) histogram of the rows ``order[span[0]:span[0] + span[1]]``.
+
+    ``binned``, ``grad``, ``hess``, ``weight`` as :func:`histogram`;
+    ``order`` (m,) int32 row ids in ``[0, n)``; ``span`` (2,) int32 (begin,
+    count) within ``order``, read on the device. CPU tensors take the plain
+    version; CUDA tensors launch kernel A's row-list entry."""
+    _check(binned, grad, hess, weight, n_bins)
+    for name, t, shape in (("order", order, (order.shape[0],)), ("span", span, (2,))):
+        if t.dtype != torch.int32 or t.dim() != 1 or t.shape != shape:
+            raise TypeError(f"{name} must be a 1-D int32 tensor of shape {shape}, got "
+                            f"{t.dtype} of shape {tuple(t.shape)}")
+        if t.device != binned.device:
+            raise ValueError(f"binned on {binned.device} but {name} on {t.device}")
+    if binned.device.type == "cpu":
+        return histogram_rows_plain(binned, grad, hess, weight, n_bins, order, span)
+    if binned.device.type != "cuda":
+        raise ValueError(f"unsupported device {binned.device}")
+    binned = binned.contiguous()
+    grad, hess, weight = grad.contiguous(), hess.contiguous(), weight.contiguous()
+    order, span = order.contiguous(), span.contiguous()
+    d = binned.shape[1]
+    out = torch.zeros(d, n_bins, HIST_CHANNELS, dtype=torch.float32,
+                      device=binned.device)
+    if d == 0 or order.shape[0] == 0:
+        return out
+    with torch.cuda.device(binned.device):
+        stream = torch.cuda.current_stream(binned.device).cuda_stream
+        HIST_ROWS_KERNEL(binned.data_ptr(), binned.element_size(), grad.data_ptr(),
+                         hess.data_ptr(), weight.data_ptr(), out.data_ptr(),
+                         order.data_ptr(), span.data_ptr(), d, n_bins, stream)
     return out

@@ -1,0 +1,156 @@
+"""The row partition of a tree on the device (kernel P).
+
+Port of the leaf-local branch of ``synapseml_tpu/gbdt/grow.py::grow_tree``
+(``:196-250``, ``:384-408``), in the form LightGBM's ``DataPartition`` (and
+XGBoost's ``RowPartitioner``) keeps it: the rows' ids grouped by leaf, so
+that a growth step reads only the rows of the leaf it splits, and histograms
+only the smaller child's (kernel A's row-list entry,
+:func:`~.histogram.histogram_rows`).
+
+:class:`RowPartition` holds, for the tree being grown:
+
+- ``order`` (n,) int32, row ids grouped by leaf;
+- ``seg`` (L, 2) int32, each leaf's (begin, count) in ``order``;
+- ``small`` (2,) int32, the (begin, count) of the last step's smaller child,
+  and ``smaller_right`` (1,) bool, whether that child is the right one.
+
+:meth:`RowPartition.split` runs one step after kernel E's decision (its
+``choice``, ``ok`` and ``in_set``, read on the device): the split leaf's
+rows go left iff ``in_set[bins[row, feature]]``, right rows get
+``node = s + 1``, ``seg`` gains the new leaf, and the smaller child is the
+right one iff its member count (weight 0 included) is at most the left's,
+the reference's rule (``grow.py:397``). An inert step changes nothing and
+records an empty smaller child on the right. On CUDA tensors this is one
+launch of ``csrc/partition.cu``, and nothing is read back to the host; on
+CPU tensors it is :func:`partition_plain`, a stable boolean-mask partition.
+The kernel does not keep the order of rows inside a leaf: histogram sums on
+``boost._preround``'s grid are exact in any order.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..kernels.build import CudaKernel
+
+__all__ = ["RowPartition", "partition_plain", "PARTITION_KERNEL", "PARTITION_TRACE"]
+
+_BIN_DTYPES = (torch.int8, torch.int16, torch.int32)
+_POINTERS = ("bins", "order", "scratch", "seg", "counters", "node", "choice", "ok",
+             "in_set", "small", "smaller_right")
+
+
+class _PartArgs(ctypes.Structure):
+    """``PartArgs`` of ``csrc/partition.cu``, field for field."""
+
+    _fields_ = ([(name, ctypes.c_void_p) for name in _POINTERS]
+                + [("n", ctypes.c_longlong), ("d", ctypes.c_int), ("n_bins", ctypes.c_int),
+                   ("s", ctypes.c_int)])
+
+
+PARTITION_KERNEL = CudaKernel(
+    name="gbdt_partition", source="partition", symbol="smt_partition",
+    argtypes=[ctypes.POINTER(_PartArgs), ctypes.c_int, ctypes.c_void_p],
+    replaces="synapseml_tpu/gbdt/grow.py:384 (the step's routing, member counts and "
+             "smaller-child choice :384-403, feeding leaf_hist_local :223-250)")
+# the kernel's name in a profiler trace, as substrings that the name holds
+PARTITION_TRACE = ("partition_kernel",)
+
+
+class RowPartition:
+    """Kernel P's state for the trees of one fit over ``n`` rows and
+    ``num_leaves`` leaves (a fit makes one and passes it to each tree).
+
+    Everything is allocated here, once; :meth:`begin_tree` resets it for the
+    next tree. On the GPU one int32 buffer holds ``seg``, ``small``, and the
+    kernel's per-step counters (left rows, right rows, blocks at its
+    barrier), so a tree's reset is one copy from a prepared start state."""
+
+    def __init__(self, n: int, num_leaves: int, device):
+        dev = torch.device(device)
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        if not 0 < n < 2 ** 31:
+            raise ValueError(f"n={n}: row ids are int32")
+        L = int(num_leaves)
+        self.n, self.num_leaves, self.device = int(n), L, dev
+        self.order = torch.empty(n, dtype=torch.int32, device=dev)
+        # seg (L, 2), small (2,), then the kernel's counters (L - 1, 3)
+        self._state = torch.empty(2 * L + 2 + 3 * (L - 1), dtype=torch.int32, device=dev)
+        self.seg = self._state[:2 * L].view(L, 2)
+        self.small = self._state[2 * L:2 * L + 2]
+        self.smaller_right = torch.zeros(1, dtype=torch.bool, device=dev)
+        start = torch.zeros_like(self._state, device="cpu")
+        start[1] = n  # seg[0] = (0, n)
+        self._start = start.to(dev)
+        self._ids = torch.arange(n, dtype=torch.int32, device=dev)
+        self._scratch = (torch.empty(n, dtype=torch.int32, device=dev)
+                         if dev.type == "cuda" else None)
+        self._args = None
+
+    def begin_tree(self) -> None:
+        """``order = 0..n-1``, ``seg[0] = (0, n)``, every other leaf empty."""
+        self.order.copy_(self._ids)
+        self._state.copy_(self._start)
+
+    def split(self, s: int, binned: torch.Tensor, node: torch.Tensor, choice: torch.Tensor,
+              ok: torch.Tensor, in_set: torch.Tensor) -> None:
+        """Split step ``s`` (kernel E's ``choice`` (2,) int64 leaf and
+        feature, ``ok`` (1,) bool, ``in_set`` (B,) bool), updating ``order``,
+        ``seg``, ``node`` (n,) int32, ``small`` and ``smaller_right``."""
+        if binned.shape[0] != self.n or binned.dtype not in _BIN_DTYPES or \
+                binned.device != self.device:
+            raise TypeError(f"binned must be ({self.n}, d) int8/int16/int32 on "
+                            f"{self.device}, got {binned.dtype} {tuple(binned.shape)} on "
+                            f"{binned.device}")
+        if not 0 <= s < self.num_leaves - 1:
+            raise ValueError(f"step {s} outside 0..{self.num_leaves - 2}")
+        if self.device.type == "cpu":
+            partition_plain(self, s, binned, node, choice, ok, in_set)
+            return
+        for t, dt, shape in ((node, torch.int32, (self.n,)), (choice, torch.int64, (2,)),
+                             (ok, torch.bool, (1,)), (in_set, torch.bool, in_set.shape)):
+            if t.dtype != dt or t.shape != shape or t.device != self.device \
+                    or not t.is_contiguous():
+                raise TypeError(f"expected a contiguous {dt} {shape} tensor on "
+                                f"{self.device}, got {t.dtype} {tuple(t.shape)}")
+        binned = binned.contiguous()
+        a = _PartArgs(bins=binned.data_ptr(), order=self.order.data_ptr(),
+                      scratch=self._scratch.data_ptr(), seg=self.seg.data_ptr(),
+                      counters=self._state[2 * self.num_leaves + 2:].data_ptr(),
+                      node=node.data_ptr(), choice=choice.data_ptr(), ok=ok.data_ptr(),
+                      in_set=in_set.data_ptr(), small=self.small.data_ptr(),
+                      smaller_right=self.smaller_right.data_ptr(), n=self.n,
+                      d=binned.shape[1], n_bins=in_set.shape[0], s=s)
+        with torch.cuda.device(self.device):
+            PARTITION_KERNEL(ctypes.byref(a), binned.element_size(),
+                             torch.cuda.current_stream(self.device).cuda_stream)
+
+
+def partition_plain(part: RowPartition, s: int, binned: torch.Tensor, node: torch.Tensor,
+                    choice: torch.Tensor, ok: torch.Tensor, in_set: torch.Tensor) -> None:
+    """Plain PyTorch version of :meth:`RowPartition.split`: a stable
+    boolean-mask partition of the split leaf's slice of ``order``."""
+    if not bool(ok[0]):
+        part.small.zero_()
+        part.smaller_right.fill_(True)
+        return
+    leaf, feat = int(choice[0]), int(choice[1])
+    begin, count = (int(v) for v in part.seg[leaf])
+    rows = part.order[begin:begin + count]
+    col = binned[rows.long(), feat].to(torch.int64)
+    B = in_set.shape[0]
+    go_left = (col >= 0) & (col < B) & in_set[col.clamp(0, B - 1)]
+    n_left = int(go_left.sum())
+    n_right = count - n_left
+    right = rows[~go_left]
+    node[right.long()] = s + 1
+    part.order[begin:begin + count] = torch.cat([rows[go_left], right])
+    part.seg[leaf, 1] = n_left
+    part.seg[s + 1, 0], part.seg[s + 1, 1] = begin + n_left, n_right
+    right_smaller = n_right <= n_left
+    part.small[0] = begin + n_left if right_smaller else begin
+    part.small[1] = n_right if right_smaller else n_left
+    part.smaller_right.fill_(right_smaller)

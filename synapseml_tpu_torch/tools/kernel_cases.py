@@ -1,5 +1,6 @@
-"""Edge-case inputs for kernels D (device binning), E (split search) and F
-(the LambdaRank gradient).
+"""Edge-case inputs for kernels D (device binning), E (split search), F
+(the LambdaRank gradient) and P (the row partition), and the full-pass
+growth that the partitioned growth is held to.
 
 Shared by ``tests/test_torch_kernels.py`` (on the card),
 ``tests/test_torch_categorical.py``, ``tests/test_torch_split_step.py`` and
@@ -10,21 +11,25 @@ made from a seed with numpy.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Tuple
 
 import numpy as np
 import torch
 
+from ..gbdt import boost
 from ..gbdt.binning import BinMapper
 from ..gbdt.device_predict import pack_feature_table
-from ..gbdt.grow import TreeConfig
+from ..gbdt.grow import TreeConfig, finish_tree
+from ..gbdt.histogram import histogram
 from ..gbdt.split_search import SplitWorkspace, _thresh_l1, left_set
 
 __all__ = ["bin_edge_case", "bin_ragged_case", "split_cases", "step_cases",
            "LARGEST_KERNEL_A_BINS", "offgrid_split_case", "check_offgrid", "check_left_sets",
            "synthetic_update", "grow_synthetic", "diff_runs", "rank_rows", "RANK_CASES",
            "RANK_CASES_WIDE", "rank_case", "rank_nan_case", "one_split_text", "TWO_TREES",
-           "native_texts", "many_thresholds_text", "many_thresholds_rows"]
+           "native_texts", "many_thresholds_text", "many_thresholds_rows", "PARTITION_CASES",
+           "partition_case", "rows_histogrammed", "grow_full_pass", "full_pass"]
 
 # the most bins kernel A takes: one feature's (B, 3) f32 histogram plus a
 # word within 227 KB of shared memory (histogram.py)
@@ -461,3 +466,101 @@ def many_thresholds_rows(text_booster, n: int, seed: int = 1) -> np.ndarray:
     x[::11, 1] = np.nan
     x[::13, 0] = np.nan
     return x
+
+
+# kernel P's cases, (the split leaf's rows, its left set): the whole root, a
+# leaf of one row, a leaf whose rows all go right (empty left child) and one
+# whose rows all go left (empty right child)
+PARTITION_CASES = {"all_rows": ("root", "random"), "one_row": ("one", "random"),
+                   "empty_left": ("half", "none"), "empty_right": ("half", "every")}
+
+
+def partition_case(n: int, B: int, d: int, dtype, case: str, seed: int = 0):
+    """(bins (n, d), order (n,) int32, seg (8, 2) int32, node (n,) int32,
+    step s, leaf, in_set (B,) bool) of one of :data:`PARTITION_CASES`: the
+    root at step 0, or (other cases) three leaves after two steps, ``order``
+    a permutation, leaf 2 holding one row or half the rows, split at step 2."""
+    kind, sets = PARTITION_CASES[case]
+    rng = np.random.default_rng(seed)
+    bins = rng.integers(0, B, size=(n, d)).astype(dtype)
+    order = np.arange(n, dtype=np.int32)
+    seg = np.zeros((8, 2), np.int32)
+    node = np.zeros(n, np.int32)
+    s, leaf = 0, 0
+    seg[0] = (0, n)
+    if kind != "root":  # [0, a) leaf 0, [a, a + k) leaf 2, the rest leaf 1
+        order = rng.permutation(n).astype(np.int32)
+        k = 1 if kind == "one" else n // 2
+        a = (n - k) // 3
+        seg[0], seg[2], seg[1] = (0, a), (a, k), (a + k, n - a - k)
+        node[order[a:a + k]] = 2
+        node[order[a + k:]] = 1
+        s, leaf = 2, 2
+    in_set = {"random": rng.random(B) < 0.5, "none": np.zeros(B, bool),
+              "every": np.ones(B, bool)}[sets]
+    return bins, order, seg, node, s, leaf, in_set
+
+
+def rows_histogrammed(parent: np.ndarray, leaf_counts: np.ndarray) -> Tuple[int, int, int]:
+    """(rows of the split leaves, rows of the right children, rows of the
+    smaller children) over one tree's split steps, from its replay list
+    ``parent`` (L-1,) and the member rows of each final leaf (L,): walking
+    the steps backwards, leaf ``s + 1``'s rows fold into ``parent[s]``, so
+    each step's two children are known. Kernel P reads the split leaf's
+    rows; the full pass's kernel A adds the right child's, the leaf-local
+    path's the smaller child's (right iff its count is at most the left's)."""
+    counts = np.asarray(leaf_counts, dtype=np.int64).copy()
+    split = right = small = 0
+    for s in range(len(parent) - 1, -1, -1):
+        p = int(parent[s])
+        if p < 0:
+            continue
+        n_r, n_l = int(counts[s + 1]), int(counts[p])
+        split += n_l + n_r
+        right += n_r
+        small += n_r if n_r <= n_l else n_l
+        counts[p] += counts[s + 1]
+        counts[s + 1] = 0
+    return split, right, small
+
+
+def grow_full_pass(binned, grad, hess, row_weight, feature_mask, cfg: TreeConfig,
+                   cat_mask=None, workspace=None, partition=None):
+    """``grow.grow_tree`` without the row partition: each step routes every
+    row by the split (``node``), histograms the right child over all n rows
+    (kernel A's full entry, the rows weighted by ``went_right``) and takes
+    the left as parent minus child. The port's growth before kernel P, and
+    the reference's full pass: the oracle that ``grow_tree`` equals bit for
+    bit wherever histogram sums are exact, and the baseline that
+    ``tools/profile_fit.py --ab full_pass`` times. ``partition`` is ignored."""
+    n, d = binned.shape
+    ws = workspace if workspace is not None else SplitWorkspace(d, feature_mask, cat_mask,
+                                                                 cfg, binned.device)
+    hists = ws.hists
+    rec = ws.begin_tree()
+    hists[0] = histogram(binned, grad, hess, row_weight, cfg.n_bins)
+    node = torch.zeros(n, dtype=torch.int32, device=binned.device)
+    for s in range(cfg.num_leaves - 1):
+        ws.step(s)
+        col = torch.index_select(binned, 1, ws.feature)[:, 0]
+        go_left = ws.in_set[col.to(torch.int64)]
+        went_right = (node == ws.leaf) & ~go_left & ws.ok
+        node = torch.where(went_right, s + 1, node)
+        child = histogram(binned, grad, hess, row_weight * went_right.to(torch.float32),
+                          cfg.n_bins)
+        child = torch.where(ws.ok, child, 0.0)  # an inert step changes nothing
+        hists[s + 1] = child
+        hists.index_add_(0, ws.leaf, child[None], alpha=-1)
+    return finish_tree(hists, rec, cfg), node
+
+
+@contextlib.contextmanager
+def full_pass():
+    """Within the block, ``boost.train`` grows its trees with
+    :func:`grow_full_pass`."""
+    shipped = boost.grow_tree
+    boost.grow_tree = grow_full_pass
+    try:
+        yield
+    finally:
+        boost.grow_tree = shipped

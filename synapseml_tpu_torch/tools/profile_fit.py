@@ -2,6 +2,7 @@
 
     python -m synapseml_tpu_torch.tools.profile_fit [--schema higgs|adult|covertype|mslr]
         [--boosting gbdt|goss|dart|rf] [--bagging FRACTION] [--eval] [--seed 0]
+        [--rows N] [--ab full_pass [--rounds 2]]
 
 Fits ``train`` on the training rows of one of ``chip_smoke.py``'s fits
 (``tools/schema_data.py`` ``FITS``: HIGGS width, 28 f32 features, 63 bins;
@@ -25,11 +26,23 @@ the fit is plain gbdt, as before. With ``--eval`` on a fit whose metric runs
 on the host (lambdarank's NDCG), the object also holds each iteration's
 wall time of that metric in the first timed fit, and the wall time of the
 same fit without its eval set, so that the eval's share of the fit shows.
+
+``--rows N`` fits the first N training rows (lambdarank: whole queries).
+``--ab full_pass`` compares the shipped growth (a row partition, kernel P
+and kernel A's row-list entry) with the full pass it replaced
+(``kernel_cases.grow_full_pass``): after the warm-up fit it traces fits in
+turns full pass, shipped, shipped, full pass (``--rounds`` times) and
+prints, for each path and traced fit, its wall time, device busy time and
+idle share, kernel launches a split step, device -> host copies, the ms of
+host -> device copies, and the device ms and launches of kernel A's two
+entries and kernel P. The two paths' trees must be identical (else it
+exits 1).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import sys
 import time
@@ -89,6 +102,54 @@ def _timed_metric_ndcg(make, times: list):
     return factory
 
 
+def _traced(fn):
+    """(wall s, [(kernel name, device us, launches)]) of ``fn()`` under
+    ``torch.profiler``, device kernels only."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [(e.key, _device_us(e), e.count) for e in prof.key_averages()
+               if _device_us(e) > 0 and e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:  # some builds attribute device time to the CPU-side launch events
+        kernels = [(e.key, _device_us(e), e.count) for e in prof.key_averages()
+                   if _device_us(e) > 0]
+    return out, wall, kernels
+
+
+def _ab_full_pass(train, params, x, y, kw, steps, rounds) -> dict:
+    """The ``--ab full_pass`` record (see the module's doc)."""
+    from ..gbdt.histogram import HIST_ROWS_TRACE, HIST_TRACE
+    from ..gbdt.partition import PARTITION_TRACE
+    from .kernel_cases import full_pass
+
+    names = {"a_full": HIST_TRACE, "a_rows": HIST_ROWS_TRACE, "p": PARTITION_TRACE}
+    runs, trees = {"full_pass": [], "shipped": []}, {}
+    for _ in range(rounds):
+        for path in ("full_pass", "shipped", "shipped", "full_pass"):
+            with full_pass() if path == "full_pass" else contextlib.nullcontext():
+                booster, wall, kernels = _traced(lambda: train(params, x, y, **kw))
+            busy = sum(us for _, us, _ in kernels) / 1e6
+            rec = {"fit_s": wall, "device_busy_s": busy, "device_idle_share": 1 - busy / wall,
+                   "launches_per_split_step": sum(c for _, _, c in kernels) / steps,
+                   "device_to_host_copies": sum(c for k, _, c in kernels if "Memcpy DtoH" in k),
+                   "host_to_device_copy_ms": sum(us for k, us, _ in kernels
+                                                 if "Memcpy HtoD" in k) / 1e3}
+            for key, parts in names.items():
+                hits = [(us, c) for k, us, c in kernels if all(p in k for p in parts)]
+                rec[f"{key}_ms"] = sum(us for us, _ in hits) / 1e3
+                rec[f"{key}_launches"] = sum(c for _, c in hits)
+            rec["a_ms"] = rec["a_full_ms"] + rec["a_rows_ms"]
+            runs[path].append(rec)
+            trees[path] = booster
+    same = all(np.array_equal(getattr(trees["full_pass"], f), getattr(trees["shipped"], f))
+               for f in ("parent", "feature", "bin", "leaf_value", "leaf_hess"))
+    return {"identical_trees": same, "runs": runs}
+
+
 def _controls(args, params: dict) -> dict:
     """``train`` parameters of the switches (none: the plain fit)."""
     out = {}
@@ -115,7 +176,13 @@ def main() -> int:
                     help="the held-out rows as an eval set, with early stopping")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--top", type=int, default=12, help="kernel names to list")
+    ap.add_argument("--rows", type=int, default=None, help="fit the first N training rows")
+    ap.add_argument("--ab", choices=["full_pass"], default=None,
+                    help="trace the shipped growth against the full pass, in turns")
+    ap.add_argument("--rounds", type=int, default=2, help="--ab: rounds of 4 traced fits")
     args = ap.parse_args()
+    if args.ab and args.eval:
+        ap.error("--ab traces fits without an eval set")
     if not torch.cuda.is_available():
         print("profile_fit: needs a CUDA device", file=sys.stderr)
         return 2
@@ -138,14 +205,28 @@ def main() -> int:
     else:
         x, y = _ROWS[args.schema](args.seed, n_made)
     eval_set = [(x[n_train:], y[n_train:])] if args.eval else None
+    if args.rows is not None:
+        n_train = min(args.rows, n_train)
+        if args.schema == "mslr":  # whole queries
+            s_tr = s_tr[:int(np.searchsorted(np.cumsum(s_tr), n_train, side="right"))]
+            n_train = int(s_tr.sum())
+            groups["group"] = s_tr
     x, y = np.ascontiguousarray(x[:n_train]), y[:n_train]
     classes = params.get("num_class", 1)
     dev = torch.device("cuda")
 
     small_eval = [(x[:4096], y[:4096])] if args.eval else None
+    if n_train < 65536:
+        small = dict(groups)
     train(dict(params, num_iterations=1), x[:65536], y[:65536],
           eval_set=small_eval, **small)  # load the kernels
     torch.cuda.synchronize()
+    if args.ab:
+        steps = params["num_iterations"] * classes * (params["num_leaves"] - 1)
+        rec = _ab_full_pass(train, params, x, y, groups, steps, args.rounds)
+        print(json.dumps({"card": card_info(), "schema": args.schema, "rows": n_train,
+                          **params, "split_steps": steps, **rec}))
+        return 0 if rec["identical_trees"] else 1
 
     t0 = time.perf_counter()
     mapper = BinMapper(max_bin=params["max_bin"],
@@ -174,17 +255,7 @@ def main() -> int:
         eval_cost = {"host_metric_s": metric_s, "host_metric_s_total": sum(metric_s),
                      "fit_without_eval_s": time.perf_counter() - t0}
 
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        train(params, x, y, eval_set=eval_set, **groups)
-        torch.cuda.synchronize()
-        traced_s = time.perf_counter() - t0
-    kernels = [(e.key, _device_us(e), e.count) for e in prof.key_averages()
-               if _device_us(e) > 0 and e.device_type == torch.autograd.DeviceType.CUDA]
-    if not kernels:  # some builds attribute device time to the CPU-side launch events
-        kernels = [(e.key, _device_us(e), e.count) for e in prof.key_averages()
-                   if _device_us(e) > 0]
+    _, traced_s, kernels = _traced(lambda: train(params, x, y, eval_set=eval_set, **groups))
     busy_us = sum(us for _, us, _ in kernels)
     launches = sum(c for _, _, c in kernels)
     copies = {direction: sum(c for k, _, c in kernels if f"Memcpy {direction}" in k)

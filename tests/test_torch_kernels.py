@@ -17,7 +17,10 @@ from synapseml_tpu_torch.gbdt.device_predict import (BIN_KERNEL, LEAF_KERNEL, SC
                                                      device_leaf_indices, device_raw_scores,
                                                      leaf_indices_plain, pack_feature_table,
                                                      pack_trees, raw_scores_plain)
-from synapseml_tpu_torch.gbdt.histogram import HIST_KERNEL, histogram, histogram_plain
+from synapseml_tpu_torch.gbdt.histogram import (HIST_KERNEL, HIST_ROWS_KERNEL, histogram,
+                                                histogram_plain, histogram_rows,
+                                                histogram_rows_plain)
+from synapseml_tpu_torch.gbdt.partition import PARTITION_KERNEL, RowPartition
 from synapseml_tpu_torch.gbdt.metrics import METRICS
 from synapseml_tpu_torch.gbdt.split_search import (SPLIT_KERNEL, SplitWorkspace,
                                                    split_gains_plain, split_search,
@@ -26,7 +29,8 @@ from synapseml_tpu_torch.parallel.flash import (FLASH_F32_KERNEL, KERNEL_HEAD_DI
                                                 dense_attention, flash_attention, kernel_for)
 from synapseml_tpu_torch.gbdt.lambdarank import (LAMBDARANK_KERNEL, QueryGroups,
                                                  lambda_grads, lambda_grads_plain)
-from synapseml_tpu_torch.tools.kernel_cases import (RANK_CASES, bin_edge_case,
+from synapseml_tpu_torch.tools.kernel_cases import (PARTITION_CASES, RANK_CASES,
+                                                    bin_edge_case, full_pass, partition_case,
                                                     bin_ragged_case, check_left_sets,
                                                     check_offgrid, diff_runs, grow_synthetic,
                                                     many_thresholds_rows,
@@ -540,3 +544,122 @@ def test_imported_many_thresholds_card_equals_cpu(cuda, n_thr, zero_split):
     assert packed.narrow == (n_thr < 32767)
     np.testing.assert_array_equal(raw, booster.raw_predict(x, device="cpu"))
     np.testing.assert_array_equal(leaves, booster.predict_leaf(x, device="cpu"))
+
+
+def _partition_step(dev, bins, order, seg, node, s, leaf, feat, ok, in_set):
+    part = RowPartition(len(order), seg.shape[0], dev)
+    part.begin_tree()
+    part.order.copy_(torch.from_numpy(order))
+    part.seg.copy_(torch.from_numpy(seg))
+    node_t = torch.from_numpy(node.copy()).to(dev)
+    part.split(s, torch.from_numpy(bins).to(dev), node_t, torch.tensor([leaf, feat]).to(dev),
+               torch.tensor([ok]).to(dev), torch.from_numpy(in_set).to(dev))
+    return part, node_t
+
+
+def _same_partition(card, cpu):
+    """The same segments (as sets of rows), counts, smaller child and node."""
+    (pc, nc), (pp, np_) = card, cpu
+    torch.cuda.synchronize()
+    seg = pp.seg.numpy()
+    np.testing.assert_array_equal(pc.seg.cpu().numpy(), seg)
+    np.testing.assert_array_equal(pc.small.cpu().numpy(), pp.small.numpy())
+    assert bool(pc.smaller_right.cpu()[0]) == bool(pp.smaller_right[0])
+    np.testing.assert_array_equal(nc.cpu().numpy(), np_.numpy())
+    oc, op = pc.order.cpu().numpy(), pp.order.numpy()
+    for b, c in seg:
+        np.testing.assert_array_equal(np.sort(oc[b:b + c]), np.sort(op[b:b + c]))
+    covered = sorted((b, c) for b, c in seg if c)
+    assert sum(c for _, c in covered) == len(oc) and np.array_equal(np.sort(oc),
+                                                                      np.arange(len(oc)))
+
+
+@pytest.mark.parametrize("dtype", [np.int8, np.int16, np.int32])
+@pytest.mark.parametrize("n,d", [(257, 1), (257, 33), (257, 300), (1_000_003, 28)])
+@pytest.mark.parametrize("case", sorted(PARTITION_CASES))
+def test_partition_kernel_matches_plain(cuda, case, n, d, dtype):
+    """Kernel P against the stable partition of its plain version: at the
+    root (one launch routes every row), a one-row leaf, and children that
+    come out empty."""
+    state = partition_case(n, 17, d, dtype, case, seed=d)
+    bins, order, seg, node, s, leaf, in_set = state
+    before = PARTITION_KERNEL.launches
+    card = _partition_step(cuda, bins, order, seg, node, s, leaf, d - 1, True, in_set)
+    torch.cuda.synchronize()
+    assert PARTITION_KERNEL.launches == before + 1
+    _same_partition(card, _partition_step("cpu", bins, order, seg, node, s, leaf, d - 1, True,
+                                          in_set))
+
+
+def test_partition_kernel_inert_step(cuda):
+    bins, order, seg, node, s, leaf, in_set = partition_case(5000, 9, 4, np.int8,
+                                                             "empty_left", seed=1)
+    part, node_t = _partition_step(cuda, bins, order, seg, node, s, leaf, 0, False, in_set)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(part.order.cpu().numpy(), order)
+    np.testing.assert_array_equal(part.seg.cpu().numpy(), seg)
+    np.testing.assert_array_equal(node_t.cpu().numpy(), node)
+    assert part.small.cpu().tolist() == [0, 0] and bool(part.smaller_right.cpu()[0])
+
+
+@pytest.mark.parametrize("dtype,n_bins,d", [(torch.int8, 31, 1), (torch.int8, 31, 33),
+                                            (torch.int16, 256, 300), (torch.int32, 31, 33),
+                                            (torch.int32, 4096, 30)])
+@pytest.mark.parametrize("span", ["empty", "one_row", "all_rows", "middle"])
+def test_histogram_rows_kernel_bit_equal(cuda, span, dtype, n_bins, d):
+    """Kernel A's row-list entry against its plain version on pre-rounded
+    gradients, 0/1 weights and a NaN g on a row of zero weight: bit-equal
+    (NaN in the same cells). d = 33 and 300 walk more than 32 features a
+    lane; int32 at 4096 bins takes several feature tiles (grid y)."""
+    g = torch.Generator(device="cpu").manual_seed(d)
+    n = 100_003
+    binned = torch.randint(0, n_bins, (n, d), generator=g).to(dtype)
+    gh = _preround(torch.randn(n, 2, generator=g), 1 << 17)
+    grad, hess = gh[:, 0].contiguous(), gh[:, 1].contiguous()
+    weight = (torch.rand(n, generator=g) < 0.6).to(torch.float32)
+    grad[torch.nonzero(weight == 0)[:2, 0]] = float("nan")
+    order = torch.randperm(n, generator=g).to(torch.int32)
+    span_t = torch.tensor({"empty": (500, 0), "one_row": (7, 1), "all_rows": (0, n),
+                           "middle": (1000, 60_000)}[span], dtype=torch.int32)
+    args = (binned, grad, hess, weight, n_bins, order, span_t)
+    before = HIST_ROWS_KERNEL.launches
+    out = histogram_rows(*(a.to(cuda) if torch.is_tensor(a) else a for a in args))
+    torch.cuda.synchronize()
+    assert HIST_ROWS_KERNEL.launches == before + 1
+    want = histogram_rows_plain(*args)
+    out = out.cpu()
+    assert torch.equal(out.isnan(), want.isnan())
+    torch.testing.assert_close(out.nan_to_num(), want.nan_to_num(), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("mode", ["binary", "multiclass", "categorical_bagged"])
+def test_leaf_local_fit_card_equals_full_pass_and_cpu(cuda, mode):
+    """A fit on the card grows over the row partition: kernel P and A's
+    row-list entry once a split step, and the same trees and leaves as the
+    card's full pass (``kernel_cases.grow_full_pass``) and the CPU's fit."""
+    x, y = higgs_width_rows(3, 16_384)
+    params = _train_params({})
+    classes = 1
+    if mode == "multiclass":
+        y = np.digitize(x[:, 1] + 0.5 * x[:, 2], [-0.5, 0.5]).astype(np.float64)
+        params.update(objective="multiclass", num_class=3)
+        classes = 3
+    elif mode == "categorical_bagged":
+        x = x.copy()
+        x[:, 2] = np.random.default_rng(0).integers(0, 12, len(x))
+        params.update(categorical_feature=[2], bagging_fraction=0.5, bagging_freq=1,
+                      feature_fraction=0.8)
+    steps = params["num_iterations"] * classes * (params["num_leaves"] - 1)
+    before = (PARTITION_KERNEL.launches, HIST_ROWS_KERNEL.launches)
+    local = train(params, x, y, device=cuda)
+    torch.cuda.synchronize()
+    assert (PARTITION_KERNEL.launches - before[0], HIST_ROWS_KERNEL.launches - before[1]) == (
+        steps, steps)
+    with full_pass():
+        full = train(params, x, y, device=cuda)
+    cpu = train(params, x, y, device="cpu")
+    for other in (full, cpu):
+        for field in ("parent", "feature", "bin", "cat_set", "leaf_value", "leaf_hess",
+                      "sampled_rows"):
+            a, b = getattr(local, field), getattr(other, field)
+            assert (a is None and b is None) or np.array_equal(a, b), field
