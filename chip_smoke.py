@@ -13,9 +13,10 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    and tree-scoring kernels must be > 0, the held-out AUC > 0.9, and a small
    fit on the card must grow the same trees as the plain CPU path; binning
    (kernel D) must launch in the fit, the split search (kernel E), the row
-   partition (kernel P) and kernel A's row-list entry once a split step
-   (300 launches; E also in 2b, 300, and 2c, 2,100) and kernel A's full
-   entry once a tree (the root histogram);
+   partition (kernel P), kernel A's row-list entry and the step's epilogue
+   (the sibling by subtraction) once a split step (300 launches; E also in
+   2b, 300, and 2c, 2,100) and kernel A's full entry once a tree (the root
+   histogram);
 2b. ``gbdt_adult_cat``: rows at the UCI Adult Census schema (6 numeric and 8
    categorical columns with Adult's cardinalities, NaN where the files hold
    '?', codes unseen in training among the held-out rows), 4,194,304
@@ -65,9 +66,10 @@ Phases, each of which ends the run with a non-zero exit when it fails:
 2f. growth over the row partition against the full pass it replaced
    (``kernel_cases.grow_full_pass``): ``train`` at phase 2's rows and
    parameters both ways: identical trees and bit-equal held-out margins,
-   kernel P (the row partition) and kernel A's row-list entry once a split
-   step (A's full entry once a tree, the root), and each path's kernel A
-   launches, device ms a fit (traced fits in turns full pass, shipped,
+   kernel P (the row partition), kernel A's row-list entry and the epilogue
+   once a split step (A's full entry once a tree, the root), and each path's
+   kernel A launches, device ms a fit of A, P and the epilogue, launches a
+   split step and device busy ms (traced fits in turns full pass, shipped,
    shipped, full pass) and rows histogrammed a fit; then a continued-training
    fit (``init_booster``, with an eval set) and ``num_batches=2`` fits of the
    classifier and the regressor at 16,384 rows, each giving the same trees on
@@ -105,11 +107,17 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    exact ties across features and bins, NaN gains, masks with l1/l2, B at
    64, 256 and kernel A's largest, Covertype's layout) and, off the grid,
    the same split wherever the runner-up is more than one ulp below the
-   best; kernel P at the fit's root split (the same segments as
-   sets, counts, smaller child and node as its plain version) and A's
-   row-list entry over that split's smaller child (bit-equal); its step entry bit-equal to the plain step over every step of
-   whole trees on those cases and on an inert step, a depth cap and B = 100,
-   timed beside the full table at the HIGGS, Adult and Covertype shapes;
+   best; kernel P at four splits (the fitted tree's root split, its
+   deepest split with the ids the fit left scattered, leaves of 1,024 and
+   40 random rows: the same segments as sets, read from the buffer the
+   state names, counts, buffers, smaller child and node as its plain
+   version) and A's row-list entry over each split's smaller child
+   (bit-equal), each timed beside its bound and library call; the step's
+   epilogue bit-equal to its plain version (NaN, +-inf and -0.0, either
+   side smaller, an inert step); E's step entry bit-equal to the plain
+   step over every step of whole trees on E's cases and on an inert step, a
+   depth cap and B = 100, timed beside the full table at the HIGGS, Adult
+   and Covertype shapes;
    flash within 5e-2 (bf16) and 2e-5
    (f32, at the two f32 shapes and two short ragged ones) of the f32 plain
    version, and in bf16 also within FLASH_ROW_TOL of it as an error
@@ -169,6 +177,9 @@ N_COVTYPE_TRAIN = 464_810
 ADULT_AUC_FLOOR = 0.80
 COVTYPE_ACC_FLOOR = 0.60
 SMALL_FIT_ROWS = 16_384
+# listed rows of the small leaves at which phase 4 times kernels P and A's
+# row list (beside the root split and the fitted tree's deepest split)
+SMALL_LEAVES = (1024, 40)
 # contributions (f64 TreeSHAP) against kernel B's f32 margin over 10 trees:
 # the margin's own rounding, a few f32 ulps of values of order 1 to 10
 SHAP_TOL = 1e-5
@@ -653,8 +664,8 @@ def model_surface(kernels, higgs_model, adult_model, x_te, xa_te) -> dict:
 
 def kernel_times(fn, keys) -> dict:
     """{key: (device ms, launches)} of the kernels whose traced name holds
-    every part of each key (a tuple of substrings), in a trace of one call
-    of ``fn``."""
+    every part of each key (a tuple of substrings; the empty key: every
+    kernel), in a trace of one call of ``fn``."""
     from synapseml_tpu_torch.tools.profile_fit import _device_us
 
     evts = _device_events(fn)
@@ -681,16 +692,17 @@ def leaf_local_phase(kernels, gbdt, x_tr, y_tr, x_te, split_steps) -> dict:
     over the row partition (as shipped) and through the full pass it
     replaced (``kernel_cases.grow_full_pass``), each fit with the launch
     counts set to 0 just before and read just after: identical trees and
-    bit-equal held-out margins, kernel P and A's row-list entry once a split
-    step as shipped (A's full entry once a tree, for the root), and each
-    path's kernel A launches, device ms a fit (a traced fit of each path, in
+    bit-equal held-out margins, kernel P, A's row-list entry and the
+    epilogue once a split step as shipped (A's full entry once a tree, for the root), and each
+    path's kernel A launches, device ms a fit of A, P and the epilogue,
+    launches a split step and device busy ms (a traced fit of each path, in
     turns full pass, shipped, shipped, full pass) and rows histogrammed a
     fit (from the trees: ``kernel_cases.rows_histogrammed``). Then a
     continued-training fit and a ``num_batches=2`` fit at 16,384 rows on the
     card and the CPU."""
     from synapseml_tpu_torch.gbdt.boost import train
     from synapseml_tpu_torch.gbdt.estimators import LightGBMClassifier, LightGBMRegressor
-    from synapseml_tpu_torch.gbdt.histogram import HIST_ROWS_TRACE, HIST_TRACE
+    from synapseml_tpu_torch.gbdt.histogram import HIST_ROWS_TRACE, HIST_TRACE, SIBLING_TRACE
     from synapseml_tpu_torch.gbdt.partition import PARTITION_TRACE
     from synapseml_tpu_torch.tools.kernel_cases import full_pass, rows_histogrammed
 
@@ -715,9 +727,9 @@ def leaf_local_phase(kernels, gbdt, x_tr, y_tr, x_te, split_steps) -> dict:
     if not np.array_equal(margins["full_pass"], margins["shipped"]):
         fail("partitioned growth: held-out margins differ from the full pass's")
     want = {"full_pass": {"gbdt_histogram": T + steps, "gbdt_histogram_rows": 0,
-                          "gbdt_partition": 0},
+                          "gbdt_partition": 0, "gbdt_sibling": 0},
             "shipped": {"gbdt_histogram": T, "gbdt_histogram_rows": steps,
-                        "gbdt_partition": steps}}
+                        "gbdt_partition": steps, "gbdt_sibling": steps}}
     for path, w in want.items():
         got = {k: paths[path]["launches"][k] for k in w}
         if got != w or paths[path]["launches"]["gbdt_split_search"] != steps:
@@ -733,7 +745,8 @@ def leaf_local_phase(kernels, gbdt, x_tr, y_tr, x_te, split_steps) -> dict:
     for path in ("full_pass", "shipped", "shipped", "full_pass"):
         with growth[path]():
             traced[path].append(kernel_times(lambda: train(params, x_tr, y_tr),
-                                             (HIST_TRACE, HIST_ROWS_TRACE, PARTITION_TRACE)))
+                                             (HIST_TRACE, HIST_ROWS_TRACE, PARTITION_TRACE,
+                                              SIBLING_TRACE, ())))
     rows = {"full_pass": {"rows_binned": T * n + right, "ghw_rows_read": (T + steps) * n},
             "shipped": {"rows_binned": T * n + small, "ghw_rows_read": T * n + small,
                         "rows_partitioned": routed}}
@@ -749,6 +762,9 @@ def leaf_local_phase(kernels, gbdt, x_tr, y_tr, x_te, split_steps) -> dict:
                      "kernel_a_row_list_device_ms": [r[HIST_ROWS_TRACE][0] for r in runs],
                      "kernel_p_device_ms": [r[PARTITION_TRACE][0] for r in runs],
                      "kernel_p_launches": paths[path]["launches"]["gbdt_partition"],
+                     "epilogue_device_ms": [r[SIBLING_TRACE][0] for r in runs],
+                     "launches_per_split_step": [r[()][1] / steps for r in runs],
+                     "device_busy_ms": [r[()][0] for r in runs],
                      **rows[path]}
     rec["identical_trees_and_margins"] = True
     log(json.dumps(rec))
@@ -786,6 +802,86 @@ def leaf_local_phase(kernels, gbdt, x_tr, y_tr, x_te, split_steps) -> dict:
     return {"record": rec, "booster": local}
 
 
+def snapshot(part, node) -> list:
+    """A copy of kernel P's whole state and the rows' leaves."""
+    return [t.clone() for t in (part.ids, part._state, part.smaller_right, node)]
+
+
+def restore(part, node, snap) -> None:
+    for t, v in zip((part.ids, part._state, part.smaller_right, node), snap):
+        t.copy_(v)
+
+
+def same_split(pk, nk, pp, npl, leaves) -> bool:
+    """Kernel P's state after a split against its plain version's: the same
+    seg, side, small, smaller_right and node, and each of ``leaves`` the
+    same rows as a set, read from the buffer each state names."""
+    torch.cuda.synchronize()
+    same = (torch.equal(pk._state[:pk.seg.numel() + pk.side.numel() + 3],
+                        pp._state[:pp.seg.numel() + pp.side.numel() + 3])
+            and torch.equal(pk.smaller_right, pp.smaller_right) and torch.equal(nk, npl))
+    for leaf in leaves:
+        same = same and torch.equal(torch.sort(pk.rows(leaf)).values,
+                                    torch.sort(pp.rows(leaf)).values)
+    return same
+
+
+def leaf_splits(binned, n_bins, parent, feature, bin_, seed) -> dict:
+    """Phase 4's splits for kernel P and A's row list: {name: (RowPartition,
+    node, step s, choice, ok, in_set)}, the partition and the rows' leaves
+    in the state just before the split. ``root``: the fitted tree's first
+    split; ``deep``: its deepest split (the last among the deepest), after
+    its earlier steps replayed through kernel P, so the leaf's ids lie
+    scattered as the fit left them; ``rows_1024`` and ``rows_40``: a leaf of
+    that many rows drawn at random, split on the root's feature and
+    threshold (numeric splits: the HIGGS fit has no categorical feature)."""
+    from synapseml_tpu_torch.gbdt.partition import RowPartition
+
+    dev, n, L = binned.device, binned.shape[0], len(parent) + 1
+
+    def step_args(s, leaf=None):
+        ok = int(parent[s]) >= 0
+        leaf = max(int(parent[s]), 0) if leaf is None else leaf
+        return (torch.tensor([leaf, int(feature[s])], device=dev),
+                torch.tensor([ok], device=dev),
+                (torch.arange(n_bins, device=dev) <= int(bin_[s])) & ok)
+
+    def fresh():
+        part = RowPartition(n, L, dev)
+        part.begin_tree()
+        return part, torch.zeros(n, dtype=torch.int32, device=dev)
+
+    depth, depths = [0] * L, []
+    for s, p in enumerate(parent):
+        p = int(p)
+        depths.append(depth[p] if p >= 0 else -1)
+        if p >= 0:
+            depth[p] = depth[s + 1] = depth[p] + 1
+    deep = max(range(len(parent)), key=lambda s: (depths[s], s))
+    out = {"root": (*fresh(), 0, *step_args(0))}
+    part, node = fresh()
+    for s in range(deep):
+        part.split(s, binned, node, *step_args(s))
+    out["deep"] = (part, node, deep, *step_args(deep))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    for k in SMALL_LEAVES:  # leaf 0 the other n - k rows, leaf 1 the k listed
+        part, node = fresh()
+        part.ids[0] = torch.randperm(n, generator=gen, device=dev).to(torch.int32)
+        part.seg[0, 1], part.seg[1, 0], part.seg[1, 1] = n - k, n - k, k
+        node[part.ids[0, n - k:].long()] = 1
+        out[f"rows_{k}"] = (part, node, 1, *step_args(0, leaf=1))
+    return out
+
+
+def special_cells(rng, shape, dev) -> torch.Tensor:
+    """f32 values on a 1/8 grid with NaN, +-inf and -0.0 in some cells."""
+    x = (rng.integers(-64, 64, size=shape) / 8).astype(np.float32)
+    flat = x.reshape(-1)
+    pick = rng.permutation(flat.size)[:12]
+    flat[pick] = [np.nan] * 3 + [np.inf] * 3 + [-np.inf] * 3 + [-0.0] * 3
+    return torch.from_numpy(x).to(dev)
+
+
 def _grown_tree(booster, t: int, dev):
     """Tree ``t`` (class 0) of a booster as a ``GrownTree`` on ``dev``."""
     from synapseml_tpu_torch.gbdt.grow import GrownTree
@@ -817,8 +913,10 @@ def main() -> int:
                                                          raw_scores_plain)
     from synapseml_tpu_torch.gbdt.estimators import (LightGBMClassificationModel,
                                                      LightGBMClassifier)
-    from synapseml_tpu_torch.gbdt.histogram import (histogram, histogram_plain, histogram_rows,
-                                                    histogram_rows_plain)
+    from synapseml_tpu_torch.gbdt.histogram import (HIST_ROWS_TRACE, SIBLING_TRACE, histogram,
+                                                    histogram_plain, histogram_rows,
+                                                    histogram_rows_plain, sibling,
+                                                    sibling_plain)
     from synapseml_tpu_torch.gbdt.partition import PARTITION_TRACE, RowPartition, partition_plain
     from synapseml_tpu_torch.gbdt.lambdarank import (QueryGroups, cell_count, lambda_grads,
                                                      lambda_grads_plain, pair_count)
@@ -877,11 +975,11 @@ def main() -> int:
         kernels, LightGBMClassifier(**GBDT), train_table, test_table)
     gbdt_launches = {name: fit_launches[name] + transform_launches[name] for name in kernels}
     log(f"phase 2 launches: fit {fit_launches}, transform {transform_launches}")
-    for name in ("gbdt_histogram", "gbdt_histogram_rows", "gbdt_partition",
+    for name in ("gbdt_histogram", "gbdt_histogram_rows", "gbdt_partition", "gbdt_sibling",
                  "gbdt_split_search", "gbdt_bin_features"):
         if fit_launches[name] < 1:
             fail(f"the main path's fit never launched {name}")
-    for name in ("gbdt_split_search", "gbdt_partition", "gbdt_histogram_rows"):
+    for name in ("gbdt_split_search", "gbdt_partition", "gbdt_histogram_rows", "gbdt_sibling"):
         if fit_launches[name] != split_steps(GBDT):
             fail(f"{name} launched {fit_launches[name]} times in the fit, not once a split "
                  f"step ({split_steps(GBDT)})")
@@ -952,7 +1050,7 @@ def main() -> int:
     if n_cat_splits < 1 or model_a.booster.cat_set is None:
         fail("adult fit took no categorical split")
     for name in ("gbdt_bin_features", "gbdt_split_search", "gbdt_histogram",
-                 "gbdt_histogram_rows", "gbdt_partition"):
+                 "gbdt_histogram_rows", "gbdt_partition", "gbdt_sibling"):
         if fit_la[name] < 1:
             fail(f"the adult fit never launched {name}")
     if fit_la["gbdt_split_search"] != split_steps(adult_gbdt):
@@ -998,7 +1096,7 @@ def main() -> int:
     if not acc_c > COVTYPE_ACC_FLOOR:
         fail(f"covertype held-out accuracy {acc_c:.4f} <= {COVTYPE_ACC_FLOOR}")
     for name in ("gbdt_split_search", "gbdt_histogram", "gbdt_histogram_rows",
-                 "gbdt_partition", "gbdt_bin_features"):
+                 "gbdt_partition", "gbdt_sibling", "gbdt_bin_features"):
         if fit_lc[name] < 1:
             fail(f"the covertype fit never launched {name}")
     if fit_lc["gbdt_split_search"] != split_steps(cov_gbdt, COVTYPE_CLASSES):
@@ -1152,94 +1250,155 @@ def main() -> int:
            shape=f"n={N_TRAIN} d={N_FEATURES} B={n_bins} {binned_tr.dtype}, half the rows live",
            weightings=hist_runs, nonfinite_nan_cells=nan_cells)
 
-    # P: the row partition, at the fit's first split (the root: every
-    # training row routed), against its plain version (a stable boolean-mask
-    # partition) on the card: the same segments as sets, counts, smaller
-    # child and node. Bound: per routed row its id read and written (4 + 4
-    # bytes), the split feature's bins gathered and node written for the
-    # right rows, each counted as the distinct 32-byte sectors it touches
-    # (gathered_bytes). Library: the one torch call of a stable partition,
-    # argsort of the left/right key.
+    # P and A's row list at four splits (leaf_splits): the fitted tree's
+    # root split (every training row routed), its deepest split (scattered
+    # ids, as the fit left them), and leaves of 1,024 and 40 rows drawn at
+    # random. P against its plain version (a stable boolean-mask partition)
+    # on the card: the same segments as sets (read from the buffer the state
+    # names), counts, buffers, smaller child and node; then A's row list over
+    # the split's smaller child (root, deep) or the whole leaf (1,024 and 40
+    # rows listed), every row at weight 1 (a plain gbdt fit), bit-equal to
+    # its plain version. Device times from a trace of 20 launches (P's
+    # state restored before each). P's bound: per routed row its id read and
+    # written (4 + 4 bytes), the split feature's bins gathered and node
+    # written for the right rows, each counted as the distinct 32-byte
+    # sectors it touches (gathered_bytes); library: the one torch call of a
+    # stable partition, argsort of the side key. A's bound: per listed row
+    # its id (4 bytes), its g, h and w and its row of bins gathered (sectors),
+    # the output once; library: index_add_ over the gathered rows.
     lb = leaf_local["booster"]
-    f0, b0 = int(lb.feature[0, 0, 0]), int(lb.bin[0, 0, 0])
-    choice = torch.tensor([0, f0], device=dev)
-    ok_t = torch.ones(1, dtype=torch.bool, device=dev)
-    in_set = torch.arange(n_bins, device=dev) <= b0
-    parts = {}
-    for key in ("kernel", "plain"):
-        part = RowPartition(N_TRAIN, lb.parent.shape[-1] + 1, dev)
-        node_p = torch.zeros(N_TRAIN, dtype=torch.int32, device=dev)
-        part.begin_tree()
-        if key == "kernel":
-            part.split(0, binned_tr, node_p, choice, ok_t, in_set)
-        else:
-            partition_plain(part, 0, binned_tr, node_p, choice, ok_t, in_set)
-        parts[key] = (part, node_p)
-    (pk, nk), (pp, npl) = parts["kernel"], parts["plain"]
-    torch.cuda.synchronize()
-    same = (torch.equal(pk.seg, pp.seg) and torch.equal(pk.small, pp.small)
-            and torch.equal(pk.smaller_right, pp.smaller_right) and torch.equal(nk, npl))
-    for b_, c_ in pp.seg[:2].tolist():
-        same = same and torch.equal(torch.sort(pk.order[b_:b_ + c_]).values,
-                                    torch.sort(pp.order[b_:b_ + c_]).values)
-    if not same:
-        fail("kernel P differs from its plain version at the root split")
-    n_left, n_right = (int(v) for v in pp.seg[:2, 1])
-
-    def p_step():
-        pk.begin_tree()
-        pk.split(0, binned_tr, nk, choice, ok_t, in_set)
-
-    p_ms = kernel_times(lambda: [p_step() for _ in range(20)],
-                        (PARTITION_TRACE,))[PARTITION_TRACE][0] / 20
-    p_plain_ms = time_ms(lambda: (pp.begin_tree(), partition_plain(
-        pp, 0, binned_tr, npl, choice, ok_t, in_set)), 3)
-    key_lr = (~in_set[binned_tr[:, f0].to(torch.int64)]).to(torch.uint8)
-    p_lib_ms = time_ms(lambda: torch.argsort(key_lr, stable=True), 5)
-    e_bin = binned_tr.element_size()
-    routed = torch.arange(N_TRAIN, device=dev)  # the root's segment
-    p_bytes = (8 * N_TRAIN + gathered_bytes(routed, N_FEATURES * e_bin, f0 * e_bin, e_bin)
-               + gathered_bytes(pp.order[n_left:], 4, 0, 4))
-    del routed
-    record("gbdt_partition", gbdt_launches["gbdt_partition"], 0.0, p_ms, p_plain_ms,
-           bound(p_bytes, 0, F32_FLOPS), p_lib_ms, bytes_moved=p_bytes,
-           shape=f"root split of n={N_TRAIN} rows, {binned_tr.dtype} bins, feature {f0}, "
-                 f"{n_left} left / {n_right} right")
-    del key_lr, parts, npl
-
-    # A's row-list entry over that split's smaller child, every row at weight
-    # 1 (a plain gbdt fit): bit-equal to its plain version. Bound: per listed
-    # row its id (4 bytes), its g, h and w and its row of bins gathered, each
-    # counted as the distinct 32-byte sectors it touches (gathered_bytes),
-    # the output once. Library: index_add_ over the gathered rows.
     ones_w = weightings["all"]
-    cnt = int(pk.small[1])
-    h_rows = histogram_rows(binned_tr, g, h, ones_w, n_bins, pk.order, pk.small)
-    if not torch.equal(h_rows, histogram_rows_plain(binned_tr, g, h, ones_w, n_bins,
-                                                    pk.order, pk.small)):
-        fail("kernel A's row-list entry differs from its plain version")
-    rows_ms = time_ms(lambda: histogram_rows(binned_tr, g, h, ones_w, n_bins, pk.order,
-                                             pk.small), 20)
-    rows_plain_ms = time_ms(lambda: histogram_rows_plain(binned_tr, g, h, ones_w, n_bins,
-                                                         pk.order, pk.small), 3)
-    b_s, c_s = (int(v) for v in pk.small)
-    idx = pk.order[b_s:b_s + c_s].to(torch.int64)
-    flat = (binned_tr[idx].to(torch.int64)
-            + torch.arange(N_FEATURES, device=dev)[None, :] * n_bins).reshape(-1)
-    vals = torch.stack([g[idx], h[idx], ones_w[idx]], 1)[:, None, :].expand(
-        c_s, N_FEATURES, 3).reshape(-1, 3).contiguous()
-    h_lib = torch.zeros(N_FEATURES * n_bins, 3, device=dev)
-    rows_lib_ms = time_ms(lambda: h_lib.index_add_(0, flat, vals), 5)
-    rows_bytes = (4 * cnt + 3 * gathered_bytes(idx, 4, 0, 4)
-                  + gathered_bytes(idx, N_FEATURES * e_bin, 0, N_FEATURES * e_bin)
-                  + N_FEATURES * n_bins * 12)
-    del idx, flat, vals, h_lib
-    record("gbdt_histogram_rows", gbdt_launches["gbdt_histogram_rows"], 0.0, rows_ms,
-           rows_plain_ms, bound(rows_bytes, 3 * cnt * N_FEATURES, F32_FLOPS), rows_lib_ms,
-           bytes_moved=rows_bytes,
-           shape=f"the root split's smaller child: {cnt} of n={N_TRAIN} rows listed, "
-                 f"d={N_FEATURES} B={n_bins} {binned_tr.dtype}, every row at weight 1")
-    del pk, pp, nk, h_rows
+    e_bin = binned_tr.element_size()
+    splits = leaf_splits(binned_tr, n_bins, lb.parent[0, 0], lb.feature[0, 0], lb.bin[0, 0],
+                         args.seed)
+    p_runs, a_runs = {}, {}
+    for key, (pk, nk, s, choice, ok_t, in_set) in splits.items():
+        leaf, f = (int(v) for v in choice.tolist())
+        snap = snapshot(pk, nk)
+        pp = RowPartition(N_TRAIN, pk.num_leaves, dev)
+        npl = torch.empty_like(nk)
+        restore(pp, npl, snap)
+        leaf_ids = pk.rows(leaf).clone()  # the split leaf's ids, as P reads them
+        count = leaf_ids.numel()
+        # A's list: the small leaves' own rows, else P's smaller child
+        span = (torch.tensor([int(pk.seg[leaf, 0]), count, int(pk.side[leaf])],
+                             dtype=torch.int32, device=dev)
+                if key.startswith("rows_") else pk.small)
+        pk.split(s, binned_tr, nk, choice, ok_t, in_set)
+        partition_plain(pp, s, binned_tr, npl, choice, ok_t, in_set)
+        if not same_split(pk, nk, pp, npl, (leaf, s + 1)):
+            fail(f"kernel P differs from its plain version at the {key} split")
+        n_left, n_right = (int(pp.seg[j, 1]) for j in (leaf, s + 1))
+
+        def p_step():
+            restore(pk, nk, snap)
+            pk.split(s, binned_tr, nk, choice, ok_t, in_set)
+
+        p_ms = kernel_times(lambda: [p_step() for _ in range(20)],
+                            (PARTITION_TRACE,))[PARTITION_TRACE][0] / 20
+        p_plain_ms = time_ms(lambda: (restore(pp, npl, snap), partition_plain(
+            pp, s, binned_tr, npl, choice, ok_t, in_set)), 3)
+        key_lr = (~in_set[binned_tr[leaf_ids.long(), f].to(torch.int64)]).to(torch.uint8)
+        p_lib_ms = time_ms(lambda: torch.argsort(key_lr, stable=True), 5)
+        p_bytes = (8 * count + gathered_bytes(leaf_ids, N_FEATURES * e_bin, f * e_bin, e_bin)
+                   + gathered_bytes(pp.rows(s + 1), 4, 0, 4))
+        p_runs[key] = {"rows_routed": count, "step": s, "leaf": leaf, "feature": f,
+                       "left": n_left, "right": n_right, "ms": p_ms, "plain_ms": p_plain_ms,
+                       "library_ms": p_lib_ms, "bytes_moved": p_bytes,
+                       **dict(zip(("bound_ms", "bound_by"), bound(p_bytes, 0, F32_FLOPS)))}
+        log(json.dumps({"partition": key, **p_runs[key]}))
+
+        cnt = int(span[1])
+        h_rows = histogram_rows(binned_tr, g, h, ones_w, n_bins, pk.ids, span)
+        if not torch.equal(h_rows, histogram_rows_plain(binned_tr, g, h, ones_w, n_bins,
+                                                        pk.ids, span)):
+            fail(f"kernel A's row-list entry differs from its plain version over the {key} "
+                 f"list")
+        rows_ms = kernel_times(lambda: [histogram_rows(binned_tr, g, h, ones_w, n_bins,
+                                                       pk.ids, span) for _ in range(20)],
+                               (HIST_ROWS_TRACE,))[HIST_ROWS_TRACE][0] / 20
+        rows_plain_ms = time_ms(lambda: histogram_rows_plain(binned_tr, g, h, ones_w, n_bins,
+                                                             pk.ids, span), 3)
+        b_s, c_s, buf = (int(v) for v in span)
+        idx = pk.ids[buf, b_s:b_s + c_s].to(torch.int64)
+        flat = (binned_tr[idx].to(torch.int64)
+                + torch.arange(N_FEATURES, device=dev)[None, :] * n_bins).reshape(-1)
+        vals = torch.stack([g[idx], h[idx], ones_w[idx]], 1)[:, None, :].expand(
+            c_s, N_FEATURES, 3).reshape(-1, 3).contiguous()
+        h_lib = torch.zeros(N_FEATURES * n_bins, 3, device=dev)
+        rows_lib_ms = time_ms(lambda: h_lib.index_add_(0, flat, vals), 5)
+        rows_bytes = (4 * cnt + 3 * gathered_bytes(idx, 4, 0, 4)
+                      + gathered_bytes(idx, N_FEATURES * e_bin, 0, N_FEATURES * e_bin)
+                      + N_FEATURES * n_bins * 12)
+        a_runs[key] = {"rows_listed": cnt, "ms": rows_ms, "plain_ms": rows_plain_ms,
+                       "library_ms": rows_lib_ms, "bytes_moved": rows_bytes,
+                       **dict(zip(("bound_ms", "bound_by"),
+                                  bound(rows_bytes, 3 * cnt * N_FEATURES, F32_FLOPS)))}
+        log(json.dumps({"histogram_rows": key, **a_runs[key]}))
+        del pp, npl, leaf_ids, key_lr, idx, flat, vals, h_lib, h_rows
+    del splits
+    root_p, root_a = p_runs["root"], a_runs["root"]
+    record("gbdt_partition", gbdt_launches["gbdt_partition"], 0.0, root_p["ms"],
+           root_p["plain_ms"], (root_p["bound_ms"], root_p["bound_by"]), root_p["library_ms"],
+           bytes_moved=root_p["bytes_moved"],
+           shape=f"root split of n={N_TRAIN} rows, {binned_tr.dtype} bins, feature "
+                 f"{root_p['feature']}, {root_p['left']} left / {root_p['right']} right",
+           splits=p_runs)
+    record("gbdt_histogram_rows", gbdt_launches["gbdt_histogram_rows"], 0.0, root_a["ms"],
+           root_a["plain_ms"], (root_a["bound_ms"], root_a["bound_by"]),
+           root_a["library_ms"], bytes_moved=root_a["bytes_moved"],
+           shape=f"the root split's smaller child: {root_a['rows_listed']} of n={N_TRAIN} "
+                 f"rows listed, d={N_FEATURES} B={n_bins} {binned_tr.dtype}, every row at "
+                 f"weight 1", splits=a_runs)
+
+    # the step's epilogue at the fit's table (L leaves, d=28, B bins): the
+    # sibling by subtraction against its plain version (the torch ops it
+    # replaced), bit for bit and NaN for NaN, with NaN, +-inf and -0.0 in
+    # the split leaf and the child, the smaller child on either side and an
+    # inert step. Bound: bytes, small and the split leaf read, two leaves and
+    # the zeroed small written. Library: the torch ops it replaced (the row
+    # list's zeroed output, index_select, a subtraction, where, the copy into
+    # leaf s + 1 and index_add_), their device time.
+    L_fit = lb.parent.shape[-1] + 1
+    sib_s, sib_leaf = L_fit - 2, L_fit // 3
+    rng_e = np.random.default_rng(args.seed)
+    hists0 = special_cells(rng_e, (L_fit, N_FEATURES, n_bins, 3), dev)
+    small0 = special_cells(rng_e, (N_FEATURES, n_bins, 3), dev)
+    leaf_t = torch.tensor([sib_leaf], device=dev)
+    for case in ("smaller_right", "smaller_left", "inert"):
+        right_t = torch.tensor([case != "smaller_left"], device=dev)
+        small_c = torch.zeros_like(small0) if case == "inert" else small0
+        outs = []
+        for fn in (sibling, sibling_plain):
+            hk, sk = hists0.clone(), small_c.clone()
+            fn(hk, sk, leaf_t, right_t, sib_s)
+            outs.append((hk, sk))
+        (hk, sk), (hp, sp) = outs
+        keep = ~hk.isnan()
+        if not (torch.equal(keep, ~hp.isnan()) and torch.equal(hk[keep].view(torch.int32),
+                                                               hp[keep].view(torch.int32))
+                and not sk.view(torch.int32).any() and not sp.view(torch.int32).any()):
+            fail(f"the sibling epilogue differs from its plain version ({case})")
+    del outs, hk, sk, hp, sp, keep
+    right_t = torch.tensor([False], device=dev)
+    hk, sk = hists0.clone(), small0.clone()
+    sib_ms = kernel_times(lambda: [sibling(hk, sk, leaf_t, right_t, sib_s) for _ in range(20)],
+                          (SIBLING_TRACE,))[SIBLING_TRACE][0] / 20
+    sib_plain_ms = time_ms(lambda: sibling_plain(hk, sk, leaf_t, right_t, sib_s), 20)
+
+    def replaced_ops():
+        torch.zeros(N_FEATURES, n_bins, 3, device=dev)
+        child = torch.where(right_t, sk, torch.index_select(hk, 0, leaf_t)[0] - sk)
+        hk[sib_s + 1] = child
+        hk.index_add_(0, leaf_t, child[None], alpha=-1)
+
+    sib_lib_ms = device_ms(replaced_ops, 20)
+    sib_bytes = 5 * small0.numel() * 4
+    record("gbdt_sibling", gbdt_launches["gbdt_sibling"], 0.0, sib_ms, sib_plain_ms,
+           bound(sib_bytes, 2 * small0.numel(), F32_FLOPS), sib_lib_ms, bytes_moved=sib_bytes,
+           shape=f"L={L_fit} d={N_FEATURES} B={n_bins} f32 table, leaf {sib_leaf} at step "
+                 f"{sib_s}; checked smaller right, smaller left and inert")
+    del hists0, small0, hk, sk
     del binned_tr, g, h, w, weightings, y_d, p0, h_kern, h_plain
 
     # B: tree scoring, both entries, at five shapes: (i) the fitted model on

@@ -8,65 +8,83 @@
 // grouped by leaf, so a step reads only the rows of the leaf it splits.
 //
 // State, on the card for the whole tree:
-//   order (n,) int32  row ids grouped by leaf;
-//   seg   (L, 2) int32 (begin, count) of each leaf's slice of order;
-//   node  (n,) int32  each row's leaf (the reference's node_of_row).
-// At the tree's start order = 0..n-1 and seg[0] = (0, n).
+//   ids   (2, n) int32 two buffers of row ids; each leaf's rows are the
+//                      slice [begin, begin + count) of one of them;
+//   seg   (L, 2) int32 (begin, count) of each leaf's slice;
+//   side  (L,)   int32 the buffer (0 or 1) that holds each leaf's slice;
+//   node  (n,)   int32 each row's leaf (the reference's node_of_row).
+// At the tree's start ids[0] = 0..n-1, seg[0] = (0, n), side[0] = 0.
 //
 // One launch splits leaf l = choice[0] on feature f = choice[1], as kernel
 // E decided it (choice, ok, in_set are E's outputs, read here from device
 // memory, so the host never reads a count). Each row of l's slice goes left
 // iff in_set[bins[row, f]] (a bin outside [0, B) goes right, as in
-// predict_binned); left rows are written to the front of the same slice of
-// a scratch array, right rows to its back, at offsets from one atomicAdd a
-// block tile (each warp counts its lanes with a ballot, a block scan gives
-// every thread its offset); right rows get node = s + 1. After a grid-wide
-// barrier the slice is copied back into order, and one thread sets
-// seg[l] = (begin, n_left), seg[s + 1] = (begin + n_left, n_right) and the
-// smaller child by the reference's rule (right iff n_right <= n_left,
-// grow.py:397; counts of member rows, weight 0 included) into small =
-// (begin, count) and smaller_right, which kernel A's row-list entry reads.
-// An inert step (!ok) changes nothing and records an empty smaller child
-// on the right, as the reference's counts (0 <= 0) do.
+// predict_binned). The rows are read from buffer side[l] and written into
+// the same range [begin, begin + count) of the other buffer, which no leaf
+// holds (the ranges of the leaves are disjoint): left rows from the front,
+// right rows from the back, at offsets from one atomicAdd a block tile (a
+// warp scan and a block scan give every thread its offset); right rows get
+// node = s + 1. Both children then
+// live in the other buffer. Nothing is copied back, so each routed id is
+// read once and written once.
+//
+// The step ends in the last block to finish (CUDA's threadFenceReduction
+// pattern): every block fences its counter updates and takes a ticket of a
+// per-step arrival counter; the block that takes the last ticket reads the
+// final left count and writes seg[l] = (begin, n_left), seg[s + 1] =
+// (begin + n_left, n_right), both children's side, and the smaller child by
+// the reference's rule (right iff n_right <= n_left, grow.py:397; counts of
+// member rows, weight 0 included) into small = (begin, count, buffer) and
+// smaller_right, which kernel A's row-list entry reads. No block waits for
+// another, so the launch is an ordinary one, and no block is held resident.
+// An inert step (!ok) changes nothing and records an empty smaller child on
+// the right, as the reference's counts (0 <= 0) do.
+//
+// Work is sized on the card: the host launches an occupancy-sized grid (the
+// leaf's count exists only on the card), and each block computes from the
+// count how many blocks have tiles, active = max(1, min(grid, tiles)). A
+// block past it returns before any shared-memory or atomic work and takes no
+// ticket, so a 40-row leaf costs one block's work. Every block computes the
+// same `active`: it reads seg[l] before the last block rewrites it, or, if it
+// starts later than that, reads n_left <= count, which gives an active count
+// no larger, and it returns all the same.
 //
 // The order of rows inside a slice is not kept (the atomics decide it): the
 // histogram sums are exact on _preround's grid in any order.
 //
-// Bound on the H100: bytes. Per row of the split leaf: its id read twice
-// and written twice (4 B each, coalesced), its bin gathered (one 32-byte
-// sector per row, the rows' order being arbitrary) and, for a right row,
-// node written (a 32-byte sector). The grid is sized by the occupancy
-// calculator, at most kMaxBlocksPerSm blocks an SM, and launched
-// cooperatively, so every block is resident and the barrier (one atomic a
-// block and a spin on a per-step counter) is safe; the grid does not depend
-// on the leaf's size, which stays on the card. A block reserves
-// 2 * kWarps * 4 + 8 bytes of static shared memory and 256 threads; two
-// blocks an SM (264 on 132 SMs) keep 270k row loads in flight, and the
-// barrier costs about one atomic a block. Scratch holds n ids, the largest
-// slice (the root's).
+// Bound on the H100: bytes. Per row of the split leaf: its id read once and
+// written once (4 B each, coalesced), its bin gathered (the distinct 32-byte
+// sectors the leaf's rows touch) and, for a right row, node written (also
+// counted in sectors). The grid: at most kMaxBlocksPerSm blocks an SM, so
+// that enough bin gathers are in flight at a large leaf (PERF.md, the P
+// sweep); a block reserves kWarps * 4 + 12 bytes of static shared memory and
+// 256 threads.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "occupancy.cuh"
 
 // Field for field the _PartArgs of gbdt/partition.py. Declared outside the
 // unnamed namespace: smt_partition takes it, and a C entry point whose
 // parameter has internal linkage is not exported.
 struct PartArgs {
   const void* bins;           // (n, d) int8 / int16 / int32
-  int* order;                 // (n,)
-  int* scratch;               // (n,)
+  int* ids;                   // (2, n)
   int* seg;                   // (L, 2)
+  int* side;                  // (L,)
   int* counters;              // (L - 1, 3): left rows, right rows, blocks arrived
   int* node;                  // (n,)
   const long long* choice;    // (2,): leaf, feature
   const int8_t* ok;           // (1,)
   const int8_t* in_set;       // (B,)
-  int* small;                 // (2,): begin, count of the smaller child
+  int* small;                 // (3,): begin, count, buffer of the smaller child
   int8_t* smaller_right;      // (1,)
   long long n;
   int d;
   int n_bins;
   int s;
+  int device;                 // the card the tensors live on
 };
 
 namespace {
@@ -75,7 +93,7 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kPerThread = 4;                     // rows a thread routes a tile
 constexpr int kTile = kThreads * kPerThread;      // rows a block routes a tile
-constexpr int kMaxBlocksPerSm = 2;
+constexpr int kMaxBlocksPerSm = 4;                // cap on the occupancy-sized grid
 constexpr unsigned kAll = 0xffffffffu;
 
 
@@ -111,24 +129,33 @@ template <typename BinT>
 __global__ void __launch_bounds__(kThreads) partition_kernel(PartArgs a) {
   __shared__ int warp_sums[kWarps];
   __shared__ int base[2];
-  if (!a.ok[0]) {  // the same for every block: none waits at the barrier
+  __shared__ int last;
+  // ok and the choice are loaded together (a small leaf's time is its chain
+  // of dependent loads)
+  const bool ok = a.ok[0] != 0;
+  const int l = (int)a.choice[0], f = (int)a.choice[1];
+  if (!ok) {  // an inert step: block 0 records the empty smaller child
     if (blockIdx.x == 0 && threadIdx.x == 0) {
       a.small[0] = 0;
       a.small[1] = 0;
+      a.small[2] = 0;
       a.smaller_right[0] = 1;
     }
     return;
   }
-  const int l = (int)a.choice[0];
-  const int f = (int)a.choice[1];
-  const int begin = a.seg[2 * l], count = a.seg[2 * l + 1];
+  const int begin = a.seg[2 * l], count = a.seg[2 * l + 1], from = a.side[l];
+  const int tiles = (count + kTile - 1) / kTile;
+  const int active = max(1, min((int)gridDim.x, tiles));
+  if ((int)blockIdx.x >= active) return;  // before any shared-memory or atomic work
+
+  const int to = 1 - from;
   int* cnt = a.counters + 3 * a.s;
   const BinT* bins = (const BinT*)a.bins;
-  const int* ids = a.order + begin;
-  int* out = a.scratch + begin;
+  const int* in = a.ids + from * a.n + begin;
+  int* out = a.ids + to * a.n + begin;
 
-  for (long long t0 = (long long)blockIdx.x * kTile; t0 < count;
-       t0 += (long long)gridDim.x * kTile) {
+  for (int t = blockIdx.x; t < tiles; t += active) {
+    const long long t0 = (long long)t * kTile;
     int row[kPerThread];
     bool valid[kPerThread], left[kPerThread];
     int nl = 0, nr = 0;
@@ -136,7 +163,7 @@ __global__ void __launch_bounds__(kThreads) partition_kernel(PartArgs a) {
     for (int k = 0; k < kPerThread; ++k) {
       const long long i = t0 + k * kThreads + threadIdx.x;
       valid[k] = i < count;
-      row[k] = valid[k] ? __ldcg(ids + i) : 0;  // order is rewritten below
+      row[k] = valid[k] ? __ldg(in + i) : 0;  // this launch writes only `out`
     }
 #pragma unroll
     for (int k = 0; k < kPerThread; ++k) {
@@ -166,65 +193,57 @@ __global__ void __launch_bounds__(kThreads) partition_kernel(PartArgs a) {
     __syncthreads();  // warp_sums and base are reused by the next tile
   }
 
-  // grid-wide barrier: every block is resident (cooperative launch)
-  __syncthreads();
+  // the last active block to arrive finishes the step
   if (threadIdx.x == 0) {
-    __threadfence();
-    atomicAdd(cnt + 2, 1);
-    while (*(volatile int*)(cnt + 2) < (int)gridDim.x) __nanosleep(32);
-    __threadfence();
+    __threadfence();  // this block's counter updates before its ticket
+    last = atomicAdd(cnt + 2, 1) == active - 1;
   }
   __syncthreads();
-
-  for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x; i < count;
-       i += (long long)gridDim.x * kThreads)
-    a.order[begin + i] = __ldcg(out + i);
-
-  if (blockIdx.x == 0 && threadIdx.x == 0) {
-    const int n_left = *(volatile int*)cnt, n_right = count - n_left;
-    const int r = a.s + 1;
-    a.seg[2 * l + 1] = n_left;
-    a.seg[2 * r] = begin + n_left;
-    a.seg[2 * r + 1] = n_right;
-    const bool right_smaller = n_right <= n_left;
-    a.small[0] = right_smaller ? begin + n_left : begin;
-    a.small[1] = right_smaller ? n_right : n_left;
-    a.smaller_right[0] = (int8_t)right_smaller;
-  }
+  if (!last || threadIdx.x != 0) return;
+  __threadfence();
+  const int n_left = *(volatile int*)cnt, n_right = count - n_left;
+  const int r = a.s + 1;
+  a.seg[2 * l + 1] = n_left;
+  a.seg[2 * r] = begin + n_left;
+  a.seg[2 * r + 1] = n_right;
+  a.side[l] = to;
+  a.side[r] = to;
+  const bool right_smaller = n_right <= n_left;
+  a.small[0] = right_smaller ? begin + n_left : begin;
+  a.small[1] = right_smaller ? n_right : n_left;
+  a.small[2] = to;
+  a.smaller_right[0] = (int8_t)right_smaller;
 }
 
 template <typename BinT>
 cudaError_t launch(PartArgs* a, cudaStream_t stream) {
   auto kern = partition_kernel<BinT>;
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) !=
-      cudaSuccess)
-    return err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kThreads, 0)) !=
-      cudaSuccess)
-    return err;
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  if (per_sm > kMaxBlocksPerSm) per_sm = kMaxBlocksPerSm;
-  void* args[] = {a};
-  return cudaLaunchCooperativeKernel((const void*)kern, dim3(per_sm * sms), dim3(kThreads),
-                                     args, 0, stream);
+  LaunchFacts lf;
+  cudaError_t err = launch_facts((const void*)kern, kThreads, 0, &lf);
+  if (err != cudaSuccess) return err;
+  const int per_sm = kMaxBlocksPerSm < lf.per_sm ? kMaxBlocksPerSm : lf.per_sm;
+  kern<<<per_sm * lf.sms, kThreads, 0, stream>>>(*a);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
+// Launches on a->device (made current for the launch if it is not), into
+// `stream`, a stream of that device.
 extern "C" int smt_partition(PartArgs* a, int bin_bytes, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t err;
+  int prev = -1;
+  cudaError_t err = cudaGetDevice(&prev);
+  if (err != cudaSuccess) return (int)err;
+  if (prev != a->device && (err = cudaSetDevice(a->device)) != cudaSuccess) return (int)err;
   switch (bin_bytes) {
     case 1: err = launch<int8_t>(a, s); break;
     case 2: err = launch<int16_t>(a, s); break;
     case 4: err = launch<int32_t>(a, s); break;
-    default: return (int)cudaErrorInvalidValue;
+    default: err = cudaErrorInvalidValue;
   }
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  if (prev != a->device) cudaSetDevice(prev);
+  return (int)err;
 }
 
 extern "C" const char* smt_error_string(int err) {

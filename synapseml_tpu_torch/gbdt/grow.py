@@ -19,7 +19,9 @@ voting). The algorithm is the reference's:
   ``grow.py:384-414``), at every row count (the reference falls back to its
   full pass at 2,048 rows and below, where its power-of-two buffers buy
   nothing; the port reads the child's size on the device and needs no
-  buffer). Wherever every histogram cell is exact in any order, the trees
+  buffer). The step ends in one epilogue launch (:func:`~.histogram.sibling`):
+  the sibling by subtraction and both children written into the table.
+  Wherever every histogram cell is exact in any order, the trees
   are those of the reference's full pass too (parent minus the smaller
   child IS the other child). That holds when the gradients are finite and
   every weighted product ``g * w`` and ``h * w`` stays on
@@ -47,7 +49,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from .histogram import histogram, histogram_rows
+from .histogram import histogram, histogram_rows, sibling
 from .partition import RowPartition
 from .split_search import SplitWorkspace, _thresh_l1, left_set
 
@@ -117,14 +119,13 @@ def grow_tree(binned: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
     for s in range(L - 1):
         ws.step(s)  # kernel E: rescore, choose, write the record and ws.in_set
         part.split(s, binned, node, ws.choice, ws.ok, ws.in_set)  # kernel P
-        h_small = histogram_rows(binned, grad, hess, row_weight, B, part.order, part.small)
-        # an inert step: P records an empty child on the right, so leaf s + 1
-        # stays empty and the split leaf loses +0.0 (x + -0.0 == x for every
-        # x, NaN included)
-        child = torch.where(part.smaller_right,
-                            h_small, torch.index_select(hists, 0, ws.leaf)[0] - h_small)
-        hists[s + 1] = child
-        hists.index_add_(0, ws.leaf, child[None], alpha=-1)
+        # kernel A over the smaller child's rows, into ws.small_hist (zero)
+        histogram_rows(binned, grad, hess, row_weight, B, part.ids, part.small,
+                       out=ws.small_hist)
+        # the epilogue: the sibling, both children into hists, small_hist
+        # zeroed; an inert step (P records an empty child on the right) leaves
+        # leaf s + 1 empty and the split leaf as it was (x - +0.0 == x)
+        sibling(hists, ws.small_hist, ws.leaf, part.smaller_right, s)
     return finish_tree(hists, rec, cfg), node
 
 

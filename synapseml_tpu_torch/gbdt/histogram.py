@@ -16,21 +16,27 @@ weights, make every cell exact in any order, and then the kernel is
 bit-equal to the plain version.
 
 :func:`histogram_rows` is kernel A's row-list entry: the histogram of the
-rows ``order[begin:begin + count]``, with ``(begin, count)`` read on the
-device (kernel P's smaller child, :mod:`.partition`), so a leaf-local growth
-step reads only that child's rows and never brings its size to the host.
+rows ``ids[buffer, begin:begin + count]``, with ``(begin, count, buffer)``
+read on the device (kernel P's smaller child, :mod:`.partition`), so a
+leaf-local growth step reads only that child's rows and never brings its
+size to the host. The grower adds it into a persistent zeroed buffer, and
+:func:`sibling` (the epilogue, a third entry of the same source) ends the
+step in one launch: the smaller child's sibling by subtraction from the
+split leaf, both written into the table, and the buffer zeroed again.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
 from ..kernels.build import CudaKernel
 
 __all__ = ["histogram", "histogram_plain", "histogram_rows", "histogram_rows_plain",
-           "HIST_CHANNELS", "HIST_KERNEL", "HIST_ROWS_KERNEL", "HIST_TRACE", "HIST_ROWS_TRACE"]
+           "sibling", "sibling_plain", "HIST_CHANNELS", "HIST_KERNEL", "HIST_ROWS_KERNEL",
+           "SIBLING_KERNEL", "HIST_TRACE", "HIST_ROWS_TRACE", "SIBLING_TRACE"]
 
 HIST_CHANNELS = 3  # grad, hess, count
 
@@ -45,14 +51,20 @@ HIST_KERNEL = CudaKernel(
 HIST_ROWS_KERNEL = CudaKernel(
     name="gbdt_histogram_rows", source="histogram", symbol="smt_histogram_rows",
     argtypes=[ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-              ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+              ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
     replaces="synapseml_tpu/gbdt/grow.py:223 (leaf_hist_local: the cumsum-scatter "
              "compaction into a power-of-two buffer, then histogram_panel)")
-# the two entries' kernel names in a profiler trace (hist_kernel<BinT, kList>),
-# each as substrings that the name holds
+SIBLING_KERNEL = CudaKernel(
+    name="gbdt_sibling", source="histogram", symbol="smt_sibling",
+    argtypes=[ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+              ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p],
+    replaces="synapseml_tpu/gbdt/grow.py:408 (the sibling by subtraction, :408-414)")
+# the entries' kernel names in a profiler trace (hist_kernel<BinT, kList>,
+# sibling_kernel), each as substrings that the name holds
 HIST_TRACE = ("hist_kernel<", "false>")
 HIST_ROWS_TRACE = ("hist_kernel<", "true>")
+SIBLING_TRACE = ("sibling_kernel",)
 
 
 def histogram_plain(binned: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
@@ -112,46 +124,100 @@ def histogram(binned: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
 
 
 def histogram_rows_plain(binned: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
-                         weight: torch.Tensor, n_bins: int, order: torch.Tensor,
+                         weight: torch.Tensor, n_bins: int, ids: torch.Tensor,
                          span: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of :func:`histogram_rows`: :func:`histogram_plain`
     over the gathered rows."""
-    begin, count = int(span[0]), int(span[1])
-    idx = order[begin:begin + count].long()
+    begin, count, buf = (int(v) for v in span)
+    idx = ids[buf, begin:begin + count].long()
     return histogram_plain(binned[idx], grad[idx], hess[idx], weight[idx], n_bins)
 
 
 def histogram_rows(binned: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
-                   weight: torch.Tensor, n_bins: int, order: torch.Tensor,
-                   span: torch.Tensor) -> torch.Tensor:
-    """(d, B, 3) histogram of the rows ``order[span[0]:span[0] + span[1]]``.
+                   weight: torch.Tensor, n_bins: int, ids: torch.Tensor, span: torch.Tensor,
+                   out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(d, B, 3) histogram of the rows ``ids[span[2], span[0]:span[0] + span[1]]``.
 
-    ``binned``, ``grad``, ``hess``, ``weight`` as :func:`histogram`;
-    ``order`` (m,) int32 row ids in ``[0, n)``; ``span`` (2,) int32 (begin,
-    count) within ``order``, read on the device. CPU tensors take the plain
-    version; CUDA tensors launch kernel A's row-list entry."""
+    ``binned``, ``grad``, ``hess``, ``weight`` as :func:`histogram`; ``ids``
+    (2, m) int32, kernel P's two buffers of row ids in ``[0, n)``; ``span``
+    (3,) int32 (begin, count, buffer), read on the device. ``out``: a zeroed
+    (d, B, 3) f32 buffer that the histogram is added into and returned (the
+    grower's, which :func:`sibling` zeroes again); None: a new one. CPU
+    tensors take the plain version; CUDA tensors launch kernel A's row-list
+    entry."""
     _check(binned, grad, hess, weight, n_bins)
-    for name, t, shape in (("order", order, (order.shape[0],)), ("span", span, (2,))):
-        if t.dtype != torch.int32 or t.dim() != 1 or t.shape != shape:
-            raise TypeError(f"{name} must be a 1-D int32 tensor of shape {shape}, got "
-                            f"{t.dtype} of shape {tuple(t.shape)}")
+    if ids.dtype != torch.int32 or ids.dim() != 2 or ids.shape[0] != 2:
+        raise TypeError(f"ids must be an int32 (2, m) tensor, got {ids.dtype} of "
+                        f"shape {tuple(ids.shape)}")
+    if span.dtype != torch.int32 or span.shape != (3,):
+        raise TypeError(f"span must be an int32 tensor of shape (3,), got {span.dtype} of "
+                        f"shape {tuple(span.shape)}")
+    for name, t in (("ids", ids), ("span", span)):
         if t.device != binned.device:
             raise ValueError(f"binned on {binned.device} but {name} on {t.device}")
+    d = binned.shape[1]
+    shape = (d, n_bins, HIST_CHANNELS)
+    if out is None:
+        out = torch.zeros(shape, dtype=torch.float32, device=binned.device)
+    elif out.shape != shape or out.dtype != torch.float32 or out.device != binned.device \
+            or not out.is_contiguous():
+        raise TypeError(f"out must be a contiguous {shape} float32 tensor on {binned.device}, "
+                        f"got {out.dtype} {tuple(out.shape)} on {out.device}")
     if binned.device.type == "cpu":
-        return histogram_rows_plain(binned, grad, hess, weight, n_bins, order, span)
+        return out.add_(histogram_rows_plain(binned, grad, hess, weight, n_bins, ids, span))
     if binned.device.type != "cuda":
         raise ValueError(f"unsupported device {binned.device}")
+    if d == 0 or ids.numel() == 0:
+        return out
     binned = binned.contiguous()
     grad, hess, weight = grad.contiguous(), hess.contiguous(), weight.contiguous()
-    order, span = order.contiguous(), span.contiguous()
-    d = binned.shape[1]
-    out = torch.zeros(d, n_bins, HIST_CHANNELS, dtype=torch.float32,
-                      device=binned.device)
-    if d == 0 or order.shape[0] == 0:
-        return out
+    ids, span = ids.contiguous(), span.contiguous()
     with torch.cuda.device(binned.device):
         stream = torch.cuda.current_stream(binned.device).cuda_stream
         HIST_ROWS_KERNEL(binned.data_ptr(), binned.element_size(), grad.data_ptr(),
-                         hess.data_ptr(), weight.data_ptr(), out.data_ptr(),
-                         order.data_ptr(), span.data_ptr(), d, n_bins, stream)
+                         hess.data_ptr(), weight.data_ptr(), out.data_ptr(), ids.data_ptr(),
+                         ids.shape[1], span.data_ptr(), d, n_bins, stream)
     return out
+
+
+def sibling_plain(hists: torch.Tensor, small: torch.Tensor, leaf: torch.Tensor,
+                  smaller_right: torch.Tensor, s: int) -> None:
+    """Plain PyTorch version of :func:`sibling`: the torch ops of the step's
+    tail (``x - c`` as ``index_add_`` with ``alpha=-1``, the reference's
+    ``.at[l].add(-child)``), then ``small`` zeroed."""
+    child = torch.where(smaller_right, small, torch.index_select(hists, 0, leaf)[0] - small)
+    hists[s + 1] = child
+    hists.index_add_(0, leaf, child[None], alpha=-1)
+    small.zero_()
+
+
+def sibling(hists: torch.Tensor, small: torch.Tensor, leaf: torch.Tensor,
+            smaller_right: torch.Tensor, s: int) -> None:
+    """End growth step ``s``: ``child = small`` if ``smaller_right`` else
+    ``hists[leaf] - small``; ``hists[s + 1] = child``, ``hists[leaf] -=
+    child``; ``small = 0``. ``hists`` (L, d, B, 3) f32, ``small`` (d, B, 3)
+    f32, ``leaf`` (1,) int64 (kernel E's ``choice[:1]``, a leaf ``<= s``),
+    ``smaller_right`` (1,) bool (kernel P's), all read on the device. An
+    inert step (``small`` zero, ``smaller_right`` set) leaves every leaf as it
+    was. CPU tensors take the plain version; CUDA tensors launch the
+    epilogue kernel."""
+    L = hists.shape[0]
+    if hists.dim() != 4 or small.shape != hists.shape[1:] or hists.dtype != torch.float32 \
+            or small.dtype != torch.float32 or not 0 <= s < L - 1:
+        raise TypeError(f"hists (L, d, B, 3) and small (d, B, 3) float32 with 0 <= s < L - 1, "
+                        f"got {tuple(hists.shape)} {hists.dtype}, {tuple(small.shape)} "
+                        f"{small.dtype}, s={s}")
+    for name, t, dt in (("small", small, torch.float32), ("leaf", leaf, torch.int64),
+                        ("smaller_right", smaller_right, torch.bool)):
+        if t.device != hists.device or t.dtype != dt or (t is not small and t.shape != (1,)):
+            raise TypeError(f"{name} must be {dt} on {hists.device}, got {t.dtype} "
+                            f"{tuple(t.shape)} on {t.device}")
+    if hists.device.type == "cpu":
+        sibling_plain(hists, small, leaf, smaller_right, s)
+        return
+    if not (hists.is_contiguous() and small.is_contiguous()):
+        raise TypeError("hists and small must be contiguous")
+    with torch.cuda.device(hists.device):
+        SIBLING_KERNEL(hists.data_ptr(), small.data_ptr(), leaf.data_ptr(),
+                       smaller_right.data_ptr(), s, small.numel(),
+                       torch.cuda.current_stream(hists.device).cuda_stream)

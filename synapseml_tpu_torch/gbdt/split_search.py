@@ -234,6 +234,9 @@ class SplitWorkspace:
         self.cfg = cfg
         self.hists = torch.empty((L, d, B, 3), dtype=torch.float32, device=dev)
         _check(self.hists, feature_mask, cat_mask)
+        # the step's smaller child, added into by kernel A's row-list entry and
+        # zeroed again by the sibling epilogue (histogram.sibling)
+        self.small_hist = torch.zeros((d, B, 3), dtype=torch.float32, device=dev)
         self.fmask = feature_mask.contiguous()
         self.cmask = None if cat_mask is None else cat_mask.contiguous()
         fbuf = torch.empty(L * d + L, dtype=torch.float32, device=dev)

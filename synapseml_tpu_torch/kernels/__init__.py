@@ -9,7 +9,8 @@ def all_kernels():
     from ..parallel import flash
 
     return {k.name: k for k in (histogram.HIST_KERNEL, histogram.HIST_ROWS_KERNEL,
-                                partition.PARTITION_KERNEL, device_predict.SCORE_KERNEL,
-                                device_predict.LEAF_KERNEL, device_predict.BIN_KERNEL,
+                                histogram.SIBLING_KERNEL, partition.PARTITION_KERNEL,
+                                device_predict.SCORE_KERNEL, device_predict.LEAF_KERNEL,
+                                device_predict.BIN_KERNEL,
                                 split_search.SPLIT_KERNEL, lambdarank.LAMBDARANK_KERNEL,
                                 flash.FLASH_KERNEL, flash.FLASH_F32_KERNEL)}

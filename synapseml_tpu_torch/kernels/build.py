@@ -2,10 +2,11 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled on its own by
 ``nvcc`` for ``sm_90a`` into ``_build/lib<name>-<hash>.so`` (the directory is
-git-ignored), then loaded with ``ctypes``. The hash covers the source text and
-the compiler flags, so an edited source rebuilds and an unchanged one is
-reused. Building happens at first use; :func:`build` compiles several
-sources at once, one ``nvcc`` process each, all started together.
+git-ignored), then loaded with ``ctypes``. The hash covers the source text,
+the headers beside it (``csrc/*.cuh``) and the compiler flags, so an edited
+source or header rebuilds and an unchanged one is reused. Building happens
+at first use; :func:`build` compiles several sources at once, one ``nvcc``
+process each, all started together.
 
 Nothing here runs at import time, and nothing is downloaded.
 """
@@ -44,8 +45,8 @@ def nvcc_path() -> str:
 
 
 def _lib_path(name: str, csrc: Path = CSRC_DIR) -> Path:
-    src = csrc / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    text = b"".join(p.read_bytes() for p in [csrc / f"{name}.cu", *sorted(csrc.glob("*.cuh"))])
+    h = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{h[:16]}.so"
 
 

@@ -1,6 +1,7 @@
-"""Time kernels D (binning) and E (split search) of a tree, at the fits' shapes.
+"""Time kernels D, E, A's row list and P of a tree, and its fits' growth.
 
     python synapseml_tpu_torch/tools/gbdt_step_bench.py [--tree DIR] [--seed 0]
+        [--only split,bin,growth,leaves]
     python synapseml_tpu_torch/tools/gbdt_step_bench.py --ab DIR DIR ... [--rounds 2]
 
 Measures the ``synapseml_tpu_torch`` found in ``--tree`` (default: the tree
@@ -8,24 +9,40 @@ holding this file), so the same command times an older tree unpacked beside
 this one; run it as a script, not with ``python -m``. ``--ab`` runs one
 process per tree and round, in the given order and reversed every other
 round (``--rounds 2`` over parent and change: parent, change, change,
-parent). One JSON line per measurement, with the card's name and power
-limit. Needs a CUDA device.
+parent). ``--only`` picks the benches (default: all four). One JSON line per
+measurement, with the card's name and power limit. Needs a CUDA device.
 
-- E, at the split steps of the three fits of ``chip_smoke.py`` (L=31; HIGGS
-  d=28 B=64; Adult d=14 B=256, 8 categorical; Covertype d=12 B=256, 2
-  categorical), on histograms on the pre-rounded grid: ``table``, the
-  full-table entry ``split_search`` over every leaf; ``step``, the decision
-  half of growth step 15 as the tree's grower takes it -- in a tree with
-  ``SplitWorkspace``, its step entry (one launch, rescoring two leaves), in
-  an older tree, ``split_search`` over the active leaves and the torch ops
-  that chose the split and wrote the record. Device time from a
+- ``split``: E, at the split steps of the three fits of ``chip_smoke.py``
+  (L=31; HIGGS d=28 B=64; Adult d=14 B=256, 8 categorical; Covertype d=12
+  B=256, 2 categorical), on histograms on the pre-rounded grid: ``table``,
+  the full-table entry ``split_search`` over every leaf; ``step``, the
+  decision half of growth step 15 as the tree's grower takes it -- in a
+  tree with ``SplitWorkspace``, its step entry (one launch, rescoring two
+  leaves), in an older tree, ``split_search`` over the active leaves and the
+  torch ops that chose the split and wrote the record. Device time from a
   ``torch.profiler`` trace of 200 calls (all the call's kernels), and time a
   call from the host (CUDA events over 500 back-to-back calls).
-- D, at the HIGGS and Adult fits' training rows (4,194,304 x 28 f32 to int8,
-  63 bins; 4,194,304 x 14 to int16, 255 bins, 8 categorical): CUDA events
-  over 20 launches, beside its bound (each f32 read once, each bin written
-  once, at 3.35 TB/s) and the f32 ``torch.searchsorted`` over the packed
-  table on rows already transposed.
+- ``bin``: D, at the HIGGS and Adult fits' training rows (4,194,304 x 28 f32
+  to int8, 63 bins; 4,194,304 x 14 to int16, 255 bins, 8 categorical): CUDA
+  events over 20 launches, beside its bound (each f32 read once, each bin
+  written once, at 3.35 TB/s) and the f32 ``torch.searchsorted`` over the
+  packed table on rows already transposed.
+- ``growth``: a warm ``train`` of each ``tools/schema_data.py::FITS`` fit
+  (HIGGS, Adult, Covertype, MSLR; as ``tools/profile_fit.py`` fits them) and
+  of HIGGS at 16,384 rows, traced by ``torch.profiler``: A's row-list
+  device ms and launches, P's device ms, the epilogue's device ms (0 in a
+  tree without it), kernel launches a split step, device busy s (also
+  without the host -> device copies, ``busy_without_htod_s``, and without
+  any copy or fill, ``kernel_busy_s``) and the fit's wall s.
+- ``leaves``: device time a launch (a trace of 20) of A's row-list entry
+  and of P over a leaf of 40, 1,024, 8,192, 16,384, 131,072 and 2,097,152 rows
+  drawn at random from 4,194,304 HIGGS-width rows (28 int8 bins, 64 bins),
+  split on feature 3 at bin 31 (P's state restored before each launch), and
+  of A's row list at MSLR's width (2,270,296 rows, 136 int16 bins, 255 bins,
+  three feature tiles), and of P at those leaves and at the root (every row
+  in order). A tuning variant (A's ``kDirectRows`` or ``kRowsPerBlock``,
+  P's ``kMaxBlocksPerSm``) is a copy of the tree with that constant of
+  ``csrc/`` edited, timed beside the tree with ``--ab``.
 """
 
 from __future__ import annotations
@@ -41,6 +58,11 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 STEP = 15                     # the growth step timed (of 30)
+LEAF_ROWS = (40, 1024, 8192, 16_384, 131_072, 2_097_152)  # leaves of the leaves bench
+# (name, rows, d, B, bin type) of the leaves bench's rows: HIGGS's width, and
+# MSLR's (three feature tiles of A)
+LEAF_WIDTHS = (("higgs", 4_194_304, 28, 64, torch.int8),
+               ("mslr", 2_270_296, 136, 255, torch.int16))
 # name: (d, B, categorical features)
 SPLIT_SHAPES = {"higgs": (28, 64, []), "adult": (14, 256, [1, 3, 5, 6, 7, 8, 9, 13]),
                 "covertype": (12, 256, [10, 11])}
@@ -194,12 +216,136 @@ def bench_bin(card, seed, dev):
         torch.cuda.empty_cache()
 
 
+def _traced_fit(train, params, x, y, kw):
+    """(wall s, [(kernel, device us, launches)]) of one traced fit."""
+    from synapseml_tpu_torch.tools.profile_fit import _traced
+
+    _, wall, kernels = _traced(lambda: train(params, x, y, **kw))
+    return wall, kernels
+
+
+def bench_growth(card, seed):
+    from synapseml_tpu_torch.gbdt import histogram as hist
+    from synapseml_tpu_torch.gbdt.boost import train
+    from synapseml_tpu_torch.gbdt.partition import PARTITION_TRACE
+    from synapseml_tpu_torch.tools import profile_fit as pf
+    from synapseml_tpu_torch.tools.schema_data import FITS
+
+    names = {"a_rows": hist.HIST_ROWS_TRACE, "p": PARTITION_TRACE,
+             "epilogue": getattr(hist, "SIBLING_TRACE", None)}
+    for fit, schema, rows in (("higgs", "higgs", None), ("adult", "adult", None),
+                              ("covertype", "covertype", None), ("mslr", "mslr", None),
+                              ("higgs_16384", "higgs", 16_384)):
+        n_train, n_made, est = FITS[schema]
+        params = {k: v for k, v in est.items() if k != "categorical_slot_indexes"}
+        params.update(pf._OBJECTIVE[schema])
+        kw = {}
+        if schema == "mslr":
+            x, y, s_tr, _ = pf._mslr(seed)
+            n_train, kw = int(s_tr.sum()), dict(group=s_tr)
+        else:
+            x, y = pf._ROWS[schema](seed, n_made)
+        n_train = rows or n_train
+        x, y = np.ascontiguousarray(x[:n_train]), y[:n_train]
+        n_warm = min(65536, n_train)
+        warm = {k: pf._head_groups(v, n_warm) for k, v in kw.items()}
+        train(dict(params, num_iterations=1), x[:n_warm], y[:n_warm], **warm)  # load kernels
+        torch.cuda.synchronize()
+        steps = (params["num_iterations"] * params.get("num_class", 1)
+                 * (params["num_leaves"] - 1))
+        wall, kernels = _traced_fit(train, params, x, y, kw)
+        busy = sum(us for _, us, _ in kernels) / 1e6
+        # the rows' pageable host -> device copy swings by tens of ms a fit
+        copies = sum(us for k, us, _ in kernels if k.startswith(("Memcpy", "Memset"))) / 1e6
+        htod = sum(us for k, us, _ in kernels if "Memcpy HtoD" in k) / 1e6
+        rec = {"bench": "growth", "fit": fit, "rows": len(y), "split_steps": steps,
+               "wall_s": wall, "device_busy_s": busy, "busy_without_htod_s": busy - htod,
+               "kernel_busy_s": busy - copies,
+               "launches_per_split_step": sum(c for _, _, c in kernels) / steps}
+        for key, parts in names.items():
+            hits = [(us, c) for k, us, c in kernels
+                    if parts is not None and all(p in k for p in parts)]
+            rec[f"{key}_ms"] = sum(us for us, _ in hits) / 1e3
+            rec[f"{key}_launches"] = sum(c for _, c in hits)
+        print(json.dumps({**rec, "card": card}), flush=True)
+        del x, y
+        torch.cuda.empty_cache()
+
+
+def _kernel_ms(fn, parts, reps: int = 20) -> float:
+    """Device ms a launch of the kernels whose traced name holds ``parts``,
+    in a trace of ``reps`` calls of ``fn`` after one warm-up."""
+    from synapseml_tpu_torch.tools.profile_fit import _device_us
+
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    hits = [e for e in prof.key_averages() if all(p in e.key for p in parts)]
+    return sum(_device_us(e) for e in hits) / 1e3 / max(1, sum(e.count for e in hits))
+
+
+def bench_leaves(card, seed, dev):
+    from synapseml_tpu_torch.gbdt import histogram as hist
+    from synapseml_tpu_torch.gbdt import partition as pmod
+
+    new = hasattr(hist, "SIBLING_KERNEL")  # the row list over (3,) spans and two buffers
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    for width, n, d, B, dt in LEAF_WIDTHS:
+        binned = torch.randint(0, B, (n, d), generator=gen, device=dev).to(dt)
+        g = torch.randint(-64, 64, (n,), generator=gen, device=dev).float() / 64
+        h = torch.full((n,), 0.25, device=dev)
+        w = torch.ones(n, device=dev)
+        perm = torch.randperm(n, generator=gen, device=dev).to(torch.int32)
+        ids = torch.stack([perm, perm]) if new else perm  # P's two buffers, or its one
+        for k in LEAF_ROWS:
+            span = torch.tensor([n - k, k] + ([0] if new else []), dtype=torch.int32,
+                                device=dev)
+            run = lambda: hist.histogram_rows(binned, g, h, w, B, ids, span)
+            print(json.dumps({"bench": "leaves", "kernel": "A_rows", "width": width,
+                              "rows": k, "device_ms": _kernel_ms(run, hist.HIST_ROWS_TRACE),
+                              "card": card}), flush=True)
+        if width != "higgs":
+            continue
+        f, split_bin = 3, 31
+        choice = torch.tensor([1, f], device=dev)
+        ok = torch.ones(1, dtype=torch.bool, device=dev)
+        in_set = torch.arange(B, device=dev) <= split_bin
+        node = torch.zeros(n, dtype=torch.int32, device=dev)
+        for k in (n,) + LEAF_ROWS:  # n: the root, every row in order
+            part = pmod.RowPartition(n, 31, dev)
+            part.begin_tree()
+            order = part.ids[0] if new else part.order
+            if k < n:
+                order.copy_(perm)
+                part.seg[0, 1], part.seg[1, 0], part.seg[1, 1] = n - k, n - k, k
+            leaf_choice = choice if k < n else torch.tensor([0, f], device=dev)
+            step = 1 if k < n else 0
+            saved = (order.clone(), part._state.clone())
+
+            def split():
+                order.copy_(saved[0])
+                part._state.copy_(saved[1])
+                part.split(step, binned, node, leaf_choice, ok, in_set)
+
+            print(json.dumps({"bench": "leaves", "kernel": "P", "width": width,
+                              "rows": k, "root": k == n,
+                              "device_ms": _kernel_ms(split, pmod.PARTITION_TRACE),
+                              "card": card}), flush=True)
+            del part, order, saved
+        del binned, g, h, w, perm, ids, node
+        torch.cuda.empty_cache()
+
+
 def run_ab(args) -> int:
     rc = 0
     for r in range(args.rounds):
         for tree in (args.ab if r % 2 == 0 else args.ab[::-1]):
-            cmd = [sys.executable, __file__, "--tree", tree, "--seed", str(args.seed)]
-            res = subprocess.run(cmd, stdout=subprocess.PIPE, text=True, timeout=900)
+            cmd = [sys.executable, __file__, "--tree", tree, "--seed", str(args.seed),
+                   "--only", args.only]
+            res = subprocess.run(cmd, stdout=subprocess.PIPE, text=True, timeout=1800)
             rc = rc or res.returncode
             for line in res.stdout.splitlines():
                 if line.startswith("{"):
@@ -215,7 +361,12 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--ab", nargs="+", metavar="DIR", help="trees to time alternately")
     ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--only", default="split,bin,growth,leaves",
+                    help="comma-separated benches: split, bin, growth, leaves")
     args = ap.parse_args()
+    benches = args.only.split(",")
+    if set(benches) - {"split", "bin", "growth", "leaves"}:
+        ap.error(f"--only {args.only}: the benches are split, bin, growth, leaves")
     if not torch.cuda.is_available():
         print("gbdt_step_bench: needs a CUDA device", file=sys.stderr)
         return 2
@@ -231,8 +382,15 @@ def main() -> int:
               file=sys.stderr)
         return 2
     card = card_info()
-    bench_split(card, args.seed, torch.device("cuda"))
-    bench_bin(card, args.seed, torch.device("cuda"))
+    dev = torch.device("cuda")
+    if "split" in benches:
+        bench_split(card, args.seed, dev)
+    if "bin" in benches:
+        bench_bin(card, args.seed, dev)
+    if "leaves" in benches:
+        bench_leaves(card, args.seed, dev)
+    if "growth" in benches:
+        bench_growth(card, args.seed)
     return 0
 
 

@@ -470,35 +470,58 @@ def many_thresholds_rows(text_booster, n: int, seed: int = 1) -> np.ndarray:
 
 # kernel P's cases, (the split leaf's rows, its left set): the whole root, a
 # leaf of one row, a leaf whose rows all go right (empty left child) and one
-# whose rows all go left (empty right child)
+# whose rows all go left (empty right child), and a deep leaf of scattered
+# rows held in the second id buffer
 PARTITION_CASES = {"all_rows": ("root", "random"), "one_row": ("one", "random"),
-                   "empty_left": ("half", "none"), "empty_right": ("half", "every")}
+                   "empty_left": ("half", "none"), "empty_right": ("half", "every"),
+                   "deep": ("deep", "random")}
+# leaves of a partition case: a split at step s <= 6, then step s + 1
+_CASE_LEAVES = 9
 
 
 def partition_case(n: int, B: int, d: int, dtype, case: str, seed: int = 0):
-    """(bins (n, d), order (n,) int32, seg (8, 2) int32, node (n,) int32,
-    step s, leaf, in_set (B,) bool) of one of :data:`PARTITION_CASES`: the
-    root at step 0, or (other cases) three leaves after two steps, ``order``
-    a permutation, leaf 2 holding one row or half the rows, split at step 2."""
+    """(bins (n, d), ids (2, n) int32, seg (9, 2) int32, side (9,) int32,
+    node (n,) int32, step s, leaf, in_set (B,) bool) of one of
+    :data:`PARTITION_CASES`: the root at step 0; three leaves after two
+    steps (``ids[0]`` a permutation, leaf 2 holding one row or half the
+    rows, split at step 2); or (``deep``) seven leaves after six steps, laid
+    out out of order across both buffers, leaf 5 holding n // 16 scattered
+    rows in buffer 1, split at step 6. Where no leaf holds a range, the other
+    buffer holds other row ids, so a read from the wrong buffer shows."""
     kind, sets = PARTITION_CASES[case]
     rng = np.random.default_rng(seed)
     bins = rng.integers(0, B, size=(n, d)).astype(dtype)
-    order = np.arange(n, dtype=np.int32)
-    seg = np.zeros((8, 2), np.int32)
+    ids = np.stack([np.arange(n), rng.permutation(n)]).astype(np.int32)
+    seg = np.zeros((_CASE_LEAVES, 2), np.int32)
+    side = np.zeros(_CASE_LEAVES, np.int32)
     node = np.zeros(n, np.int32)
     s, leaf = 0, 0
     seg[0] = (0, n)
-    if kind != "root":  # [0, a) leaf 0, [a, a + k) leaf 2, the rest leaf 1
-        order = rng.permutation(n).astype(np.int32)
+    if kind in ("one", "half"):  # [0, a) leaf 0, [a, a + k) leaf 2, the rest leaf 1
+        ids[0] = rng.permutation(n)
         k = 1 if kind == "one" else n // 2
         a = (n - k) // 3
         seg[0], seg[2], seg[1] = (0, a), (a, k), (a + k, n - a - k)
-        node[order[a:a + k]] = 2
-        node[order[a + k:]] = 1
+        node[ids[0, a:a + k]] = 2
+        node[ids[0, a + k:]] = 1
         s, leaf = 2, 2
+    elif kind == "deep":
+        perm = rng.permutation(n).astype(np.int32)
+        k = max(1, n // 16)
+        rest = np.diff(np.linspace(0, n - k, 7).astype(np.int64))
+        sizes = dict(zip((3, 0, 1, 6, 2, 4), rest))
+        sizes[5] = k
+        side[[1, 2, 5]] = 1
+        begin = 0
+        for j in (3, 0, 5, 1, 6, 2, 4):  # the slices' order in the buffers
+            seg[j] = (begin, sizes[j])
+            ids[side[j], begin:begin + sizes[j]] = perm[begin:begin + sizes[j]]
+            node[perm[begin:begin + sizes[j]]] = j
+            begin += sizes[j]
+        s, leaf = 6, 5
     in_set = {"random": rng.random(B) < 0.5, "none": np.zeros(B, bool),
               "every": np.ones(B, bool)}[sets]
-    return bins, order, seg, node, s, leaf, in_set
+    return bins, ids, seg, side, node, s, leaf, in_set
 
 
 def rows_histogrammed(parent: np.ndarray, leaf_counts: np.ndarray) -> Tuple[int, int, int]:

@@ -23,11 +23,14 @@ in every case:
   sigmoid; multiclass within 1e-4. Lambdarank's reference grid comes from
   XLA's inexact ``exp2``: bit-equal on that grid.
 
-Then the two plain versions against numpy models: the partition step
-(empty child, one row, all rows; int8/int16/int32 bins; d = 1, 33, 300) and
-the row-list histogram over the same cases; and ``grow_tree`` with NaN
-gradients on rows of zero weight, where the port must follow the
-reference's leaf-local path.
+Then the plain versions against numpy models and the reference: the
+partition step over its two id buffers, two steps in a row (empty child,
+one row, all rows, a deep leaf in the second buffer; int8/int16/int32 bins;
+d = 1, 33, 300), the row-list histogram over the same cases, and the step's
+epilogue (the sibling by subtraction) against the reference's, bit for bit;
+two trees from one partition and one workspace against the full pass; and
+``grow_tree`` with NaN gradients on rows of zero weight, where the port must
+follow the reference's leaf-local path.
 """
 
 import numpy as np
@@ -43,10 +46,12 @@ from synapseml_tpu.gbdt.grow import TreeConfig as RefTreeConfig
 from synapseml_tpu.gbdt.grow import grow_tree as ref_grow_tree
 from synapseml_tpu_torch.gbdt.boost import train
 from synapseml_tpu_torch.gbdt.grow import TreeConfig, grow_tree
-from synapseml_tpu_torch.gbdt.histogram import histogram_rows, histogram_rows_plain
+from synapseml_tpu_torch.gbdt.histogram import histogram_rows, histogram_rows_plain, sibling
 from synapseml_tpu_torch.gbdt.partition import RowPartition, partition_plain
-from synapseml_tpu_torch.tools.kernel_cases import (PARTITION_CASES, full_pass, partition_case,
-                                                    rank_rows, rows_histogrammed)
+from synapseml_tpu_torch.gbdt.split_search import SplitWorkspace
+from synapseml_tpu_torch.tools.kernel_cases import (PARTITION_CASES, full_pass, grow_full_pass,
+                                                    partition_case, rank_rows,
+                                                    rows_histogrammed)
 from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 N = 6000
@@ -154,69 +159,88 @@ def test_leaf_local_equals_full_pass_and_reference(name, monkeypatch):
 
 # -- the partition step and the row-list histogram against numpy ------------------
 
-def _numpy_partition(order, seg, bins, leaf, feat, in_set, node, s):
-    """The step as a stable partition in numpy: (order, seg, node, small,
-    smaller_right)."""
-    order, seg, node = order.copy(), seg.copy(), node.copy()
+def _numpy_partition(ids, seg, side, bins, leaf, feat, in_set, node, s):
+    """The step as a stable partition in numpy, into the same range of the
+    other buffer: (ids, seg, side, node, small, smaller_right)."""
+    ids, seg, side, node = ids.copy(), seg.copy(), side.copy(), node.copy()
     b, c = seg[leaf]
-    rows = order[b:b + c].copy()
+    src = side[leaf]
+    rows = ids[src, b:b + c].copy()
     left = in_set[bins[rows, feat]]
-    order[b:b + c] = np.concatenate([rows[left], rows[~left]])
+    ids[1 - src, b:b + c] = np.concatenate([rows[left], rows[~left]])
     node[rows[~left]] = s + 1
     nl = int(left.sum())
     seg[leaf] = (b, nl)
     seg[s + 1] = (b + nl, c - nl)
+    side[leaf] = side[s + 1] = 1 - src
     right_smaller = c - nl <= nl
-    small = (b + nl, c - nl) if right_smaller else (b, nl)
-    return order, seg, node, np.array(small), right_smaller
+    small = (b + nl, c - nl, 1 - src) if right_smaller else (b, nl, 1 - src)
+    return ids, seg, side, node, np.array(small), right_smaller
+
+
+def _load_partition(part, ids, seg, side):
+    part.begin_tree()
+    part.ids.copy_(torch.from_numpy(ids))
+    part.seg.copy_(torch.from_numpy(seg))
+    part.side.copy_(torch.from_numpy(side))
 
 
 @pytest.mark.parametrize("dtype", [np.int8, np.int16, np.int32])
 @pytest.mark.parametrize("d", [1, 33, 300])
 @pytest.mark.parametrize("case", sorted(PARTITION_CASES))
 def test_partition_plain_matches_numpy(case, d, dtype):
+    """Two steps in a row: the case's split, then leaf s + 1 (the new right
+    child, in the other buffer) split again on feature 0; after each, the
+    whole state (both buffers, seg, side, node, small, smaller_right)."""
     n, B = 257, 17
-    bins, order, seg, node, s, leaf, in_set = partition_case(n, B, d, dtype, case, seed=d)
-    feat = d - 1
-    part = RowPartition(n, 8, "cpu")
-    part.begin_tree()
-    part.order.copy_(torch.from_numpy(order))
-    part.seg.copy_(torch.from_numpy(seg))
+    bins, ids, seg, side, node, s, leaf, in_set = partition_case(n, B, d, dtype, case, seed=d)
+    part = RowPartition(n, seg.shape[0], "cpu")
+    _load_partition(part, ids, seg, side)
     node_t = torch.from_numpy(node.copy())
-    part.split(s, torch.from_numpy(bins), node_t, torch.tensor([leaf, feat]),
-               torch.tensor([True]), torch.from_numpy(in_set))
-    want = _numpy_partition(order, seg, bins, leaf, feat, in_set, node, s)
-    np.testing.assert_array_equal(part.order.numpy(), want[0])
-    np.testing.assert_array_equal(part.seg.numpy(), want[1])
-    np.testing.assert_array_equal(node_t.numpy(), want[2])
-    np.testing.assert_array_equal(part.small.numpy(), want[3])
-    assert bool(part.smaller_right[0]) == want[4]
-    if case == "empty_left":
-        assert part.seg[leaf, 1] == 0 and not bool(part.smaller_right[0])
-    if case == "empty_right":
-        assert part.seg[s + 1, 1] == 0 and bool(part.smaller_right[0])
+    state = (ids, seg, side, node)
+    steps = ((s, leaf, d - 1, in_set),
+             (s + 1, s + 1, 0, np.random.default_rng(d).random(B) < 0.5))
+    for step, lf, feat, ins in steps:
+        part.split(step, torch.from_numpy(bins), node_t, torch.tensor([lf, feat]),
+                   torch.tensor([True]), torch.from_numpy(ins))
+        want = _numpy_partition(*state[:3], bins, lf, feat, ins, state[3], step)
+        state = want[:4]
+        np.testing.assert_array_equal(part.ids.numpy(), want[0])
+        np.testing.assert_array_equal(part.seg.numpy(), want[1])
+        np.testing.assert_array_equal(part.side.numpy(), want[2])
+        np.testing.assert_array_equal(node_t.numpy(), want[3])
+        np.testing.assert_array_equal(part.small.numpy(), want[4])
+        assert bool(part.smaller_right[0]) == want[5]
+        b, c = want[1][lf]
+        np.testing.assert_array_equal(part.rows(lf).numpy(), want[0][want[2][lf], b:b + c])
+        if step == s and case in ("empty_left", "empty_right"):
+            empty, full = (leaf, s + 1) if case == "empty_left" else (s + 1, leaf)
+            assert part.seg[empty, 1] == 0 and part.seg[full, 1] == seg[leaf, 1]
 
 
 def test_partition_inert_step_changes_nothing():
     n = 300
-    bins, order, seg, node, s, leaf, in_set = partition_case(n, 9, 4, np.int8, "empty_left",
-                                                             seed=1)
-    part = RowPartition(n, 8, "cpu")
-    part.order.copy_(torch.from_numpy(order))
-    part.seg.copy_(torch.from_numpy(seg))
+    bins, ids, seg, side, node, s, leaf, in_set = partition_case(n, 9, 4, np.int8, "deep",
+                                                                 seed=1)
+    part = RowPartition(n, seg.shape[0], "cpu")
+    _load_partition(part, ids, seg, side)
+    part.small.fill_(7)
     node_t = torch.from_numpy(node.copy())
     partition_plain(part, s, torch.from_numpy(bins), node_t, torch.tensor([leaf, 0]),
                     torch.tensor([False]), torch.from_numpy(in_set))
-    np.testing.assert_array_equal(part.order.numpy(), order)
+    np.testing.assert_array_equal(part.ids.numpy(), ids)
     np.testing.assert_array_equal(part.seg.numpy(), seg)
+    np.testing.assert_array_equal(part.side.numpy(), side)
     np.testing.assert_array_equal(node_t.numpy(), node)
-    assert part.small.tolist() == [0, 0] and bool(part.smaller_right[0])
+    assert part.small.tolist() == [0, 0, 0] and bool(part.smaller_right[0])
 
 
 @pytest.mark.parametrize("dtype", [np.int8, np.int16, np.int32])
 @pytest.mark.parametrize("d", [1, 33, 300])
 @pytest.mark.parametrize("span", ["empty", "one_row", "all_rows", "middle"])
 def test_histogram_rows_plain_matches_numpy(span, d, dtype):
+    """Over a list in either of two id buffers (the other holds other ids),
+    into a new output and added into a zeroed one."""
     n, B = 513, 31
     rng = np.random.default_rng(d)
     bins = rng.integers(0, B, size=(n, d)).astype(dtype)
@@ -224,20 +248,100 @@ def test_histogram_rows_plain_matches_numpy(span, d, dtype):
     g = rng.integers(-40, 40, n).astype(np.float32) / 8
     h = rng.integers(1, 40, n).astype(np.float32) / 8
     w = (rng.random(n) < 0.7).astype(np.float32)
-    order = rng.permutation(n).astype(np.int32)
-    begin, count = {"empty": (100, 0), "one_row": (7, 1), "all_rows": (0, n),
-                    "middle": (50, 300)}[span]
-    rows = order[begin:begin + count]
+    ids = np.stack([rng.permutation(n), rng.permutation(n)]).astype(np.int32)
+    begin, count, buf = {"empty": (100, 0, 0), "one_row": (7, 1, 1), "all_rows": (0, n, 0),
+                         "middle": (50, 300, 1)}[span]
+    rows = ids[buf, begin:begin + count]
     want = np.zeros((d, B, 3), np.float64)
     for f in range(d):
         for c, v in enumerate((g * w, h * w, w)):
             np.add.at(want[f, :, c], bins[rows, f].astype(np.int64), v[rows])
     t = lambda a: torch.from_numpy(a)
-    args = (t(bins), t(g), t(h), t(w), B, t(order), torch.tensor([begin, count],
-                                                                 dtype=torch.int32))
+    args = (t(bins), t(g), t(h), t(w), B, t(ids), torch.tensor([begin, count, buf],
+                                                               dtype=torch.int32))
     got = histogram_rows(*args)
     np.testing.assert_array_equal(got.numpy(), want.astype(np.float32))
     assert torch.equal(got, histogram_rows_plain(*args))
+    out = torch.zeros(d, B, 3)
+    assert histogram_rows(*args, out=out) is out and torch.equal(out, got)
+    with pytest.raises(TypeError, match=r"\(2, m\)"):  # kernel P's two buffers, no fewer
+        histogram_rows(*args[:5], t(ids[buf]), args[6])
+
+
+# -- the step's epilogue against the reference's sibling by subtraction -----------
+
+def _special_cells(rng, shape):
+    """Values on a 1/8 grid with NaN, +-inf and -0.0 in some cells."""
+    x = (rng.integers(-64, 64, size=shape) / 8).astype(np.float32)
+    flat = x.reshape(-1)
+    pick = rng.permutation(flat.size)
+    flat[pick[:3]] = np.nan
+    flat[pick[3:6]] = np.inf
+    flat[pick[6:9]] = -np.inf
+    flat[pick[9:15]] = -0.0
+    flat[pick[15:21]] = 0.0
+    return x
+
+
+def _same_bits(a: np.ndarray, b: np.ndarray) -> None:
+    """Bit for bit, every NaN matched by a NaN (its sign and payload aside)."""
+    np.testing.assert_array_equal(np.isnan(a), np.isnan(b))
+    keep = ~np.isnan(a)
+    np.testing.assert_array_equal(a[keep].view(np.int32), b[keep].view(np.int32))
+
+
+@pytest.mark.parametrize("case", ["smaller_right", "smaller_left", "inert"])
+def test_sibling_plain_matches_reference(case):
+    """The epilogue (the CPU takes its plain version) against the reference's
+    ``jnp.where(ok, hists.at[s + 1].set(child).at[l].add(-child), hists)``,
+    ``child = jnp.where(smaller_right, h_small, hists[l] - h_small)``, run
+    through JAX on the CPU: bit for bit, with NaN, +-inf and -0.0 in the
+    leaves and the child; ``small`` zero afterwards. An inert step comes
+    with an empty child (zero) on the right, and leaf s + 1 empty."""
+    rng = np.random.default_rng(["smaller_right", "smaller_left", "inert"].index(case))
+    L, d, B, s, leaf = 7, 3, 5, 4, 2
+    hists = _special_cells(rng, (L, d, B, 3))
+    hists[leaf] = _special_cells(rng, (d, B, 3))  # the split leaf has each kind
+    small = _special_cells(rng, (d, B, 3))
+    ok, right = case != "inert", case != "smaller_left"
+    if not ok:
+        small[:] = 0.0
+        hists[s + 1] = 0.0
+    child = jnp.where(right, jnp.asarray(small), jnp.asarray(hists)[leaf] - jnp.asarray(small))
+    ref = jnp.where(ok, jnp.asarray(hists).at[s + 1].set(child).at[leaf].add(-child),
+                    jnp.asarray(hists))
+    h_t, small_t = torch.from_numpy(hists.copy()), torch.from_numpy(small.copy())
+    sibling(h_t, small_t, torch.tensor([leaf]), torch.tensor([right]), s)
+    _same_bits(h_t.numpy(), np.asarray(ref))
+    assert not small_t.any() and not torch.signbit(small_t).any()
+    # NaN reached the leaves: the child's (a split) or the kept leaf's (inert)
+    assert np.isnan(hists[leaf] if not ok else small if right else hists[leaf] - small).any()
+
+
+def test_two_trees_from_one_partition_and_workspace_match_full_pass():
+    """One RowPartition and one SplitWorkspace for two trees (as a fit holds
+    them), each equal to the full pass's tree: P's per-step counters and the
+    epilogue's zeroed buffer are reset for the second tree."""
+    x, y, rng = _rows(n=3000, d=6, seed=4)
+    B, L = 16, 12
+    edges = np.quantile(x, np.linspace(0, 1, B + 1)[1:-1], axis=0)
+    bins = torch.from_numpy(np.stack([np.searchsorted(edges[:, j], x[:, j])
+                                      for j in range(x.shape[1])], axis=1).astype(np.int8))
+    cfg = TreeConfig(n_bins=B, num_leaves=L, min_data_in_leaf=5.0)
+    fm = torch.ones(x.shape[1])
+    ws = SplitWorkspace(x.shape[1], fm, None, cfg, "cpu")
+    part = RowPartition(len(y), L, "cpu")
+    for tree in range(2):
+        g = torch.from_numpy((rng.integers(-64, 64, len(y)) / 16).astype(np.float32))
+        h = torch.full((len(y),), 0.25)
+        w = torch.from_numpy((rng.random(len(y)) < 0.8).astype(np.float32))
+        got, node = grow_tree(bins, g, h, w, fm, cfg, workspace=ws, partition=part)
+        want, want_node = grow_full_pass(bins, g, h, w, fm, cfg)
+        for field in ("parent", "feature", "bin", "gain", "leaf_value", "leaf_hess"):
+            assert torch.equal(getattr(got, field), getattr(want, field)), (tree, field)
+        assert torch.equal(node, want_node)
+        assert (got.parent >= 0).sum() == L - 1
+        assert not ws.small_hist.any()
 
 
 def test_grow_tree_nan_gradients_follow_reference_leaf_local():
