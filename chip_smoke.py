@@ -74,6 +74,24 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    fit (``init_booster``, with an eval set) and ``num_batches=2`` fits of the
    classifier and the regressor at 16,384 rows, each giving the same trees on
    the card and the CPU;
+2g. ``gbdt_hashed_text``: sparse (CSR) input, hashed text at Amazon Review
+   Polarity's schema (``schema_data.hashed_text_rows``: reviews of about 80
+   Zipf tokens hashed into VW's 2^18 slots, counts as values, a lexicon
+   label), ``LightGBMClassifier`` (``FITS["hashed_text"]``: 10 iterations, 31
+   leaves, max_bin 255) fit on 1,048,576 reviews given as a column of
+   ``(indices, values)`` pairs, then transform of 262,144 held out: kernel G
+   once at each tree's root and once a split step, E's full entry as often
+   (hard checks), B in the transform, held-out AUC > HASHED_AUC_FLOOR; CSR
+   ``raw_predict`` bit-equal to the dense predict over the densified
+   used-feature columns (kernel D binning them); each row's contributions
+   on 65,536 held-out rows within SHAP_TOL of its margin; the full-pass
+   oracle's fit at the same rows (``kernel_cases.grow_sparse_full_pass``:
+   both children summed every step) giving the same trees as the shipped
+   half pass; a 16,384-row fit at 2^14 slots giving the same trees on the
+   card and the CPU; then, after phase 4 (whole-fit traces are the
+   script's largest, so they come last), a traced fit of each path: G's
+   and E's device ms a fit and a call, G's device kernels a call (2, a
+   hard check), and the launches a split step;
 3. flash attention's entry point, all causal: in bf16 (the wgmma kernel) at
    the headline shape (B=1, S=32768, H=8, D=64), the grouped-query serving
    shape (B=8, S=8192, H=8, H_kv=2, D=64), the headline length at D=128, and
@@ -118,6 +136,11 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    step over every step of whole trees on E's cases and on an inert step, a
    depth cap and B = 100, timed beside the full table at the HIGGS, Adult
    and Covertype shapes;
+   kernel G bit-equal to its plain version on ``kernel_cases.SPARSE_HIST_CASES``
+   in every mode and at phase 2g's shape (the first tree's root split, both
+   sides, and the smaller side with the sibling from the kept root
+   histogram, which must equal the both-sides pass), timed beside its bound,
+   the gather of the (nnz, 6) panel and ``torch.segment_reduce`` over it;
    flash within 5e-2 (bf16) and 2e-5
    (f32, at the two f32 shapes and two short ragged ones) of the f32 plain
    version, and in bf16 also within FLASH_ROW_TOL of it as an error
@@ -176,6 +199,11 @@ N_COVTYPE_TRAIN = 464_810
 # on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md).
 ADULT_AUC_FLOOR = 0.80
 COVTYPE_ACC_FLOOR = 0.60
+# phase 2g: far above chance (0.5), below what the lexicon label allows (on
+# the CPU, 10 iterations at 2^14 slots over 16,384 reviews reach 0.911, at
+# 2^18 slots over 65,536 reviews 0.927)
+HASHED_AUC_FLOOR = 0.75
+HASHED_SMALL_BITS = 14
 SMALL_FIT_ROWS = 16_384
 # listed rows of the small leaves at which phase 4 times kernels P and A's
 # row list (beside the root split and the fitted tree's deepest split)
@@ -802,6 +830,280 @@ def leaf_local_phase(kernels, gbdt, x_tr, y_tr, x_te, split_steps) -> dict:
     return {"record": rec, "booster": local}
 
 
+def pairs_column(csr) -> np.ndarray:
+    """A CSR matrix as the VW featurizer's column: one (indices, values) pair
+    a row (uint32 indices)."""
+    col = np.empty(csr.shape[0], dtype=object)
+    ind, val, ptr = csr.indices.astype(np.uint32), csr.values, csr.indptr
+    for i in range(csr.shape[0]):
+        col[i] = (ind[ptr[i]:ptr[i + 1]], val[ptr[i]:ptr[i + 1]])
+    return col
+
+
+def dense_used_features(booster, csr):
+    """(a booster over the trees' used features only, the (n, |F|) f32 dense
+    values of those features): its dense predict is what CSR scoring must
+    equal."""
+    from synapseml_tpu_torch.gbdt.boost import GBDTBooster
+
+    F = np.unique(booster.feature)
+    state = booster.state_dict()
+    m = booster.mapper.to_dict()
+    m["upper_edges"] = [m["upper_edges"][j] for j in F]
+    m["cat_values"] = {str(int(np.searchsorted(F, int(k)))): v
+                       for k, v in m["cat_values"].items() if int(k) in F}
+    m["categorical_features"] = sorted(int(np.searchsorted(F, j))
+                                       for j in m["categorical_features"] if j in F)
+    state.update(feature=np.searchsorted(F, booster.feature).astype(np.int32), mapper=m)
+    lut = np.full(csr.shape[1], -1)
+    lut[F] = np.arange(len(F))
+    k = lut[csr.indices]
+    dense = np.zeros((csr.shape[0], len(F)), np.float32)
+    dense[csr.row_ids()[k >= 0], k[k >= 0]] = csr.values[k >= 0]
+    return GBDTBooster.from_state_dict(state), dense
+
+
+def hashed_text_phase(kernels, seed, split_steps) -> dict:
+    """Phase 2g (see the module's doc). Returns the phase's record and what
+    phase 4 times G on: the fitted booster and the training rows."""
+    from synapseml_tpu_torch.core import Table
+    from synapseml_tpu_torch.gbdt.boost import train
+    from synapseml_tpu_torch.gbdt.estimators import LightGBMClassifier
+    from synapseml_tpu_torch.tools.kernel_cases import full_pass
+    from synapseml_tpu_torch.tools.schema_data import FITS, hashed_text_rows
+
+    n_train, n_made, params = FITS["hashed_text"]
+    t0 = time.perf_counter()
+    X, y = hashed_text_rows(seed, n_made)
+    x_tr, x_te, y_tr, y_te = X[:n_train], X[n_train:], y[:n_train], y[n_train:]
+    data_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    col = pairs_column(X)
+    pairs_s = time.perf_counter() - t0
+    meta = {"features": {"type": "vw_sparse"}}
+    train_table = Table({"features": col[:n_train], "label": y_tr}, meta=meta)
+    test_table = Table({"features": col[n_train:]}, meta=meta)
+    del col
+    log(f"phase 2g data: {n_train}+{n_made - n_train} reviews, {X.nnz} stored entries "
+        f"({X.nnz / n_made:.1f} a review) in {data_s:.1f} s, pair column {pairs_s:.1f} s")
+    model, out, fit_s, transform_s, fit_l, trans_l = fit_and_transform(
+        kernels, LightGBMClassifier(**params), train_table, test_table)
+    booster = model.booster
+    T, L = params["num_iterations"], params["num_leaves"]
+    calls = T * L  # G and E's full entry: once at each tree's root, once a split step
+    for name in ("gbdt_sparse_hist", "gbdt_split_search"):
+        if fit_l[name] != calls:
+            fail(f"the hashed-text fit launched {name} {fit_l[name]} times, not {calls} "
+                 f"(once at each of {T} roots and once a split step)")
+    idle = [k for k in ("gbdt_histogram", "gbdt_histogram_rows", "gbdt_partition",
+                        "gbdt_sibling", "gbdt_bin_features") if fit_l[k]]
+    if idle:
+        fail(f"the sparse fit launched the dense path's kernels {idle}")
+    if trans_l["gbdt_tree_score"] < 1:
+        fail("the hashed-text transform never launched kernel B")
+    prob = np.asarray(out["probability"])[:, 1]
+    if prob.shape != (len(y_te),) or not np.isfinite(prob).all():
+        fail(f"hashed-text probabilities: shape {prob.shape}")
+    heldout_auc = auc(y_te, prob)
+    if not heldout_auc > HASHED_AUC_FLOOR:
+        fail(f"hashed-text held-out AUC {heldout_auc:.4f} <= {HASHED_AUC_FLOOR}")
+    # CSR scoring against the dense path over the used features
+    raw_csr = booster.raw_predict(x_te)
+    sub_booster, dense = dense_used_features(booster, x_te)
+    reset(kernels)
+    raw_dense = sub_booster.raw_predict(dense)
+    dense_l = counts(kernels)
+    if not np.array_equal(raw_csr, raw_dense) or dense_l["gbdt_bin_features"] < 1:
+        fail(f"CSR raw_predict differs from the densified used-feature predict by "
+             f"{float(np.abs(raw_csr - raw_dense).max())} (launches {dense_l})")
+    del dense
+    # contributions on SHAP_ROWS held-out rows
+    xs = x_te[:SHAP_ROWS]
+    t0 = time.perf_counter()
+    contrib = booster.predict_contrib(xs)
+    shap_s = time.perf_counter() - t0
+    sums = np.add.reduceat(contrib.values, contrib.indptr[:-1])
+    shap_err = float(np.abs(sums - booster.raw_predict(xs)).max())
+    if contrib.shape != (SHAP_ROWS, X.shape[1] + 1) or not shap_err <= SHAP_TOL:
+        fail(f"hashed-text contributions: shape {contrib.shape}, additivity {shap_err}")
+    # the full-pass oracle at the same rows: the shipped half pass's trees
+    fit_params = dict(objective="binary", num_iterations=T, num_leaves=L)
+    reset(kernels)
+    t0 = time.perf_counter()
+    with full_pass():
+        full = train(fit_params, x_tr, y_tr)
+    torch.cuda.synchronize()
+    full_s = time.perf_counter() - t0
+    full_l = counts(kernels)
+    for field in ("parent", "feature", "bin", "leaf_value", "leaf_hess"):
+        if not np.array_equal(getattr(full, field), getattr(booster, field)):
+            fail(f"the full-pass hashed-text fit's {field} differs from the half pass's")
+    if full_l["gbdt_sparse_hist"] != calls or full_l["gbdt_split_search"] != calls:
+        fail(f"the full-pass fit launched {full_l}")
+    # the same fit at 16,384 reviews and 2^14 slots on the card and the CPU
+    xs_small, ys_small = hashed_text_rows(seed + 1, 2 * SMALL_FIT_ROWS, HASHED_SMALL_BITS)
+    small_cols = pairs_column(xs_small)
+    small_err = small_fit_same_trees(
+        LightGBMClassifier, dict(params, num_iterations=3, sparse_num_bits=HASHED_SMALL_BITS),
+        small_cols[:SMALL_FIT_ROWS], ys_small[:SMALL_FIT_ROWS], small_cols[SMALL_FIT_ROWS:])
+    if not small_err <= 1e-4:
+        fail(f"hashed-text small fit: raw scores differ by {small_err} card vs CPU")
+    steps = split_steps(params)
+    rec = {"phase": "gbdt_hashed_text", "rows_train": n_train, "rows_test": len(y_te),
+           "slots": X.shape[1], "stored_entries": X.nnz, "realized_bins":
+           booster.mapper.realized_n_bins, **params, "data_s": data_s, "pairs_s": pairs_s,
+           "fit_s": fit_s, "transform_s": transform_s, "fit_rows_per_s": n_train / fit_s,
+           "transform_rows_per_s": len(y_te) / transform_s, "heldout_auc": heldout_auc,
+           "fit_launches": fit_l, "transform_launches": trans_l,
+           "csr_equals_dense_used_features": True, "contrib_rows": SHAP_ROWS,
+           "contrib_s": shap_s, "contrib_additivity_max_err": shap_err,
+           "full_pass_fit_s": full_s, "full_pass_identical_trees": True,
+           "full_pass_fit_launches": full_l["gbdt_sparse_hist"],
+           "small_fit_rows": SMALL_FIT_ROWS, "small_fit_bits": HASHED_SMALL_BITS,
+           "small_fit_raw_max_diff": small_err, "split_steps": steps, "g_calls": calls}
+    log(json.dumps(rec))
+    return {"record": rec, "booster": booster, "x_tr": x_tr, "y_tr": y_tr,
+            "fit_params": fit_params}
+
+
+def trace_hashed_fits(hashed) -> dict:
+    """G's and E's device ms, G's device kernels a call and the launches a
+    split step in a traced ``train`` of phase 2g's rows, the shipped half
+    pass and the full-pass oracle. Fails unless every G call was two
+    device kernels (the rows pass and the entries pass). Run last of the
+    script's traces: a trace of a whole fit is the largest the script
+    takes."""
+    from synapseml_tpu_torch.gbdt.boost import train
+    from synapseml_tpu_torch.gbdt.sparse import SPARSE_HIST_TRACE
+    from synapseml_tpu_torch.tools.kernel_cases import full_pass
+
+    rec, params = hashed["record"], hashed["fit_params"]
+    calls, steps = rec["g_calls"], rec["split_steps"]
+    out = {"phase": "gbdt_hashed_text_traced", "rows_train": rec["rows_train"]}
+    for path, ctx in (("half_pass", contextlib.nullcontext), ("full_pass", full_pass)):
+        with ctx():
+            k = kernel_times(lambda: train(params, hashed["x_tr"], hashed["y_tr"]),
+                             (SPARSE_HIST_TRACE, ("split_kernel",), ()))
+        per_call = k[SPARSE_HIST_TRACE][1] / calls
+        if per_call != 2:
+            fail(f"the traced {path} fit ran {k[SPARSE_HIST_TRACE][1]} of G's device "
+                 f"kernels over {calls} calls, not 2 a call")
+        out[path] = {"g_device_ms_a_fit": k[SPARSE_HIST_TRACE][0],
+                     "g_device_ms_a_call": k[SPARSE_HIST_TRACE][0] / calls,
+                     "g_device_kernels": k[SPARSE_HIST_TRACE][1],
+                     "g_device_kernels_a_call": per_call,
+                     "e_device_ms_a_fit": k[("split_kernel",)][0],
+                     "device_busy_ms": k[()][0],
+                     "launches_per_split_step": k[()][1] / steps}
+    log(json.dumps(out))
+    return out
+
+
+def sparse_hist_checks(hashed, dev, gen) -> dict:
+    """Phase 4's kernel G: first on the shared edge cases in every mode
+    (bit-equal to the plain version), then at phase 2g's shape: the first
+    tree's root split over the 1,048,576 training reviews, on the gradients
+    of the fitted model's margins (pre-rounded), both sides, and the smaller
+    side with its sibling from the kept root histogram (which must give the
+    both-sides pass bit for bit). Bound: bytes, each entry's row and cell (8
+    B), every row's side (4 B), the distinct 32-byte sectors of the members'
+    panel rows (16 B a row), zero_bin, and the (2, d, B, 3) output written
+    (half mode: one slot of the kept histogram read too). The library call:
+    ``torch.segment_reduce`` over the already-gathered (nnz, 6) panel, the
+    one PyTorch call for the same segment sums (no residual, empty cells not
+    written); the gather's time is beside it. Returns G's kernel row."""
+    from synapseml_tpu_torch.gbdt.boost import _preround, _sigmoid
+    from synapseml_tpu_torch.gbdt.sparse import (build_sparse_binned, sparse_column,
+                                                 sparse_hist, sparse_hist_plain)
+    from synapseml_tpu_torch.tools.kernel_cases import SPARSE_HIST_CASES, sparse_hist_case
+
+    g_modes = {"both_sides": (0, 0, -1), "half_kept_slot1": (1, 1, -1),
+               "forced_right": (1, 1, 1)}
+    for case in SPARSE_HIST_CASES:
+        sb_c, panel_c, side_c, kept_c = sparse_hist_case(case, dev)
+        kept_c.copy_(_preround(torch.randn(kept_c.numel(), 1, generator=gen, device=dev),
+                               1 << 20).view_as(kept_c))
+        for mode, ctrl_v in g_modes.items():
+            ctrl_c = torch.tensor(ctrl_v, dtype=torch.int32, device=dev)
+            par = kept_c if ctrl_v[0] and ctrl_v[2] < 0 else None
+            got = [torch.full((2, sb_c.d, sb_c.n_bins, 3), float("nan"), device=dev),
+                   torch.full((2, 3), float("nan"), device=dev)]
+            want = [t.clone() for t in got]
+            sparse_hist(sb_c, panel_c, side_c, *got, ctrl_c, par)
+            sparse_hist_plain(sb_c, panel_c, side_c, *want, ctrl_c, par)
+            if not all(torch.equal(a.isnan(), b.isnan()) and
+                       torch.equal(a.nan_to_num(), b.nan_to_num()) for a, b in zip(got, want)):
+                fail(f"sparse histogram kernel ({case}, {mode}) differs from the plain version")
+        del sb_c, panel_c, side_c, kept_c
+    hb, x_h, y_h = hashed["booster"], hashed["x_tr"], hashed["y_tr"]
+    sb = build_sparse_binned(x_h, hb.mapper, dev)
+    n_h, nnz_h = sb.n, sb.nnz
+    p_h = _sigmoid(hb._raw_of_csr(x_h, dev)[:, 0].float())
+    y_hd = torch.from_numpy(y_h).to(dev, torch.float32)
+    nb_h = 1 << (n_h - 1).bit_length()
+    g_h = _preround((p_h - y_hd)[:, None], nb_h)[:, 0]
+    h_h = _preround((p_h * (1 - p_h))[:, None], nb_h)[:, 0]
+    panel_h = torch.stack([g_h, h_h, torch.ones_like(g_h), torch.zeros_like(g_h)], 1).contiguous()
+    f_root, b_root = int(hb.feature[0, 0, 0]), int(hb.bin[0, 0, 0])
+    side_h = (sparse_column(sb, f_root) > b_root).to(torch.int32)
+    n_right = int(side_h.sum())
+    small_side = int(n_right <= n_h - n_right)   # the reference's rule
+    shape_h = (2, sb.d, sb.n_bins, 3)
+    kept_h, tot_h = torch.empty(shape_h, device=dev), torch.empty(2, 3, device=dev)
+    sparse_hist(sb, panel_h, torch.zeros_like(side_h), kept_h, tot_h,
+                torch.tensor([0, 0, -1], dtype=torch.int32, device=dev))
+    shapes = {}
+    both = None
+    for mode, ctrl_v in (("both_sides", (0, 0, -1)), ("half_kept", (1, 0, -1))):
+        ctrl_h = torch.tensor(ctrl_v, dtype=torch.int32, device=dev)
+        par = kept_h if ctrl_v[0] else None
+        out_k, out_p = torch.empty(shape_h, device=dev), torch.empty(shape_h, device=dev)
+        tk, tp = torch.empty(2, 3, device=dev), torch.empty(2, 3, device=dev)
+        sparse_hist(sb, panel_h, side_h, out_k, tk, ctrl_h, par)
+        _, plain_ms = timed_once(lambda: sparse_hist_plain(sb, panel_h, side_h, out_p, tp,
+                                                           ctrl_h, par))
+        if not (torch.equal(out_k, out_p) and torch.equal(tk, tp)):
+            fail(f"sparse histogram kernel ({mode}) differs from the plain version at the "
+                 f"hashed-text shape")
+        if both is None:
+            both = out_k.clone()
+        elif not torch.equal(out_k, both):
+            fail("the half pass with the kept root histogram differs from the both-sides pass")
+        ms = time_ms(lambda: sparse_hist(sb, panel_h, side_h, out_k, tk, ctrl_h, par), 20)
+        members = (torch.nonzero(side_h == small_side)[:, 0] if ctrl_v[0]
+                   else torch.arange(n_h, device=dev))
+        n_bytes = (8 * nnz_h + 4 * n_h + gathered_bytes(members, 16, 0, 12) + 4 * sb.d
+                   + 2 * sb.d * sb.n_bins * 12 + 24
+                   + (sb.d * sb.n_bins * 12 if ctrl_v[0] else 0))
+        b = bound(n_bytes, 0, F32_FLOPS)
+        shapes[mode] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b[0], "bound_by": b[1],
+                        "bytes": n_bytes, "members_gathered": int(members.numel()),
+                        "max_abs_err": 0.0}
+        del out_k, out_p
+    del both, kept_h
+    rows_l = sb.rows.long()
+    lengths = torch.unique_consecutive(sb.cells, return_counts=True)[1]
+
+    def gather6():
+        s_e = side_h[rows_l]
+        p_e = panel_h[rows_l, :3]
+        return torch.cat([p_e * (s_e == 0)[:, None], p_e * (s_e == 1)[:, None]], 1)
+
+    gather_ms = time_ms(gather6, 5)
+    panel6 = gather6()
+    lib_ms = time_ms(lambda: torch.segment_reduce(panel6, "sum", lengths=lengths, axis=0), 10)
+    main = shapes["both_sides"]
+    rec = {"ms": main["ms"], "plain_ms": main["plain_ms"],
+           "bound": (main["bound_ms"], main["bound_by"]), "library_ms": lib_ms,
+           "shape": f"n={n_h} nnz={nnz_h} d={sb.d} B={sb.n_bins}, the first tree's root split",
+           "shapes": shapes, "gather_ms": gather_ms,
+           "library_call": "torch.segment_reduce over the gathered (nnz, 6) panel",
+           "cases_bit_equal": list(SPARSE_HIST_CASES),
+           "launches_full_pass_fit": hashed["record"]["full_pass_fit_launches"]}
+    log(json.dumps({"sparse_hist": rec}))
+    return rec
+
+
 def snapshot(part, node) -> list:
     """A copy of kernel P's whole state and the rows' leaves."""
     return [t.clone() for t in (part.ids, part._state, part.smaller_right, node)]
@@ -1139,6 +1441,11 @@ def main() -> int:
     t0 = time.perf_counter()
     leaf_local = leaf_local_phase(kernels, GBDT, x_tr, y_tr, x_te, split_steps)
     log(f"phase 2f in {time.perf_counter() - t0:.1f} s")
+
+    # -- phase 2g: sparse input, hashed text at Amazon Review Polarity's schema ---------
+    t0 = time.perf_counter()
+    hashed = hashed_text_phase(kernels, args.seed, split_steps)
+    log(f"phase 2g in {time.perf_counter() - t0:.1f} s")
 
     # -- phase 3: flash attention's entry point -----------------------------------------
     gen = torch.Generator(device=dev).manual_seed(args.seed)
@@ -1661,8 +1968,12 @@ def main() -> int:
            offgrid_leaves_held=held, offgrid_leaves_close=close,
            launches_adult_fit=fit_la["gbdt_split_search"],
            launches_covertype_fit=fit_lc["gbdt_split_search"],
+           launches_hashed_text_fit=hashed["record"]["fit_launches"]["gbdt_split_search"],
            split_steps={"higgs": split_steps(GBDT), "adult": split_steps(adult_gbdt),
                         "covertype": split_steps(cov_gbdt, COVTYPE_CLASSES)})
+
+    g_row = sparse_hist_checks(hashed, dev, gen)
+    torch.cuda.empty_cache()
 
     # F: the LambdaRank gradient over phase 2e's training rows (18,919 queries
     # of up to 1,251 documents), at iteration 0 (every score tied) and at the
@@ -1817,6 +2128,15 @@ def main() -> int:
                main["plain_ms"], main["bound"], main["lib_ms"], shape=shape_text(main),
                tflops=main["tflops"],
                shapes={key: shape_entry(r) for key, r in mine.items()}, **extra)
+
+    # G's row, with the device ms of the traced phase 2g fits (the last traces)
+    traced = trace_hashed_fits(hashed)
+    per_path = lambda field: {path: traced[path][field] for path in ("half_pass", "full_pass")}
+    record("gbdt_sparse_hist", hashed["record"]["fit_launches"]["gbdt_sparse_hist"], 0.0,
+           g_row.pop("ms"), g_row.pop("plain_ms"), g_row.pop("bound"), g_row.pop("library_ms"),
+           **g_row, fit_device_ms=per_path("g_device_ms_a_fit"),
+           device_kernels_a_call=per_path("g_device_kernels_a_call"),
+           launches_per_split_step=per_path("launches_per_split_step"))
 
     missing = set(kernels) - {r["name"] for r in rows}
     if missing:

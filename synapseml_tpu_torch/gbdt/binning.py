@@ -4,7 +4,13 @@ A copy of ``synapseml_tpu/gbdt/binning.py`` for dense features: the same
 numpy RNG, quantile rule and category rule, so a mapper fitted here has the
 same edges and category values as the reference's, and ``to_dict`` /
 ``from_dict`` read and write the same dictionary (a mapper fitted by either
-package loads in the other). The sparse (CSR) path is not ported yet.
+package loads in the other). The sparse (CSR) half, :meth:`BinMapper.fit_csr`
+and :meth:`BinMapper.transform_csr`, gives the reference's edges and bins
+for a CSR matrix without densifying it: the fit folds each feature's implicit
+zeros in as the reference does, vectorised over the features that take one
+bin per distinct value (hashed counts: nearly all of them), and the
+transform bins every stored entry at once by a binary search over the
+concatenated edges, on the CPU or on the entries' device.
 
 Bin layout per feature: bins ``0..n_bins-2`` cover finite values by quantile
 ranges; NaN and infinities map to the last bin (the missing bin). Split
@@ -57,6 +63,7 @@ class BinMapper:
         self.cat_values: Dict[int, np.ndarray] = {}  # feature -> sorted category values
         self.n_features: Optional[int] = None
         self._tables: Dict[str, tuple] = {}  # device -> kernel D's packed table
+        self._flat: Dict[str, tuple] = {}    # device -> the CSR transform's edge table
 
     def _feature_max_bin(self, j: int) -> int:
         mbf = self.max_bin_by_feature
@@ -123,7 +130,7 @@ class BinMapper:
                 edges.append(np.concatenate([np.unique(qs), [np.inf]]))
         self.upper_edges = edges
         self.n_features = d
-        self._tables = {}
+        self._tables, self._flat = {}, {}
         return self
 
     def transform_column(self, j: int, col: np.ndarray) -> np.ndarray:
@@ -215,6 +222,179 @@ class BinMapper:
         out = torch.where(is_cat[:, None], cat, num)
         out = torch.where(torch.isfinite(xt), out, self.missing_bin)
         return out.t().to(out_dtype).contiguous()
+
+    # -- sparse (CSR) ----------------------------------------------------------------
+    #
+    # The reference's CSR half (binning.py:171-330): implicit zeros take part
+    # in the edges as LightGBM counts them (a feature's values are its stored
+    # entries plus rows - nnz_j zeros).
+
+    def fit_csr(self, csr) -> "BinMapper":
+        """Fit the edges of a :class:`~.sparse.CSRMatrix` without densifying
+        it: the reference's ``fit_csr``, edge for edge. A feature's finite
+        stored values plus its implicit zeros: at most its max_bin distinct
+        values take one bin each (edges at the midpoints), more take
+        weighted quantiles with the zero mass as one weighted point; a
+        categorical feature keeps its most frequent categories, the implicit
+        zero one of them. The one-bin-per-value features are done together:
+        one sort of the sampled (feature, value) pairs."""
+        n, d = csr.shape
+        if self.max_bin_by_feature and len(self.max_bin_by_feature) != d:
+            raise ValueError(f"max_bin_by_feature has {len(self.max_bin_by_feature)} "
+                             f"entries for {d} features")
+        idx = self.sample_indices(n)
+        s = csr if idx is None else csr.take_rows(np.sort(idx))
+        s_n = s.shape[0]
+        n_zero = s_n - np.bincount(s.indices, minlength=d)       # implicit zeros
+        fin = np.isfinite(s.values)
+        cols = torch.from_numpy(s.indices[fin].astype(np.int64))
+        vals = torch.from_numpy(s.values[fin])
+        # (feature, value) ascending: by value, then stably by feature
+        vals, o1 = torch.sort(vals, stable=True)
+        cols, o2 = torch.sort(cols[o1], stable=True)
+        c_s, v_s = cols.numpy(), vals[o2].numpy()
+        del cols, vals, o1, o2
+        first = np.ones(len(c_s), dtype=bool)
+        first[1:] = (c_s[1:] != c_s[:-1]) | (v_s[1:] != v_s[:-1])
+        uc, uv = c_s[first], v_s[first]                          # distinct pairs
+        n_uniq = np.bincount(uc, minlength=d)
+        has_zero = np.zeros(d, dtype=bool)
+        has_zero[uc[uv == 0.0]] = True
+        add_zero = (n_zero > 0) & ~has_zero & (n_uniq > 0)
+        fmb = np.array([self._feature_max_bin(j) for j in range(d)]) if \
+            self.max_bin_by_feature else np.full(d, self.max_bin)
+        is_cat = np.zeros(d, dtype=bool)
+        is_cat[[j for j in self.categorical_features if j < d]] = True
+        exact = ~is_cat & (n_uniq + add_zero <= fmb)
+        # one bin per distinct value (and [inf] for a feature with no finite
+        # stored value): edges at the midpoints, inf last
+        keep = exact[uc]
+        zc = np.flatnonzero(exact & add_zero)
+        pc = np.concatenate([uc[keep], zc])
+        pv = np.concatenate([uv[keep], np.zeros(len(zc))])
+        o = np.lexsort((pv, pc))
+        pc, pv = pc[o], pv[o]
+        lens = np.where(exact, np.maximum(n_uniq + add_zero, 1), 0)
+        last = np.ones(len(pc), dtype=bool)
+        last[:-1] = pc[1:] != pc[:-1]
+        mids = np.empty(len(pc))
+        mids[:-1] = (pv[:-1] + pv[1:]) / 2
+        mids[last] = np.inf
+        flat = np.full(int(lens.sum()), np.inf)
+        offs = np.zeros(d + 1, dtype=np.int64)
+        np.cumsum(lens, out=offs[1:])
+        # a feature's pairs fill its first slots, in order
+        flat[offs[pc] + np.arange(len(pc)) - np.searchsorted(pc, pc)] = mids
+        edges: List[np.ndarray] = np.split(flat, offs[1:-1])
+        # the rest feature by feature, as the reference does it
+        run = np.zeros(d + 1, dtype=np.int64)
+        np.cumsum(np.bincount(c_s, minlength=d), out=run[1:])
+        self.cat_values = {}
+        zero_edge = np.array([np.inf])
+        for j in np.flatnonzero(~exact):
+            col = v_s[run[j]:run[j + 1]]
+            if is_cat[j]:
+                vals_j, counts = np.unique(col, return_counts=True)
+                if n_zero[j] > 0:
+                    p = np.searchsorted(vals_j, 0.0)
+                    if p < len(vals_j) and vals_j[p] == 0.0:
+                        counts[p] += n_zero[j]
+                    else:
+                        vals_j = np.insert(vals_j, p, 0.0)
+                        counts = np.insert(counts, p, n_zero[j])
+                if len(vals_j) > fmb[j]:
+                    vals_j = vals_j[np.argsort(-counts, kind="stable")[:fmb[j]]]
+                self.cat_values[int(j)] = np.sort(vals_j)
+                edges[j] = zero_edge
+                continue
+            # weighted quantiles: the sorted values, the zero mass folded in
+            sv = col
+            w = np.ones(len(sv))
+            if n_zero[j] > 0:
+                p = np.searchsorted(sv, 0.0)
+                sv = np.insert(sv, p, 0.0)
+                w = np.insert(w, p, n_zero[j])
+            cw = np.cumsum(w)
+            targets = np.linspace(0, 1, fmb[j] + 1)[1:-1] * cw[-1]
+            take = np.searchsorted(cw, targets, side="left")
+            qs = sv[np.clip(take, 0, len(sv) - 1)]
+            edges[j] = np.concatenate([np.unique(qs), [np.inf]])
+        self.upper_edges = edges
+        self.n_features = d
+        self._tables, self._flat = {}, {}
+        return self
+
+    def _flat_table(self, device) -> tuple:
+        """(flat, offs, lens, is_cat) on ``device``: every feature's edges, or
+        its category values, end to end in f64, with each feature's offset
+        and length; made once a device."""
+        key = str(device)
+        if key not in self._flat:
+            rows = [self.cat_values[j] if j in self.cat_values else e
+                    for j, e in enumerate(self.upper_edges)]
+            lens = np.array([len(r) for r in rows], dtype=np.int64)
+            offs = np.zeros(len(rows) + 1, dtype=np.int64)
+            np.cumsum(lens, out=offs[1:])
+            flat = np.concatenate(rows).astype(np.float64) if rows else np.zeros(0)
+            is_cat = np.zeros(len(rows), dtype=bool)
+            is_cat[list(self.cat_values)] = True
+            self._flat[key] = tuple(torch.from_numpy(a).to(device)
+                                    for a in (flat, offs, lens, is_cat))
+        return self._flat[key]
+
+    def _bin_values(self, cols: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
+        """int32 bin of each (feature, value) pair on their device:
+        :meth:`transform_column`'s rule, by a lower bound over the feature's
+        slice of the flat table (the count of edges below the value)."""
+        flat, offs, lens, is_cat = self._flat_table(vals.device)
+        cols = cols.long()
+        vals = vals.to(torch.float64)
+        lo, n_e = offs[cols], lens[cols]
+        hi = lo + n_e
+        last = max(int(flat.numel()) - 1, 0)
+        for _ in range(int(lens.max()).bit_length() if lens.numel() else 0):
+            mid = (lo + hi) // 2
+            less = flat[mid.clamp(max=last)] < vals
+            go = lo < hi
+            lo, hi = torch.where(go & less, mid + 1, lo), torch.where(go & ~less, mid, hi)
+        pos = lo - offs[cols]
+        num = torch.minimum(pos, n_e - 1)
+        at = torch.clamp(pos, max=torch.clamp(n_e - 1, min=0))
+        cat = torch.where((n_e > 0) & (flat[(offs[cols] + at).clamp(max=last)] == vals),
+                          at, self.missing_bin)
+        out = torch.where(is_cat[cols], cat, num)
+        return torch.where(torch.isfinite(vals), out, self.missing_bin).to(torch.int32)
+
+    def transform_csr_torch(self, cols: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
+        """(nnz,) int32 bin of each stored entry (``cols`` its column, ``vals``
+        its value, on one device); NaN and unseen categories -> the missing
+        bin. The bins :meth:`transform` gives the densified matrix there."""
+        if self.upper_edges is None:
+            raise RuntimeError("BinMapper.transform_csr called before fit")
+        if not cols.numel():
+            return torch.empty(0, dtype=torch.int32, device=cols.device)
+        return self._bin_values(cols, vals)
+
+    def transform_csr(self, csr) -> np.ndarray:
+        """(nnz,) int32 bin of each stored entry of a CSR matrix, in CSR
+        order (the reference's ``transform_csr``, in one vectorised pass)."""
+        n, d = csr.shape
+        self._check_fitted(d)
+        return self.transform_csr_torch(torch.from_numpy(csr.indices),
+                                        torch.from_numpy(csr.values)).numpy()
+
+    def zero_bins(self, compact: bool = False) -> np.ndarray:
+        """(d,) int32 bin of value 0.0 in each feature, the bin of a sparse
+        matrix's implicit entries. ``compact``: a categorical feature without
+        a 0 category gets the compact missing bin ``realized_n_bins - 1``
+        (sparse training's bin space) instead of ``missing_bin``."""
+        if self.upper_edges is None:
+            raise RuntimeError("zero_bins before fit")
+        d = self.n_features
+        out = self._bin_values(torch.arange(d), torch.zeros(d, dtype=torch.float64)).numpy()
+        if compact:
+            out = np.where(out == self.missing_bin, self.realized_n_bins - 1, out)
+        return out.astype(np.int32)
 
     @property
     def realized_n_bins(self) -> int:

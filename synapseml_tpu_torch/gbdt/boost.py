@@ -31,8 +31,12 @@ the products on that grid (see :mod:`.grow`).
 
 ``train`` also takes a custom objective (``fobj``), a fitted ``mapper``,
 continued training from an ``init_booster`` and per-iteration
-``callbacks``, as the reference's does. Not ported yet: sparse input and the
-mesh (distributed lambdarank included).
+``callbacks``, as the reference's does. Sparse (CSR) features (a
+:class:`~.sparse.CSRMatrix` or a scipy sparse matrix) train through the
+sparse grower (:func:`~.grow.grow_tree_sparse`, kernel G) in the mapper's
+compact bin space, and the booster scores CSR rows through the features its
+trees use (kernel B). Not ported yet: the mesh (distributed lambdarank
+included).
 """
 
 from __future__ import annotations
@@ -46,12 +50,13 @@ import torch
 
 from ..core.serialization import register_state_class
 from ..runtime.device import resolve_device
-from .binning import BinMapper
-from .grow import GrownTree, TreeConfig, grow_tree, predict_binned
+from .binning import BinMapper, torch_bin_dtype
+from .grow import GrownTree, TreeConfig, grow_tree, grow_tree_sparse, predict_binned
 from .lambdarank import QueryGroups, lambda_grads
 from .partition import RowPartition
 from .metrics import DEFAULT_METRIC, METRICS, device_metric, metric_ndcg
 from .sampling import Sampler
+from .sparse import CSRMatrix, as_csr, build_sparse_binned, is_sparse_input
 from .split_search import SplitWorkspace
 
 __all__ = ["GBDTBooster", "train", "OBJECTIVES", "make_lambdarank"]
@@ -390,6 +395,48 @@ class GBDTBooster:
         xt = torch.as_tensor(x)
         return dev, self.mapper.transform_torch(xt.to(dev))
 
+    def _csr_used(self, csr: CSRMatrix, T: int, dev: torch.device):
+        """The features the first ``T`` trees use, of a CSR matrix (the
+        reference's ``_csr_used_sub`` / ``_csr_used_binned``, ``boost.py:511-548``;
+        at hashed width the full (n, d) matrix cannot be built, but the
+        trees touch at most T * (L - 1) features). Returns (bins (n, |F|) on
+        ``dev``: each stored entry's bin, the zero bin elsewhere, as the
+        mapper bins the densified columns; the used features F ascending;
+        the trees' features remapped to columns of F; the rows, columns in
+        F and values of the stored entries of F)."""
+        n, d = csr.shape
+        if d != self.mapper.n_features:
+            raise ValueError(f"expected {self.mapper.n_features} features, got {d}")
+        F = np.unique(self.feature[:T]) if T else np.zeros(1, np.int64)
+        lut = np.full(d, -1, np.int64)
+        lut[F] = np.arange(len(F))
+        k = lut[csr.indices]
+        keep = k >= 0
+        rows, k, vals = csr.row_ids()[keep].astype(np.int64), k[keep], csr.values[keep]
+        bins = self.mapper.transform_csr_torch(torch.from_numpy(F[k]).to(dev),
+                                               torch.from_numpy(vals).to(dev))
+        zb = torch.from_numpy(self.mapper.zero_bins()[F]).to(dev)
+        sub = zb.to(torch_bin_dtype(self.mapper.n_bins)).expand(n, len(F)).clone()
+        sub[torch.from_numpy(rows).to(dev), torch.from_numpy(k).to(dev)] = bins.to(sub.dtype)
+        feats = np.searchsorted(F, self.feature[:T]).astype(np.int32)
+        return sub, F, feats, (rows, k, vals)
+
+    def _raw_of_csr(self, csr: CSRMatrix, dev: torch.device) -> torch.Tensor:
+        """(n, C) f64 margins of every used tree over CSR rows, on ``dev``."""
+        T = self._used_trees(None)
+        if T == 0:
+            return self._raw_of_binned(torch.zeros(csr.shape[0], 1, device=dev), 0)
+        sub, _, feats, _ = self._csr_used(csr, T, dev)
+        return self._raw_of_binned(sub, T, feats)
+
+    def _binned_rows(self, x, T: int, device):
+        """(device, bins, remapped tree features or None) of dense or CSR rows."""
+        if is_sparse_input(x):
+            dev = resolve_device(device)
+            sub, _, feats, _ = self._csr_used(as_csr(x), T, dev)
+            return dev, sub, feats
+        return (*self._binned_on(x, device), None)
+
     def raw_predict(self, x, num_iteration: Optional[int] = None,
                     device=None) -> np.ndarray:
         """Raw margin, shape (n,) or (n, C): bins ``x`` and scores the trees on
@@ -398,28 +445,31 @@ class GBDTBooster:
         T = self._used_trees(num_iteration)
         if T == 0:
             resolve_device(device)
-            out = np.tile(self.base_score, (len(x), 1)).astype(np.float64)
+            out = np.tile(self.base_score, (x.shape[0], 1)).astype(np.float64)
         else:
-            dev, binned = self._binned_on(x, device)
-            out = self._raw_of_binned(binned, T).cpu().numpy()
+            dev, binned, feats = self._binned_rows(x, T, device)
+            out = self._raw_of_binned(binned, T, feats).cpu().numpy()
         return out[:, 0] if self.num_class == 1 else out
 
-    def _raw_of_binned(self, binned: torch.Tensor, T: int) -> torch.Tensor:
+    def _raw_of_binned(self, binned: torch.Tensor, T: int,
+                       feature: Optional[np.ndarray] = None) -> torch.Tensor:
         """(n, C) f64 raw margins of the first ``T`` trees over rows binned by
         this booster's mapper, on their device: the trees' f32 scores (kernel
         B on a GPU) plus the base score in f64, as :meth:`raw_predict` gives
-        them."""
+        them. ``feature``: the trees' features remapped to the columns of
+        ``binned`` (CSR rows' used features); None: the booster's own."""
         from .device_predict import device_raw_scores
 
         dev = binned.device
         base = torch.as_tensor(self.base_score, dtype=torch.float64, device=dev)[None, :]
         if T == 0:
             return base.expand(binned.shape[0], -1).clone()
-        if dev.type == "cuda":
+        if dev.type == "cuda" and feature is None:
             packed, leaf_value, scale = self._trees_on(T, dev)
         else:
             packed, leaf_value, scale = None, self.leaf_value[:T], self.tree_scale[:T]
-        scores = device_raw_scores(binned, self.parent[:T], self.feature[:T],
+        scores = device_raw_scores(binned, self.parent[:T],
+                                   self.feature[:T] if feature is None else feature,
                                    self.bin[:T], leaf_value, scale, self._cat_sets(T),
                                    packed=packed)
         out = base + scores.to(torch.float64)
@@ -435,13 +485,15 @@ class GBDTBooster:
         from .device_predict import device_leaf_indices
 
         T = self._used_trees(num_iteration)
-        n = len(x)
+        n = x.shape[0]
         if T == 0:
             resolve_device(device)
             return np.zeros((n, 0), dtype=np.int32)
-        dev, binned = self._binned_on(x, device)
-        packed = self._trees_on(T, dev)[0] if dev.type == "cuda" else None
-        leaves = device_leaf_indices(binned, self.parent[:T], self.feature[:T],
+        dev, binned, feats = self._binned_rows(x, T, device)
+        packed = (self._trees_on(T, dev)[0] if dev.type == "cuda" and feats is None
+                  else None)
+        leaves = device_leaf_indices(binned, self.parent[:T],
+                                     self.feature[:T] if feats is None else feats,
                                      self.bin[:T], self._cat_sets(T), packed=packed)
         return leaves.permute(2, 0, 1).reshape(n, T * self.num_class).cpu().numpy()
 
@@ -477,7 +529,14 @@ class GBDTBooster:
         exact path does (the reference compares the raw value with the
         threshold, which misroutes imported ``zero_as_missing`` splits), and
         the refusal of categorical splits looks at the first ``T`` trees
-        only, the ones it walks."""
+        only, the ones it walks.
+
+        CSR rows (the reference's ``_predict_contrib_sparse``, ``boost.py:759``)
+        give a :class:`~.sparse.CSRMatrix` of shape (n, d+1), or a list of C
+        of them, storing the trees' used features and the expected value
+        (column d) of every row: a feature no tree uses contributes 0."""
+        if is_sparse_input(x):
+            return self._predict_contrib_sparse(as_csr(x), num_iteration, approximate, device)
         xv = torch.as_tensor(x)
         n, d = xv.shape
         binned = self._binned_on(xv, device)[1].cpu().numpy().astype(np.int32)
@@ -489,11 +548,33 @@ class GBDTBooster:
         out[:, :, d] += self.base_score[:, None]
         return out[0] if self.num_class == 1 else out
 
+    def _predict_contrib_sparse(self, csr: CSRMatrix, num_iteration, approximate: bool,
+                                device):
+        T = self._used_trees(num_iteration)
+        n, d = csr.shape
+        sub, F, feats, (rows, k, vals) = self._csr_used(csr, T, resolve_device(device))
+        binned = sub.cpu().numpy().astype(np.int32)
+        dF = len(F)
+        if not approximate:
+            out = self._contrib_shap_panel(binned, n, dF, num_iteration, feats)
+        else:
+            raw = np.zeros((n, dF))
+            raw[rows, k] = vals
+            out = self._contrib_saabas_panel(raw, binned, n, dF, num_iteration, feats)
+        out[:, :, dF] += self.base_score[:, None]
+        cols = np.concatenate([F.astype(np.int64), [d]])
+        indptr = np.arange(0, n * (dF + 1) + 1, dF + 1, dtype=np.int64)
+        mats = [CSRMatrix(indptr, np.tile(cols, n).astype(np.int32), out[c].reshape(-1),
+                          (n, d + 1)) for c in range(self.num_class)]
+        return mats[0] if self.num_class == 1 else mats
+
     def _contrib_saabas_panel(self, xv: np.ndarray, binned: np.ndarray, n: int, d: int,
-                              num_iteration) -> np.ndarray:
+                              num_iteration, feature: Optional[np.ndarray] = None
+                              ) -> np.ndarray:
         """Saabas attributions, (C, n, d+1) without the base score (the
         reference's ``_contrib_saabas_panel``, ``boost.py:782``, with the two
-        departures of :meth:`predict_contrib`)."""
+        departures of :meth:`predict_contrib`); ``feature`` remaps the trees'
+        features to the columns of ``xv`` and ``binned``."""
         T = self._used_trees(num_iteration)
         if self.cat_set is not None and bool(
                 ((self.bin[:T] < 0) & ~np.isfinite(self.threshold[:T])
@@ -506,7 +587,7 @@ class GBDTBooster:
             sc = self.tree_scale[t] * (1.0 / T if self.boosting == "rf" else 1.0)
             for c in range(C):
                 par = self.parent[t, c]
-                feat = self.feature[t, c]
+                feat = (self.feature if feature is None else feature)[t, c]
                 thr = self.threshold[t, c]
                 V = self.leaf_value[t, c].astype(np.float64).copy()
                 Hs = np.maximum(self.leaf_hess[t, c].astype(np.float64), 1e-12).copy()
@@ -543,9 +624,11 @@ class GBDTBooster:
         return out
 
     def _contrib_shap_panel(self, binned: np.ndarray, n: int, d: int,
-                            num_iteration) -> np.ndarray:
+                            num_iteration, feature: Optional[np.ndarray] = None
+                            ) -> np.ndarray:
         """Exact TreeSHAP, (C, n, d+1) without the base score; each row sums,
-        with the base, to ``raw_predict``."""
+        with the base, to ``raw_predict``; ``feature`` as in
+        :meth:`_contrib_saabas_panel`."""
         from .treeshap import build_explicit_tree, expected_value, tree_shap
 
         T = self._used_trees(num_iteration)
@@ -555,7 +638,8 @@ class GBDTBooster:
             sc = self.tree_scale[t] * (1.0 / T if self.boosting == "rf" else 1.0)
             for c in range(C):
                 root = build_explicit_tree(
-                    self.parent[t, c], self.feature[t, c], self.bin[t, c],
+                    self.parent[t, c], (self.feature if feature is None else feature)[t, c],
+                    self.bin[t, c],
                     self.leaf_value[t, c], self.leaf_hess[t, c],
                     self.cat_set[t, c] if self.cat_set is not None else None)
                 out[c, :, :d] += sc * tree_shap(root, binned, d)
@@ -715,20 +799,38 @@ def _check_boosting(p: Dict[str, Any], obj_name: str) -> str:
 
 class _EvalSet:
     """One eval set on the device: its bins, labels, unit weights and margins
-    (f32; f64 under DART, whose margins the reference keeps in numpy f64)."""
+    (f32; f64 under DART, whose margins the reference keeps in numpy f64).
+    ``n_bins``: the compact bin count of a sparse fit (CSR rows become a
+    :class:`~.sparse.SparseBinned`, dense rows have the missing bin moved
+    down to it); None for a dense fit, which takes no CSR rows."""
 
     def __init__(self, mapper: BinMapper, x, y, base: np.ndarray, dev, dtype,
-                 init_booster: Optional["GBDTBooster"] = None):
-        xt = torch.as_tensor(x).to(dev)
-        self.binned = mapper.transform_torch(xt)
+                 init_booster: Optional["GBDTBooster"] = None,
+                 n_bins: Optional[int] = None):
+        if is_sparse_input(x):
+            if n_bins is None:
+                # compact eval bins against dense-space trees would misroute
+                # missing values (the reference's rule, boost.py:2098-2102)
+                raise ValueError("sparse eval_set requires sparse training features")
+            csr = as_csr(x)
+            self.binned = build_sparse_binned(csr, mapper, dev)
+            prior = (None if init_booster is None else
+                     init_booster._raw_of_csr(csr, dev))
+        else:
+            xt = torch.as_tensor(x).to(dev)
+            self.binned = mapper.transform_torch(xt)
+            prior = (None if init_booster is None else
+                     _init_margins(init_booster, mapper, self.binned, xt))
+            if n_bins is not None:
+                self.binned = torch.clamp(self.binned, max=n_bins - 1)
         self.y_np = np.asarray(y, dtype=np.float64)
         self.y = torch.as_tensor(self.y_np, dtype=torch.float32, device=dev)
         self.w = torch.ones(len(self.y_np), dtype=torch.float32, device=dev)
-        if init_booster is None:
+        if prior is None:
             self.raw = torch.zeros(len(self.y_np), len(base), dtype=dtype, device=dev) + \
                 torch.as_tensor(base, dtype=dtype, device=dev)
         else:  # continued training: the prior trees' margins
-            self.raw = _init_margins(init_booster, mapper, self.binned, xt).to(dtype)
+            self.raw = prior.to(dtype)
 
     def leaf_values(self, tree: GrownTree) -> torch.Tensor:
         """The tree's (unscaled) leaf value for every row: one routing pass."""
@@ -794,8 +896,12 @@ def train(params: Dict[str, Any], x, y, weight: Optional[np.ndarray] = None,
     """Train a booster on ``device`` (default: the GPU; ``"cpu"`` runs the
     plain PyTorch versions of the kernels).
 
-    ``x`` is an (n, d) float matrix (numpy or tensor), ``y`` and ``weight``
-    (n,) numpy arrays (``y`` holds class indices for multiclass).
+    ``x`` is an (n, d) float matrix (numpy or tensor) or a sparse one (a
+    :class:`~.sparse.CSRMatrix` or scipy sparse: fitted by
+    ``BinMapper.fit_csr``, binned into the compact space of
+    ``realized_n_bins``, grown by :func:`~.grow.grow_tree_sparse`; its eval
+    sets may be CSR too), ``y`` and ``weight`` (n,) numpy arrays (``y``
+    holds class indices for multiclass).
     ``eval_set``: ``(x, y)`` pairs scored after every iteration with
     ``metric``; the first one drives early stopping. The booster's
     ``evals_result`` holds a record per iteration
@@ -821,18 +927,25 @@ def train(params: Dict[str, Any], x, y, weight: Optional[np.ndarray] = None,
     that iteration, keeping its trees (eval sets are then scored on the host
     each iteration, as the reference's host loop does).
 
-    Every tree grows over a row partition on the device, histogramming only
-    the smaller child of each split (:mod:`.grow`). ``leaf_local``,
-    ``hist_method`` and ``hist_chunk`` are accepted and have no effect: they
-    choose between the reference's XLA formulations (its full pass or its
-    leaf-local gather, scatter or one-hot histograms), and the port has one
-    growth path and one histogram kernel."""
+    Every dense tree grows over a row partition on the device, histogramming
+    only the smaller child of each split, and every sparse tree sums only
+    the smaller child of a split whose parent's histograms it kept
+    (:mod:`.grow`). ``leaf_local`` has no effect, like ``hist_method`` and
+    ``hist_chunk``: they choose between the reference's XLA formulations
+    (its full pass or its leaf-local half pass; gather, scatter or one-hot
+    histograms), and the port has one growth path for each input kind and
+    one histogram kernel for each."""
     dev = resolve_device(device)
     p = dict(_DEFAULTS)
     p.update(_canonicalize_params(params))
     obj_name = p["objective"]
-    xt = torch.as_tensor(x)
-    n, d = xt.shape
+    sparse_in = is_sparse_input(x)
+    if sparse_in:
+        csr, xt = as_csr(x), None
+        n, d = csr.shape
+    else:
+        xt = torch.as_tensor(x)
+        n, d = xt.shape
     y = np.asarray(y, dtype=np.float64)
     w_np = np.ones(n) if weight is None else np.asarray(weight, dtype=np.float64) + 0.0
 
@@ -869,9 +982,16 @@ def train(params: Dict[str, Any], x, y, weight: Optional[np.ndarray] = None,
                            sample_cnt=int(p["bin_sample_count"]),
                            max_bin_by_feature=p["max_bin_by_feature"],
                            categorical_features=cat_features)
-        mapper.fit(xt.numpy() if xt.device.type == "cpu" else xt.cpu().numpy())
-    x_dev = xt.to(dev)
-    binned = mapper.transform_torch(x_dev)  # kernel D where exact
+        if sparse_in:
+            mapper.fit_csr(csr)
+        else:
+            mapper.fit(xt.numpy() if xt.device.type == "cpu" else xt.cpu().numpy())
+    if sparse_in:
+        x_dev = None
+        binned = build_sparse_binned(csr, mapper, dev)
+    else:
+        x_dev = xt.to(dev)
+        binned = mapper.transform_torch(x_dev)  # kernel D where exact
     has_cat = bool(mapper.categorical_features)
     cat_mask = None
     if has_cat:
@@ -887,7 +1007,9 @@ def train(params: Dict[str, Any], x, y, weight: Optional[np.ndarray] = None,
     # rf averages trees that each fit the base score's residual
     lr = float(p["learning_rate"]) if boosting != "rf" else 1.0
     cfg = TreeConfig(
-        n_bins=mapper.n_bins, num_leaves=int(p["num_leaves"]),
+        # sparse fits grow in the compact bin space (the bins the data realise)
+        n_bins=mapper.realized_n_bins if sparse_in else mapper.n_bins,
+        num_leaves=int(p["num_leaves"]),
         lambda_l1=float(p["lambda_l1"]), lambda_l2=float(p["lambda_l2"]),
         min_data_in_leaf=float(p["min_data_in_leaf"]),
         min_sum_hessian=float(p["min_sum_hessian_in_leaf"]),
@@ -904,15 +1026,17 @@ def train(params: Dict[str, Any], x, y, weight: Optional[np.ndarray] = None,
     y_d = torch.as_tensor(y, dtype=torch.float32, device=dev)
     w_d = torch.as_tensor(w_np, dtype=torch.float32, device=dev)
     if init_booster is not None:  # the prior trees' margins, scored on the device
-        raw = _init_margins(init_booster, mapper, binned, x_dev).to(torch.float32)
+        raw = (init_booster._raw_of_csr(csr, dev) if sparse_in else
+               _init_margins(init_booster, mapper, binned, x_dev)).to(torch.float32)
     else:
         raw = torch.zeros(n, C, dtype=torch.float32, device=dev) + torch.as_tensor(
             base, dtype=torch.float32, device=dev)
     del x_dev
     ones = torch.ones(n, dtype=torch.float32, device=dev)
     fmask = torch.ones(d, dtype=torch.float32, device=dev)
-    workspace = SplitWorkspace(d, fmask, cat_mask, cfg, dev)  # every tree of the fit
-    partition = RowPartition(n, L, dev)  # every tree of the fit
+    if not sparse_in:  # every tree of the fit; kernel E reads fmask through its pointer
+        workspace = SplitWorkspace(d, fmask, cat_mask, cfg, dev)
+        partition = RowPartition(n, L, dev)
     sampler = Sampler(p, y_d, d, goss=boosting == "goss")
 
     dart = boosting == "dart"
@@ -920,7 +1044,7 @@ def train(params: Dict[str, Any], x, y, weight: Optional[np.ndarray] = None,
     # iteration) take the reference's host metric: numpy over f64 margins
     host_eval = dart or ndcg_fn is not None or bool(callbacks)
     evals_in = [_EvalSet(mapper, ex, ey, base, dev, torch.float64 if host_eval else torch.float32,
-                         init_booster)
+                         init_booster, cfg.n_bins if sparse_in else None)
                 for ex, ey in (eval_set or ())]
     dev_metric = None if host_eval else device_metric(metric_name)
     base_d = torch.as_tensor(base, dtype=torch.float32, device=dev)[None, :]
@@ -963,9 +1087,8 @@ def train(params: Dict[str, Any], x, y, weight: Optional[np.ndarray] = None,
         g = _preround(torch.as_tensor(g, device=dev).to(torch.float32).reshape(n, C), n_bound)
         h = _preround(torch.as_tensor(h, device=dev).to(torch.float32).reshape(n, C), n_bound)
         fm = sampler.feature_mask(k2)
-        if fm is not None:  # kernel E reads ws.fmask through its packed pointer
-            workspace.fmask.copy_(fm.pin_memory() if dev.type == "cuda" else fm,
-                                  non_blocking=True)
+        if fm is not None:  # kernel E reads fmask through its packed pointer
+            fmask.copy_(fm.pin_memory() if dev.type == "cuda" else fm, non_blocking=True)
         bw = sampler.row_weights(k1, it, g)
         if bw is None:
             bw = ones
@@ -973,9 +1096,14 @@ def train(params: Dict[str, Any], x, y, weight: Optional[np.ndarray] = None,
             sampled.append(torch.count_nonzero(bw))
         grown = []
         for c in range(C):
-            tree, node = grow_tree(binned, g[:, c].contiguous(), h[:, c].contiguous(), bw,
-                                   workspace.fmask, cfg, cat_mask=cat_mask,
-                                   workspace=workspace, partition=partition)
+            if sparse_in:
+                tree, node = grow_tree_sparse(binned, g[:, c].contiguous(),
+                                              h[:, c].contiguous(), bw, fmask, cfg,
+                                              cat_mask=cat_mask)
+            else:
+                tree, node = grow_tree(binned, g[:, c].contiguous(), h[:, c].contiguous(),
+                                       bw, fmask, cfg, cat_mask=cat_mask,
+                                       workspace=workspace, partition=partition)
             if renew_alpha is not None and C == 1:
                 tree = tree._replace(leaf_value=_renewed_leaf_values(
                     node, y_d, raw[:, 0], w_d * bw, renew_alpha, L))
@@ -1073,7 +1201,15 @@ def train(params: Dict[str, Any], x, y, weight: Optional[np.ndarray] = None,
     gain = stack("gain", (L - 1,), np.float32)
     leaf_value = stack("leaf_value", (L,), np.float32)
     leaf_hess = stack("leaf_hess", (L,), np.float32)
-    cat_set = stack("cat_set", (L - 1, mapper.n_bins), np.int8) if has_cat else None
+    cat_set = stack("cat_set", (L - 1, cfg.n_bins), np.int8) if has_cat else None
+    if cat_set is not None and cfg.n_bins < mapper.n_bins:
+        # sparse trees' sets are over the compact bins, the booster scores
+        # full-space bins: category codes are the same in both, only the
+        # missing bin moves (the reference's padding, boost.py:2428-2438)
+        full = np.zeros(cat_set.shape[:-1] + (mapper.n_bins,), np.int8)
+        full[..., :cfg.n_bins - 1] = cat_set[..., :cfg.n_bins - 1]
+        full[..., mapper.missing_bin] = cat_set[..., cfg.n_bins - 1]
+        cat_set = full
     threshold = np.zeros(parent.shape, dtype=np.float64)
     for t, c, s in zip(*np.nonzero(parent >= 0)):
         threshold[t, c, s] = mapper.bin_upper_value(int(feature[t, c, s]), bins[t, c, s])

@@ -1,15 +1,19 @@
-"""LightGBM-style estimator stages over Tables — the port's dense subset.
+"""LightGBM-style estimator stages over Tables.
 
 Port of ``synapseml_tpu/gbdt/estimators.py``: ``LightGBMClassifier`` /
 ``LightGBMClassificationModel`` (binary or multiclass, from the label count),
 ``LightGBMRegressor`` / ``LightGBMRegressionModel`` (l2, l1, huber,
 poisson, quantile, tweedie) and ``LightGBMRanker`` / ``LightGBMRankerModel``
-(lambdarank over ``group_col``), dense feature columns, categorical slots by
-index or by slot name; gbdt, goss, dart and rf boosting with bagging and
+(lambdarank over ``group_col``), dense feature columns or sparse ones (an
+object column of ``(indices, values)`` pairs, the VW featurizer's output,
+hashed into ``2**sparse_num_bits`` columns), categorical slots by index or
+by slot name; gbdt, goss, dart and rf boosting with bagging and
 feature fraction; validation rows (``validation_indicator_col``) scored with
 ``metric`` (the ranker: NDCG@``ndcg_at``) after every iteration, with early
 stopping. The models write per-feature contributions
-(``features_shap_col``), save and load LightGBM's text model
+(``features_shap_col``; for a sparse column each row's ``(indices,
+values)`` pair over the trees' used features and the expected value),
+save and load LightGBM's text model
 (``save_native_model`` / ``load_native_model``) and report feature
 importances. ``num_batches`` trains on consecutive row slices, each batch's
 booster continuing the last (``train``'s ``init_booster``); the classifier's
@@ -17,8 +21,8 @@ booster continuing the last (``train``'s ``init_booster``); the classifier's
 Params keep the reference's names and defaults; ``init_score_col`` is
 admitted in the input schema and not read, and ``verbosity`` and
 ``use_barrier_execution_mode`` are accepted for API parity, as in the
-reference. The sparse and distributed Params (``sparse_num_bits``;
-``mesh``, ``parallelism``, ``top_k``) come with those paths.
+reference. The distributed Params (``mesh``, ``parallelism``, ``top_k``)
+come with that path.
 
 ``device`` picks where fit and transform run: the GPU by default, ``"cpu"``
 for the plain PyTorch versions of the kernels.
@@ -34,6 +38,7 @@ from ..core import ColumnSpec, ComplexParam, Estimator, Model, Param, Table, Tab
 from ..core.params import ParamValidators
 from ..core.table import features_matrix
 from .boost import GBDTBooster, train
+from .sparse import CSRMatrix
 
 __all__ = [
     "LightGBMClassifier", "LightGBMClassificationModel",
@@ -44,10 +49,20 @@ __all__ = [
 _FEATURES_SPEC = ColumnSpec("any", "vector")
 
 
-def _features(table: Table, col: str) -> np.ndarray:
+def _features(table: Table, col: str, num_bits: int = 18):
+    """The (n, d) feature matrix of ``col``, or a :class:`~.sparse.CSRMatrix`
+    when the column holds ``(indices, values)`` pairs (``vw_sparse`` meta, or
+    pairs of arrays; the reference's ``_features_matrix``,
+    ``estimators.py:39-57``): sparse rows stay sparse into the fit."""
     arr = table.column(col)
     if arr.dtype in (np.float32, np.float64):
         return arr  # binning compares in f64; keep f32 input as it is
+    if arr.dtype == object:
+        first = next((v for v in arr if v is not None), None)
+        if table.meta.get(col, {}).get("type") == "vw_sparse" or (
+                isinstance(first, tuple) and len(first) == 2
+                and isinstance(first[0], np.ndarray)):
+            return CSRMatrix.from_pairs(arr, num_bits=num_bits)
     return features_matrix(arr)
 
 
@@ -69,6 +84,8 @@ class _LightGBMBase(Estimator):
     features_shap_col = Param("optional per-feature contribution output column",
                               str, default=None)
     device = Param("'cuda[:i]' (default: the GPU) or 'cpu'", str, default=None)
+    sparse_num_bits = Param("hash-mask bits for sparse (indices, values) feature columns "
+                            "(the VW featurizer's output): d = 2^b", int, default=18)
 
     boosting_type = Param("gbdt | rf | dart | goss", str, default="gbdt",
                           validator=ParamValidators.in_list(["gbdt", "rf", "dart", "goss"]))
@@ -147,7 +164,8 @@ class _LightGBMBase(Estimator):
         """The output params every fitted model takes from its estimator."""
         return dict(features_col=self.features_col, prediction_col=self.prediction_col,
                     leaf_prediction_col=self.leaf_prediction_col,
-                    features_shap_col=self.features_shap_col, device=self.device)
+                    features_shap_col=self.features_shap_col, device=self.device,
+                    sparse_num_bits=self.sparse_num_bits)
 
     def _train_params(self) -> dict:
         return {
@@ -195,7 +213,7 @@ class _LightGBMBase(Estimator):
         ``weight_col`` names the weight column in place of ``self.weight_col``."""
         self._validate_input(table, self.features_col, self.label_col)
         tr, val = self._split_validation(table)
-        x = _features(tr, self.features_col)
+        x = _features(tr, self.features_col, self.sparse_num_bits)
         y = np.asarray(tr[self.label_col], dtype=np.float64)
         weight_col = weight_col or self.weight_col
         w = np.asarray(tr[weight_col], dtype=np.float64) if weight_col else None
@@ -204,7 +222,7 @@ class _LightGBMBase(Estimator):
         eval_set = None
         kw = {}
         if val is not None and val.num_rows:
-            eval_set = [(_features(val, self.features_col),
+            eval_set = [(_features(val, self.features_col, self.sparse_num_bits),
                          np.asarray(val[self.label_col], dtype=np.float64))]
             if group_sizes is not None:
                 kw["eval_group"] = [group_sizes(val)]
@@ -235,7 +253,7 @@ class _LightGBMBase(Estimator):
             per = base_per + (1 if b < rem else 0)
             if per == 0:
                 continue
-            lo, hi = b * len(x) // n_batches, (b + 1) * len(x) // n_batches
+            lo, hi = b * x.shape[0] // n_batches, (b + 1) * x.shape[0] // n_batches
             booster = train(dict(params, num_iterations=per), x[lo:hi], y[lo:hi],
                             weight=None if w is None else w[lo:hi], init_booster=booster,
                             **kw)
@@ -253,6 +271,7 @@ class _LightGBMModelBase(Model):
     features_shap_col = Param("optional per-feature contribution output column",
                               str, default=None)
     device = Param("'cuda[:i]' (default: the GPU) or 'cpu'", str, default=None)
+    sparse_num_bits = Param("hash-mask bits for sparse feature columns", int, default=18)
     booster = ComplexParam("trained GBDTBooster", object, default=None)
 
     def input_schema(self) -> TableSchema:
@@ -266,16 +285,28 @@ class _LightGBMModelBase(Model):
             schema = schema.with_column(self.features_shap_col, ColumnSpec("any", "any"))
         return schema
 
-    def _extra_outputs(self, out: Table, x: np.ndarray) -> Table:
+    def _extra_outputs(self, out: Table, x) -> Table:
         """The leaf index of every row in every tree, (n, T*C) float64, and
         each row's contributions, (n, d+1) or, multiclass, (n, C*(d+1)) class
-        after class (the reference's layout)."""
+        after class (the reference's layout). For CSR rows the contributions
+        are a column of ``(indices, values)`` pairs, class ``c``'s indices
+        offset by ``c * (d+1)`` (the reference's sparse layout)."""
         if self.leaf_prediction_col:
             out = out.with_column(self.leaf_prediction_col,
                                   self.booster.predict_leaf(x, device=self.device)
                                   .astype(np.float64))
         if self.features_shap_col:
             contrib = self.booster.predict_contrib(x, device=self.device)
+            if isinstance(contrib, (CSRMatrix, list)):
+                mats = contrib if isinstance(contrib, list) else [contrib]
+                col = np.empty(mats[0].shape[0], dtype=object)
+                for i in range(len(col)):
+                    parts = [(m.indices[m.indptr[i]:m.indptr[i + 1]].astype(np.int64)
+                              + c * m.shape[1], m.values[m.indptr[i]:m.indptr[i + 1]])
+                             for c, m in enumerate(mats)]
+                    col[i] = (np.concatenate([p[0] for p in parts]),
+                              np.concatenate([p[1] for p in parts]))
+                return out.with_column(self.features_shap_col, col)
             if contrib.ndim == 3:
                 contrib = np.concatenate(list(contrib), axis=1)
             out = out.with_column(self.features_shap_col, contrib)
@@ -357,7 +388,7 @@ class LightGBMClassificationModel(_LightGBMModelBase):
 
     def _transform(self, table: Table) -> Table:
         self._validate_input(table, self.features_col)
-        x = _features(table, self.features_col)
+        x = _features(table, self.features_col, self.sparse_num_bits)
         b: GBDTBooster = self.booster
         raw = b.raw_predict(x, device=self.device)
         prob = b.activate(raw)  # one scoring pass feeds both output columns
@@ -397,7 +428,7 @@ class LightGBMRegressionModel(_LightGBMModelBase):
 
     def _transform(self, table: Table) -> Table:
         self._validate_input(table, self.features_col)
-        x = _features(table, self.features_col)
+        x = _features(table, self.features_col, self.sparse_num_bits)
         out = table.with_column(self.prediction_col,
                                 self.booster.predict(x, device=self.device)
                                 .astype(np.float64))

@@ -41,6 +41,16 @@ voting). The algorithm is the reference's:
 
 The step loop never reads a value back to the host, so on the GPU a whole
 tree is queued without a synchronisation.
+
+Sparse (CSR) input grows through :func:`grow_tree_sparse`, the port of the
+reference's ``_grow_tree_sparse`` (``grow.py:457-775``, non-voting): at
+hashed-text width an (L, d, B, 3) table is gigabytes, so it keeps each
+leaf's best split (gain, feature, bin), its G and H totals and its depth,
+and rebuilds the two children's (2, d, B, 3) histograms of each split with
+kernel G (:mod:`.sparse`): only the smaller child's when the split leaf's
+own histogram is kept from the step before, the other then by subtraction
+(the reference's half pass, one path for every sparse fit); kernel E's
+full-table entry finds each child's best split.
 """
 
 from __future__ import annotations
@@ -51,9 +61,11 @@ import torch
 
 from .histogram import histogram, histogram_rows, sibling
 from .partition import RowPartition
-from .split_search import SplitWorkspace, _thresh_l1, left_set
+from .sparse import (SparseBinned, leaf_feature_hist, sparse_column, sparse_hist)
+from .split_search import SplitWorkspace, _thresh_l1, left_set, split_search
 
-__all__ = ["TreeConfig", "GrownTree", "grow_tree", "finish_tree", "left_set", "predict_binned"]
+__all__ = ["TreeConfig", "GrownTree", "grow_tree", "grow_tree_sparse", "finish_tree",
+           "left_set", "predict_binned"]
 
 
 class TreeConfig(NamedTuple):
@@ -129,6 +141,124 @@ def grow_tree(binned: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
     return finish_tree(hists, rec, cfg), node
 
 
+def grow_tree_sparse(sb: SparseBinned, grad: torch.Tensor, hess: torch.Tensor,
+                     row_weight: torch.Tensor, feature_mask: torch.Tensor, cfg: TreeConfig,
+                     cat_mask: Optional[torch.Tensor] = None):
+    """Grow one tree over a :class:`~.sparse.SparseBinned` (the reference's
+    ``_grow_tree_sparse``, ``grow.py:457``, without a mesh). Returns
+    (GrownTree, node_of_row (n,) int32).
+
+    Arguments as :func:`grow_tree`, in ``sb``'s compact bin space
+    (``cfg.n_bins == sb.n_bins``). A step chooses the leaf of best gain
+    among the leaves' summaries, routes its rows by the chosen feature's
+    column (:func:`~.sparse.sparse_column`; a categorical split's left set
+    from that leaf's histogram of the feature, :func:`~.sparse.leaf_feature_hist`),
+    builds both children's histograms and the sides' totals (kernel G, one
+    call) and takes each child's best split from them (kernel E's
+    full-table entry, one launch over (2, d, B, 3)). When the split leaf is
+    a child of the previous step, whose (2, d, B, 3) histograms are kept, G
+    sums only its smaller child and writes the other as the kept histogram
+    minus it (the reference's ``leaf_local`` half pass, ``grow.py:665-711``;
+    G decides on the device, from the member counts); otherwise it sums
+    both. The trees are the full pass's wherever histogram sums are exact
+    (``kernel_cases.grow_sparse_full_pass``, the oracle, sums both children
+    every step). Leaf values come from the sides' totals. Nothing is read back to the
+    host: the chosen leaf and feature stay (1,) tensors on the device (an
+    index by a 0-d device tensor would read it back)."""
+    n, d, B, L = sb.n, sb.d, sb.n_bins, cfg.num_leaves
+    if cfg.n_bins != B:
+        raise ValueError(f"cfg.n_bins={cfg.n_bins} but the SparseBinned has {B} bins")
+    dev = sb.device
+    has_cat = cat_mask is not None
+    ghc = torch.stack([grad * row_weight, hess * row_weight, row_weight], dim=-1)
+    panel = torch.cat([ghc, torch.zeros(n, 1, dtype=torch.float32, device=dev)],
+                      dim=1).contiguous()
+    bufs = [torch.empty((2, d, B, 3), dtype=torch.float32, device=dev) for _ in range(2)]
+    totals = torch.empty((2, 3), dtype=torch.float32, device=dev)
+    # (half, slot, forced); filled on the device (a Python scalar assigned
+    # into a CUDA tensor is a synchronising copy from the host)
+    ctrl = torch.zeros(3, dtype=torch.int32, device=dev)
+    ctrl[2:].fill_(-1)
+
+    side = torch.zeros(n, dtype=torch.int32, device=dev)
+    sparse_hist(sb, panel, side, bufs[0], totals, ctrl)     # the root: every row left
+    r_gain, r_feat, r_bin = split_search(bufs[0], feature_mask, cat_mask, 2, cfg)
+    best_gain = torch.full((L,), float("-inf"), device=dev)
+    best_gain[0] = r_gain[0]
+    best_feat = torch.zeros(L, dtype=torch.int32, device=dev)
+    best_feat[0] = r_feat[0]
+    best_bin = torch.zeros(L, dtype=torch.int32, device=dev)
+    best_bin[0] = r_bin[0]
+    G_leaf = torch.zeros(L, device=dev)
+    G_leaf[0] = totals[0, 0]
+    H_leaf = torch.zeros(L, device=dev)
+    H_leaf[0] = totals[0, 1]
+    node = torch.zeros(n, dtype=torch.int32, device=dev)
+    parent = torch.full((L - 1,), -1, dtype=torch.int32, device=dev)
+    feat = torch.zeros(L - 1, dtype=torch.int32, device=dev)
+    bin_ = torch.zeros(L - 1, dtype=torch.int32, device=dev)
+    gains = torch.zeros(L - 1, device=dev)
+    cat_sets = torch.zeros((L - 1, B), dtype=torch.int8, device=dev)
+    depth = torch.zeros(L, dtype=torch.int32, device=dev)
+    # the leaves whose histograms the kept buffer holds; the root split put
+    # every row on side 0, so slot 0 is the root's histogram
+    carry_ids = torch.zeros(2, dtype=torch.int64, device=dev)
+    carry_ids[1:].fill_(-1)
+    not_cat = torch.zeros((), dtype=torch.bool, device=dev)
+    min_gain = max(cfg.min_gain_to_split, 0.0)
+    for s in range(L - 1):
+        leaf_gain = best_gain
+        if cfg.max_depth > 0:
+            leaf_gain = torch.where(depth < cfg.max_depth, leaf_gain, float("-inf"))
+        l = torch.argmax(leaf_gain, dim=0, keepdim=True)
+        g_best = leaf_gain[l]
+        ok = g_best > min_gain
+        f_sel, b_sel = best_feat[l].long(), best_bin[l]
+        col = sparse_column(sb, f_sel, n)
+        member = node == l
+        if has_cat:
+            is_cat = cat_mask[f_sel] > 0
+            row = leaf_feature_hist(sb, f_sel, ghc, member)
+            in_set = left_set(row, is_cat, b_sel, cfg)
+            go_left = torch.where(is_cat, in_set[col.long()], col <= b_sel)
+        else:
+            is_cat, in_set, go_left = not_cat, None, col <= b_sel
+        node = torch.where(member & ~go_left & ok, s + 1, node)
+        side = torch.where(member & ok, torch.where(go_left, 0, 1), 2).to(torch.int32)
+        out, kept = bufs[(s + 1) % 2], bufs[s % 2]
+        hit = (l == carry_ids[0]) | (l == carry_ids[1])
+        ctrl[:2] = torch.cat([hit, l != carry_ids[0]]).to(torch.int32)
+        sparse_hist(sb, panel, side, out, totals, ctrl, kept)
+        carry_ids = torch.where(ok, torch.cat([l, torch.full_like(l, s + 1)]), carry_ids)
+        c_gain, c_feat, c_bin = split_search(out, feature_mask, cat_mask, 2, cfg)
+
+        def upd(a, v0, v1):
+            b = a.clone()
+            b[l] = v0
+            b[s + 1] = v1
+            return torch.where(ok, b, a)
+
+        best_gain = upd(best_gain, c_gain[0], c_gain[1])
+        best_feat = upd(best_feat, c_feat[0], c_feat[1])
+        best_bin = upd(best_bin, c_bin[0], c_bin[1])
+        G_leaf = upd(G_leaf, totals[0, 0], totals[1, 0])
+        H_leaf = upd(H_leaf, totals[0, 1], totals[1, 1])
+        parent[s] = torch.where(ok, l, -1)
+        feat[s] = f_sel
+        bin_[s] = torch.where(is_cat, -1, b_sel)
+        gains[s] = torch.where(ok, g_best, 0.0)
+        if has_cat:
+            cat_sets[s] = (in_set & is_cat & ok).to(torch.int8)
+        child_depth = torch.where(ok, depth[l] + 1, depth[l])
+        depth = upd(depth, child_depth, child_depth)
+    leaf_value = -_thresh_l1(G_leaf, cfg.lambda_l1) / (H_leaf + cfg.lambda_l2)
+    leaf_value = torch.where(H_leaf > 0, leaf_value, 0.0)
+    if cfg.max_delta_step > 0:
+        leaf_value = torch.clamp(leaf_value, -cfg.max_delta_step, cfg.max_delta_step)
+    return (GrownTree(parent, feat, bin_, gains, leaf_value, H_leaf,
+                      cat_sets if has_cat else None), node)
+
+
 def finish_tree(hists: torch.Tensor, rec, cfg: TreeConfig) -> GrownTree:
     """The grown tree from the final (L, d, B, 3) histograms and kernel E's
     record: each leaf's value from its totals."""
@@ -143,19 +273,25 @@ def finish_tree(hists: torch.Tensor, rec, cfg: TreeConfig) -> GrownTree:
                      rec.cat_set)
 
 
-def predict_binned(tree: GrownTree, binned: torch.Tensor) -> torch.Tensor:
+def predict_binned(tree: GrownTree, binned) -> torch.Tensor:
     """Replay the splits over a binned matrix -> leaf index per row (n,) int32.
+
+    ``binned``: (n, d) int bins, or a :class:`~.sparse.SparseBinned`, whose
+    columns come from :func:`~.sparse.sparse_column` (the tree's bins are in
+    its compact space).
 
     With ``tree.cat_set``, a split with ``bin < 0`` is categorical: a row goes
     left when ``cat_set[s, col] > 0``, indexed as the reference's
     ``jnp.take`` does (a negative ``col`` counts from the end; one outside
     ``[-B, B)`` is in no set). An inert step (parent -1) moves no row, since
     every row's node is >= 0. Reads nothing back to the host."""
-    n = binned.shape[0]
+    sparse = isinstance(binned, SparseBinned)
+    n = binned.n if sparse else binned.shape[0]
     node = torch.zeros(n, dtype=torch.int32, device=binned.device)
     feats = tree.feature.long()
     for s in range(tree.parent.shape[0]):
-        col = torch.index_select(binned, 1, feats[s:s + 1])[:, 0]
+        col = (sparse_column(binned, feats[s:s + 1], n) if sparse
+               else torch.index_select(binned, 1, feats[s:s + 1])[:, 0])
         go_right = col > tree.bin[s]
         if tree.cat_set is not None:
             B = tree.cat_set.shape[-1]

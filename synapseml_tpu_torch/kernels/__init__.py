@@ -5,12 +5,13 @@ from .build import CudaKernel, build  # noqa: F401
 
 def all_kernels():
     """The port's hand kernels, by name (importing their modules binds them)."""
-    from ..gbdt import device_predict, histogram, lambdarank, partition, split_search
+    from ..gbdt import device_predict, histogram, lambdarank, partition, sparse, split_search
     from ..parallel import flash
 
     return {k.name: k for k in (histogram.HIST_KERNEL, histogram.HIST_ROWS_KERNEL,
                                 histogram.SIBLING_KERNEL, partition.PARTITION_KERNEL,
                                 device_predict.SCORE_KERNEL, device_predict.LEAF_KERNEL,
                                 device_predict.BIN_KERNEL,
-                                split_search.SPLIT_KERNEL, lambdarank.LAMBDARANK_KERNEL,
+                                split_search.SPLIT_KERNEL, sparse.SPARSE_HIST_KERNEL,
+                                lambdarank.LAMBDARANK_KERNEL,
                                 flash.FLASH_KERNEL, flash.FLASH_F32_KERNEL)}

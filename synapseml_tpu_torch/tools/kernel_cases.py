@@ -1,10 +1,12 @@
 """Edge-case inputs for kernels D (device binning), E (split search), F
-(the LambdaRank gradient) and P (the row partition), and the full-pass
-growth that the partitioned growth is held to.
+(the LambdaRank gradient), G (the sparse histogram) and P (the row
+partition), and the full-pass growths that the dense and the sparse
+growth are held to.
 
 Shared by ``tests/test_torch_kernels.py`` (on the card),
 ``tests/test_torch_categorical.py``, ``tests/test_torch_split_step.py`` and
-``tests/test_torch_ranker.py`` (the plain versions on the CPU) and
+``tests/test_torch_ranker.py``, ``tests/test_torch_sparse.py`` (the plain
+versions on the CPU) and
 ``chip_smoke.py`` (phase 4), so they check the same cases. Everything is
 made from a seed with numpy.
 """
@@ -17,11 +19,13 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-from ..gbdt import boost
+from ..gbdt import boost, grow
 from ..gbdt.binning import BinMapper
 from ..gbdt.device_predict import pack_feature_table
 from ..gbdt.grow import TreeConfig, finish_tree
 from ..gbdt.histogram import histogram
+from ..gbdt.sparse import (G_ENTRIES, CSRMatrix, SparseBinned, build_sparse_binned,
+                           pack_entries, sparse_hist)
 from ..gbdt.split_search import SplitWorkspace, _thresh_l1, left_set
 
 __all__ = ["bin_edge_case", "bin_ragged_case", "split_cases", "step_cases",
@@ -29,7 +33,8 @@ __all__ = ["bin_edge_case", "bin_ragged_case", "split_cases", "step_cases",
            "synthetic_update", "grow_synthetic", "diff_runs", "rank_rows", "RANK_CASES",
            "RANK_CASES_WIDE", "rank_case", "rank_nan_case", "one_split_text", "TWO_TREES",
            "native_texts", "many_thresholds_text", "many_thresholds_rows", "PARTITION_CASES",
-           "partition_case", "rows_histogrammed", "grow_full_pass", "full_pass"]
+           "partition_case", "rows_histogrammed", "grow_full_pass", "full_pass",
+           "SPARSE_HIST_CASES", "sparse_hist_case", "sparse_case_inputs"]
 
 # the most bins kernel A takes: one feature's (B, 3) f32 histogram plus a
 # word within 227 KB of shared memory (histogram.py)
@@ -577,13 +582,119 @@ def grow_full_pass(binned, grad, hess, row_weight, feature_mask, cfg: TreeConfig
     return finish_tree(hists, rec, cfg), node
 
 
+def _sparse_hist_both(sb, panel, side, out, totals, ctrl, parent=None):
+    """``sparse.sparse_hist`` summing both sides from the entries, whatever
+    ``ctrl`` asks (no sibling by subtraction)."""
+    both = torch.zeros_like(ctrl)
+    both[2:].fill_(-1)
+    sparse_hist(sb, panel, side, out, totals, both)
+
+
+def grow_sparse_full_pass(sb, grad, hess, row_weight, feature_mask, cfg: TreeConfig,
+                          cat_mask=None):
+    """``grow.grow_tree_sparse`` with the reference's full pass: kernel G
+    sums both children of every split from the entries, none by
+    subtraction from a kept parent. The oracle that ``grow_tree_sparse``
+    equals bit for bit wherever histogram sums are exact."""
+    shipped = grow.sparse_hist
+    grow.sparse_hist = _sparse_hist_both
+    try:
+        return grow.grow_tree_sparse(sb, grad, hess, row_weight, feature_mask, cfg,
+                                     cat_mask=cat_mask)
+    finally:
+        grow.sparse_hist = shipped
+
+
 @contextlib.contextmanager
 def full_pass():
     """Within the block, ``boost.train`` grows its trees with
-    :func:`grow_full_pass`."""
-    shipped = boost.grow_tree
-    boost.grow_tree = grow_full_pass
+    :func:`grow_full_pass` and its sparse trees with
+    :func:`grow_sparse_full_pass`."""
+    shipped = boost.grow_tree, boost.grow_tree_sparse
+    boost.grow_tree, boost.grow_tree_sparse = grow_full_pass, grow_sparse_full_pass
     try:
         yield
     finally:
-        boost.grow_tree = shipped
+        boost.grow_tree, boost.grow_tree_sparse = shipped
+
+
+# kernel G's edge cases (each run in both modes by its tests)
+SPARSE_HIST_CASES = ("every_row", "empty_features", "one_side", "non_members",
+                     "nan_and_zeros", "two_bins", "no_entries", "ragged", "wide_rows")
+
+
+def sparse_case_inputs(sb: SparseBinned, seed: int, side_of: str = "random"):
+    """(panel (n, 4) f32 on ``_preround``'s grid, side (n,) int32, a (2, d,
+    B, 3) f32 buffer for the kept histogram) on ``sb``'s device. ``side_of``:
+    ``random`` (0, 1 or 2 for non-members), ``left`` (every row 0),
+    ``mostly_out`` (nine rows in ten not members)."""
+    rng = np.random.default_rng(seed)
+    n, dev = sb.n, sb.device
+    n_bound = 1 << max(n - 1, 1).bit_length()
+    gh = np.stack([rng.normal(size=n), rng.random(n) * 0.25], axis=1).astype(np.float32)
+    gh = boost._preround(torch.from_numpy(gh), n_bound)
+    w = (rng.random(n) < 0.9).astype(np.float32)    # some rows of weight 0 (bagging)
+    w_t = torch.from_numpy(w)
+    panel = torch.stack([gh[:, 0] * w_t, gh[:, 1] * w_t, w_t, torch.zeros(n)], dim=1)
+    side = {"random": rng.integers(0, 3, n),
+            "left": np.zeros(n, np.int64),
+            "mostly_out": np.where(rng.random(n) < 0.1, rng.integers(0, 2, n), 7)}[side_of]
+    return (panel.contiguous().to(dev), torch.from_numpy(side.astype(np.int32)).to(dev),
+            torch.zeros((2, sb.d, sb.n_bins, 3), dtype=torch.float32, device=dev))
+
+
+def sparse_hist_case(case: str, device="cpu", seed: int = 0):
+    """One of :data:`SPARSE_HIST_CASES`: (SparseBinned on ``device``, panel,
+    side, kept-histogram buffer) from :func:`sparse_case_inputs`.
+
+    ``every_row``: a feature stored in every row, its entries in one cell
+    (more entries than one block of kernel G takes); ``empty_features``:
+    most features have no entry; ``one_side``: every row on the left;
+    ``non_members``: nine rows in ten outside the split leaf; ``nan_and_zeros``:
+    NaN values (the compact missing bin) and explicitly stored 0.0;
+    ``two_bins``: B = 2; ``no_entries``: nnz = 0; ``ragged``: an entry count
+    not a multiple of G's block of entries, with features just under and
+    over it; ``wide_rows``: n past the range of a 16-bit index."""
+    rng = np.random.default_rng([seed, SPARSE_HIST_CASES.index(case)])
+    dev = torch.device(device)
+    side_of = {"one_side": "left", "non_members": "mostly_out"}.get(case, "random")
+    if case == "two_bins":  # B = 2 is below what a mapper realises: entries packed as given
+        n, d = 3000, 40
+        rows = np.sort(rng.integers(0, n, 9000))
+        cols = rng.integers(0, d, 9000)
+        key = np.unique(rows.astype(np.int64) * d + cols)
+        rows, cols = key // d, key % d
+        bins = rng.integers(0, 2, len(rows))
+        zero_bin = rng.integers(0, 2, d)
+        sb = pack_entries(*(torch.from_numpy(a).to(dev) for a in (rows, cols, bins)),
+                          zero_bin, n, d, 2)
+        return (sb, *sparse_case_inputs(sb, seed, side_of))
+    n, d, density = {"every_row": (9000, 30, 0.05), "empty_features": (2000, 4096, 0.0005),
+                     "no_entries": (500, 64, 0.0), "ragged": (5000, 50, 0.0),
+                     "wide_rows": (70_001, 200, 0.01)}.get(case, (4000, 300, 0.03))
+    dense_rows = rng.random((n, d)) < density if d * n <= 50_000_000 else None
+    rows, cols = (np.nonzero(dense_rows) if dense_rows is not None
+                  else (np.zeros(0, int), np.zeros(0, int)))
+    vals = rng.integers(1, 6, len(rows)).astype(np.float64)
+    extra = []
+    if case == "every_row":       # feature 3 in every row, value 1 in most
+        extra.append((np.arange(n), np.full(n, 3), np.where(rng.random(n) < 0.95, 1.0, 2.0)))
+    if case == "ragged":          # 3 * G_ENTRIES + 17 entries; features at G_ENTRIES +- 1
+        sizes = [G_ENTRIES - 1, G_ENTRIES + 1, G_ENTRIES, 17, G_ENTRIES - 1]
+        for f, k in enumerate(sizes):
+            r = np.sort(rng.choice(n, k, replace=False))
+            extra.append((r, np.full(k, 10 * f + 1), rng.integers(1, 9, k).astype(float)))
+    if case == "nan_and_zeros":
+        vals[rng.random(len(vals)) < 0.1] = np.nan
+        vals[rng.random(len(vals)) < 0.1] = 0.0
+    for r, c, v in extra:
+        rows, cols, vals = (np.concatenate(a) for a in ((rows, r), (cols, c), (vals, v)))
+    key = rows.astype(np.int64) * d + cols
+    key, first = np.unique(key, return_index=True)
+    rows, cols, vals = key // d, key % d, vals[first]
+    indptr = np.zeros(n + 1, np.int64)
+    np.cumsum(np.bincount(rows, minlength=n), out=indptr[1:])
+    csr = CSRMatrix(indptr, cols, vals, (n, d))
+    mapper = BinMapper(max_bin=15).fit_csr(csr)
+    sb = build_sparse_binned(csr, mapper, dev)
+    return (sb, *sparse_case_inputs(sb, seed, side_of))

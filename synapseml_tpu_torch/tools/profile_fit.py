@@ -1,6 +1,7 @@
 """Where the time of one GBDT fit goes, on the GPU.
 
-    python -m synapseml_tpu_torch.tools.profile_fit [--schema higgs|adult|covertype|mslr]
+    python -m synapseml_tpu_torch.tools.profile_fit
+        [--schema higgs|adult|covertype|mslr|hashed_text]
         [--boosting gbdt|goss|dart|rf] [--bagging FRACTION] [--eval] [--seed 0]
         [--rows N] [--ab full_pass [--rounds 2]]
 
@@ -9,9 +10,12 @@ Fits ``train`` on the training rows of one of ``chip_smoke.py``'s fits
 the Adult schema, 8 of 14 columns categorical, 255 bins; the Covertype
 schema, 7 classes, 255 bins; MSLR-WEB30K's schema, lambdarank over 18,919
 queries, 136 features, 255 bins, its validation queries as the eval set
-with ``--eval``; 31 leaves and 10 iterations each) and prints
+with ``--eval``; hashed text at Amazon Review Polarity's schema, a CSR
+matrix of 2^18 hashed slots grown by the sparse grower; 31 leaves and 10
+iterations each) and prints
 one JSON object: the wall time of the whole fit, of its two binning steps
-(``BinMapper.fit`` on the host, ``transform_torch`` on the card), the device
+(``BinMapper.fit`` or ``fit_csr`` on the host, ``transform_torch`` or
+``build_sparse_binned`` on the card), the device
 time and launch count of every kernel name in a ``torch.profiler`` trace of
 a second fit, the device's busy and idle share of that fit, its kernel
 launches (in all, and per split step: iterations x classes x (leaves - 1)
@@ -28,15 +32,16 @@ wall time of that metric in the first timed fit, and the wall time of the
 same fit without its eval set, so that the eval's share of the fit shows.
 
 ``--rows N`` fits the first N training rows (lambdarank: whole queries).
-``--ab full_pass`` compares the shipped growth (a row partition, kernel P
-and kernel A's row-list entry) with the full pass it replaced
-(``kernel_cases.grow_full_pass``): after the warm-up fit it traces fits in
-turns full pass, shipped, shipped, full pass (``--rounds`` times) and
-prints, for each path and traced fit, its wall time, device busy time and
-idle share, kernel launches a split step, device -> host copies, the ms of
-host -> device copies, and the device ms and launches of kernel A's two
-entries and kernel P. The two paths' trees must be identical (else it
-exits 1).
+``--ab full_pass`` compares the shipped growth (dense: a row partition,
+kernel P and kernel A's row-list entry; sparse: kernel G's half pass) with
+the full pass (``kernel_cases.grow_full_pass`` and
+``grow_sparse_full_pass``): after the warm-up fit it traces fits in turns
+full pass, shipped, shipped, full pass (``--rounds`` times) and prints,
+for each path and traced fit, its wall time, device busy time and idle
+share, kernel launches a split step, device -> host copies, the ms of host
+-> device copies, and the device ms and launches of kernel A's two
+entries, kernel P and kernel G. The two paths' trees must be identical
+(else it exits 1).
 """
 
 from __future__ import annotations
@@ -52,7 +57,7 @@ import torch
 
 from .schema_data import (ADULT_CATEGORICAL, COVTYPE_CATEGORICAL, COVTYPE_CLASSES, FITS,
                           MSLR_TRAIN, MSLR_VALID, SAMPLED_MODES, adult_rows, covertype_rows,
-                          higgs_width_rows, mslr_rows)
+                          hashed_text_rows, higgs_width_rows, mslr_rows)
 
 # train()'s parameters for each fit (the estimator's categorical_slot_indexes
 # is train's categorical_feature)
@@ -60,9 +65,11 @@ _OBJECTIVE = {"higgs": dict(objective="binary"),
               "adult": dict(objective="binary", categorical_feature=ADULT_CATEGORICAL),
               "covertype": dict(objective="multiclass", num_class=COVTYPE_CLASSES,
                                 categorical_feature=COVTYPE_CATEGORICAL),
-              "mslr": dict(objective="lambdarank")}
+              "mslr": dict(objective="lambdarank"),
+              "hashed_text": dict(objective="binary")}
 _ROWS = {"higgs": higgs_width_rows, "adult": lambda seed, n: adult_rows(seed, n)[:2],
-         "covertype": lambda seed, n: covertype_rows(seed, n)[:2]}
+         "covertype": lambda seed, n: covertype_rows(seed, n)[:2],
+         "hashed_text": hashed_text_rows}
 
 
 def _mslr(seed: int):
@@ -124,9 +131,11 @@ def _ab_full_pass(train, params, x, y, kw, steps, rounds) -> dict:
     """The ``--ab full_pass`` record (see the module's doc)."""
     from ..gbdt.histogram import HIST_ROWS_TRACE, HIST_TRACE
     from ..gbdt.partition import PARTITION_TRACE
+    from ..gbdt.sparse import SPARSE_HIST_TRACE
     from .kernel_cases import full_pass
 
-    names = {"a_full": HIST_TRACE, "a_rows": HIST_ROWS_TRACE, "p": PARTITION_TRACE}
+    names = {"a_full": HIST_TRACE, "a_rows": HIST_ROWS_TRACE, "p": PARTITION_TRACE,
+             "g": SPARSE_HIST_TRACE}
     runs, trees = {"full_pass": [], "shipped": []}, {}
     for _ in range(rounds):
         for path in ("full_pass", "shipped", "shipped", "full_pass"):
@@ -190,6 +199,7 @@ def main() -> int:
     from ..gbdt import boost
     from ..gbdt.binning import BinMapper
     from ..gbdt.boost import train
+    from ..gbdt.sparse import build_sparse_binned, is_sparse_input
     from ..runtime.device import card_info
 
     n_train, n_made, est_params = FITS[args.schema]
@@ -211,7 +221,8 @@ def main() -> int:
             s_tr = s_tr[:int(np.searchsorted(np.cumsum(s_tr), n_train, side="right"))]
             n_train = int(s_tr.sum())
             groups["group"] = s_tr
-    x, y = np.ascontiguousarray(x[:n_train]), y[:n_train]
+    sparse = is_sparse_input(x)
+    x, y = (x[:n_train] if sparse else np.ascontiguousarray(x[:n_train])), y[:n_train]
     classes = params.get("num_class", 1)
     dev = torch.device("cuda")
 
@@ -229,11 +240,15 @@ def main() -> int:
         return 0 if rec["identical_trees"] else 1
 
     t0 = time.perf_counter()
-    mapper = BinMapper(max_bin=params["max_bin"],
-                       categorical_features=params.get("categorical_feature")).fit(x)
+    mapper = BinMapper(max_bin=params.get("max_bin", 255),
+                       categorical_features=params.get("categorical_feature"))
+    mapper = mapper.fit_csr(x) if sparse else mapper.fit(x)
     bin_fit_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    mapper.transform_torch(torch.from_numpy(x).to(dev))
+    if sparse:
+        build_sparse_binned(x, mapper, dev)
+    else:
+        mapper.transform_torch(torch.from_numpy(x).to(dev))
     torch.cuda.synchronize()
     bin_transform_s = time.perf_counter() - t0
 

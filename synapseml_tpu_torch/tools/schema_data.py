@@ -18,7 +18,12 @@ on rows generated at their schemas:
   wilderness;
 - :func:`mslr_rows`: MSLR-WEB30K (Qin & Liu 2013, "Introducing LETOR 4.0
   datasets", and the MSLR-WEB30K release), 136 numeric features, rows
-  contiguous by query, relevance 0-4 (see its docstring).
+  contiguous by query, relevance 0-4 (see its docstring);
+- :func:`hashed_text_rows`: Amazon Review Polarity (Zhang, Zhao & LeCun
+  2015, "Character-level Convolutional Networks for Text Classification":
+  3,600,000 training and 400,000 test reviews, a binary label) as the VW
+  featurizer gives it to LightGBM: each review a bag of Zipf-distributed
+  tokens hashed into ``2**num_bits`` slots, each slot's value its count.
 
 Distributions are rough matches of the published summaries; the schemas
 (column count, types, cardinalities, class count) are exact.
@@ -34,7 +39,8 @@ __all__ = ["ADULT_COLUMNS", "ADULT_CARDINALITY", "ADULT_CATEGORICAL", "ADULT_SET
            "adult_rows", "adult_unseen_codes", "COVTYPE_COLUMNS", "COVTYPE_CATEGORICAL",
            "COVTYPE_CLASSES", "covertype_rows", "HIGGS_WIDTH", "higgs_width_rows", "FITS",
            "SAMPLED_MODES", "MSLR_FEATURES", "MSLR_MAX_QUERY", "MSLR_TRAIN", "MSLR_VALID",
-           "MSLR_SHARES", "mslr_rows"]
+           "MSLR_SHARES", "mslr_rows", "HASHED_TEXT_BITS", "HASHED_TEXT_TOKENS",
+           "hashed_text_rows"]
 
 ADULT_COLUMNS = ["age", "workclass", "fnlwgt", "education", "education-num",
                  "marital-status", "occupation", "relationship", "race", "sex",
@@ -71,6 +77,14 @@ FITS = {
         min_sum_hessian_in_leaf=5.0, learning_rate=0.1, lambdarank_truncation_level=30,
         ndcg_at=10)),
 }
+
+# chip_smoke.py's phase 2g: reviews hashed into VW's default 2^18 slots (the
+# estimators' sparse_num_bits default), trained at 1,048,576 of Amazon Review
+# Polarity's 3,600,000 and scored on 262,144 held out
+HASHED_TEXT_BITS = 18
+HASHED_TEXT_TOKENS = 80          # mean tokens a review
+HASHED_TEXT_LEXICON = 50         # words of each side of the sentiment lexicon
+FITS["hashed_text"] = (1_048_576, 1_310_720, dict(num_iterations=10, num_leaves=31))
 
 # chip_smoke.py's phase 2d: the HIGGS fit's parameters under each training
 # control, as the estimator takes them. "bagged_eval" also passes the
@@ -240,3 +254,60 @@ def mslr_rows(seed: int, n_queries: int, n_docs: int = None,
     y = np.empty(n_docs, np.float64)
     y[order] = 4 - np.searchsorted(cum, top, side="right")
     return x, y, sizes
+
+
+def _fmix32(x: np.ndarray) -> np.ndarray:
+    """MurmurHash3's 32-bit finalizer, elementwise on uint32."""
+    x = x.astype(np.uint32)
+    x ^= x >> np.uint32(16)
+    x *= np.uint32(0x85EBCA6B)
+    x ^= x >> np.uint32(13)
+    x *= np.uint32(0xC2B2AE35)
+    x ^= x >> np.uint32(16)
+    return x
+
+
+def hashed_text_rows(seed: int, n: int, num_bits: int = HASHED_TEXT_BITS):
+    """(CSRMatrix (n, 2**num_bits), (n,) f64 labels) of hashed reviews at
+    Amazon Review Polarity's schema.
+
+    A review has Poisson(80) tokens (at least 4), each a word of a Zipf(1.1)
+    vocabulary (numpy's unbounded ``zipf``: word 1 is about a tenth of all
+    tokens, present in nearly every review, while most words are rare) or,
+    one token in 16, a word of a sentiment lexicon: 50 positive and 50
+    negative words among ranks 50-2,000, drawn from the review's latent
+    polarity's side four times in five. The label is 1 where the review's
+    lexicon count (positive minus negative) plus N(0, 1.5^2) noise is above
+    0. A word's slot is MurmurHash3's finalizer of its id, masked to
+    ``num_bits`` bits (VW's learner-side mask); a slot's value is its count
+    in the review (the VW featurizer's counts), colliding words summed. The
+    rows come in CSR order with ascending columns."""
+    structure, rng = _rngs(seed)
+    lex = structure.choice(np.arange(50, 2001), size=2 * HASHED_TEXT_LEXICON, replace=False)
+    pos_words, neg_words = lex[:HASHED_TEXT_LEXICON], lex[HASHED_TEXT_LEXICON:]
+    lens = np.maximum(rng.poisson(HASHED_TEXT_TOKENS, n), 4)
+    total = int(lens.sum())
+    review = np.repeat(np.arange(n, dtype=np.int64), lens)
+    polarity = rng.random(n) < 0.5
+    words = rng.zipf(1.1, total).astype(np.int64)
+    senti = rng.random(total) < 1 / 16
+    k = int(senti.sum())
+    own_side = rng.random(k) < 0.8
+    positive = polarity[review[senti]] == own_side
+    pick = rng.integers(0, HASHED_TEXT_LEXICON, k)
+    words[senti] = np.where(positive, pos_words[pick], neg_words[pick])
+    score = np.bincount(review[senti], weights=np.where(positive, 1.0, -1.0), minlength=n)
+    y = (score + rng.normal(0.0, 1.5, n) > 0).astype(np.float64)
+    del senti, own_side, positive, pick
+    mask = np.uint32((1 << num_bits) - 1)
+    slot = (_fmix32((words & 0xFFFFFFFF).astype(np.uint32) ^ np.uint32(seed * 0x9E3779B9 & 0xFFFFFFFF))
+            & mask).astype(np.int64)
+    del words
+    key, counts = np.unique(review << num_bits | slot, return_counts=True)
+    del review, slot
+    indptr = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(np.bincount(key >> num_bits, minlength=n), out=indptr[1:])
+    from ..gbdt.sparse import CSRMatrix
+
+    return (CSRMatrix(indptr, (key & int(mask)).astype(np.int32), counts.astype(np.float64),
+                      (n, 1 << num_bits)), y)

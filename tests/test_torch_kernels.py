@@ -23,6 +23,8 @@ from synapseml_tpu_torch.gbdt.histogram import (HIST_KERNEL, HIST_ROWS_KERNEL, S
                                                 histogram_rows_plain, sibling)
 from synapseml_tpu_torch.gbdt.partition import PARTITION_KERNEL, RowPartition
 from synapseml_tpu_torch.gbdt.metrics import METRICS
+from synapseml_tpu_torch.gbdt.sparse import (SPARSE_HIST_KERNEL, CSRMatrix, sparse_hist,
+                                             sparse_hist_plain)
 from synapseml_tpu_torch.gbdt.split_search import (SPLIT_KERNEL, SplitWorkspace,
                                                    split_gains_plain, split_search,
                                                    split_search_plain)
@@ -40,9 +42,11 @@ from synapseml_tpu_torch.tools.kernel_cases import (PARTITION_CASES, RANK_CASES,
                                                     offgrid_split_case, rank_case,
                                                     rank_nan_case,
                                                     split_cases, step_cases)
+from synapseml_tpu_torch.tools.kernel_cases import SPARSE_HIST_CASES, sparse_hist_case
 from synapseml_tpu_torch.tools.schema_data import (ADULT_CATEGORICAL, SAMPLED_MODES,
                                                    adult_rows, adult_unseen_codes,
-                                                   higgs_width_rows, mslr_rows)
+                                                   hashed_text_rows, higgs_width_rows,
+                                                   mslr_rows)
 
 pytestmark = pytest.mark.cuda
 
@@ -788,3 +792,114 @@ def test_leaf_local_fit_card_equals_full_pass_and_cpu(cuda, mode):
                       "sampled_rows"):
             a, b = getattr(local, field), getattr(other, field)
             assert (a is None and b is None) or np.array_equal(a, b), field
+
+
+# kernel G's modes: ctrl (half, slot of the kept histogram, forced side)
+G_MODES = {"both_sides": (0, 0, -1), "half_kept_slot0": (1, 0, -1),
+           "half_kept_slot1": (1, 1, -1), "forced_left": (1, 0, 0), "forced_right": (1, 1, 1)}
+
+
+def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return bool(torch.equal(a.isnan(), b.isnan())
+                and torch.equal(a.nan_to_num(), b.nan_to_num()))
+
+
+@pytest.mark.parametrize("mode", sorted(G_MODES))
+@pytest.mark.parametrize("case", SPARSE_HIST_CASES)
+def test_sparse_hist_kernel_bit_equal(cuda, case, mode):
+    """Kernel G against its plain version on the shared edge cases, in each
+    mode, twice (a call must leave its scratch and tickets zero)."""
+    sb, panel, side, kept = sparse_hist_case(case, cuda)
+    half, slot, forced = G_MODES[mode]
+    g = torch.Generator(device="cpu").manual_seed(3)
+    kept.copy_(_preround(torch.randn(kept.numel(), 1, generator=g), 1 << 20).view_as(kept))
+    parent = kept if half and forced < 0 else None
+    ctrl = torch.tensor([half, slot, forced], dtype=torch.int32, device=cuda)
+    shape = (2, sb.d, sb.n_bins, 3)
+    runs = []
+    for fn in (sparse_hist, sparse_hist, sparse_hist_plain):
+        out = torch.full(shape, float("nan"), device=cuda)
+        tot = torch.full((2, 3), float("nan"), device=cuda)
+        before = SPARSE_HIST_KERNEL.launches
+        fn(sb, panel, side, out, tot, ctrl, parent)
+        torch.cuda.synchronize()
+        assert SPARSE_HIST_KERNEL.launches - before == (fn is sparse_hist)
+        runs.append((out, tot))
+    for out, tot in runs[:2]:
+        assert _same_bits(out, runs[2][0]) and _same_bits(tot, runs[2][1])
+    assert not sb.plan.acc.any() and not sb.plan.tickets.any() and not sb.plan.rowsum.any()
+
+
+def _sparse_fit_data(kind):
+    if kind == "hashed_text":
+        x, y = hashed_text_rows(1, 16_384, 14)
+        return x, y, {}
+    rng = np.random.default_rng(2)
+    n, d = 6000, 300
+    dense = np.where(rng.random((n, d)) < 0.03, rng.integers(1, 6, (n, d)), 0).astype(float)
+    dense[:, 0] = rng.integers(0, 8, n)
+    dense[rng.random(n) < 0.05, 1] = np.nan
+    y = (np.isin(dense[:, 0], [1, 4, 6]) + 0.5 * dense[:, 2] > 0.5).astype(float)
+    if kind == "multiclass_categorical":
+        y = (y + (dense[:, 3] > 0)).astype(float)
+        return (CSRMatrix.from_scipy(__import__("scipy.sparse").sparse.csr_matrix(dense)), y,
+                dict(objective="multiclass", num_class=3, categorical_feature=[0]))
+    return (CSRMatrix.from_scipy(__import__("scipy.sparse").sparse.csr_matrix(dense)), y,
+            dict(categorical_feature=[0], bagging_fraction=0.5, bagging_freq=1))
+
+
+@pytest.mark.parametrize("kind,oracle", [("hashed_text", False), ("hashed_text", True),
+                                         ("categorical_bagged", True),
+                                         ("multiclass_categorical", False)])
+def test_sparse_fit_card_equals_cpu(cuda, kind, oracle):
+    """A sparse fit on the card: kernel G once at each tree's root and once
+    a split step, E's full entry as often, and the CPU's trees, leaves and
+    CSR margins; with ``oracle``, the card's full pass
+    (``kernel_cases.grow_sparse_full_pass``) gives them too."""
+    x, y, extra = _sparse_fit_data(kind)
+    params = dict(dict(objective="binary", num_iterations=3, num_leaves=31,
+                       min_data_in_leaf=5), **extra)
+    classes = params.get("num_class", 1)
+    calls = params["num_iterations"] * classes * params["num_leaves"]
+    before = SPARSE_HIST_KERNEL.launches, SPLIT_KERNEL.launches
+    card = train(params, x, y, device=cuda)
+    torch.cuda.synchronize()
+    assert (SPARSE_HIST_KERNEL.launches - before[0], SPLIT_KERNEL.launches - before[1]) == \
+        (calls, calls)
+    others = [train(params, x, y, device="cpu")]
+    if oracle:
+        with full_pass():
+            others.append(train(params, x, y, device=cuda))
+    for field in ("parent", "feature", "bin", "cat_set", "leaf_value", "leaf_hess",
+                  "sampled_rows"):
+        for other in others:
+            a, b = getattr(card, field), getattr(other, field)
+            assert (a is None and b is None) or np.array_equal(a, b), field
+    cpu = others[0]
+    assert np.array_equal(card.raw_predict(x), cpu.raw_predict(x, device="cpu"))
+
+
+def test_grow_tree_sparse_reads_nothing_back(cuda):
+    """The sparse grower queues a whole tree, half passes and categorical
+    splits included, without a synchronising call (G's plan is made at its
+    first call, from pinned memory)."""
+    from synapseml_tpu_torch.gbdt.binning import BinMapper
+    from synapseml_tpu_torch.gbdt.grow import grow_tree_sparse
+    from synapseml_tpu_torch.gbdt.sparse import build_sparse_binned
+
+    x, y, _ = _sparse_fit_data("categorical_bagged")
+    mapper = BinMapper(max_bin=63, categorical_features=[0]).fit_csr(x)
+    sb = build_sparse_binned(x, mapper, cuda)
+    gh = _preround(torch.from_numpy(np.stack([y - 0.5, np.full(len(y), 0.25)], 1)
+                                    .astype(np.float32)), 1 << 13).to(cuda)
+    w = torch.ones(len(y), device=cuda)
+    fm, cm = torch.ones(sb.d, device=cuda), torch.zeros(sb.d, device=cuda)
+    cm[0] = 1.0
+    cfg = TreeConfig(n_bins=sb.n_bins, num_leaves=31, min_data_in_leaf=5)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tree, node = grow_tree_sparse(sb, gh[:, 0], gh[:, 1], w, fm, cfg, cat_mask=cm)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert (tree.parent >= 0).sum() > 0 and (tree.bin < 0).any()
