@@ -90,8 +90,9 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    half pass; a 16,384-row fit at 2^14 slots giving the same trees on the
    card and the CPU; then, after phase 4 (whole-fit traces are the
    script's largest, so they come last), a traced fit of each path: G's
-   and E's device ms a fit and a call, G's device kernels a call (2, a
-   hard check), and the launches a split step;
+   and E's device ms a fit and a call, G's device kernels a call (each of
+   its 4 once, a hard check) and each one's ms a fit, and the launches a
+   split step;
 3. flash attention's entry point, all causal: in bf16 (the wgmma kernel) at
    the headline shape (B=1, S=32768, H=8, D=64), the grouped-query serving
    shape (B=8, S=8192, H=8, H_kv=2, D=64), the headline length at D=128, and
@@ -136,11 +137,16 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    step over every step of whole trees on E's cases and on an inert step, a
    depth cap and B = 100, timed beside the full table at the HIGGS, Adult
    and Covertype shapes;
-   kernel G bit-equal to its plain version on ``kernel_cases.SPARSE_HIST_CASES``
-   in every mode and at phase 2g's shape (the first tree's root split, both
-   sides, and the smaller side with the sibling from the kept root
-   histogram, which must equal the both-sides pass), timed beside its bound,
-   the gather of the (nnz, 6) panel and ``torch.segment_reduce`` over it;
+   kernel G bit-equal to its plain version and to the row walk's plain twin
+   on ``kernel_cases.SPARSE_HIST_CASES`` in every mode, on the path the CPU
+   model predicts (the cases drive both), and at phase 2g's shape at six
+   splits (the first tree's root split both sides and its smaller child
+   with the sibling from the kept root; its deepest split replayed, both
+   sides and the smaller side with the kept leaf; 1,024 and 40 member rows
+   of a random leaf twice their size; the half passes equal to the
+   both-sides pass, both paths taken), each with the path the card chose
+   and its bound, timed beside the gather of the summed side's entries and
+   ``torch.segment_reduce`` over them;
    flash within 5e-2 (bf16) and 2e-5
    (f32, at the two f32 shapes and two short ragged ones) of the f32 plain
    version, and in bf16 also within FLASH_ROW_TOL of it as an error
@@ -206,12 +212,17 @@ HASHED_AUC_FLOOR = 0.75
 HASHED_SMALL_BITS = 14
 SMALL_FIT_ROWS = 16_384
 # listed rows of the small leaves at which phase 4 times kernels P and A's
-# row list (beside the root split and the fitted tree's deepest split)
+# row list, and G's member rows (beside the root split and the fitted
+# tree's deepest split)
 SMALL_LEAVES = (1024, 40)
 # contributions (f64 TreeSHAP) against kernel B's f32 margin over 10 trees:
 # the margin's own rounding, a few f32 ulps of values of order 1 to 10
 SHAP_TOL = 1e-5
 SHAP_ROWS = 65_536
+# kernel G's device kernels: all four run every call (the path's two work,
+# the other two return at once)
+G_KERNEL_NAMES = (("sparse_rows",), ("sparse_entries",), ("sparse_walk",), ("sparse_epilogue",))
+G_KERNELS_A_CALL = len(G_KERNEL_NAMES)
 # kernel F against its plain version, in f32 ulps: both take exp_f32 and sum
 # over j in j order, so the two agree bit for bit
 F_ULPS = 0
@@ -967,10 +978,10 @@ def hashed_text_phase(kernels, seed, split_steps) -> dict:
 
 
 def trace_hashed_fits(hashed) -> dict:
-    """G's and E's device ms, G's device kernels a call and the launches a
-    split step in a traced ``train`` of phase 2g's rows, the shipped half
-    pass and the full-pass oracle. Fails unless every G call was two
-    device kernels (the rows pass and the entries pass). Run last of the
+    """G's and E's device ms, G's device kernels a call (and each kernel's
+    ms) and the launches a split step in a traced ``train`` of phase 2g's
+    rows, the shipped half pass and the full-pass oracle. Fails unless
+    each of G's G_KERNELS_A_CALL device kernels ran once a call. Run last of the
     script's traces: a trace of a whole fit is the largest the script
     takes."""
     from synapseml_tpu_torch.gbdt.boost import train
@@ -983,15 +994,19 @@ def trace_hashed_fits(hashed) -> dict:
     for path, ctx in (("half_pass", contextlib.nullcontext), ("full_pass", full_pass)):
         with ctx():
             k = kernel_times(lambda: train(params, hashed["x_tr"], hashed["y_tr"]),
-                             (SPARSE_HIST_TRACE, ("split_kernel",), ()))
+                             (SPARSE_HIST_TRACE, ("split_kernel",), (), *G_KERNEL_NAMES))
         per_call = k[SPARSE_HIST_TRACE][1] / calls
-        if per_call != 2:
+        each = {key[0]: k[key][1] for key in G_KERNEL_NAMES}
+        if per_call != G_KERNELS_A_CALL or any(c != calls for c in each.values()):
             fail(f"the traced {path} fit ran {k[SPARSE_HIST_TRACE][1]} of G's device "
-                 f"kernels over {calls} calls, not 2 a call")
+                 f"kernels over {calls} calls ({each}), not each of its "
+                 f"{G_KERNELS_A_CALL} once a call")
         out[path] = {"g_device_ms_a_fit": k[SPARSE_HIST_TRACE][0],
                      "g_device_ms_a_call": k[SPARSE_HIST_TRACE][0] / calls,
                      "g_device_kernels": k[SPARSE_HIST_TRACE][1],
                      "g_device_kernels_a_call": per_call,
+                     "g_kernel_ms_a_fit": {key[0]: k[key][0] for key in G_KERNEL_NAMES},
+                     "g_kernel_launches_a_fit": each,
                      "e_device_ms_a_fit": k[("split_kernel",)][0],
                      "device_busy_ms": k[()][0],
                      "launches_per_split_step": k[()][1] / steps}
@@ -999,26 +1014,58 @@ def trace_hashed_fits(hashed) -> dict:
     return out
 
 
+def g_bytes(sb, side, ctrl_v) -> tuple:
+    """(the bytes a G call must move, whatever path it takes; the bytes the
+    cell-sorted stream moves, 8 B for every entry in place of the summed
+    side's): see ``sparse_hist_checks``."""
+    from synapseml_tpu_torch.gbdt.sparse import g_summed_entries, g_summed_sides
+
+    half = ctrl_v[0]
+    members = torch.nonzero((side == 0) | (side == 1))[:, 0]
+    out_cells = sb.d * sb.n_bins * 12
+    common = (4 * sb.n + gathered_bytes(members, 16, 0, 12) + 4 * sb.d + 2 * out_cells + 24
+              + (out_cells if half else 0))
+    sides = g_summed_sides(side, ctrl_v)
+    summed = torch.nonzero((side == sides[0]) | (side == sides[-1]))[:, 0]
+    return (common + 4 * g_summed_entries(sb, side, ctrl_v) + gathered_bytes(summed, 8, 0, 16),
+            common + 8 * sb.nnz)
+
+
 def sparse_hist_checks(hashed, dev, gen) -> dict:
     """Phase 4's kernel G: first on the shared edge cases in every mode
-    (bit-equal to the plain version), then at phase 2g's shape: the first
-    tree's root split over the 1,048,576 training reviews, on the gradients
-    of the fitted model's margins (pre-rounded), both sides, and the smaller
-    side with its sibling from the kept root histogram (which must give the
-    both-sides pass bit for bit). Bound: bytes, each entry's row and cell (8
-    B), every row's side (4 B), the distinct 32-byte sectors of the members'
-    panel rows (16 B a row), zero_bin, and the (2, d, B, 3) output written
-    (half mode: one slot of the kept histogram read too). The library call:
-    ``torch.segment_reduce`` over the already-gathered (nnz, 6) panel, the
-    one PyTorch call for the same segment sums (no residual, empty cells not
-    written); the gather's time is beside it. Returns G's kernel row."""
+    (bit-equal to the plain version and to the row walk's plain twin, on
+    the path the CPU model ``g_path`` predicts; the cases must drive both
+    paths), then at phase 2g's shape on the gradients of the fitted model's
+    margins (pre-rounded), at each of ``gbdt_step_bench.sparse_splits``: bit-equal to both plain
+    versions (the half passes' siblings equal to the both-sides pass where
+    the kept histogram is the split leaf's), with the path the card chose,
+    its wrapper's launches a call (1), ms a call (CUDA events) and the
+    bound (G's device kernels a call are counted in the traced fits,
+    ``trace_hashed_fits``). Bound: bytes, every row's side (4 B), the members'
+    panel sectors (16 B a row, both sides: the totals), zero_bin, the (2,
+    d, B, 3) output written (both slots) and, in half mode, the kept slot
+    read, and the summed side's entries (4 B a cell, from the row-major
+    view) and its rows' ``row_ptr`` sectors, whichever path the card takes
+    (the function's floor; the stream's own traffic, 8 B for every entry,
+    is ``stream_bytes``). The library call: ``torch.segment_reduce`` over
+    the summed side's entries gathered in cell order (3 channels a side), the one PyTorch
+    call for the same segment sums (no residual, empty cells not written);
+    the gather's time is beside it. Returns G's kernel row."""
     from synapseml_tpu_torch.gbdt.boost import _preround, _sigmoid
-    from synapseml_tpu_torch.gbdt.sparse import (build_sparse_binned, sparse_column,
-                                                 sparse_hist, sparse_hist_plain)
+    from synapseml_tpu_torch.gbdt.sparse import (G_PATH_STREAM, G_PATH_WALK, SPARSE_HIST_KERNEL,
+                                                 build_sparse_binned, g_path, g_summed_entries,
+                                                 g_summed_sides,
+                                                 sparse_hist, sparse_hist_plain,
+                                                 sparse_hist_rows_plain)
+    from synapseml_tpu_torch.tools.gbdt_step_bench import sparse_splits
     from synapseml_tpu_torch.tools.kernel_cases import SPARSE_HIST_CASES, sparse_hist_case
 
+    same = lambda a, b: bool(torch.equal(a.isnan(), b.isnan())
+                             and torch.equal(a.nan_to_num(), b.nan_to_num()))
+    path_name = {G_PATH_STREAM: "stream", G_PATH_WALK: "walk"}
     g_modes = {"both_sides": (0, 0, -1), "half_kept_slot1": (1, 1, -1),
                "forced_right": (1, 1, 1)}
+    case_paths = {}
     for case in SPARSE_HIST_CASES:
         sb_c, panel_c, side_c, kept_c = sparse_hist_case(case, dev)
         kept_c.copy_(_preround(torch.randn(kept_c.numel(), 1, generator=gen, device=dev),
@@ -1026,15 +1073,22 @@ def sparse_hist_checks(hashed, dev, gen) -> dict:
         for mode, ctrl_v in g_modes.items():
             ctrl_c = torch.tensor(ctrl_v, dtype=torch.int32, device=dev)
             par = kept_c if ctrl_v[0] and ctrl_v[2] < 0 else None
-            got = [torch.full((2, sb_c.d, sb_c.n_bins, 3), float("nan"), device=dev),
-                   torch.full((2, 3), float("nan"), device=dev)]
-            want = [t.clone() for t in got]
-            sparse_hist(sb_c, panel_c, side_c, *got, ctrl_c, par)
-            sparse_hist_plain(sb_c, panel_c, side_c, *want, ctrl_c, par)
-            if not all(torch.equal(a.isnan(), b.isnan()) and
-                       torch.equal(a.nan_to_num(), b.nan_to_num()) for a, b in zip(got, want)):
+            runs = []
+            for fn in (sparse_hist, sparse_hist_plain, sparse_hist_rows_plain):
+                runs.append([torch.full((2, sb_c.d, sb_c.n_bins, 3), float("nan"), device=dev),
+                             torch.full((2, 3), float("nan"), device=dev)])
+                fn(sb_c, panel_c, side_c, *runs[-1], ctrl_c, par)
+                if fn is sparse_hist:
+                    path = int(sb_c.plan.state[1])
+            if not all(same(a, b) for run in (runs[0], runs[2]) for a, b in zip(run, runs[1])):
                 fail(f"sparse histogram kernel ({case}, {mode}) differs from the plain version")
+            if path != g_path(g_summed_entries(sb_c, side_c, ctrl_v), sb_c.nnz):
+                fail(f"kernel G took the {path_name[path]} path on ({case}, {mode}), not the "
+                     f"CPU model's")
+            case_paths[f"{case}/{mode}"] = path_name[path]
         del sb_c, panel_c, side_c, kept_c
+    if set(case_paths.values()) != set(path_name.values()):
+        fail(f"kernel G's edge cases took only {set(case_paths.values())}")
     hb, x_h, y_h = hashed["booster"], hashed["x_tr"], hashed["y_tr"]
     sb = build_sparse_binned(x_h, hb.mapper, dev)
     n_h, nnz_h = sb.n, sb.nnz
@@ -1044,61 +1098,80 @@ def sparse_hist_checks(hashed, dev, gen) -> dict:
     g_h = _preround((p_h - y_hd)[:, None], nb_h)[:, 0]
     h_h = _preround((p_h * (1 - p_h))[:, None], nb_h)[:, 0]
     panel_h = torch.stack([g_h, h_h, torch.ones_like(g_h), torch.zeros_like(g_h)], 1).contiguous()
-    f_root, b_root = int(hb.feature[0, 0, 0]), int(hb.bin[0, 0, 0])
-    side_h = (sparse_column(sb, f_root) > b_root).to(torch.int32)
-    n_right = int(side_h.sum())
-    small_side = int(n_right <= n_h - n_right)   # the reference's rule
     shape_h = (2, sb.d, sb.n_bins, 3)
-    kept_h, tot_h = torch.empty(shape_h, device=dev), torch.empty(2, 3, device=dev)
-    sparse_hist(sb, panel_h, torch.zeros_like(side_h), kept_h, tot_h,
-                torch.tensor([0, 0, -1], dtype=torch.int32, device=dev))
+    both_ctrl = torch.tensor([0, 0, -1], dtype=torch.int32, device=dev)
+    rows_l = sb.rows.long()
     shapes = {}
-    both = None
-    for mode, ctrl_v in (("both_sides", (0, 0, -1)), ("half_kept", (1, 0, -1))):
+    both = {}
+    for name, (side_h, ctrl_v, kept_leaf) in sparse_splits(sb, hb, 7, SMALL_LEAVES).items():
         ctrl_h = torch.tensor(ctrl_v, dtype=torch.int32, device=dev)
-        par = kept_h if ctrl_v[0] else None
-        out_k, out_p = torch.empty(shape_h, device=dev), torch.empty(shape_h, device=dev)
-        tk, tp = torch.empty(2, 3, device=dev), torch.empty(2, 3, device=dev)
+        par = None
+        if kept_leaf is not None:  # slot 0: the split leaf's histogram
+            par, tot_k = torch.empty(shape_h, device=dev), torch.empty(2, 3, device=dev)
+            sparse_hist(sb, panel_h, torch.where(kept_leaf, 0, 2).to(torch.int32), par, tot_k,
+                        both_ctrl)
+        out_k, out_p, out_r = (torch.empty(shape_h, device=dev) for _ in range(3))
+        tk, tp, tr = (torch.empty(2, 3, device=dev) for _ in range(3))
+        before = SPARSE_HIST_KERNEL.launches
         sparse_hist(sb, panel_h, side_h, out_k, tk, ctrl_h, par)
+        launches = SPARSE_HIST_KERNEL.launches - before
+        if launches != 1:
+            fail(f"kernel G's wrapper launched {launches} times for one call at {name}")
+        path = int(sb.plan.state[1])
         _, plain_ms = timed_once(lambda: sparse_hist_plain(sb, panel_h, side_h, out_p, tp,
                                                            ctrl_h, par))
-        if not (torch.equal(out_k, out_p) and torch.equal(tk, tp)):
-            fail(f"sparse histogram kernel ({mode}) differs from the plain version at the "
+        _, rows_plain_ms = timed_once(lambda: sparse_hist_rows_plain(sb, panel_h, side_h, out_r,
+                                                                     tr, ctrl_h, par))
+        if not (same(out_k, out_p) and same(tk, tp) and same(out_r, out_p) and same(tr, tp)):
+            fail(f"sparse histogram kernel ({name}) differs from the plain versions at the "
                  f"hashed-text shape")
-        if both is None:
-            both = out_k.clone()
-        elif not torch.equal(out_k, both):
-            fail("the half pass with the kept root histogram differs from the both-sides pass")
+        split = name.split("_")[0]
+        if ctrl_v[0] == 0:
+            both[split] = out_k.clone()
+        elif split in both and not same(out_k, both[split]):
+            fail(f"the half pass with the kept leaf ({name}) differs from the both-sides pass")
+        del out_p, out_r
         ms = time_ms(lambda: sparse_hist(sb, panel_h, side_h, out_k, tk, ctrl_h, par), 20)
-        members = (torch.nonzero(side_h == small_side)[:, 0] if ctrl_v[0]
-                   else torch.arange(n_h, device=dev))
-        n_bytes = (8 * nnz_h + 4 * n_h + gathered_bytes(members, 16, 0, 12) + 4 * sb.d
-                   + 2 * sb.d * sb.n_bins * 12 + 24
-                   + (sb.d * sb.n_bins * 12 if ctrl_v[0] else 0))
+        n_bytes, stream_bytes = g_bytes(sb, side_h, ctrl_v)
         b = bound(n_bytes, 0, F32_FLOPS)
-        shapes[mode] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b[0], "bound_by": b[1],
-                        "bytes": n_bytes, "members_gathered": int(members.numel()),
-                        "max_abs_err": 0.0}
-        del out_k, out_p
-    del both, kept_h
-    rows_l = sb.rows.long()
-    lengths = torch.unique_consecutive(sb.cells, return_counts=True)[1]
+        # the library call: the summed side's entries in cell order, 3 channels a side
+        summed_sides = g_summed_sides(side_h, ctrl_v)
+        side_e = side_h[rows_l]
 
-    def gather6():
-        s_e = side_h[rows_l]
-        p_e = panel_h[rows_l, :3]
-        return torch.cat([p_e * (s_e == 0)[:, None], p_e * (s_e == 1)[:, None]], 1)
+        def gather():
+            sel = (side_e == summed_sides[0]) if len(summed_sides) == 1 else side_e <= 1
+            cells_m, rows_m, s_m = sb.cells[sel], rows_l[sel], side_e[sel]
+            p_m = panel_h[rows_m, :3]
+            if len(summed_sides) == 2:
+                p_m = torch.cat([p_m * (s_m == 0)[:, None], p_m * (s_m == 1)[:, None]], 1)
+            return p_m, torch.unique_consecutive(cells_m, return_counts=True)[1]
 
-    gather_ms = time_ms(gather6, 5)
-    panel6 = gather6()
-    lib_ms = time_ms(lambda: torch.segment_reduce(panel6, "sum", lengths=lengths, axis=0), 10)
-    main = shapes["both_sides"]
+        gather_ms = time_ms(gather, 3)
+        p_m, lengths = gather()
+        lib_ms = (time_ms(lambda: torch.segment_reduce(p_m, "sum", lengths=lengths, axis=0), 5)
+                  if lengths.numel() else None)
+        members = int(((side_h == 0) | (side_h == 1)).sum())
+        shapes[name] = {"path": path_name[path], "launches_a_call": launches, "ms": ms,
+                        "plain_ms": plain_ms,
+                        "rows_plain_ms": rows_plain_ms, "bound_ms": b[0], "bound_by": b[1],
+                        "bytes": n_bytes, "stream_bytes": stream_bytes, "library_ms": lib_ms,
+                        "gather_ms": gather_ms,
+                        "members": members, "summed_entries": g_summed_entries(sb, side_h, ctrl_v),
+                        "ctrl": list(ctrl_v), "max_abs_err": 0.0}
+        log(json.dumps({"sparse_hist": name, **shapes[name]}))
+        del out_k, p_m, lengths, side_e
+    if {r["path"] for r in shapes.values()} != set(path_name.values()):
+        fail(f"kernel G took only the {[r['path'] for r in shapes.values()]} paths at the "
+             f"hashed-text shape")
+    main = shapes["root_both"]
     rec = {"ms": main["ms"], "plain_ms": main["plain_ms"],
-           "bound": (main["bound_ms"], main["bound_by"]), "library_ms": lib_ms,
-           "shape": f"n={n_h} nnz={nnz_h} d={sb.d} B={sb.n_bins}, the first tree's root split",
-           "shapes": shapes, "gather_ms": gather_ms,
-           "library_call": "torch.segment_reduce over the gathered (nnz, 6) panel",
-           "cases_bit_equal": list(SPARSE_HIST_CASES),
+           "bound": (main["bound_ms"], main["bound_by"]), "library_ms": main["library_ms"],
+           "shape": f"n={n_h} nnz={nnz_h} d={sb.d} B={sb.n_bins}, the first tree's root split, "
+                    f"both sides",
+           "shapes": shapes,
+           "library_call": "torch.segment_reduce over the summed side's entries gathered in "
+                           "cell order",
+           "cases_bit_equal": list(SPARSE_HIST_CASES), "case_paths": case_paths,
            "launches_full_pass_fit": hashed["record"]["full_pass_fit_launches"]}
     log(json.dumps({"sparse_hist": rec}))
     return rec
@@ -2136,6 +2209,7 @@ def main() -> int:
            g_row.pop("ms"), g_row.pop("plain_ms"), g_row.pop("bound"), g_row.pop("library_ms"),
            **g_row, fit_device_ms=per_path("g_device_ms_a_fit"),
            device_kernels_a_call=per_path("g_device_kernels_a_call"),
+           kernel_ms_a_fit=per_path("g_kernel_ms_a_fit"),
            launches_per_split_step=per_path("launches_per_split_step"))
 
     missing = set(kernels) - {r["name"] for r in rows}

@@ -16,18 +16,23 @@ flowing into a LightGBM estimator: a few stored entries a row over up to
   ``np.lexsort((bins, cols))``, ``sparse.py:488``), and kept as two (nnz,)
   int32 arrays: each entry's row and its cell. A feature's entries are the
   run ``starts[f]:starts[f + 1]``; value 0.0 is not stored, and each
-  feature's implicit zeros belong to its ``zero_bin``.
+  feature's implicit zeros belong to its ``zero_bin``. Beside them it keeps
+  the row-major view, the cells in CSR order (``row_cells``) and
+  ``row_ptr``, the CSR ``indptr``: a row's entries without a pass over all.
 - :func:`sparse_histogram_split` gives the (2, d, B, 3) histograms of both
   children of a split, each feature's zero bin holding the side's total
   minus the feature's stored cells (LightGBM's most-frequent-bin trick).
   The reference builds it scatter-free for the TPU (a chunked cumsum with a
   mean-centred prefix, differenced at the cell ends, ``_cell_sum_fn``,
   ``sparse.py:312``); here CUDA tensors launch kernel G
-  (``csrc/sparse_hist.cu``), which sums each run of equal cells inside a
-  warp and writes every output cell once, and CPU tensors take the plain
-  version :func:`sparse_hist_plain` (a gather and ``index_add_``). On
-  gradients pre-rounded by ``boost._preround`` every sum is exact in any
-  order, so the two agree bit for bit.
+  (``csrc/sparse_hist.cu``), which chooses on the card between two paths
+  by the summed side's entries (:func:`g_path`): a small side is walked row
+  by row over the row-major view, a large one streamed in cell order (a
+  warp sums each run of equal cells); every output cell is written once.
+  CPU tensors take the plain version :func:`sparse_hist_plain` (a gather
+  and ``index_add_``); :func:`sparse_hist_rows_plain` is the row walk's
+  plain twin. On gradients pre-rounded by ``boost._preround`` every sum is
+  exact in any order, so all of them agree bit for bit.
 """
 
 from __future__ import annotations
@@ -43,8 +48,11 @@ from ..kernels.build import CudaKernel
 __all__ = ["CSRMatrix", "SparseBinned", "is_sparse_input", "as_csr", "build_sparse_binned",
            "pack_entries",
            "sparse_histogram", "sparse_histogram_split", "sparse_histogram_side",
-           "sparse_hist", "sparse_hist_plain", "sparse_column", "leaf_feature_hist",
-           "g_plan", "SPARSE_HIST_KERNEL", "SPARSE_HIST_TRACE", "G_ENTRIES", "G_SMEM"]
+           "sparse_hist", "sparse_hist_plain", "sparse_hist_rows_plain", "sparse_column",
+           "leaf_feature_hist", "g_plan", "g_hot", "g_path", "g_summed_sides",
+           "g_summed_entries",
+           "SPARSE_HIST_KERNEL", "SPARSE_HIST_TRACE", "G_ENTRIES", "G_SMEM", "G_HOT_SMEM",
+           "G_HOT_SHARE", "G_WALK_PER_MILLE", "G_PATH_STREAM", "G_PATH_WALK"]
 
 
 class CSRMatrix:
@@ -223,35 +231,51 @@ def as_csr(x) -> CSRMatrix:
 # ---------------------------------------------------------------------------------
 
 # Kernel G's work split, which the host plans once for a SparseBinned
-# (:func:`g_plan`): at most G_ENTRIES entries a block, and a light group of
-# features whose (features, B, 6) f32 sums fit G_SMEM bytes of shared memory.
+# (:func:`g_plan`): at most G_ENTRIES entries a block of the stream, and a
+# light group of features whose (features, B, 6) f32 sums fit G_SMEM bytes
+# of shared memory. The row walk's hot features (:func:`g_hot`): those held
+# by more than G_HOT_SHARE of the rows, the most first, as many as fit
+# their (B, 3) f32 sums in G_HOT_SMEM bytes of a block's shared memory
+# (the hotter half of them when both sides are summed, 6 channels a cell).
 G_ENTRIES = 4096
 G_SMEM = 48 * 1024
+G_HOT_SMEM = 96 * 1024
+G_HOT_SHARE = 1 / 64
+# G's path rule (csrc/sparse_hist.cu's kWalkPerMille and path ids; a CPU
+# test holds them to the source): the row walk when the summed side(s) hold
+# fewer than G_WALK_PER_MILLE thousandths of the entries, else the stream
+G_WALK_PER_MILLE = 250
+G_PATH_STREAM, G_PATH_WALK = 0, 1
 
 
 class SparseBinned:
     """Binned CSR entries on one device, sorted by cell ``feature * B + bin``
-    (stable in CSR order).
+    (stable in CSR order), with their row-major view.
 
     ``rows`` (nnz,) int32 row of each entry; ``cells`` (nnz,) int32 its cell;
     ``starts`` (d + 1,) int64 each feature's first entry; ``zero_bin`` (d,)
     int32 each feature's bin of value 0.0 (the implicit entries' bin), all
-    in the compact bin space of ``n_bins`` bins. ``n`` rows, ``max_run`` the
-    most entries of one feature (the bound of :func:`sparse_column`).
-    ``counts`` (d,) int64 numpy, each feature's entries, kept on the host
-    for ``plan``: kernel G's work list and scratch (:func:`g_plan`), made
-    at G's first call on this SparseBinned (eval sets and replays never
-    call G) and kept."""
+    in the compact bin space of ``n_bins`` bins. ``row_cells`` (nnz,) int32
+    the same cells in CSR order and ``row_ptr`` (n + 1,) int64 each row's
+    first of them (the CSR ``indptr``): kernel G's row walk reads a small
+    side's rows there. ``n`` rows, ``max_run`` the most entries of one
+    feature (the bound of :func:`sparse_column`). ``counts`` (d,) int64
+    numpy, each feature's entries, kept on the host for ``plan``: kernel
+    G's work list, hot features and scratch (:class:`GPlan`), made at G's
+    first call on this SparseBinned (eval sets and replays never call G)
+    and kept."""
 
-    __slots__ = ("rows", "cells", "starts", "zero_bin", "d", "n_bins", "n", "max_run",
-                 "counts", "plan")
+    __slots__ = ("rows", "cells", "starts", "zero_bin", "row_cells", "row_ptr", "d", "n_bins",
+                 "n", "max_run", "counts", "plan")
 
-    def __init__(self, rows, cells, starts, zero_bin, d: int, n_bins: int, n: int,
-                 max_run: int, counts: np.ndarray):
+    def __init__(self, rows, cells, starts, zero_bin, row_cells, row_ptr, d: int, n_bins: int,
+                 n: int, max_run: int, counts: np.ndarray):
         self.rows = rows
         self.cells = cells
         self.starts = starts
         self.zero_bin = zero_bin
+        self.row_cells = row_cells
+        self.row_ptr = row_ptr
         self.d = int(d)
         self.n_bins = int(n_bins)
         self.n = int(n)
@@ -273,27 +297,81 @@ class SparseBinned:
 
 
 class GPlan:
-    """Kernel G's work list for one SparseBinned on one CUDA device.
+    """Kernel G's work list and scratch for one SparseBinned on one CUDA
+    device.
 
-    ``items`` (K, 6) int32, one block each: features ``[f0, f1)``, entries
-    ``[e0, e1)``, the heavy slot (-1: the block owns its features) and the
-    slot's block count. ``acc`` (heavy, B, 6) f32 and ``tickets`` (heavy +
-    1,) int32 are the heavy features' sums and arrival counters (zero
-    between launches), the first ticket the rows pass's; ``rowsum`` (8,) f32
-    the rows pass's sums and counts (zero between launches); ``state`` (1,)
-    int32 the smaller side the rows pass chose; ``max_feats`` the most
-    features of one block."""
+    The stream's: ``items`` (K, 6) int32, one block's work each: features
+    ``[f0, f1)``, entries ``[e0, e1)``, the heavy slot (-1: the block owns
+    its features) and the slot's block count; ``acc`` (heavy, B, 6) f32 and
+    ``tickets`` (heavy + 1,) int32 the heavy features' sums and arrival
+    counters (zero between launches), the first ticket the rows pass's;
+    ``max_feats`` the most features of one item. The row walk's: ``hot``
+    (d,) uint8, 0 or 1 + the feature's slot of a block's shared slice, and
+    ``hot_feats`` (n_hot,) int32 each slot's feature (:func:`g_hot`);
+    ``touched`` (d,) uint8 and ``scratch`` (2, d * B, 4) f32 (a side's
+    cells, the fourth channel unused), zero between launches. ``rowsum``
+    (10,) f32 the rows pass's sums, member rows and member entries (zero
+    between launches); ``state`` (3,) int32 the smaller side and the path
+    (``G_PATH_*``) the rows pass chose, read by tests, and the stream's
+    item queue."""
 
-    __slots__ = ("items", "acc", "tickets", "rowsum", "state", "max_feats")
+    __slots__ = ("items", "acc", "tickets", "rowsum", "state", "max_feats", "hot", "hot_feats",
+                 "n_hot", "touched", "scratch")
 
-    def __init__(self, items: np.ndarray, heavy: int, max_feats: int, B: int, device):
-        # from pinned memory, so the copy does not synchronise the host
-        self.items = torch.from_numpy(items).pin_memory().to(device, non_blocking=True)
+    def __init__(self, items: np.ndarray, heavy: int, max_feats: int, hot_feats: np.ndarray,
+                 d: int, B: int, device):
+        # from pinned memory, so the copies do not synchronise the host
+        pinned = lambda a: torch.from_numpy(a).pin_memory().to(device, non_blocking=True)
+        self.items = pinned(items)
         self.max_feats = max_feats
         self.acc = torch.zeros((max(heavy, 1), B, 6), dtype=torch.float32, device=device)
         self.tickets = torch.zeros(heavy + 1, dtype=torch.int32, device=device)
-        self.rowsum = torch.zeros(8, dtype=torch.float32, device=device)
-        self.state = torch.zeros(1, dtype=torch.int32, device=device)
+        self.rowsum = torch.zeros(10, dtype=torch.float32, device=device)
+        self.state = torch.zeros(3, dtype=torch.int32, device=device)
+        hot = np.zeros(d, dtype=np.uint8)
+        hot[hot_feats] = np.arange(1, len(hot_feats) + 1)
+        self.hot = pinned(hot)
+        self.hot_feats = pinned(np.ascontiguousarray(hot_feats, dtype=np.int32))
+        self.n_hot = len(hot_feats)
+        self.touched = torch.zeros(d, dtype=torch.uint8, device=device)
+        self.scratch = torch.zeros((2, d * B, 4), dtype=torch.float32, device=device)
+
+
+def g_hot(counts: np.ndarray, n: int, n_bins: int, smem: int = G_HOT_SMEM,
+          share: float = G_HOT_SHARE) -> np.ndarray:
+    """The row walk's hot features (int32, the most entries first): those
+    held by more than ``share`` of the ``n`` rows, at most as many as fit
+    their (B, 3) f32 sums in ``smem`` bytes (and 255, the slots a uint8
+    names). A stop word -- a feature of nearly every row -- is hot: its
+    few cells would otherwise take an atomic from each member row."""
+    k = min(smem // (n_bins * 12), 255)
+    order = np.argsort(-np.asarray(counts, dtype=np.int64), kind="stable")[:k]
+    return order[np.asarray(counts)[order] > share * n].astype(np.int32)
+
+
+def g_path(summed_entries: int, nnz: int) -> int:
+    """Kernel G's path (``G_PATH_WALK`` or ``G_PATH_STREAM``) for a call
+    whose summed side(s) hold ``summed_entries`` of the ``nnz`` entries: the
+    rule the rows pass's last block applies on the card."""
+    return G_PATH_WALK if summed_entries * 1000 < nnz * G_WALK_PER_MILLE else G_PATH_STREAM
+
+
+def g_summed_sides(side: torch.Tensor, ctrl) -> Tuple[int, ...]:
+    """The side(s) a G call sums for ``ctrl`` (half, slot, forced): both in
+    both-sides mode; in half mode the forced side, else the right iff it
+    has no more members than the left (the reference's smaller child)."""
+    half, _, forced = (int(v) for v in (ctrl.tolist() if torch.is_tensor(ctrl) else ctrl))
+    if not half:
+        return (0, 1)
+    if forced >= 0:
+        return (forced,)
+    return (int(int((side == 1).sum()) <= int((side == 0).sum())),)
+
+
+def g_summed_entries(sb: "SparseBinned", side: torch.Tensor, ctrl) -> int:
+    """The entries of the side(s) a G call sums (what :func:`g_path` reads)."""
+    lens = (sb.row_ptr[1:] - sb.row_ptr[:-1]).to(side.device)
+    return sum(int(lens[side == s].sum()) for s in g_summed_sides(side, ctrl))
 
 
 def g_plan(counts: np.ndarray, n_bins: int, entries: int = G_ENTRIES,
@@ -306,7 +384,8 @@ def g_plan(counts: np.ndarray, n_bins: int, entries: int = G_ENTRIES,
     last to arrive writes the feature. The others go in runs of consecutive
     features holding at most ``entries`` entries and at most ``smem // (B *
     24)`` features (their sums fit a block's shared memory); such a block
-    writes its features' cells itself."""
+    writes its features' cells itself. The items come the most entries
+    first (the stream's blocks take them in that order from a queue)."""
     if n_bins * 6 * 4 > 227 * 1024:
         raise ValueError(f"n_bins={n_bins}: one feature's (B, 6) f32 sums must fit a "
                          "block's shared memory")
@@ -332,20 +411,25 @@ def g_plan(counts: np.ndarray, n_bins: int, entries: int = G_ENTRIES,
         f = f1
     if starts[-1] >= 2 ** 31:
         raise ValueError(f"{int(starts[-1])} entries: kernel G indexes them with int32")
+    items.sort(key=lambda it: it[2] - it[3])
     return np.asarray(items, dtype=np.int32).reshape(-1, 6), heavy, most
 
 
 def pack_entries(rows: torch.Tensor, cols: torch.Tensor, bins: torch.Tensor,
-                 zero_bin: np.ndarray, n: int, d: int, n_bins: int) -> SparseBinned:
+                 row_ptr: torch.Tensor, zero_bin: np.ndarray, n: int, d: int,
+                 n_bins: int) -> SparseBinned:
     """The layout of binned entries given in CSR order (``rows``, ``cols``,
-    ``bins`` (nnz,) int tensors on one device, bins in ``[0, n_bins)``): one
-    stable sort of the cell ids, on that device."""
+    ``bins`` (nnz,) int tensors on one device, bins in ``[0, n_bins)``, and
+    the CSR ``indptr`` (n + 1,) on that device as ``row_ptr``): one stable
+    sort of the cell ids, on that device; the cells before the sort are the
+    row-major view."""
     dev = rows.device
     if d * n_bins >= 2 ** 31:
         raise ValueError(f"d * B = {d * n_bins} cells: cell ids are int32")
-    key = cols.to(torch.int32) * n_bins + bins.to(torch.int32)
+    row_cells = (cols.to(torch.int32) * n_bins + bins.to(torch.int32)).contiguous()
+    key = row_cells
     if key.numel():
-        key, order = torch.sort(key, stable=True)
+        key, order = torch.sort(row_cells, stable=True)
         rows = rows[order]
     # the entries' feature counts on their device: only (d,) comes back
     counts = torch.bincount(cols.long(), minlength=d).cpu().numpy().astype(np.int64)
@@ -355,6 +439,7 @@ def pack_entries(rows: torch.Tensor, cols: torch.Tensor, bins: torch.Tensor,
                         cells=key.to(torch.int32).contiguous(),
                         starts=torch.from_numpy(starts).to(dev),
                         zero_bin=torch.as_tensor(zero_bin, dtype=torch.int32).to(dev),
+                        row_cells=row_cells, row_ptr=row_ptr.to(torch.int64).contiguous(),
                         d=d, n_bins=n_bins, n=n, max_run=max(int(counts.max()) if d else 0, 1),
                         counts=counts)
 
@@ -367,15 +452,16 @@ def build_sparse_binned(csr: CSRMatrix, mapper, device="cpu") -> SparseBinned:
     bins as the dense transform gives them, the missing bin moved down to
     ``B - 1``, so trees grown here compare with dense-grown ones. The
     entries are binned and sorted on ``device``, so the host never sorts
-    them."""
+    them; ``indptr`` goes up once, as ``row_ptr`` and the rows' lengths."""
     dev = torch.device(device)
     n, d = csr.shape
     B = mapper.realized_n_bins
     cols = torch.from_numpy(csr.indices).to(dev)
     bins = mapper.transform_csr_torch(cols, torch.from_numpy(csr.values).to(dev))
+    row_ptr = torch.from_numpy(csr.indptr).to(dev)
     rows = torch.repeat_interleave(torch.arange(n, dtype=torch.int32, device=dev),
-                                   torch.from_numpy(np.diff(csr.indptr)).to(dev))
-    return pack_entries(rows, cols, torch.clamp(bins, max=B - 1),
+                                   row_ptr[1:] - row_ptr[:-1])
+    return pack_entries(rows, cols, torch.clamp(bins, max=B - 1), row_ptr,
                         mapper.zero_bins(compact=True), n, d, B)
 
 
@@ -388,12 +474,13 @@ SPARSE_HIST_KERNEL = CudaKernel(
     argtypes=[ctypes.c_void_p, ctypes.c_void_p],
     replaces="synapseml_tpu/gbdt/sparse.py:312 (_cell_sum_fn, with the zero-bin "
              "residual of sparse_histogram_split :377 and sparse_histogram_side :415)")
-# G's two device kernels' names in a profiler trace, as substrings
+# G's four device kernels' names in a profiler trace, as substrings
 SPARSE_HIST_TRACE = ("sparse_",)
 
-_G_POINTERS = ("rows", "cells", "side", "panel", "zero_bin", "items", "acc", "tickets",
-               "rowsum", "state", "ctrl", "out", "totals", "parent")
-_G_INTS = ("n", "d", "B", "n_items", "max_feats", "device")
+_G_POINTERS = ("rows", "cells", "row_cells", "row_ptr", "side", "panel", "zero_bin", "items",
+               "hot", "hot_feats", "acc", "tickets", "rowsum", "state", "touched", "scratch",
+               "ctrl", "out", "totals", "parent")
+_G_INTS = ("n", "d", "B", "nnz", "n_items", "max_feats", "n_hot", "device")
 
 
 class _GArgs(ctypes.Structure):
@@ -413,6 +500,15 @@ def _residual(h: torch.Tensor, tot: torch.Tensor, zero_bin: torch.Tensor) -> tor
     return h
 
 
+def _sides(panel: torch.Tensor, side: torch.Tensor, totals: torch.Tensor, ctrl: torch.Tensor):
+    """The rows pass: ``totals`` written; (half, slot, the sides to sum)."""
+    half, slot, _ = (int(v) for v in ctrl.tolist())
+    p = panel[:, :3]
+    for s in (0, 1):
+        totals[s] = (p * (side == s).to(torch.float32)[:, None]).sum(0)
+    return half, slot, g_summed_sides(side, ctrl)
+
+
 def sparse_hist_plain(sb: SparseBinned, panel: torch.Tensor, side: torch.Tensor,
                       out: torch.Tensor, totals: torch.Tensor, ctrl: torch.Tensor,
                       parent: Optional[torch.Tensor] = None) -> None:
@@ -420,20 +516,45 @@ def sparse_hist_plain(sb: SparseBinned, panel: torch.Tensor, side: torch.Tensor,
     sides' totals and member counts, then a gather of the panel at the
     entries' rows and ``index_add_`` into the cells, and the zero-bin
     residual."""
-    half, slot, forced = (int(v) for v in ctrl.tolist())
+    half, slot, sides = _sides(panel, side, totals, ctrl)
     p = panel[:, :3]
     d, B = sb.d, sb.n_bins
-    for s in (0, 1):
-        totals[s] = (p * (side == s).to(torch.float32)[:, None]).sum(0)
-    cnt = [int((side == s).sum()) for s in (0, 1)]
-    small = forced if forced >= 0 else int(cnt[1] <= cnt[0])
     side_e = side[sb.rows.long()]
     p_e = p[sb.rows.long()]
     cells = sb.cells.long()
-    for s in ((small,) if half else (0, 1)):
+    for s in sides:
         h = torch.zeros(d * B, 3, dtype=torch.float32, device=p.device)
         m = side_e == s
         h.index_add_(0, cells[m], p_e[m])
+        out[s] = _residual(h.reshape(d, B, 3), totals[s], sb.zero_bin)
+        if half and parent is not None:
+            out[1 - s] = parent[slot] - out[s]
+
+
+def sparse_hist_rows_plain(sb: SparseBinned, panel: torch.Tensor, side: torch.Tensor,
+                           out: torch.Tensor, totals: torch.Tensor, ctrl: torch.Tensor,
+                           parent: Optional[torch.Tensor] = None) -> None:
+    """Plain twin of G's row walk (same arguments as :func:`sparse_hist`):
+    the member rows of each summed side in CSR order, each row's entries
+    read from the row-major view (``row_ptr``, ``row_cells``) and its panel
+    added into their cells with ``index_add_``, then the zero-bin residual
+    and the sibling. Tests and ``chip_smoke.py`` hold the kernel and
+    :func:`sparse_hist_plain` to it."""
+    half, slot, sides = _sides(panel, side, totals, ctrl)
+    p = panel[:, :3]
+    d, B = sb.d, sb.n_bins
+    ptr = sb.row_ptr
+    for s in sides:
+        members = torch.nonzero(side == s)[:, 0]
+        lens = ptr[members + 1] - ptr[members]
+        n_e = int(lens.sum())
+        # each member entry's place in row_cells: its row's start + its rank in the row
+        starts = torch.repeat_interleave(ptr[members], lens, output_size=n_e)
+        rank = (torch.arange(n_e, device=p.device)
+                - torch.repeat_interleave(torch.cumsum(lens, 0) - lens, lens, output_size=n_e))
+        h = torch.zeros(d * B, 3, dtype=torch.float32, device=p.device)
+        h.index_add_(0, sb.row_cells[starts + rank].long(),
+                     p[torch.repeat_interleave(members, lens, output_size=n_e)])
         out[s] = _residual(h.reshape(d, B, 3), totals[s], sb.zero_bin)
         if half and parent is not None:
             out[1 - s] = parent[slot] - out[s]
@@ -473,8 +594,10 @@ def sparse_hist(sb: SparseBinned, panel: torch.Tensor, side: torch.Tensor,
     ``parent`` (2, d, B, 3), the other slot gets ``parent[slot]`` minus it
     (the sibling by subtraction, ``grow.py:689-695``). Each feature's zero
     bin holds the side's total minus the feature's stored cells. CPU
-    tensors take :func:`sparse_hist_plain`; CUDA tensors launch kernel G
-    (two device kernels: the rows pass, then the entries pass)."""
+    tensors take :func:`sparse_hist_plain`; CUDA tensors launch kernel G:
+    four device kernels, the rows pass (totals, the smaller side, and the
+    path by :func:`g_path`), then the stream, the row walk and the walk's
+    epilogue, of which the path's run and the others return at once."""
     _check_g(sb, panel, side, out, totals, ctrl, parent)
     dev = sb.device
     if dev.type == "cpu":
@@ -483,17 +606,20 @@ def sparse_hist(sb: SparseBinned, panel: torch.Tensor, side: torch.Tensor,
     if dev.type != "cuda":
         raise ValueError(f"kernel G needs a SparseBinned built on a CUDA device, got {dev}")
     if sb.plan is None:
-        sb.plan = GPlan(*g_plan(sb.counts, sb.n_bins), sb.n_bins, dev)
+        sb.plan = GPlan(*g_plan(sb.counts, sb.n_bins), g_hot(sb.counts, sb.n, sb.n_bins),
+                        sb.d, sb.n_bins, dev)
     pl = sb.plan
-    args = _GArgs(rows=sb.rows.data_ptr(), cells=sb.cells.data_ptr(), side=side.data_ptr(),
-                  panel=panel.data_ptr(), zero_bin=sb.zero_bin.data_ptr(),
-                  items=pl.items.data_ptr(), acc=pl.acc.data_ptr(),
-                  tickets=pl.tickets.data_ptr(), rowsum=pl.rowsum.data_ptr(),
-                  state=pl.state.data_ptr(), ctrl=ctrl.data_ptr(), out=out.data_ptr(),
-                  totals=totals.data_ptr(),
-                  parent=None if parent is None else parent.data_ptr(),
-                  n=sb.n, d=sb.d, B=sb.n_bins, n_items=pl.items.shape[0],
-                  max_feats=pl.max_feats, device=dev.index)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    args = _GArgs(**{name: ptr(t) for name, t in (
+                      ("rows", sb.rows), ("cells", sb.cells), ("row_cells", sb.row_cells),
+                      ("row_ptr", sb.row_ptr), ("side", side), ("panel", panel),
+                      ("zero_bin", sb.zero_bin), ("items", pl.items), ("hot", pl.hot),
+                      ("hot_feats", pl.hot_feats), ("acc", pl.acc), ("tickets", pl.tickets),
+                      ("rowsum", pl.rowsum), ("state", pl.state), ("touched", pl.touched),
+                      ("scratch", pl.scratch), ("ctrl", ctrl), ("out", out),
+                      ("totals", totals), ("parent", parent))},
+                  n=sb.n, d=sb.d, B=sb.n_bins, nnz=sb.nnz, n_items=pl.items.shape[0],
+                  max_feats=pl.max_feats, n_hot=pl.n_hot, device=dev.index)
     SPARSE_HIST_KERNEL(ctypes.byref(args), torch.cuda.current_stream(dev).cuda_stream)
 
 

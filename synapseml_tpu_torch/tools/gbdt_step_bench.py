@@ -1,7 +1,7 @@
-"""Time kernels D, E, A's row list and P of a tree, and its fits' growth.
+"""Time kernels D, E, A's row list, P and G of a tree, and its fits' growth.
 
     python synapseml_tpu_torch/tools/gbdt_step_bench.py [--tree DIR] [--seed 0]
-        [--only split,bin,growth,leaves]
+        [--only split,bin,growth,leaves,sparse] [--rows-cache FILE.npz]
     python synapseml_tpu_torch/tools/gbdt_step_bench.py --ab DIR DIR ... [--rounds 2]
 
 Measures the ``synapseml_tpu_torch`` found in ``--tree`` (default: the tree
@@ -9,8 +9,9 @@ holding this file), so the same command times an older tree unpacked beside
 this one; run it as a script, not with ``python -m``. ``--ab`` runs one
 process per tree and round, in the given order and reversed every other
 round (``--rounds 2`` over parent and change: parent, change, change,
-parent). ``--only`` picks the benches (default: all four). One JSON line per
-measurement, with the card's name and power limit. Needs a CUDA device.
+parent). ``--only`` picks the benches (default: all but ``sparse``). One
+JSON line per measurement, with the card's name and power limit. Needs a
+CUDA device.
 
 - ``split``: E, at the split steps of the three fits of ``chip_smoke.py``
   (L=31; HIGGS d=28 B=64; Adult d=14 B=256, 8 categorical; Covertype d=12
@@ -66,6 +67,9 @@ LEAF_WIDTHS = (("higgs", 4_194_304, 28, 64, torch.int8),
 # name: (d, B, categorical features)
 SPLIT_SHAPES = {"higgs": (28, 64, []), "adult": (14, 256, [1, 3, 5, 6, 7, 8, 9, 13]),
                 "covertype": (12, 256, [10, 11])}
+BENCHES = ("split", "bin", "growth", "leaves", "sparse")
+# listed rows of the small leaves at which kernel G is timed
+SPARSE_LEAVES = (1024, 40)
 
 
 def time_ms(fn, reps: int) -> float:
@@ -275,16 +279,8 @@ def bench_growth(card, seed):
 def _kernel_ms(fn, parts, reps: int = 20) -> float:
     """Device ms a launch of the kernels whose traced name holds ``parts``,
     in a trace of ``reps`` calls of ``fn`` after one warm-up."""
-    from synapseml_tpu_torch.tools.profile_fit import _device_us
-
-    fn()
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    hits = [e for e in prof.key_averages() if all(p in e.key for p in parts)]
-    return sum(_device_us(e) for e in hits) / 1e3 / max(1, sum(e.count for e in hits))
+    ms, launches, _ = _call_ms(fn, parts, reps)
+    return ms / launches if launches else 0.0
 
 
 def bench_leaves(card, seed, dev):
@@ -339,12 +335,154 @@ def bench_leaves(card, seed, dev):
         torch.cuda.empty_cache()
 
 
+def sparse_splits(sb, booster, seed: int, leaves=SPARSE_LEAVES) -> dict:
+    """Kernel G's splits over a SparseBinned and a booster fitted on it:
+    {name: (side (n,) int32, (half, slot, forced), the rows of the leaf
+    whose histogram the call's ``parent`` keeps in slot 0: (n,) bool, or
+    None)}. ``root_both`` and ``root_child``: the first tree's root split,
+    both sides and the smaller side with the sibling from the kept root;
+    ``deep_both`` and ``deep``: its deepest split (the last among the
+    deepest), its earlier steps replayed over ``sparse_column``, both sides
+    (a leaf whose histograms were not kept) and the smaller side with the
+    kept leaf; ``rows_<k>`` for each of ``leaves``: a leaf of 2k rows drawn
+    at random, k of them right and k left, the right side (k member rows,
+    the smaller by the reference's rule) with the kept leaf. Numeric splits
+    only (hashed text has none other)."""
+    from synapseml_tpu_torch.gbdt.sparse import sparse_column
+
+    dev, n = sb.device, sb.n
+    parent, feature, bin_ = (np.asarray(a[0, 0]) for a in (booster.parent, booster.feature,
+                                                          booster.bin))
+    go_right = lambda s: sparse_column(sb, int(feature[s])) > int(bin_[s])
+    split = lambda member, s: torch.where(member, go_right(s).to(torch.int32), 2).to(
+        torch.int32)
+    every = torch.ones(n, dtype=torch.bool, device=dev)
+    depth, depths = [0] * (len(parent) + 1), []
+    for s, p in enumerate(parent):
+        p = int(p)
+        depths.append(depth[p] if p >= 0 else -1)
+        if p >= 0:
+            depth[p] = depth[s + 1] = depth[p] + 1
+    deep = max(range(len(parent)), key=lambda s: (depths[s], s))
+    node = torch.zeros(n, dtype=torch.int32, device=dev)
+    for s in range(deep):
+        if int(parent[s]) >= 0:
+            node = torch.where((node == int(parent[s])) & go_right(s), s + 1, node)
+    leaf = node == int(parent[deep])
+    out = {"root_both": (split(every, 0), (0, 0, -1), None),
+           "root_child": (split(every, 0), (1, 0, -1), every),
+           "deep_both": (split(leaf, deep), (0, 0, -1), None),
+           "deep": (split(leaf, deep), (1, 0, -1), leaf)}
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    for k in leaves:
+        pick = torch.randperm(n, generator=gen, device=dev)[:2 * k]
+        side = torch.full((n,), 2, dtype=torch.int32, device=dev)
+        side[pick[:k]], side[pick[k:]] = 1, 0
+        out[f"rows_{k}"] = (side, (1, 0, -1), side <= 1)
+    return out
+
+
+def _hashed_rows(seed: int, cache):
+    """Phase 2g's training reviews and labels; from ``cache`` (an .npz this
+    bench wrote) when it exists, else made and, given ``cache``, kept."""
+    import os
+
+    from synapseml_tpu_torch.gbdt.sparse import CSRMatrix
+    from synapseml_tpu_torch.tools.schema_data import FITS, hashed_text_rows
+
+    if cache and Path(cache).exists():
+        z = np.load(cache)
+        return CSRMatrix(z["indptr"], z["indices"], z["values"], tuple(z["shape"])), z["y"]
+    n_train, n_made, _ = FITS["hashed_text"]
+    x, y = hashed_text_rows(seed, n_made)
+    x, y = x[:n_train], y[:n_train]
+    if cache:  # the values are word counts: exact in f32
+        tmp = f"{cache}.{os.getpid()}.npz"
+        np.savez(tmp, indptr=x.indptr, indices=x.indices, values=x.values.astype(np.float32),
+                 shape=np.asarray(x.shape), y=y)
+        os.replace(tmp, cache)
+    return x, y
+
+
+def _call_ms(fn, parts, reps: int = 20):
+    """(device ms, device kernels, {kernel: device ms}) of one call of
+    ``fn``: the kernels whose traced name holds ``parts``, in a trace of
+    ``reps`` calls after one warm-up."""
+    from synapseml_tpu_torch.tools.profile_fit import _device_us
+
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    hits = [e for e in prof.key_averages() if all(p in e.key for p in parts)
+            and e.device_type == torch.autograd.DeviceType.CUDA]
+    return (sum(_device_us(e) for e in hits) / 1e3 / reps,
+            sum(e.count for e in hits) / reps,
+            {e.key.split("::")[-1][:30]: _device_us(e) / 1e3 / reps for e in hits})
+
+
+def bench_sparse(card, seed, dev, cache):
+    from synapseml_tpu_torch.gbdt.boost import _preround, _sigmoid, train
+    from synapseml_tpu_torch.gbdt.sparse import (SPARSE_HIST_TRACE, build_sparse_binned,
+                                                 sparse_hist)
+    from synapseml_tpu_torch.tools import profile_fit as pf
+    from synapseml_tpu_torch.tools.schema_data import FITS
+
+    x, y = _hashed_rows(seed, cache)
+    params = dict(FITS["hashed_text"][2], **pf._OBJECTIVE["hashed_text"])
+    train(dict(params, num_iterations=1), x[:65536], y[:65536])  # load the kernels
+    torch.cuda.synchronize()
+    booster, wall, kernels = pf._traced(lambda: train(params, x, y))
+    calls = params["num_iterations"] * params["num_leaves"]
+    g = [(k, us, c) for k, us, c in kernels if all(p in k for p in SPARSE_HIST_TRACE)]
+    print(json.dumps({"bench": "sparse", "shape": "fit", "rows": len(y), "wall_s": wall,
+                      "device_busy_s": sum(us for _, us, _ in kernels) / 1e6,
+                      "g_device_ms_a_fit": sum(us for _, us, _ in g) / 1e3,
+                      "g_device_kernels_a_call": sum(c for _, _, c in g) / calls,
+                      "g_kernel_ms_a_fit": {k.split("::")[-1][:30]: us / 1e3
+                                            for k, us, _ in g},
+                      "card": card}), flush=True)
+    sb = build_sparse_binned(x, booster.mapper, dev)
+    p = _sigmoid(booster._raw_of_csr(x, dev)[:, 0].float())
+    yd = torch.from_numpy(y).to(dev, torch.float32)
+    nb = 1 << (sb.n - 1).bit_length()
+    gh = _preround(torch.stack([p - yd, p * (1 - p)], 1), nb)
+    panel = torch.stack([gh[:, 0], gh[:, 1], torch.ones_like(p), torch.zeros_like(p)],
+                        1).contiguous()
+    shape = (2, sb.d, sb.n_bins, 3)
+    both = torch.tensor([0, 0, -1], dtype=torch.int32, device=dev)
+    for name, (side, ctrl_v, kept_leaf) in sparse_splits(sb, booster, seed).items():
+        par = None
+        if kept_leaf is not None:
+            par = torch.empty(shape, device=dev)
+            sparse_hist(sb, panel, torch.where(kept_leaf, 0, 2).to(torch.int32), par,
+                        torch.empty(2, 3, device=dev), both)
+        out, tot = torch.empty(shape, device=dev), torch.empty(2, 3, device=dev)
+        ctrl = torch.tensor(ctrl_v, dtype=torch.int32, device=dev)
+        run = lambda: sparse_hist(sb, panel, side, out, tot, ctrl, par)
+        ms, per_call, by_kernel = _call_ms(run, SPARSE_HIST_TRACE)
+        state = sb.plan.state
+        path = ("stream", "walk")[int(state[1])] if state.numel() > 1 else "stream"
+        print(json.dumps({"bench": "sparse", "shape": name, "ctrl": list(ctrl_v),
+                          "members": int(((side == 0) | (side == 1)).sum()), "path": path,
+                          "device_ms": ms, "device_kernels_a_call": per_call,
+                          "kernel_ms": by_kernel, "events_ms": time_ms(run, 20),
+                          "card": card}), flush=True)
+        del par, out
+    del sb, panel
+    torch.cuda.empty_cache()
+
+
 def run_ab(args) -> int:
     rc = 0
     for r in range(args.rounds):
         for tree in (args.ab if r % 2 == 0 else args.ab[::-1]):
             cmd = [sys.executable, __file__, "--tree", tree, "--seed", str(args.seed),
                    "--only", args.only]
+            if args.rows_cache:
+                cmd += ["--rows-cache", args.rows_cache]
             res = subprocess.run(cmd, stdout=subprocess.PIPE, text=True, timeout=1800)
             rc = rc or res.returncode
             for line in res.stdout.splitlines():
@@ -362,11 +500,13 @@ def main() -> int:
     ap.add_argument("--ab", nargs="+", metavar="DIR", help="trees to time alternately")
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--only", default="split,bin,growth,leaves",
-                    help="comma-separated benches: split, bin, growth, leaves")
+                    help=f"comma-separated benches: {', '.join(BENCHES)}")
+    ap.add_argument("--rows-cache", default=None, metavar="FILE.npz",
+                    help="sparse: keep the hashed reviews here for the next process")
     args = ap.parse_args()
     benches = args.only.split(",")
-    if set(benches) - {"split", "bin", "growth", "leaves"}:
-        ap.error(f"--only {args.only}: the benches are split, bin, growth, leaves")
+    if set(benches) - set(BENCHES):
+        ap.error(f"--only {args.only}: the benches are {', '.join(BENCHES)}")
     if not torch.cuda.is_available():
         print("gbdt_step_bench: needs a CUDA device", file=sys.stderr)
         return 2
@@ -391,6 +531,8 @@ def main() -> int:
         bench_leaves(card, args.seed, dev)
     if "growth" in benches:
         bench_growth(card, args.seed)
+    if "sparse" in benches:
+        bench_sparse(card, args.seed, dev, args.rows_cache)
     return 0
 
 

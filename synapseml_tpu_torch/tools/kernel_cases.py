@@ -14,7 +14,7 @@ made from a seed with numpy.
 from __future__ import annotations
 
 import contextlib
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -618,16 +618,18 @@ def full_pass():
         boost.grow_tree, boost.grow_tree_sparse = shipped
 
 
-# kernel G's edge cases (each run in both modes by its tests)
+# kernel G's edge cases (each run in every mode by its tests); the last four
+# are small sides, which the rows pass sends down the row walk
 SPARSE_HIST_CASES = ("every_row", "empty_features", "one_side", "non_members",
-                     "nan_and_zeros", "two_bins", "no_entries", "ragged", "wide_rows")
+                     "nan_and_zeros", "two_bins", "no_entries", "ragged", "wide_rows",
+                     "rows_40", "leaf_1pct", "stop_word", "empty_member_rows")
 
 
-def sparse_case_inputs(sb: SparseBinned, seed: int, side_of: str = "random"):
+def sparse_case_inputs(sb: SparseBinned, seed: int, side_of="random"):
     """(panel (n, 4) f32 on ``_preround``'s grid, side (n,) int32, a (2, d,
     B, 3) f32 buffer for the kept histogram) on ``sb``'s device. ``side_of``:
     ``random`` (0, 1 or 2 for non-members), ``left`` (every row 0),
-    ``mostly_out`` (nine rows in ten not members)."""
+    ``mostly_out`` (nine rows in ten not members), or the (n,) sides."""
     rng = np.random.default_rng(seed)
     n, dev = sb.n, sb.device
     n_bound = 1 << max(n - 1, 1).bit_length()
@@ -636,11 +638,26 @@ def sparse_case_inputs(sb: SparseBinned, seed: int, side_of: str = "random"):
     w = (rng.random(n) < 0.9).astype(np.float32)    # some rows of weight 0 (bagging)
     w_t = torch.from_numpy(w)
     panel = torch.stack([gh[:, 0] * w_t, gh[:, 1] * w_t, w_t, torch.zeros(n)], dim=1)
-    side = {"random": rng.integers(0, 3, n),
-            "left": np.zeros(n, np.int64),
-            "mostly_out": np.where(rng.random(n) < 0.1, rng.integers(0, 2, n), 7)}[side_of]
+    if isinstance(side_of, np.ndarray):
+        side = side_of
+    else:
+        side = {"random": lambda: rng.integers(0, 3, n),
+                "left": lambda: np.zeros(n, np.int64),
+                "mostly_out": lambda: np.where(rng.random(n) < 0.1, rng.integers(0, 2, n),
+                                               7)}[side_of]()
     return (panel.contiguous().to(dev), torch.from_numpy(side.astype(np.int32)).to(dev),
             torch.zeros((2, sb.d, sb.n_bins, 3), dtype=torch.float32, device=dev))
+
+
+def _leaf_sides(rng, n: int, rows: np.ndarray, right: Optional[np.ndarray] = None):
+    """(n,) sides: ``rows`` the split leaf's members, each left or right at
+    random (``right``: those of them on the right), every other row outside
+    it (sides 2, 5 and 9, as other leaves' rows)."""
+    side = rng.choice(np.array([2, 5, 9]), n)
+    side[rows] = rng.integers(0, 2, len(rows)) if right is None else 0
+    if right is not None:
+        side[right] = 1
+    return side
 
 
 def sparse_hist_case(case: str, device="cpu", seed: int = 0):
@@ -654,7 +671,14 @@ def sparse_hist_case(case: str, device="cpu", seed: int = 0):
     NaN values (the compact missing bin) and explicitly stored 0.0;
     ``two_bins``: B = 2; ``no_entries``: nnz = 0; ``ragged``: an entry count
     not a multiple of G's block of entries, with features just under and
-    over it; ``wide_rows``: n past the range of a 16-bit index."""
+    over it; ``wide_rows``: n past the range of a 16-bit index. The small
+    sides: ``rows_40``, a leaf of 2,040 rows split 2,000 / 40 (the half
+    pass sums the 40); ``leaf_1pct``, a leaf of 1 % of 20,000 rows (in
+    both-sides mode, the grower's small leaf whose histograms were not
+    kept); ``stop_word``, a feature in every row (a hot feature of the row
+    walk: its cells take an add from every member row) over 3,000 sparse
+    features and a leaf of 5 % of the rows; ``empty_member_rows``, a leaf
+    of 220 rows of which 200 hold no entry."""
     rng = np.random.default_rng([seed, SPARSE_HIST_CASES.index(case)])
     dev = torch.device(device)
     side_of = {"one_side": "left", "non_members": "mostly_out"}.get(case, "random")
@@ -666,18 +690,24 @@ def sparse_hist_case(case: str, device="cpu", seed: int = 0):
         rows, cols = key // d, key % d
         bins = rng.integers(0, 2, len(rows))
         zero_bin = rng.integers(0, 2, d)
-        sb = pack_entries(*(torch.from_numpy(a).to(dev) for a in (rows, cols, bins)),
+        indptr = np.zeros(n + 1, np.int64)
+        np.cumsum(np.bincount(rows, minlength=n), out=indptr[1:])
+        sb = pack_entries(*(torch.from_numpy(a).to(dev) for a in (rows, cols, bins, indptr)),
                           zero_bin, n, d, 2)
         return (sb, *sparse_case_inputs(sb, seed, side_of))
     n, d, density = {"every_row": (9000, 30, 0.05), "empty_features": (2000, 4096, 0.0005),
                      "no_entries": (500, 64, 0.0), "ragged": (5000, 50, 0.0),
-                     "wide_rows": (70_001, 200, 0.01)}.get(case, (4000, 300, 0.03))
+                     "wide_rows": (70_001, 200, 0.01), "leaf_1pct": (20_000, 300, 0.03),
+                     "stop_word": (9000, 3000, 0.002),
+                     "empty_member_rows": (4000, 300, 0.01)}.get(case, (4000, 300, 0.03))
     dense_rows = rng.random((n, d)) < density if d * n <= 50_000_000 else None
+    if case == "empty_member_rows":  # rows below 1,000 hold no entry
+        dense_rows[:1000] = False
     rows, cols = (np.nonzero(dense_rows) if dense_rows is not None
                   else (np.zeros(0, int), np.zeros(0, int)))
     vals = rng.integers(1, 6, len(rows)).astype(np.float64)
     extra = []
-    if case == "every_row":       # feature 3 in every row, value 1 in most
+    if case in ("every_row", "stop_word"):  # feature 3 in every row, value 1 in most
         extra.append((np.arange(n), np.full(n, 3), np.where(rng.random(n) < 0.95, 1.0, 2.0)))
     if case == "ragged":          # 3 * G_ENTRIES + 17 entries; features at G_ENTRIES +- 1
         sizes = [G_ENTRIES - 1, G_ENTRIES + 1, G_ENTRIES, 17, G_ENTRIES - 1]
@@ -697,4 +727,13 @@ def sparse_hist_case(case: str, device="cpu", seed: int = 0):
     csr = CSRMatrix(indptr, cols, vals, (n, d))
     mapper = BinMapper(max_bin=15).fit_csr(csr)
     sb = build_sparse_binned(csr, mapper, dev)
+    if case == "rows_40":
+        leaf = rng.permutation(n)[:2040]
+        side_of = _leaf_sides(rng, n, leaf, right=leaf[:40])
+    elif case in ("leaf_1pct", "stop_word"):
+        side_of = _leaf_sides(rng, n, rng.permutation(n)[:n // {"leaf_1pct": 100,
+                                                                "stop_word": 20}[case]])
+    elif case == "empty_member_rows":
+        side_of = _leaf_sides(rng, n, np.concatenate([rng.permutation(1000)[:200],
+                                                      1000 + rng.permutation(n - 1000)[:20]]))
     return (sb, *sparse_case_inputs(sb, seed, side_of))

@@ -23,8 +23,9 @@ from synapseml_tpu_torch.gbdt.histogram import (HIST_KERNEL, HIST_ROWS_KERNEL, S
                                                 histogram_rows_plain, sibling)
 from synapseml_tpu_torch.gbdt.partition import PARTITION_KERNEL, RowPartition
 from synapseml_tpu_torch.gbdt.metrics import METRICS
-from synapseml_tpu_torch.gbdt.sparse import (SPARSE_HIST_KERNEL, CSRMatrix, sparse_hist,
-                                             sparse_hist_plain)
+from synapseml_tpu_torch.gbdt.sparse import (G_PATH_STREAM, G_PATH_WALK, SPARSE_HIST_KERNEL,
+                                             CSRMatrix, g_path, g_summed_entries, sparse_hist,
+                                             sparse_hist_plain, sparse_hist_rows_plain)
 from synapseml_tpu_torch.gbdt.split_search import (SPLIT_KERNEL, SplitWorkspace,
                                                    split_gains_plain, split_search,
                                                    split_search_plain)
@@ -804,11 +805,10 @@ def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
                 and torch.equal(a.nan_to_num(), b.nan_to_num()))
 
 
-@pytest.mark.parametrize("mode", sorted(G_MODES))
-@pytest.mark.parametrize("case", SPARSE_HIST_CASES)
-def test_sparse_hist_kernel_bit_equal(cuda, case, mode):
-    """Kernel G against its plain version on the shared edge cases, in each
-    mode, twice (a call must leave its scratch and tickets zero)."""
+def _g_calls(cuda, case, mode):
+    """Kernel G twice, the plain version and the row walk's plain twin on one
+    case and mode: [(out, totals)] and the path the rows pass chose (read
+    back after the first call), with the path the CPU model predicts."""
     sb, panel, side, kept = sparse_hist_case(case, cuda)
     half, slot, forced = G_MODES[mode]
     g = torch.Generator(device="cpu").manual_seed(3)
@@ -816,18 +816,50 @@ def test_sparse_hist_kernel_bit_equal(cuda, case, mode):
     parent = kept if half and forced < 0 else None
     ctrl = torch.tensor([half, slot, forced], dtype=torch.int32, device=cuda)
     shape = (2, sb.d, sb.n_bins, 3)
-    runs = []
-    for fn in (sparse_hist, sparse_hist, sparse_hist_plain):
+    runs, paths = [], []
+    for fn in (sparse_hist, sparse_hist, sparse_hist_plain, sparse_hist_rows_plain):
         out = torch.full(shape, float("nan"), device=cuda)
         tot = torch.full((2, 3), float("nan"), device=cuda)
         before = SPARSE_HIST_KERNEL.launches
         fn(sb, panel, side, out, tot, ctrl, parent)
         torch.cuda.synchronize()
         assert SPARSE_HIST_KERNEL.launches - before == (fn is sparse_hist)
+        if fn is sparse_hist:
+            paths.append(int(sb.plan.state[1]))
         runs.append((out, tot))
-    for out, tot in runs[:2]:
+    pl = sb.plan
+    assert not (pl.acc.any() or pl.tickets.any() or pl.rowsum.any() or pl.scratch.any()
+                or pl.touched.any())
+    return sb, runs, paths, g_path(g_summed_entries(sb, side, (half, slot, forced)), sb.nnz)
+
+
+@pytest.mark.parametrize("mode", sorted(G_MODES))
+@pytest.mark.parametrize("case", SPARSE_HIST_CASES)
+def test_sparse_hist_kernel_bit_equal(cuda, case, mode):
+    """Kernel G against its plain version and the row walk's plain twin on
+    the shared edge cases, in each mode, twice (a call must leave its
+    scratch, flags and tickets zero), on the path the CPU model predicts."""
+    _, runs, paths, want = _g_calls(cuda, case, mode)
+    for out, tot in runs[:2] + runs[3:]:
         assert _same_bits(out, runs[2][0]) and _same_bits(tot, runs[2][1])
-    assert not sb.plan.acc.any() and not sb.plan.tickets.any() and not sb.plan.rowsum.any()
+    assert paths == [want, want]
+
+
+def test_sparse_hist_kernel_takes_both_paths(cuda):
+    """Together the cases drive both of G's paths (read back from ``state``):
+    the small sides the row walk in every mode, a whole-leaf pass the
+    stream."""
+    seen = {}
+    for case in SPARSE_HIST_CASES:
+        for mode in G_MODES:
+            seen[case, mode] = _g_calls(cuda, case, mode)[2][0]
+    assert set(seen.values()) == {G_PATH_STREAM, G_PATH_WALK}
+    for case in ("rows_40", "leaf_1pct", "stop_word", "empty_member_rows"):
+        for mode in G_MODES:
+            # rows_40's leaf is half the rows: only its 40-row side is small
+            if case != "rows_40" or mode not in ("both_sides", "forced_left"):
+                assert seen[case, mode] == G_PATH_WALK, (case, mode)
+    assert seen["one_side", "forced_left"] == G_PATH_STREAM
 
 
 def _sparse_fit_data(kind):
