@@ -93,6 +93,26 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    and E's device ms a fit and a call, G's device kernels a call (each of
    its 4 once, a hard check) and each one's ms a fit, and the launches a
    split step;
+2h. ``GBDTDataset`` and the pipeline-stage library: (i) a device-resident
+   dataset built from phase 2's 4,194,304 training rows as a card tensor
+   (kernel D exactly once in the construction; D's ms there), then two
+   ``train`` calls over it (phase 2's parameters, then ``num_leaves=15,
+   learning_rate=0.05``): D 0 times in each, E, P and A's row-list entry
+   once a split step, and the first fit's trees identical to
+   ``train(params, x, y)`` from the raw matrix; (ii) a continued fit
+   (``init_booster=`` the first fit, 5 more iterations) over the dataset
+   (D 0 times), identical to the continuation from the raw matrix; (iii) a
+   CSR dataset at phase 2g's small case (16,384 reviews at 2^14 slots):
+   two fits build its ``SparseBinned`` once, and each fit's trees are
+   identical on the card, on the CPU and to ``train(params, csr)``; (iv)
+   ``TrainClassifier(model=LightGBMClassifier(num_iterations=10,
+   num_leaves=31))`` on 1,048,576 Adult-schema rows with the 8 categorical
+   columns as strings (``schema_data.adult_columns``), transform of 262,144
+   held out and ``ComputeModelStatistics``: AUC > ADULT_AUC_FLOOR and equal
+   to the script's numpy AUC within 1e-6, D and E in the fit, D and B in
+   the transform, Featurize's host time beside the fit's and the
+   transform's, and a 16,384-row ``TrainClassifier`` fit giving identical
+   trees on the card and the CPU;
 3. flash attention's entry point, all causal: in bf16 (the wgmma kernel) at
    the headline shape (B=1, S=32768, H=8, D=64), the grouped-query serving
    shape (B=8, S=8192, H=8, H_kv=2, D=64), the headline length at D=128, and
@@ -195,6 +215,9 @@ N_FEATURES = 28               # HIGGS width
 N_ADULT_TRAIN, N_ADULT_TEST = 4_194_304, 1_048_576
 N_COVTYPE = 581_012
 N_COVTYPE_TRAIN = 464_810
+# phase 2h's TrainClassifier rows: Featurize runs on the host, so a quarter
+# of phase 2b's
+N_TC_TRAIN, N_TC_TEST = 1_048_576, 262_144
 # Floors that say wrong, not slow, far above chance (AUC 0.5; the majority
 # class 0.42) and below what the reference's pre-rounding allows at these
 # row counts: its grid (_preround, the next power of two over the rows)
@@ -977,6 +1000,238 @@ def hashed_text_phase(kernels, seed, split_steps) -> dict:
             "fit_params": fit_params}
 
 
+def same_booster(a, b) -> str:
+    """The first field in which two boosters' trees differ, or ''."""
+    for field in ("parent", "feature", "bin", "cat_set", "leaf_value", "leaf_hess",
+                  "tree_scale", "base_score"):
+        x, y = getattr(a, field), getattr(b, field)
+        if not ((x is None and y is None) or np.array_equal(x, y)):
+            return field
+    return ""
+
+
+def stable_rank_auc(y: np.ndarray, score: np.ndarray) -> float:
+    """AUC as the Mann-Whitney statistic over the ranks of a stable sort of
+    the scores (ties in row order): the definition of the metric that
+    ``ComputeModelStatistics`` reports."""
+    order = np.argsort(score, kind="stable")
+    pos = (y[order] > 0)
+    ranks = np.arange(1, len(y) + 1, dtype=np.float64)
+    n_pos, n_neg = int(pos.sum()), int((~pos).sum())
+    return float((ranks[pos].sum() - n_pos * (n_pos + 1) / 2.0) / (n_pos * n_neg))
+
+
+def dataset_phase(kernels, seed, gbdt, x_tr, y_tr, main_fit_s, split_steps, dev) -> dict:
+    """Phase 2h (i)-(iii) (see the module's doc): a ``GBDTDataset`` built once
+    from phase 2's rows on the card, reused by two fits and a continued fit;
+    a CSR dataset reused by two fits."""
+    import synapseml_tpu_torch.gbdt.boost as boost_mod
+    import synapseml_tpu_torch.gbdt.dataset as dataset_mod
+    from synapseml_tpu_torch.gbdt import GBDTDataset
+    from synapseml_tpu_torch.gbdt.boost import train
+    from synapseml_tpu_torch.tools.schema_data import FITS, hashed_text_rows
+
+    params = dict(gbdt, objective="binary")
+    second = dict(params, num_leaves=15, learning_rate=0.05)
+    x_d = torch.from_numpy(x_tr).to(dev)
+    y_d = torch.from_numpy(y_tr).to(dev)
+    torch.cuda.synchronize()
+    # (i) the dataset: kernel D once in the construction, then fits that bin nothing
+    reset(kernels)
+    t0 = time.perf_counter()
+    ds = GBDTDataset(x_d, label=y_d, max_bin=params["max_bin"])
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    build_l = counts(kernels)
+    if build_l["gbdt_bin_features"] != 1:
+        fail(f"the device-resident GBDTDataset launched kernel D "
+             f"{build_l['gbdt_bin_features']} times in its construction, not once")
+    d_ms = time_ms(lambda: ds.mapper.transform_torch(ds.x), 5)
+    fits = {}
+    for name, p in (("phase2_params", params), ("leaves15_lr005", second)):
+        reset(kernels)
+        t0 = time.perf_counter()
+        booster = train(p, ds)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        fl = counts(kernels)
+        steps = split_steps(p)
+        if fl["gbdt_bin_features"] != 0:
+            fail(f"the {name} fit over the GBDTDataset launched kernel D "
+                 f"{fl['gbdt_bin_features']} times")
+        for k in ("gbdt_split_search", "gbdt_partition", "gbdt_histogram_rows"):
+            if fl[k] != steps:
+                fail(f"the {name} fit over the GBDTDataset launched {k} {fl[k]} times, "
+                     f"not once a split step ({steps})")
+        fits[name] = {"booster": booster, "fit_s": fit_s, "launches": fl}
+    b1 = fits["phase2_params"]["booster"]
+    reset(kernels)
+    t0 = time.perf_counter()
+    b_raw = train(params, x_tr, y_tr)
+    torch.cuda.synchronize()
+    raw_fit_s = time.perf_counter() - t0
+    diff = same_booster(b1, b_raw)
+    if diff:
+        fail(f"the GBDTDataset fit's {diff} differs from the raw-matrix fit's")
+    # (ii) continued training from the dataset, scored over its cached bins
+    more = dict(params, num_iterations=5)
+    reset(kernels)
+    t0 = time.perf_counter()
+    b_cont = train(more, ds, init_booster=b1)
+    torch.cuda.synchronize()
+    cont_s = time.perf_counter() - t0
+    cont_l = counts(kernels)
+    diff = same_booster(b_cont, train(more, x_tr, y_tr, init_booster=b_raw))
+    if diff or b_cont.num_trees != params["num_iterations"] + 5:
+        fail(f"the continuation from the GBDTDataset differs from the raw-matrix "
+             f"continuation in {diff or 'its tree count'}")
+    if cont_l["gbdt_bin_features"] != 0:
+        fail(f"the continuation over the GBDTDataset launched kernel D "
+             f"{cont_l['gbdt_bin_features']} times")
+    del ds, x_d, y_d
+    # (iii) a CSR dataset: its SparseBinned built once across two fits
+    xs, ys = hashed_text_rows(seed + 1, 2 * SMALL_FIT_ROWS, HASHED_SMALL_BITS)
+    xs, ys = xs[:SMALL_FIT_ROWS], ys[:SMALL_FIT_ROWS]
+    builds = {"dataset": 0, "train": 0}
+    made = {key: mod.build_sparse_binned for key, mod in
+            (("dataset", dataset_mod), ("train", boost_mod))}
+
+    def counted(key):
+        def build(*a, **k):
+            builds[key] += 1
+            return made[key](*a, **k)
+        return build
+
+    csr_params = dict(FITS["hashed_text"][2], objective="binary", num_iterations=3)
+    ds_csr = GBDTDataset(xs, label=ys)
+    ds_cpu = GBDTDataset(xs, label=ys, device="cpu")
+    dataset_mod.build_sparse_binned = counted("dataset")
+    boost_mod.build_sparse_binned = counted("train")
+    try:
+        csr_fits = [train(p, ds_csr) for p in
+                    (csr_params, dict(csr_params, num_leaves=15, learning_rate=0.05))]
+        torch.cuda.synchronize()
+        sb_builds = dict(builds)
+    finally:
+        dataset_mod.build_sparse_binned = made["dataset"]
+        boost_mod.build_sparse_binned = made["train"]
+    if sb_builds != {"dataset": 1, "train": 0}:
+        fail(f"two fits over one CSR GBDTDataset built its SparseBinned {sb_builds}, "
+             "not once, by the dataset")
+    for p, b in zip((csr_params, dict(csr_params, num_leaves=15, learning_rate=0.05)),
+                    csr_fits):
+        for other, what in ((train(p, ds_cpu), "the CPU dataset fit"),
+                            (train(p, xs, ys), "train(params, csr)")):
+            diff = same_booster(b, other)
+            if diff:
+                fail(f"the CSR GBDTDataset fit's {diff} differs from {what}'s")
+    rec = {"phase": "gbdt_dataset", "rows": len(y_tr), "features": x_tr.shape[1],
+           **{k: v for k, v in params.items()}, "build_s": build_s,
+           "build_launches": build_l, "d_ms_in_build": d_ms,
+           "reused_fit_s": {k: v["fit_s"] for k, v in fits.items()},
+           "reused_fit_launches": {k: v["launches"] for k, v in fits.items()},
+           "phase2_estimator_fit_s": main_fit_s, "raw_matrix_train_s": raw_fit_s,
+           "identical_to_raw_matrix_fit": True, "continued_fit_s": cont_s,
+           "continued_fit_launches": cont_l, "continuation_identical": True,
+           "csr_rows": SMALL_FIT_ROWS, "csr_bits": HASHED_SMALL_BITS, "csr_nnz": xs.nnz,
+           "csr_sparse_binned_builds": sb_builds, "csr_identical_card_cpu_raw": True}
+    log(json.dumps(rec))
+    return rec
+
+
+def train_classifier_phase(kernels, seed, split_steps) -> dict:
+    """Phase 2h (iv) (see the module's doc): ``TrainClassifier`` ->
+    transform -> ``ComputeModelStatistics`` at the Adult Census schema with
+    string columns, the user path of SynapseML's Adult Census notebook."""
+    from synapseml_tpu_torch.core import Table
+    from synapseml_tpu_torch.featurize import Featurize
+    from synapseml_tpu_torch.gbdt.estimators import LightGBMClassifier
+    from synapseml_tpu_torch.tools.schema_data import ADULT_INCOME, adult_columns, adult_rows
+    from synapseml_tpu_torch.train import ComputeModelStatistics, TrainClassifier
+
+    learner = dict(num_iterations=10, num_leaves=31)
+    n_tr, n_te = N_TC_TRAIN, N_TC_TEST
+    t0 = time.perf_counter()
+    x, y, _ = adult_rows(seed, n_tr + n_te)
+    cols = adult_columns(x, y)
+    del x, y
+    train_t = Table({k: v[:n_tr] for k, v in cols.items()})
+    test_t = Table({k: v[n_tr:] for k, v in cols.items()})
+    y_te = (cols["income"][n_tr:] == ADULT_INCOME[1]).astype(np.float64)
+    data_s = time.perf_counter() - t0
+    tc = TrainClassifier(model=LightGBMClassifier(**learner), label_col="income")
+    reset(kernels)
+    t0 = time.perf_counter()
+    model = tc.fit(train_t)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    fit_l = counts(kernels)
+    reset(kernels)
+    t0 = time.perf_counter()
+    out = model.transform(test_t)
+    torch.cuda.synchronize()
+    transform_s = time.perf_counter() - t0
+    trans_l = counts(kernels)
+    steps = split_steps(learner)
+    if fit_l["gbdt_bin_features"] < 1 or fit_l["gbdt_split_search"] != steps:
+        fail(f"TrainClassifier's fit launched D {fit_l['gbdt_bin_features']} and E "
+             f"{fit_l['gbdt_split_search']} times (E once a split step: {steps})")
+    for k in ("gbdt_bin_features", "gbdt_tree_score"):
+        if trans_l[k] < 1:
+            fail(f"TrainClassifier's transform never launched {k}")
+    # Featurize's host share: its fit and transform again, on their own
+    feat_cols = [c for c in cols if c != "income"]
+    t0 = time.perf_counter()
+    Featurize(input_cols=feat_cols, output_col="features",
+              num_features=tc.number_of_features).fit(train_t)
+    feat_fit_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    width = model.featurizer.transform(train_t)["features"].shape[1]
+    feat_train_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    model.featurizer.transform(test_t)
+    feat_test_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    stats = ComputeModelStatistics(label_col="income",
+                                   evaluation_metric="classification").transform(out)
+    stats_s = time.perf_counter() - t0
+    prob = np.asarray(out["probability"])
+    if prob.shape != (n_te, 2) or not np.isfinite(prob).all():
+        fail(f"TrainClassifier's probabilities: shape {prob.shape}")
+    stats_auc = float(stats["AUC"][0])
+    np_auc = stable_rank_auc(y_te, prob[:, 1])
+    if not stats_auc > ADULT_AUC_FLOOR:
+        fail(f"TrainClassifier's held-out AUC {stats_auc:.4f} <= {ADULT_AUC_FLOOR}")
+    if not abs(stats_auc - np_auc) <= 1e-6:
+        fail(f"ComputeModelStatistics' AUC {stats_auc} differs from the numpy AUC {np_auc}")
+    # a 16,384-row TrainClassifier fit on the card and the CPU
+    small = Table({k: v[:SMALL_FIT_ROWS] for k, v in cols.items()})
+    small_learner = dict(learner, num_iterations=3)
+    card = TrainClassifier(model=LightGBMClassifier(**small_learner),
+                           label_col="income").fit(small)
+    cpu = TrainClassifier(model=LightGBMClassifier(device="cpu", **small_learner),
+                          label_col="income").fit(small)
+    diff = same_booster(card.inner_model.booster, cpu.inner_model.booster)
+    if diff:
+        fail(f"the small TrainClassifier fit's {diff} differs between the card and the CPU")
+    rec = {"phase": "train_classifier_adult", "rows_train": n_tr, "rows_test": n_te,
+           "columns": len(feat_cols), "string_columns": sum(
+               1 for c in feat_cols if cols[c].dtype == object),
+           "featurized_width": int(width), **learner, "data_s": data_s, "fit_s": fit_s,
+           "transform_s": transform_s, "featurize_fit_s": feat_fit_s,
+           "featurize_transform_train_s": feat_train_s,
+           "featurize_transform_test_s": feat_test_s,
+           "featurize_share_of_fit": (feat_fit_s + feat_train_s) / fit_s,
+           "featurize_share_of_transform": feat_test_s / transform_s,
+           "statistics_s": stats_s, "fit_launches": fit_l, "transform_launches": trans_l,
+           "stats": {c: float(stats[c][0]) for c in stats.column_names},
+           "numpy_auc": np_auc, "tie_mean_rank_auc": auc(y_te, prob[:, 1]),
+           "auc_floor": ADULT_AUC_FLOOR, "small_fit_rows": SMALL_FIT_ROWS,
+           "small_fit_identical_card_cpu": True}
+    log(json.dumps(rec))
+    return rec
+
+
 def trace_hashed_fits(hashed) -> dict:
     """G's and E's device ms, G's device kernels a call (and each kernel's
     ms) and the launches a split step in a traced ``train`` of phase 2g's
@@ -1519,6 +1774,12 @@ def main() -> int:
     t0 = time.perf_counter()
     hashed = hashed_text_phase(kernels, args.seed, split_steps)
     log(f"phase 2g in {time.perf_counter() - t0:.1f} s")
+
+    # -- phase 2h: GBDTDataset reuse, and TrainClassifier -> ComputeModelStatistics ----
+    t0 = time.perf_counter()
+    dataset_phase(kernels, args.seed, GBDT, x_tr, y_tr, fit_s, split_steps, dev)
+    train_classifier_phase(kernels, args.seed, split_steps)
+    log(f"phase 2h in {time.perf_counter() - t0:.1f} s")
 
     # -- phase 3: flash attention's entry point -----------------------------------------
     gen = torch.Generator(device=dev).manual_seed(args.seed)

@@ -12,6 +12,7 @@ Classes resolve through the port's OWN registries, never the reference's.
 from __future__ import annotations
 
 import json
+import logging
 import os
 import shutil
 from typing import Any, Dict
@@ -76,6 +77,10 @@ def _save_value(value, path: str) -> Dict[str, Any]:
             json.dump({"class": type(value).__name__, "scalars": scalars}, f,
                       default=_jsonable)
         return {"kind": "state"}
+    if callable(value):
+        # a closure (Lambda, UDFTransformer) does not persist: the slot is
+        # recorded, and load gives None, which the stage warns about
+        return {"kind": "callable_dropped"}
     try:
         with open(path + ".json", "w") as f:
             json.dump(value, f, default=_jsonable)
@@ -107,6 +112,11 @@ def _load_value(desc: Dict[str, Any], path: str):
     if kind == "json":
         with open(path + ".json") as f:
             return json.load(f)
+    if kind == "callable_dropped":
+        logging.getLogger("synapseml_tpu_torch").warning(
+            "loaded stage had a callable param at %s; callables don't persist, "
+            "reset to None", path)
+        return None
     raise ValueError(f"Unknown complex value kind {kind!r}")
 
 

@@ -18,6 +18,7 @@ _LAZY = {
     "GBDTBooster": "boost",
     "train": "boost",
     "BinMapper": "binning",
+    "GBDTDataset": "dataset",
     "booster_from_state": "convert",
     "model_from_state": "convert",
 }

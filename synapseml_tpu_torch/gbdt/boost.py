@@ -35,7 +35,8 @@ continued training from an ``init_booster`` and per-iteration
 :class:`~.sparse.CSRMatrix` or a scipy sparse matrix) train through the
 sparse grower (:func:`~.grow.grow_tree_sparse`, kernel G) in the mapper's
 compact bin space, and the booster scores CSR rows through the features its
-trees use (kernel B). Not ported yet: the mesh (distributed lambdarank
+trees use (kernel B). A :class:`~.dataset.GBDTDataset` is binned once
+and fits many times. Not ported yet: the mesh (distributed lambdarank
 included).
 """
 
@@ -51,6 +52,7 @@ import torch
 from ..core.serialization import register_state_class
 from ..runtime.device import resolve_device
 from .binning import BinMapper, torch_bin_dtype
+from .dataset import GBDTDataset
 from .grow import GrownTree, TreeConfig, grow_tree, grow_tree_sparse, predict_binned
 from .lambdarank import QueryGroups, lambda_grads
 from .partition import RowPartition
@@ -820,7 +822,7 @@ class _EvalSet:
             xt = torch.as_tensor(x).to(dev)
             self.binned = mapper.transform_torch(xt)
             prior = (None if init_booster is None else
-                     _init_margins(init_booster, mapper, self.binned, xt))
+                     _init_margins(init_booster, mapper, self.binned, xt, dev))
             if n_bins is not None:
                 self.binned = torch.clamp(self.binned, max=n_bins - 1)
         self.y_np = np.asarray(y, dtype=np.float64)
@@ -838,13 +840,38 @@ class _EvalSet:
 
 
 def _init_margins(init_booster: "GBDTBooster", mapper: BinMapper, binned: torch.Tensor,
-                  x: torch.Tensor) -> torch.Tensor:
+                  x: torch.Tensor, dev: torch.device) -> torch.Tensor:
     """(n, C) f64 margins of ``init_booster`` over the rows ``x`` (``binned``
-    by ``mapper``), scored on their device: the reference's
-    ``init_booster.raw_predict(x)``, without bringing ``x`` to the host."""
+    by ``mapper`` on ``dev``), scored on ``dev``: the reference's
+    ``init_booster.raw_predict(x)``, without bringing ``x`` to the host. The
+    rows move to ``dev`` only when the booster bins them otherwise."""
     if init_booster.mapper is not mapper:
-        binned = init_booster.mapper.transform_torch(x)
+        binned = init_booster.mapper.transform_torch(x.to(dev))
     return init_booster._raw_of_binned(binned, init_booster._used_trees(None))
+
+
+def _warn_binning_ignored(dataset: "GBDTDataset", params_c: Dict[str, Any],
+                          cat_features: List[int]) -> None:
+    """The dataset's binning wins over the fit's parameters: warn where a
+    parameter the caller set (under any alias) disagrees with it (the
+    reference's checks, ``boost.py:1669-1699``)."""
+    mapper = dataset.mapper
+    if "max_bin" in params_c and int(params_c["max_bin"]) != dataset.max_bin:
+        warnings.warn(f"max_bin={params_c['max_bin']} ignored: the GBDTDataset was "
+                      f"binned with max_bin={dataset.max_bin}", stacklevel=3)
+    for k, current in (("max_bin_by_feature", mapper.max_bin_by_feature),
+                       ("bin_sample_count", mapper.sample_cnt)):
+        requested = params_c.get(k)
+        # only a real mismatch: the estimators pass their defaults
+        if requested is not None and (requested or None) != (current or None):
+            warnings.warn(f"{k}={requested} ignored: the GBDTDataset owns binning "
+                          "(pass binning params to GBDTDataset instead)", stacklevel=3)
+    if params_c.get("categorical_feature") and \
+            sorted(cat_features) != sorted(mapper.categorical_features):
+        warnings.warn(f"categorical_feature={cat_features} conflicts with the "
+                      f"GBDTDataset's {sorted(mapper.categorical_features)}; the "
+                      "dataset's binning wins (pass categorical_features to "
+                      "GBDTDataset instead)", stacklevel=3)
 
 
 def _merge_boosters(a: GBDTBooster, b: GBDTBooster) -> GBDTBooster:
@@ -885,7 +912,7 @@ def _merge_cat_sets(a: GBDTBooster, b: GBDTBooster) -> Optional[np.ndarray]:
     return np.concatenate([expand(a, b), expand(b, a)])
 
 
-def train(params: Dict[str, Any], x, y, weight: Optional[np.ndarray] = None,
+def train(params: Dict[str, Any], x, y=None, weight: Optional[np.ndarray] = None,
           device=None, feature_names: Optional[List[str]] = None,
           eval_set: Optional[Sequence[Tuple[Any, Any]]] = None,
           group: Optional[np.ndarray] = None,
@@ -896,12 +923,23 @@ def train(params: Dict[str, Any], x, y, weight: Optional[np.ndarray] = None,
     """Train a booster on ``device`` (default: the GPU; ``"cpu"`` runs the
     plain PyTorch versions of the kernels).
 
-    ``x`` is an (n, d) float matrix (numpy or tensor) or a sparse one (a
+    ``x`` is an (n, d) float matrix (numpy or tensor), a sparse one (a
     :class:`~.sparse.CSRMatrix` or scipy sparse: fitted by
     ``BinMapper.fit_csr``, binned into the compact space of
     ``realized_n_bins``, grown by :func:`~.grow.grow_tree_sparse`; its eval
-    sets may be CSR too), ``y`` and ``weight`` (n,) numpy arrays (``y``
-    holds class indices for multiclass).
+    sets may be CSR too) or a :class:`~.dataset.GBDTDataset`, ``y`` and
+    ``weight`` (n,) arrays (``y`` holds class indices for multiclass; numpy
+    or a tensor).
+
+    A :class:`~.dataset.GBDTDataset` owns its binning: the fit takes its
+    mapper (unless ``mapper`` or ``init_booster`` brings another) and its
+    cached bins on its device, and bins and uploads nothing; ``y=None``
+    takes its label, ``device=None`` its device, and a ``max_bin``,
+    ``max_bin_by_feature``, ``bin_sample_count`` or ``categorical_feature``
+    that disagrees with it warns and is ignored. A device-resident dataset
+    (built from a tensor) refuses a ``mapper`` of its own; continued
+    training from it scores the init booster over the cached bins, on the
+    device. Eval sets may be datasets too (their rows are used).
     ``eval_set``: ``(x, y)`` pairs scored after every iteration with
     ``metric``; the first one drives early stopping. The booster's
     ``evals_result`` holds a record per iteration
@@ -935,9 +973,31 @@ def train(params: Dict[str, Any], x, y, weight: Optional[np.ndarray] = None,
     (its full pass or its leaf-local half pass; gather, scatter or one-hot
     histograms), and the port has one growth path for each input kind and
     one histogram kernel for each."""
+    dataset = x if isinstance(x, GBDTDataset) else None
+    y_d = None
+    if dataset is not None:
+        if device is not None and resolve_device(device) != dataset.device:
+            raise ValueError(f"the GBDTDataset lives on {dataset.device}; "
+                             f"train(device={device!r}) cannot use it")
+        device, x = dataset.device, dataset.x
+        if feature_names is None:
+            feature_names = dataset.feature_names
+        if y is None:
+            if dataset.label_np is None:
+                raise ValueError("y is required unless the GBDTDataset carries a "
+                                 "label (GBDTDataset(x, label=y))")
+            y, y_d = dataset.label_np, dataset.label_device()
+        if (dataset.is_device and mapper is not None
+                and mapper is not dataset.mapper):
+            raise ValueError("a device-resident GBDTDataset owns its binning; "
+                             "an overriding mapper would need the raw matrix "
+                             "on the host")
+    elif y is None:
+        raise ValueError("y is required unless x is a GBDTDataset with a label")
     dev = resolve_device(device)
+    params_c = _canonicalize_params(params)
     p = dict(_DEFAULTS)
-    p.update(_canonicalize_params(params))
+    p.update(params_c)
     obj_name = p["objective"]
     sparse_in = is_sparse_input(x)
     if sparse_in:
@@ -946,6 +1006,9 @@ def train(params: Dict[str, Any], x, y, weight: Optional[np.ndarray] = None,
     else:
         xt = torch.as_tensor(x)
         n, d = xt.shape
+    if isinstance(y, torch.Tensor):
+        y_d = y.to(dev, torch.float32)
+        y = y.detach().cpu().numpy()
     y = np.asarray(y, dtype=np.float64)
     w_np = np.ones(n) if weight is None else np.asarray(weight, dtype=np.float64) + 0.0
 
@@ -976,6 +1039,10 @@ def train(params: Dict[str, Any], x, y, weight: Optional[np.ndarray] = None,
 
     if mapper is None and init_booster is not None:
         mapper = init_booster.mapper
+    if mapper is None and dataset is not None:
+        mapper = dataset.mapper
+        _warn_binning_ignored(dataset, params_c, _categorical_indices(
+            p["categorical_feature"], feature_names))
     if mapper is None:
         cat_features = _categorical_indices(p["categorical_feature"], feature_names)
         mapper = BinMapper(max_bin=int(p["max_bin"]), seed=int(p["seed"]),
@@ -986,12 +1053,12 @@ def train(params: Dict[str, Any], x, y, weight: Optional[np.ndarray] = None,
             mapper.fit_csr(csr)
         else:
             mapper.fit(xt.numpy() if xt.device.type == "cpu" else xt.cpu().numpy())
-    if sparse_in:
-        x_dev = None
+    if dataset is not None and mapper is dataset.mapper:
+        binned = dataset.device_binned()  # binned and moved once a dataset
+    elif sparse_in:
         binned = build_sparse_binned(csr, mapper, dev)
     else:
-        x_dev = xt.to(dev)
-        binned = mapper.transform_torch(x_dev)  # kernel D where exact
+        binned = mapper.transform_torch(xt.to(dev))  # kernel D where exact
     has_cat = bool(mapper.categorical_features)
     cat_mask = None
     if has_cat:
@@ -1023,15 +1090,15 @@ def train(params: Dict[str, Any], x, y, weight: Optional[np.ndarray] = None,
     renew_alpha = (None if fobj is not None
                    else {"quantile": float(p["alpha"]), "l1": 0.5, "mae": 0.5}.get(obj_name))
 
-    y_d = torch.as_tensor(y, dtype=torch.float32, device=dev)
+    if y_d is None:
+        y_d = torch.as_tensor(y, dtype=torch.float32, device=dev)
     w_d = torch.as_tensor(w_np, dtype=torch.float32, device=dev)
     if init_booster is not None:  # the prior trees' margins, scored on the device
         raw = (init_booster._raw_of_csr(csr, dev) if sparse_in else
-               _init_margins(init_booster, mapper, binned, x_dev)).to(torch.float32)
+               _init_margins(init_booster, mapper, binned, xt, dev)).to(torch.float32)
     else:
         raw = torch.zeros(n, C, dtype=torch.float32, device=dev) + torch.as_tensor(
             base, dtype=torch.float32, device=dev)
-    del x_dev
     ones = torch.ones(n, dtype=torch.float32, device=dev)
     fmask = torch.ones(d, dtype=torch.float32, device=dev)
     if not sparse_in:  # every tree of the fit; kernel E reads fmask through its pointer
@@ -1043,7 +1110,8 @@ def train(params: Dict[str, Any], x, y, weight: Optional[np.ndarray] = None,
     # DART (f64 margins), ndcg (query groups) and callbacks (a record each
     # iteration) take the reference's host metric: numpy over f64 margins
     host_eval = dart or ndcg_fn is not None or bool(callbacks)
-    evals_in = [_EvalSet(mapper, ex, ey, base, dev, torch.float64 if host_eval else torch.float32,
+    evals_in = [_EvalSet(mapper, ex.x if isinstance(ex, GBDTDataset) else ex, ey, base,
+                         dev, torch.float64 if host_eval else torch.float32,
                          init_booster, cfg.n_bins if sparse_in else None)
                 for ex, ey in (eval_set or ())]
     dev_metric = None if host_eval else device_metric(metric_name)

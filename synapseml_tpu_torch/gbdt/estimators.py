@@ -160,6 +160,16 @@ class _LightGBMBase(Estimator):
             cols[self.init_score_col] = ColumnSpec("float", "any")
         return TableSchema(cols)
 
+    def transform_schema(self, schema: TableSchema) -> TableSchema:
+        """The fitted model's output columns, after this estimator's own
+        input check: what a pipeline position holding the estimator adds."""
+        self._check_schema(schema, self.input_schema())
+        return self._unfitted_model().transform_schema(schema)
+
+    def _unfitted_model(self) -> "_LightGBMModelBase":
+        """A model of the fitted model's class and output params, no booster."""
+        return LightGBMRegressionModel(**self._model_params())
+
     def _model_params(self) -> dict:
         """The output params every fitted model takes from its estimator."""
         return dict(features_col=self.features_col, prediction_col=self.prediction_col,
@@ -347,6 +357,11 @@ class LightGBMClassifier(_LightGBMBase):
         return super().input_schema().with_column(self.label_col,
                                                   ColumnSpec("any", "scalar"))
 
+    def _unfitted_model(self) -> "LightGBMClassificationModel":
+        return LightGBMClassificationModel(probability_col=self.probability_col,
+                                           raw_prediction_col=self.raw_prediction_col,
+                                           **self._model_params())
+
     def _fit(self, table: Table) -> "LightGBMClassificationModel":
         self._validate_input(table, self.features_col, self.label_col)
         classes, y_idx = np.unique(np.asarray(table[self.label_col]), return_inverse=True)
@@ -367,11 +382,11 @@ class LightGBMClassifier(_LightGBMBase):
             weight_col = "__unbalance_weight__"
             tbl = tbl.with_column(weight_col, np.where(y_idx == 1, neg / pos, 1.0))
         booster = self._fit_booster(tbl, extra, weight_col=weight_col)
-        return LightGBMClassificationModel(
-            booster=booster, labels=classes.astype(np.float64)
-            if np.issubdtype(classes.dtype, np.number) else classes,
-            probability_col=self.probability_col,
-            raw_prediction_col=self.raw_prediction_col, **self._model_params())
+        model = self._unfitted_model()
+        model.set("booster", booster)
+        model.set("labels", classes.astype(np.float64)
+                  if np.issubdtype(classes.dtype, np.number) else classes)
+        return model
 
 
 class LightGBMClassificationModel(_LightGBMModelBase):

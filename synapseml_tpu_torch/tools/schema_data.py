@@ -10,7 +10,8 @@ on rows generated at their schemas:
   columns in the dataset's order, 6 numeric and 8 categorical with Adult's
   cardinalities, NaN where the files hold '?' (workclass, occupation,
   native-country); the label depends on a set of occupation codes and on
-  education-num and capital-gain;
+  education-num and capital-gain; :func:`adult_columns` gives them as a
+  table's columns, the categorical ones as strings;
 - :func:`covertype_rows`: UCI Covertype, the 10 numeric columns and the 44
   one-hot columns carried as the two categorical columns they encode
   (Wilderness_Area, 4 codes; Soil_Type, 40 codes), 7 classes whose
@@ -31,12 +32,12 @@ Distributions are rough matches of the published summaries; the schemas
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Tuple
 
 import numpy as np
 
 __all__ = ["ADULT_COLUMNS", "ADULT_CARDINALITY", "ADULT_CATEGORICAL", "ADULT_SETS",
-           "adult_rows", "adult_unseen_codes", "COVTYPE_COLUMNS", "COVTYPE_CATEGORICAL",
+           "ADULT_INCOME", "adult_rows", "adult_columns", "adult_unseen_codes", "COVTYPE_COLUMNS", "COVTYPE_CATEGORICAL",
            "COVTYPE_CLASSES", "covertype_rows", "HIGGS_WIDTH", "higgs_width_rows", "FITS",
            "SAMPLED_MODES", "MSLR_FEATURES", "MSLR_MAX_QUERY", "MSLR_TRAIN", "MSLR_VALID",
            "MSLR_SHARES", "mslr_rows", "HASHED_TEXT_BITS", "HASHED_TEXT_TOKENS",
@@ -51,6 +52,8 @@ ADULT_CARDINALITY = {"workclass": 9, "education": 16, "marital-status": 7,
 ADULT_CATEGORICAL = [ADULT_COLUMNS.index(c) for c in ADULT_CARDINALITY]
 # occupation codes that raise the odds of the positive label
 ADULT_SETS = (3, 4, 9, 11)
+# the label's strings in the census files, negative first
+ADULT_INCOME = ("<=50K", ">50K")
 
 COVTYPE_COLUMNS = ["Elevation", "Aspect", "Slope", "Horizontal_Distance_To_Hydrology",
                    "Vertical_Distance_To_Hydrology", "Horizontal_Distance_To_Roadways",
@@ -145,6 +148,24 @@ def adult_rows(seed: int, n: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     prob = 1.0 / (1.0 + np.exp(-logit))
     y = (rng.random(n) < prob).astype(np.float64)
     return x, y, prob
+
+
+def adult_columns(x: np.ndarray, y: np.ndarray) -> Dict[str, np.ndarray]:
+    """:func:`adult_rows`' rows as a table's columns, the way SynapseML's
+    Adult Census notebook reads the CSV: the 6 numeric columns as f64, the
+    8 categorical ones as strings (``"<column>_<code>"``, None where the
+    files hold '?') and the label as the census's ``income`` strings."""
+    cols: Dict[str, np.ndarray] = {}
+    for j, name in enumerate(ADULT_COLUMNS):
+        if name not in ADULT_CARDINALITY:
+            cols[name] = x[:, j].astype(np.float64)
+            continue
+        k = ADULT_CARDINALITY[name]
+        levels = np.array([f"{name}_{c}" for c in range(k)] + [None], dtype=object)
+        code = x[:, j]
+        cols[name] = levels[np.where(np.isnan(code), k, code).astype(np.int64)]
+    cols["income"] = np.array(ADULT_INCOME, dtype=object)[y.astype(np.int64)]
+    return cols
 
 
 def adult_unseen_codes(x: np.ndarray, seed: int, share: float) -> np.ndarray:

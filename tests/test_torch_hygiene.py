@@ -26,6 +26,9 @@ def test_port_modules_import_no_jax_and_no_reference():
     assert "synapseml_tpu_torch.gbdt.estimators" in mods
     assert "synapseml_tpu_torch.parallel.flash" in mods
     assert "synapseml_tpu_torch.gbdt.sparse" in mods
+    for sub in ("gbdt.dataset", "stages.basic", "featurize.stages", "train.stages",
+                "exploratory.balance", "cyber.scalers", "native.murmur"):
+        assert f"synapseml_tpu_torch.{sub}" in mods, sub
     code = "\n".join(
         ["import sys", f"sys.path.insert(0, {_ROOT!r})"]
         + [f"import {m}" for m in mods]
