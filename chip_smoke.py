@@ -113,6 +113,22 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    the transform, Featurize's host time beside the fit's and the
    transform's, and a 16,384-row ``TrainClassifier`` fit giving identical
    trees on the card and the CPU;
+2i. the mesh (``train(..., mesh=)``, ``runtime/layout.py``): (a)
+   ``LightGBMClassifier(mesh=SpecLayout.build(data=1))`` in a one-rank NCCL
+   group (a ``HashStore``) at phase 2's rows and parameters: phase 2's trees,
+   kernel P's mesh entry and its pick once a split step (the one-launch
+   step never), one all-reduce of the counts and one of the child a step,
+   its fit time beside phase 2's; (b) two processes on ``cuda:0`` in one
+   gloo world (NCCL puts no two ranks on one card; gloo's all-reduce takes
+   the CUDA tensors), the run that drives the global smaller-side choice:
+   1,048,576 HIGGS-width rows at data=2 and at a (1, 2) feature-parallel
+   layout, 65,536 hashed reviews at 2^14 slots (kernel G's mesh use once a
+   split step), a 12,288-document MSLR-schema ranker at data=2, each with
+   the trees of the single-device fit of the same rows, and voting at
+   HIGGS width (top_k 5, the AUC floor only); every rank's trees equal to
+   rank 0's; (c) P's mesh entry and pick at phase 4's P splits and G's mesh
+   use at phase 2g's half splits, bit-equal to their plain twins and timed
+   (their rows of the kernels line);
 3. flash attention's entry point, all causal: in bf16 (the wgmma kernel) at
    the headline shape (B=1, S=32768, H=8, D=64), the grouped-query serving
    shape (B=8, S=8192, H=8, H_kv=2, D=64), the headline length at D=128, and
@@ -190,6 +206,8 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import os
+import shutil
 import sys
 import time
 
@@ -253,6 +271,23 @@ F_ULPS = 0
 # 500 trees, num_leaves=255, max_bin=255)
 HIGGS500 = (500, 1, 255)
 TREE_CHECK_ROWS = 16_384      # rows the plain replay checks at S=254
+# phase 2i (b): HIGGS-width rows of the two-rank fits (and held-out rows for
+# the voting fit's AUC), the voting fit's top_k (10 candidates of 28
+# features), hashed reviews at 2^14 slots, an MSLR-schema ranker's queries
+# and documents, and how long a rank may take. The ranker has 12,288
+# documents, not phase 2e's small fit's 16,384: whole queries a rank pad
+# each rank's block to the largest, and the pre-rounding grid is the next
+# power of two over the padded rows of every rank (the reference's rule);
+# at 16,384 documents that is 32,768 and the grid is not the single fit's
+# (16,384), at 12,288 the padded rows stay under 16,384
+N_MESH, N_MESH_TEST = 1_048_576, 262_144
+MESH_TOP_K = 5
+MESH_HASHED_ROWS = 65_536
+MESH_RANK_QUERIES, MESH_RANK_DOCS = 102, 12_288
+MESH_TIMEOUT_S = 300
+# kernel P's pick reads ok, the counts, the leaf, the child's seg and side,
+# and writes small and smaller_right
+PICK_BYTES = 1 + 8 + 8 + 8 + 4 + 12 + 1
 # B, S, H, H_kv, D of the flash shapes, all causal; bf16, then f32
 FLASH_SHAPES = {
     "headline": (1, 32768, 8, 8, 64),   # bench.py flash headline
@@ -1306,9 +1341,9 @@ def sparse_hist_checks(hashed, dev, gen) -> dict:
     the summed side's entries gathered in cell order (3 channels a side), the one PyTorch
     call for the same segment sums (no residual, empty cells not written);
     the gather's time is beside it. Returns G's kernel row."""
-    from synapseml_tpu_torch.gbdt.boost import _preround, _sigmoid
+    from synapseml_tpu_torch.gbdt.boost import _preround
     from synapseml_tpu_torch.gbdt.sparse import (G_PATH_STREAM, G_PATH_WALK, SPARSE_HIST_KERNEL,
-                                                 build_sparse_binned, g_path, g_summed_entries,
+                                                 g_path, g_summed_entries,
                                                  g_summed_sides,
                                                  sparse_hist, sparse_hist_plain,
                                                  sparse_hist_rows_plain)
@@ -1344,15 +1379,9 @@ def sparse_hist_checks(hashed, dev, gen) -> dict:
         del sb_c, panel_c, side_c, kept_c
     if set(case_paths.values()) != set(path_name.values()):
         fail(f"kernel G's edge cases took only {set(case_paths.values())}")
-    hb, x_h, y_h = hashed["booster"], hashed["x_tr"], hashed["y_tr"]
-    sb = build_sparse_binned(x_h, hb.mapper, dev)
+    hb = hashed["booster"]
+    sb, panel_h = hashed_panel(hashed, dev)
     n_h, nnz_h = sb.n, sb.nnz
-    p_h = _sigmoid(hb._raw_of_csr(x_h, dev)[:, 0].float())
-    y_hd = torch.from_numpy(y_h).to(dev, torch.float32)
-    nb_h = 1 << (n_h - 1).bit_length()
-    g_h = _preround((p_h - y_hd)[:, None], nb_h)[:, 0]
-    h_h = _preround((p_h * (1 - p_h))[:, None], nb_h)[:, 0]
-    panel_h = torch.stack([g_h, h_h, torch.ones_like(g_h), torch.zeros_like(g_h)], 1).contiguous()
     shape_h = (2, sb.d, sb.n_bins, 3)
     both_ctrl = torch.tensor([0, 0, -1], dtype=torch.int32, device=dev)
     rows_l = sb.rows.long()
@@ -1519,6 +1548,361 @@ def _grown_tree(booster, t: int, dev):
     arr = lambda a: torch.from_numpy(np.ascontiguousarray(a[t, 0])).to(dev)
     return GrownTree(arr(booster.parent), arr(booster.feature), arr(booster.bin),
                      arr(booster.gain), arr(booster.leaf_value), arr(booster.leaf_hess), None)
+
+
+# -- phase 2i: the mesh -------------------------------------------------------------
+
+def _mesh_record(booster) -> dict:
+    """The trees of a booster, as a rank sends them back."""
+    return {f: getattr(booster, f) for f in ("parent", "feature", "bin", "cat_set",
+                                             "leaf_value", "leaf_hess", "tree_scale",
+                                             "base_score")}
+
+
+def nccl_one_rank_phase(kernels, gbdt, train_table, main_booster, main_fit_s,
+                        split_steps) -> dict:
+    """Phase 2i (a): ``LightGBMClassifier(mesh=SpecLayout.build(data=1))``
+    in a one-rank NCCL group at phase 2's rows and parameters: the trees of
+    phase 2's booster; per split step kernel P's mesh entry and its pick
+    once (the one-launch step never), and two all-reduces (the counts, the
+    child); the launch and collective counts set to 0 just before the fit
+    and read just after."""
+    import torch.distributed as dist
+
+    from synapseml_tpu_torch.gbdt.estimators import LightGBMClassifier
+    from synapseml_tpu_torch.runtime import collectives
+    from synapseml_tpu_torch.runtime.layout import SpecLayout
+
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        layout = SpecLayout.build(data=1)
+        reset(kernels)
+        collectives.reset_counts()
+        t0 = time.perf_counter()
+        model = LightGBMClassifier(mesh=layout, **gbdt).fit(train_table)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        launches, coll = counts(kernels), collectives.counts()
+    finally:
+        dist.destroy_process_group()
+    steps, T = split_steps(gbdt), gbdt["num_iterations"]
+    differs = same_booster(model.booster, main_booster)
+    rec = {"phase": "gbdt_mesh_nccl_one_rank", "layout": layout.describe(), **gbdt,
+           "fit_s": fit_s, "main_path_fit_s": main_fit_s, "fit_launches": launches,
+           "collectives": coll, "split_steps": steps, "same_trees_as_phase_2": not differs}
+    log(json.dumps(rec))
+    if differs:
+        fail(f"the one-rank NCCL mesh fit's {differs} differs from phase 2's booster")
+    want = {"gbdt_partition_mesh": steps, "gbdt_partition_pick": steps, "gbdt_partition": 0,
+            "gbdt_split_search": steps, "gbdt_histogram_rows": steps, "gbdt_sibling": steps,
+            "gbdt_histogram": T}
+    got = {k: launches[k] for k in want}
+    if got != want:
+        fail(f"the one-rank mesh fit launched {got}, not {want}")
+    if coll != {"sum:data": T + 2 * steps, "max:data": 2 * T}:
+        fail(f"the one-rank mesh fit made the collectives {coll}, not one root, the counts "
+             f"and the child a split step and two pre-rounding maxes an iteration")
+    return rec
+
+
+def _two_rank_main(rank: int, store: str, seed: int, outbox) -> None:
+    """A rank of phase 2i (b): ``cuda:0`` in a two-rank gloo world."""
+    import traceback
+
+    import torch.distributed as dist
+
+    try:
+        torch.cuda.set_device(0)
+        # both ranks run on this host: gloo's pairs connect over the loopback device
+        os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+        dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                                world_size=2)
+        try:
+            outbox.put((rank, True, _two_rank_fits(rank, seed)))
+        finally:
+            dist.destroy_process_group()
+    except BaseException:  # the traceback goes back to the parent
+        outbox.put((rank, False, traceback.format_exc()))
+
+
+def _two_rank_fits(rank: int, seed: int) -> dict:
+    """Phase 2i (b)'s fits on one rank (module docstring); rank 0 also fits
+    the same rows without a mesh and scores the voting fit's held-out
+    rows."""
+    from synapseml_tpu_torch.gbdt.boost import train
+    from synapseml_tpu_torch.kernels import all_kernels
+    from synapseml_tpu_torch.runtime import collectives
+    from synapseml_tpu_torch.runtime.layout import SpecLayout
+    from synapseml_tpu_torch.tools.schema_data import (FITS, hashed_text_rows,
+                                                       higgs_width_rows, mslr_rows)
+
+    kernels = all_kernels()
+    data_parallel = SpecLayout.build(data=2)
+    feature_parallel = SpecLayout.build(data=1, model=2)
+    x, y = higgs_width_rows(seed, N_MESH + N_MESH_TEST)
+    x_te, y_te, x, y = x[N_MESH:], y[N_MESH:], x[:N_MESH], y[:N_MESH]
+    higgs = dict(objective="binary", **FITS["higgs"][2])
+    xh, yh = hashed_text_rows(seed + 2, MESH_HASHED_ROWS, HASHED_SMALL_BITS)
+    hashed = dict(objective="binary", **FITS["hashed_text"][2])
+    xr, yr, sizes = mslr_rows(seed, MESH_RANK_QUERIES, MESH_RANK_DOCS)
+    ranker = dict(objective="lambdarank", **FITS["mslr"][2])
+    fits = {"higgs_data2": (higgs, x, y, data_parallel, {}),
+            "higgs_feature2": (higgs, x, y, feature_parallel, {}),
+            "hashed_text_data2": (hashed, xh, yh, data_parallel, {}),
+            "mslr_data2": (ranker, xr, yr, data_parallel, {"group": sizes}),
+            "higgs_voting2": (dict(higgs, parallelism="voting_parallel", top_k=MESH_TOP_K),
+                              x, y, data_parallel, {})}
+    out = {}
+    for name, (params, xs, ys, layout, kw) in fits.items():
+        reset(kernels)
+        collectives.reset_counts()
+        t0 = time.perf_counter()
+        b = train(params, xs, ys, mesh=layout, **kw)
+        torch.cuda.synchronize()
+        out[name] = {"trees": _mesh_record(b), "fit_s": time.perf_counter() - t0,
+                     "launches": counts(kernels), "collectives": collectives.counts(),
+                     "layout": layout.describe(), "rows": int(xs.shape[0]),
+                     "split_steps": params["num_iterations"] * (params["num_leaves"] - 1),
+                     "iterations": params["num_iterations"]}
+        if rank == 0 and name != "higgs_voting2":
+            t0 = time.perf_counter()
+            single = train(params, xs, ys, **kw)
+            torch.cuda.synchronize()
+            out[name].update(single=_mesh_record(single),
+                             single_fit_s=time.perf_counter() - t0)
+        if rank == 0 and name == "higgs_voting2":
+            out[name]["heldout_auc"] = auc(y_te, b.predict(x_te))
+    return out
+
+
+def two_ranks_one_card_phase(seed: int) -> dict:
+    """Phase 2i (b): two processes on ``cuda:0`` in one gloo world (NCCL
+    puts no two ranks on one card); gloo's all-reduce takes the CUDA
+    tensors (a build that refuses them stops the phase with its error). The
+    one run that drives the global smaller-side choice on the card."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    outbox = ctx.Queue()
+    store_dir = tempfile.mkdtemp(prefix="smt_mesh_")
+    store = os.path.join(store_dir, "store")
+    t0 = time.perf_counter()
+    procs = [ctx.Process(target=_two_rank_main, args=(r, store, seed, outbox))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    got, errors = {}, []
+    try:
+        for _ in procs:
+            try:
+                rank, ok, res = outbox.get(timeout=MESH_TIMEOUT_S)
+            except Exception:
+                fail(f"phase 2i: a rank gave no result in {MESH_TIMEOUT_S} s")
+            (got.__setitem__(rank, res) if ok else errors.append(f"rank {rank}:\n{res}"))
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+                p.join()
+        shutil.rmtree(store_dir, ignore_errors=True)
+    if errors:
+        fail("phase 2i (b): a rank failed\n" + "\n".join(errors))
+    wall_s = time.perf_counter() - t0
+    fits = {}
+    for name, r0 in got[0].items():
+        trees = r0["trees"]
+        for rank in (1,):
+            differs = same_booster(_Trees(got[rank][name]["trees"]), _Trees(trees))
+            if differs:
+                fail(f"phase 2i {name}: rank {rank}'s {differs} differs from rank 0's")
+        steps, T = r0["split_steps"], r0["iterations"]
+        launches, coll = r0["launches"], r0["collectives"]
+        rec = {"layout": r0["layout"], "rows": r0["rows"], "fit_s": r0["fit_s"],
+               "fit_s_rank1": got[1][name]["fit_s"], "launches": launches,
+               "launches_rank1": got[1][name]["launches"], "collectives": coll}
+        if "single" in r0:
+            differs = same_booster(_Trees(trees), _Trees(r0["single"]))
+            if differs:
+                fail(f"phase 2i {name}: the mesh fit's {differs} differs from the "
+                     f"single-device fit of the same rows")
+            rec.update(single_fit_s=r0["single_fit_s"], same_trees_as_single_device=True)
+        if name.startswith("hashed"):
+            want = {"gbdt_sparse_hist_mesh": steps, "gbdt_sparse_hist": T}
+            want_coll = {"sum:data": T + 2 * steps, "max:data": 2 * T}
+        elif name == "higgs_voting2":
+            want = {"gbdt_partition": steps, "gbdt_partition_mesh": 0}
+            want_coll = None
+            rec["heldout_auc"] = r0["heldout_auc"]
+            if not r0["heldout_auc"] > 0.9:
+                fail(f"phase 2i voting: held-out AUC {r0['heldout_auc']:.4f} <= 0.9")
+        else:
+            want = {"gbdt_partition_mesh": steps, "gbdt_partition_pick": steps,
+                    "gbdt_partition": 0}
+            want_coll = ({"sum:data+model": T + steps, "sum:data": steps, "max:data": 2 * T}
+                         if name == "higgs_feature2" else
+                         {"sum:data": T + 2 * steps, "max:data": 2 * T})
+        for rank in (0, 1):
+            lr = got[rank][name]["launches"]
+            if {k: lr[k] for k in want} != want:
+                fail(f"phase 2i {name}: rank {rank} launched "
+                     f"{ {k: lr[k] for k in want} }, not {want}")
+        if want_coll is not None and coll != want_coll:
+            fail(f"phase 2i {name}: collectives {coll}, not {want_coll}")
+        fits[name] = rec
+    rec = {"phase": "gbdt_mesh_two_ranks_one_card", "backend": "gloo", "wall_s": wall_s,
+           "fits": fits}
+    log(json.dumps(rec, default=float))
+    return rec
+
+
+class _Trees:
+    """A rank's tree record with a booster's attribute names."""
+
+    def __init__(self, d):
+        self.__dict__.update(d)
+
+
+def hashed_panel(hashed, dev):
+    """(SparseBinned, (n, 4) panel) of phase 2g's training rows on ``dev``:
+    the gradients of the fitted model's margins, pre-rounded, weight 1."""
+    from synapseml_tpu_torch.gbdt.boost import _preround, _sigmoid
+    from synapseml_tpu_torch.gbdt.sparse import build_sparse_binned
+
+    hb, x_h, y_h = hashed["booster"], hashed["x_tr"], hashed["y_tr"]
+    sb = build_sparse_binned(x_h, hb.mapper, dev)
+    p_h = _sigmoid(hb._raw_of_csr(x_h, dev)[:, 0].float())
+    y_hd = torch.from_numpy(y_h).to(dev, torch.float32)
+    nb_h = 1 << (sb.n - 1).bit_length()
+    g_h = _preround((p_h - y_hd)[:, None], nb_h)[:, 0]
+    h_h = _preround((p_h * (1 - p_h))[:, None], nb_h)[:, 0]
+    return sb, torch.stack([g_h, h_h, torch.ones_like(g_h), torch.zeros_like(g_h)],
+                           1).contiguous()
+
+
+def mesh_entry_rows(binned_tr, n_bins, lb, hashed, seed, dev) -> dict:
+    """Phase 2i's kernel rows of the mesh's entries, on one card.
+
+    P's mesh entry (routing and local counts) and its pick at phase 4's P
+    splits (``leaf_splits``): bit-equal to their plain twins, and on one
+    rank (the local counts are the global ones) equal to the one-launch
+    step; device times from a trace of 20 launches (the state restored
+    before each). Bounds: the mesh entry's are P's bytes (the ids read and
+    written, the split feature's bins gathered, node written for the right
+    rows, in sectors), the pick's the 56 bytes it reads and writes.
+    Library: P's (a stable argsort of the side key); none for the pick.
+
+    G's mesh use at phase 2g's shape on the fitted model's gradients, at
+    the half splits of ``gbdt_step_bench.sparse_splits``: the side forced
+    to the smaller one, no parent, bit-equal to the plain version (the
+    summed slot and the totals), CUDA-event ms over 20 calls. Bound: G's
+    bytes (``g_bytes``) less the kept slot it does not read and the slot it
+    does not write. Library: ``torch.segment_reduce`` over the summed side's
+    entries in cell order, as G's row."""
+    from synapseml_tpu_torch.gbdt.partition import (PARTITION_PICK_TRACE, PARTITION_TRACE,
+                                                    RowPartition, partition_plain, pick_plain)
+    from synapseml_tpu_torch.gbdt.sparse import (SPARSE_HIST_MESH_KERNEL, g_summed_entries,
+                                                 g_summed_sides, sparse_hist_mesh,
+                                                 sparse_hist_plain)
+    from synapseml_tpu_torch.tools.gbdt_step_bench import sparse_splits
+
+    splits = leaf_splits(binned_tr, n_bins, lb.parent[0, 0], lb.feature[0, 0], lb.bin[0, 0],
+                         seed)
+    e_bin, n, d = binned_tr.element_size(), binned_tr.shape[0], binned_tr.shape[1]
+    p_runs, pick_runs = {}, {}
+    for key, (pk, nk, s, choice, ok_t, in_set) in splits.items():
+        leaf, f = (int(v) for v in choice.tolist())
+        snap = snapshot(pk, nk)
+        leaf_ids = pk.rows(leaf).clone()
+        pk.split(s, binned_tr, nk, choice, ok_t, in_set)  # the one-launch step: the oracle
+        po, no = RowPartition(n, pk.num_leaves, dev), torch.empty_like(nk)
+        restore(po, no, snapshot(pk, nk))
+        restore(pk, nk, snap)
+        pk.split(s, binned_tr, nk, choice, ok_t, in_set, mesh=True)
+        local = pk.counts.clone()
+        pk.pick(s, choice, ok_t)
+        pp, npl = RowPartition(n, pk.num_leaves, dev), torch.empty_like(nk)
+        restore(pp, npl, snap)
+        partition_plain(pp, s, binned_tr, npl, choice, ok_t, in_set, mesh=True)
+        plain_counts = pp.counts.clone()
+        pick_plain(pp, s, choice, ok_t)
+        if not (same_split(pk, nk, pp, npl, (leaf, s + 1)) and torch.equal(local, plain_counts)):
+            fail(f"kernel P's mesh entry differs from its plain twin at the {key} split")
+        if not same_split(pk, nk, po, no, (leaf, s + 1)):
+            fail(f"kernel P's mesh entry and pick on one rank differ from the one-launch "
+                 f"step at the {key} split")
+        count = leaf_ids.numel()
+
+        def mesh_step():
+            restore(pk, nk, snap)
+            pk.split(s, binned_tr, nk, choice, ok_t, in_set, mesh=True)
+
+        mesh_ms = kernel_times(lambda: [mesh_step() for _ in range(20)],
+                               (PARTITION_TRACE,))[PARTITION_TRACE][0] / 20
+        pick_ms = kernel_times(lambda: [pk.pick(s, choice, ok_t) for _ in range(20)],
+                               (PARTITION_PICK_TRACE,))[PARTITION_PICK_TRACE][0] / 20
+        plain_ms = time_ms(lambda: (restore(pp, npl, snap), partition_plain(
+            pp, s, binned_tr, npl, choice, ok_t, in_set, True)), 3)
+        pick_plain_ms = time_ms(lambda: pick_plain(pp, s, choice, ok_t), 3)
+        key_lr = (~in_set[binned_tr[leaf_ids.long(), f].to(torch.int64)]).to(torch.uint8)
+        lib_ms = time_ms(lambda: torch.argsort(key_lr, stable=True), 5)
+        p_bytes = (8 * count + gathered_bytes(leaf_ids, d * e_bin, f * e_bin, e_bin)
+                   + gathered_bytes(pp.rows(s + 1), 4, 0, 4))
+        p_runs[key] = {"rows_routed": count, "step": s, "left": int(local[0]),
+                       "right": int(local[1]), "ms": mesh_ms, "plain_ms": plain_ms,
+                       "library_ms": lib_ms, "bytes_moved": p_bytes,
+                       **dict(zip(("bound_ms", "bound_by"), bound(p_bytes, 0, F32_FLOPS)))}
+        pick_runs[key] = {"ms": pick_ms, "plain_ms": pick_plain_ms, "bytes_moved": PICK_BYTES,
+                          **dict(zip(("bound_ms", "bound_by"), bound(PICK_BYTES, 0,
+                                                                     F32_FLOPS)))}
+        log(json.dumps({"partition_mesh": key, **p_runs[key], "pick": pick_runs[key]}))
+        del po, no, pp, npl, leaf_ids, key_lr
+    del splits
+
+    sb, panel = hashed_panel(hashed, dev)
+    same = lambda a, b: bool(torch.equal(a.isnan(), b.isnan())
+                             and torch.equal(a.nan_to_num(), b.nan_to_num()))
+    shape = (2, sb.d, sb.n_bins, 3)
+    out_cells = sb.d * sb.n_bins * 12
+    rows_l = sb.rows.long()
+    g_runs = {}
+    for name, (side, ctrl_v, _) in sparse_splits(sb, hashed["booster"], 7,
+                                                 SMALL_LEAVES).items():
+        if not ctrl_v[0]:
+            continue
+        forced = g_summed_sides(side, ctrl_v)[0]
+        ctrl_m = (1, ctrl_v[1], forced)
+        ctrl = torch.tensor(ctrl_m, dtype=torch.int32, device=dev)
+        out, tot = torch.full(shape, float("nan"), device=dev), torch.empty(2, 3, device=dev)
+        out_p, tot_p = torch.full(shape, float("nan"), device=dev), torch.empty(2, 3, device=dev)
+        before = SPARSE_HIST_MESH_KERNEL.launches
+        sparse_hist_mesh(sb, panel, side, out, tot, ctrl)
+        torch.cuda.synchronize()
+        if SPARSE_HIST_MESH_KERNEL.launches - before != 1:
+            fail(f"kernel G's mesh use launched {SPARSE_HIST_MESH_KERNEL.launches - before} "
+                 f"times for one call at {name}")
+        _, plain_ms = timed_once(lambda: sparse_hist_plain(sb, panel, side, out_p, tot_p, ctrl))
+        if not (same(out[forced], out_p[forced]) and same(tot, tot_p)
+                and bool(out[1 - forced].isnan().all())):
+            fail(f"kernel G's mesh use ({name}) differs from the plain version")
+        ms = time_ms(lambda: sparse_hist_mesh(sb, panel, side, out, tot, ctrl), 20)
+        n_bytes = g_bytes(sb, side, ctrl_m)[0] - 2 * out_cells
+        side_e = side[rows_l]
+        sel = side_e == forced
+        p_m = panel[rows_l[sel], :3]
+        lengths = torch.unique_consecutive(sb.cells[sel], return_counts=True)[1]
+        lib_ms = (time_ms(lambda: torch.segment_reduce(p_m, "sum", lengths=lengths, axis=0), 5)
+                  if lengths.numel() else None)
+        g_runs[name] = {"forced_side": forced, "path": int(sb.plan.state[1]), "ms": ms,
+                        "plain_ms": plain_ms, "library_ms": lib_ms, "bytes": n_bytes,
+                        "summed_entries": g_summed_entries(sb, side, ctrl_m),
+                        **dict(zip(("bound_ms", "bound_by"), bound(n_bytes, 0, F32_FLOPS)))}
+        log(json.dumps({"sparse_hist_mesh": name, **g_runs[name]}))
+        del out, out_p, side_e, p_m, lengths
+    del sb, panel
+    return {"partition": p_runs, "pick": pick_runs, "sparse": g_runs}
 
 
 def main() -> int:
@@ -1780,6 +2164,17 @@ def main() -> int:
     dataset_phase(kernels, args.seed, GBDT, x_tr, y_tr, fit_s, split_steps, dev)
     train_classifier_phase(kernels, args.seed, split_steps)
     log(f"phase 2h in {time.perf_counter() - t0:.1f} s")
+
+    # -- phase 2i: the mesh: one rank over NCCL, two ranks on one card over gloo --------
+    t0 = time.perf_counter()
+    mesh_a = nccl_one_rank_phase(kernels, GBDT, train_table, booster, fit_s, split_steps)
+    torch.cuda.empty_cache()
+    mesh_b = two_ranks_one_card_phase(args.seed)
+    binned_2i = booster.mapper.transform_torch(torch.from_numpy(x_tr).to(dev))
+    mesh_rows = mesh_entry_rows(binned_2i, booster.mapper.n_bins, leaf_local["booster"],
+                                hashed, args.seed, dev)
+    del binned_2i
+    log(f"phase 2i in {time.perf_counter() - t0:.1f} s")
 
     # -- phase 3: flash attention's entry point -----------------------------------------
     gen = torch.Generator(device=dev).manual_seed(args.seed)
@@ -2472,6 +2867,33 @@ def main() -> int:
            device_kernels_a_call=per_path("g_device_kernels_a_call"),
            kernel_ms_a_fit=per_path("g_kernel_ms_a_fit"),
            launches_per_split_step=per_path("launches_per_split_step"))
+
+    # the mesh's entries (phase 2i): P's mesh entry and pick with their
+    # launches in the one-rank NCCL fit, G's mesh use with its launches in
+    # rank 0's two-rank hashed-text fit
+    two = mesh_b["fits"]
+    p_root, pick_root = mesh_rows["partition"]["root"], mesh_rows["pick"]["root"]
+    record("gbdt_partition_mesh", mesh_a["fit_launches"]["gbdt_partition_mesh"], 0.0,
+           p_root["ms"], p_root["plain_ms"], (p_root["bound_ms"], p_root["bound_by"]),
+           p_root["library_ms"], bytes_moved=p_root["bytes_moved"],
+           shape=f"root split of n={N_TRAIN} rows, the local counts out, no side chosen",
+           splits=mesh_rows["partition"],
+           launches_two_rank_fits={k: f["launches"]["gbdt_partition_mesh"]
+                                   for k, f in two.items()})
+    record("gbdt_partition_pick", mesh_a["fit_launches"]["gbdt_partition_pick"], 0.0,
+           pick_root["ms"], pick_root["plain_ms"],
+           (pick_root["bound_ms"], pick_root["bound_by"]), None,
+           bytes_moved=PICK_BYTES, shape="one thread after the counts' all-reduce",
+           splits=mesh_rows["pick"],
+           launches_two_rank_fits={k: f["launches"]["gbdt_partition_pick"]
+                                   for k, f in two.items()})
+    g_main = mesh_rows["sparse"]["root_child"]
+    record("gbdt_sparse_hist_mesh", two["hashed_text_data2"]["launches"]["gbdt_sparse_hist_mesh"],
+           0.0, g_main["ms"], g_main["plain_ms"], (g_main["bound_ms"], g_main["bound_by"]),
+           g_main["library_ms"], bytes_moved=g_main["bytes"],
+           shape=f"phase 2g's rows, the first tree's root split, the smaller side forced, "
+                 f"no parent", shapes=mesh_rows["sparse"],
+           launches_rank_1=two["hashed_text_data2"]["launches_rank1"]["gbdt_sparse_hist_mesh"])
 
     missing = set(kernels) - {r["name"] for r in rows}
     if missing:

@@ -40,6 +40,20 @@
 // An inert step (!ok) changes nothing and records an empty smaller child on
 // the right, as the reference's counts (0 <= 0) do.
 //
+// The mesh entry (mesh = 1, gbdt/partition.py::RowPartition.split with
+// mesh=True): on a data-parallel mesh each rank holds a block of the rows,
+// and the smaller child must be the one with fewer rows over ALL ranks (the
+// reference all-reduces the counts, grow.py:393-396): each rank histograms
+// its local rows of the same side, and the all-reduced child is the global
+// child's histogram. So the launch routes and counts as above, but its last
+// block writes this rank's (n_left, n_right) into `counts` and leaves
+// `small` and `smaller_right` alone (an inert step writes (0, 0)). The
+// caller all-reduces `counts` (one collective of two int32), then launches
+// smt_partition_pick: one thread that sets smaller_right from the global
+// counts (right iff n_right <= n_left) and `small` to that child's LOCAL
+// slice (begin, count, buffer), read from seg and side. Without a mesh the
+// one-launch step above stays as it is.
+//
 // Work is sized on the card: the host launches an occupancy-sized grid (the
 // leaf's count exists only on the card), and each block computes from the
 // count how many blocks have tiles, active = max(1, min(grid, tiles)). A
@@ -80,11 +94,13 @@ struct PartArgs {
   const int8_t* in_set;       // (B,)
   int* small;                 // (3,): begin, count, buffer of the smaller child
   int8_t* smaller_right;      // (1,)
+  int* counts;                // (2,): the mesh entry's (n_left, n_right), then global
   long long n;
   int d;
   int n_bins;
   int s;
   int device;                 // the card the tensors live on
+  int mesh;                   // 1: the mesh entry (counts out, no choice of side)
 };
 
 namespace {
@@ -136,10 +152,15 @@ __global__ void __launch_bounds__(kThreads) partition_kernel(PartArgs a) {
   const int l = (int)a.choice[0], f = (int)a.choice[1];
   if (!ok) {  // an inert step: block 0 records the empty smaller child
     if (blockIdx.x == 0 && threadIdx.x == 0) {
-      a.small[0] = 0;
-      a.small[1] = 0;
-      a.small[2] = 0;
-      a.smaller_right[0] = 1;
+      if (a.mesh) {
+        a.counts[0] = 0;
+        a.counts[1] = 0;
+      } else {
+        a.small[0] = 0;
+        a.small[1] = 0;
+        a.small[2] = 0;
+        a.smaller_right[0] = 1;
+      }
     }
     return;
   }
@@ -208,10 +229,33 @@ __global__ void __launch_bounds__(kThreads) partition_kernel(PartArgs a) {
   a.seg[2 * r + 1] = n_right;
   a.side[l] = to;
   a.side[r] = to;
+  if (a.mesh) {  // the choice waits for the all-reduced counts (smt_partition_pick)
+    a.counts[0] = n_left;
+    a.counts[1] = n_right;
+    return;
+  }
   const bool right_smaller = n_right <= n_left;
   a.small[0] = right_smaller ? begin + n_left : begin;
   a.small[1] = right_smaller ? n_right : n_left;
   a.small[2] = to;
+  a.smaller_right[0] = (int8_t)right_smaller;
+}
+
+// The mesh entry's second launch: the smaller child from the global counts
+// (right iff n_right <= n_left), and `small` = that child's local slice.
+__global__ void pick_kernel(PartArgs a) {
+  if (a.ok[0] == 0) {
+    a.small[0] = 0;
+    a.small[1] = 0;
+    a.small[2] = 0;
+    a.smaller_right[0] = 1;
+    return;
+  }
+  const bool right_smaller = a.counts[1] <= a.counts[0];
+  const int c = right_smaller ? a.s + 1 : (int)a.choice[0];
+  a.small[0] = a.seg[2 * c];
+  a.small[1] = a.seg[2 * c + 1];
+  a.small[2] = a.side[c];
   a.smaller_right[0] = (int8_t)right_smaller;
 }
 
@@ -242,6 +286,19 @@ extern "C" int smt_partition(PartArgs* a, int bin_bytes, void* stream) {
     case 4: err = launch<int32_t>(a, s); break;
     default: err = cudaErrorInvalidValue;
   }
+  if (prev != a->device) cudaSetDevice(prev);
+  return (int)err;
+}
+
+// The mesh entry's pick (after the caller all-reduced a->counts), one thread
+// on a->device, into `stream`.
+extern "C" int smt_partition_pick(PartArgs* a, void* stream) {
+  int prev = -1;
+  cudaError_t err = cudaGetDevice(&prev);
+  if (err != cudaSuccess) return (int)err;
+  if (prev != a->device && (err = cudaSetDevice(a->device)) != cudaSuccess) return (int)err;
+  pick_kernel<<<1, 1, 0, (cudaStream_t)stream>>>(*a);
+  err = cudaGetLastError();
   if (prev != a->device) cudaSetDevice(prev);
   return (int)err;
 }

@@ -36,8 +36,22 @@ continued training from an ``init_booster`` and per-iteration
 sparse grower (:func:`~.grow.grow_tree_sparse`, kernel G) in the mapper's
 compact bin space, and the booster scores CSR rows through the features its
 trees use (kernel B). A :class:`~.dataset.GBDTDataset` is binned once
-and fits many times. Not ported yet: the mesh (distributed lambdarank
-included).
+and fits many times.
+
+``train(..., mesh=layout)`` trains over a ``torch.distributed`` mesh (a
+:class:`~synapseml_tpu_torch.runtime.layout.SpecLayout` or a raw
+``DeviceMesh``; the reference's ``boost.py:1517-1552``): every rank passes
+the same whole input and takes its own block of rows (:class:`_MeshRows`),
+padded by wrapping to equal blocks with weight -0.0 (a padding row counts
+0, a user's zero weight still counts); the rounding bound comes from the
+global padded row count and ``_preround``'s max is all-reduced, so the
+histograms, all-reduced, are exact and the trees are the single-device
+ones (:mod:`.grow`: data-, feature- and voting-parallel growth). Bagging
+and GOSS draw per shard (the key folded with the data rank), eval sets
+replicate (every rank scores all of them, so metrics and early stopping
+agree with no collective), lambdarank shards whole queries
+(:func:`make_lambdarank_mesh`), and continued training and DART replays
+run over each rank's rows. Every rank returns the same booster.
 """
 
 from __future__ import annotations
@@ -50,18 +64,22 @@ import numpy as np
 import torch
 
 from ..core.serialization import register_state_class
+from ..runtime.collectives import all_reduce
 from ..runtime.device import resolve_device
+from ..runtime.layout import SpecLayout, as_layout
 from .binning import BinMapper, torch_bin_dtype
 from .dataset import GBDTDataset
-from .grow import GrownTree, TreeConfig, grow_tree, grow_tree_sparse, predict_binned
-from .lambdarank import QueryGroups, lambda_grads
+from .grow import (GrownTree, TreeConfig, TreeMesh, grow_tree, grow_tree_sparse,
+                   predict_binned)
+from .lambdarank import QueryGroups, group_aligned_layout, lambda_grads
 from .partition import RowPartition
 from .metrics import DEFAULT_METRIC, METRICS, device_metric, metric_ndcg
 from .sampling import Sampler
-from .sparse import CSRMatrix, as_csr, build_sparse_binned, is_sparse_input
+from .sparse import (CSRMatrix, as_csr, build_sparse_binned, is_sparse_input,
+                     shard_sparse_binned)
 from .split_search import SplitWorkspace
 
-__all__ = ["GBDTBooster", "train", "OBJECTIVES", "make_lambdarank"]
+__all__ = ["GBDTBooster", "train", "OBJECTIVES", "make_lambdarank", "make_lambdarank_mesh"]
 
 
 def _sigmoid(z):
@@ -183,6 +201,60 @@ def make_lambdarank(group_sizes, label, truncation: int = 30, sigma: float = 1.0
     return init, grads
 
 
+def make_lambdarank_mesh(group_sizes, label, n_shards: int, rank: int, truncation: int = 30,
+                         sigma: float = 1.0, device="cpu"):
+    """Distributed LambdaRank by group-aligned sharding (the reference's
+    ``make_lambdarank_mesh``, ``boost.py:237``): whole queries a shard
+    (:func:`~.lambdarank.group_aligned_layout`), so the lambdas stay local.
+    Returns ``(init, grads, order, w_mask, local)``: ``order`` and
+    ``w_mask`` over every shard's block of ``local`` slots, and ``grads``
+    over rank ``rank``'s block (its queries' rows, then its padding, whose
+    gradients are 0): kernel F over the rank's own :class:`QueryGroups`."""
+    order, w_mask, local, per_shard = group_aligned_layout(group_sizes, n_shards)
+    sizes = np.asarray(group_sizes, dtype=np.int64).reshape(-1)[per_shard[rank]]
+    real = int(sizes.sum())
+    groups = QueryGroups(sizes, np.asarray(label)[order[rank * local:rank * local + real]],
+                         truncation, device)
+
+    def init(y, w):
+        return 0.0
+
+    def grads(score, y, w):
+        g, h = lambda_grads(score[:real], y[:real], w[:real], groups, sigma)
+        pad = torch.zeros(local - real, dtype=torch.float32, device=score.device)
+        return torch.cat([g, pad]), torch.cat([h, pad])
+
+    return init, grads, order, w_mask, local
+
+
+class _MeshRows:
+    """This rank's rows of an ``n``-row input on ``layout``'s data axis:
+    ``rows`` (local,) int64 input rows (a padding slot repeats an earlier
+    row), ``pad`` (local,) bool the padding slots, ``local`` the rows a
+    rank, ``n_global`` the padded rows of every rank. Without
+    ``lambdarank``, equal contiguous blocks of the rows padded by wrapping
+    (the reference's ``boost.py:1899-2005``); with it (what
+    :func:`make_lambdarank_mesh` returned), whole queries a rank, by its
+    ``order`` and ``w_mask``."""
+
+    def __init__(self, layout: SpecLayout, n: int, lambdarank=None):
+        shards, r = layout.data_size, layout.data_rank
+        if lambdarank is None:
+            local = (n + (-n) % shards) // shards
+            slots = np.arange(r * local, (r + 1) * local)
+            self.rows, self.pad = slots % n, slots >= n
+        else:
+            _, _, order, w_mask, local = lambdarank
+            block = slice(r * local, (r + 1) * local)
+            self.rows, self.pad = order[block], w_mask[block] == 0
+        self.lambdarank = lambdarank is not None
+        self.local, self.n_global = int(local), int(local) * shards
+
+    def weights(self, w_np: np.ndarray) -> np.ndarray:
+        """The rank's sample weights: -0.0 on the padding slots."""
+        return np.where(self.pad, -0.0, w_np[self.rows])
+
+
 # the reference's table (``boost.py:323-336``), plus two l2 aliases
 OBJECTIVES = {"binary": _obj_binary, "regression": _obj_l2, "l2": _obj_l2,
               "mean_squared_error": _obj_l2, "mse": _obj_l2, "regression_l2": _obj_l2,
@@ -273,13 +345,18 @@ def _canonicalize_params(params):
     return out
 
 
-def _preround(x: torch.Tensor, n_bound: int) -> torch.Tensor:
+def _preround(x: torch.Tensor, n_bound: int,
+              layout: Optional[SpecLayout] = None) -> torch.Tensor:
     """Round gradients to a summation-exact f32 grid (the reference's
     ``_preround``): every value becomes a multiple of ``ulp(factor)`` with
     ``factor >= max|x| * n_bound``, so every partial sum of up to ``n_bound``
     terms is exactly representable and ANY summation order gives the same
-    bits. Per-element error is at most ``max|x| * n_bound * 2**-24``."""
+    bits. Per-element error is at most ``max|x| * n_bound * 2**-24``. On a
+    mesh (``layout``) the max is all-reduced over the data axis, so every
+    rank rounds on the single-device grid."""
     m = torch.max(torch.abs(x), dim=0).values
+    if layout is not None:
+        all_reduce(m, layout, "max", ("data",))
     delta = m * torch.tensor(float(n_bound), dtype=torch.float32, device=x.device)
     factor = torch.exp2(torch.ceil(torch.log2(torch.clamp(delta, min=1e-35))))
     return (x + factor) - factor
@@ -874,6 +951,35 @@ def _warn_binning_ignored(dataset: "GBDTDataset", params_c: Dict[str, Any],
                       "GBDTDataset instead)", stacklevel=3)
 
 
+def _rank_block(mrows: _MeshRows, layout: SpecLayout, dataset: Optional[GBDTDataset],
+                mapper: BinMapper, xt: Optional[torch.Tensor], csr: Optional[CSRMatrix],
+                dev: torch.device, need_csr: bool):
+    """(bins, rows, CSR rows) of this rank's block on ``dev``: dense rows are
+    binned there (kernel D over the block), a dataset's cached bins are
+    taken by row without binning again (on their device for a
+    device-resident dataset), CSR rows are binned and laid out a block
+    (:func:`~.sparse.shard_sparse_binned`). The rows (dense) and CSR rows
+    are the block's, for continued training's margins (CSR only with
+    ``need_csr``)."""
+    rows = torch.from_numpy(mrows.rows)
+    if csr is not None:
+        if mrows.lambdarank:  # whole queries a rank: no wrapped padding
+            local = csr.take_rows(mrows.rows)
+            return build_sparse_binned(local, mapper, dev), None, local
+        binned, _ = shard_sparse_binned(csr, mapper, layout.data_size,
+                                        mrows.n_global - csr.shape[0], layout.data_rank, dev)
+        return binned, None, csr.take_rows(mrows.rows) if need_csr else None
+    if xt is not None:
+        xt = xt.index_select(0, rows.to(xt.device))
+    if dataset is not None and mapper is dataset.mapper:
+        if dataset.is_device:
+            full = dataset.device_binned()
+            return full.index_select(0, rows.to(full.device)), xt, None
+        return torch.from_numpy(dataset.binned_np[mrows.rows].astype(
+            dataset.bin_dtype)).to(dev), xt, None
+    return mapper.transform_torch(xt.to(dev)), xt, None
+
+
 def _merge_boosters(a: GBDTBooster, b: GBDTBooster) -> GBDTBooster:
     """``a``'s trees followed by ``b``'s, under ``b``'s mapper and ``a``'s base
     score (the reference's ``_merge_boosters``, ``boost.py:2479``)."""
@@ -919,7 +1025,8 @@ def train(params: Dict[str, Any], x, y=None, weight: Optional[np.ndarray] = None
           eval_group: Optional[Sequence[np.ndarray]] = None,
           fobj: Optional[Callable] = None, mapper: Optional[BinMapper] = None,
           init_booster: Optional[GBDTBooster] = None,
-          callbacks: Optional[Sequence[Callable]] = None) -> GBDTBooster:
+          callbacks: Optional[Sequence[Callable]] = None,
+          mesh=None, axis: str = "data") -> GBDTBooster:
     """Train a booster on ``device`` (default: the GPU; ``"cpu"`` runs the
     plain PyTorch versions of the kernels).
 
@@ -972,7 +1079,19 @@ def train(params: Dict[str, Any], x, y=None, weight: Optional[np.ndarray] = None
     ``hist_chunk``: they choose between the reference's XLA formulations
     (its full pass or its leaf-local half pass; gather, scatter or one-hot
     histograms), and the port has one growth path for each input kind and
-    one histogram kernel for each."""
+    one histogram kernel for each.
+
+    ``mesh``: a :class:`~synapseml_tpu_torch.runtime.layout.SpecLayout` (or
+    a raw ``DeviceMesh``, whose ``axis`` names the rows) over an initialised
+    process group: every rank calls ``train`` with the same arguments and
+    fits its block of the rows (module docstring). ``parallelism``
+    ``"data_parallel"`` all-reduces every histogram; a model axis of size >
+    1 then splits each histogram's columns over it (dense input);
+    ``"voting_parallel"`` (with ``top_k``) keeps histograms local and
+    all-reduces only the voted candidates (the model axis replicates, as
+    for sparse input). Quantile and L1 leaves are not renewed on a mesh
+    (the percentile would need a global sort), as in the reference. The
+    mesh's device type must be ``device``'s."""
     dataset = x if isinstance(x, GBDTDataset) else None
     y_d = None
     if dataset is not None:
@@ -995,6 +1114,12 @@ def train(params: Dict[str, Any], x, y=None, weight: Optional[np.ndarray] = None
     elif y is None:
         raise ValueError("y is required unless x is a GBDTDataset with a label")
     dev = resolve_device(device)
+    layout = None
+    if mesh is not None:
+        layout = as_layout(mesh, data_axis=axis)
+        if layout.device_type != dev.type:
+            raise ValueError(f"the mesh is on {layout.device_type!r} devices and the fit on "
+                             f"{dev}: pass device= to match the mesh")
     params_c = _canonicalize_params(params)
     p = dict(_DEFAULTS)
     p.update(params_c)
@@ -1004,7 +1129,7 @@ def train(params: Dict[str, Any], x, y=None, weight: Optional[np.ndarray] = None
         csr, xt = as_csr(x), None
         n, d = csr.shape
     else:
-        xt = torch.as_tensor(x)
+        csr, xt = None, torch.as_tensor(x)
         n, d = xt.shape
     if isinstance(y, torch.Tensor):
         y_d = y.to(dev, torch.float32)
@@ -1012,7 +1137,7 @@ def train(params: Dict[str, Any], x, y=None, weight: Optional[np.ndarray] = None
     y = np.asarray(y, dtype=np.float64)
     w_np = np.ones(n) if weight is None else np.asarray(weight, dtype=np.float64) + 0.0
 
-    ndcg_fn = None
+    ndcg_fn = lr_mesh = None
     if obj_name == "lambdarank":  # the reference's checks, boost.py:1631-1652, :2076-2082
         if group is None:
             raise ValueError("objective='lambdarank' requires group (query sizes, "
@@ -1021,8 +1146,14 @@ def train(params: Dict[str, Any], x, y=None, weight: Optional[np.ndarray] = None
             raise ValueError(f"group sizes sum to {int(np.sum(group))}, expected {n}")
         if eval_set and (eval_group is None or len(eval_group) != len(eval_set)):
             raise ValueError("lambdarank eval_set requires matching eval_group")
-        init_fn, grad_fn = make_lambdarank(group, y, int(p["lambdarank_truncation_level"]),
+        if layout is None:
+            init_fn, grad_fn = make_lambdarank(group, y, int(p["lambdarank_truncation_level"]),
+                                               float(p["sigmoid"]), dev)
+        else:
+            lr_mesh = make_lambdarank_mesh(group, y, layout.data_size, layout.data_rank,
+                                           int(p["lambdarank_truncation_level"]),
                                            float(p["sigmoid"]), dev)
+            init_fn, grad_fn = lr_mesh[:2]
         metric_name = f"ndcg@{int(p['ndcg_at'])}"
         ndcg_fn, metric_fn, higher_better = metric_ndcg(int(p["ndcg_at"])), None, True
     else:
@@ -1033,6 +1164,10 @@ def train(params: Dict[str, Any], x, y=None, weight: Optional[np.ndarray] = None
         metric_fn, higher_better = METRICS[metric_name]
     C = int(p["num_class"]) if obj_name in _MULTICLASS else 1
     boosting = _check_boosting(p, obj_name)
+    parallelism = str(p["parallelism"])
+    if parallelism not in ("data_parallel", "data", "voting_parallel", "voting"):
+        raise ValueError(f"parallelism must be data_parallel|voting_parallel, "
+                         f"got {parallelism!r}")
     if init_booster is not None and (init_booster.num_class != C or (
             init_booster.num_trees and init_booster.objective != obj_name)):
         raise ValueError("cannot merge boosters with different objective/num_class")
@@ -1053,7 +1188,18 @@ def train(params: Dict[str, Any], x, y=None, weight: Optional[np.ndarray] = None
             mapper.fit_csr(csr)
         else:
             mapper.fit(xt.numpy() if xt.device.type == "cpu" else xt.cpu().numpy())
-    if dataset is not None and mapper is dataset.mapper:
+    # the base score over every row, before a mesh takes this rank's
+    base_y, base_w = y, w_np
+    n_glob = n
+    if layout is not None:  # this rank's block of the rows
+        mrows = _MeshRows(layout, n, lr_mesh)
+        binned, xt, csr = _rank_block(mrows, layout, dataset, mapper, xt, csr, dev,
+                                      need_csr=init_booster is not None)
+        y, w_np = y[mrows.rows], mrows.weights(w_np)
+        if y_d is not None:
+            y_d = y_d.index_select(0, torch.from_numpy(mrows.rows).to(y_d.device))
+        n, n_glob = mrows.local, mrows.n_global
+    elif dataset is not None and mapper is dataset.mapper:
         binned = dataset.device_binned()  # binned and moved once a dataset
     elif sparse_in:
         binned = build_sparse_binned(csr, mapper, dev)
@@ -1068,7 +1214,7 @@ def train(params: Dict[str, Any], x, y=None, weight: Optional[np.ndarray] = None
     if init_booster is not None:
         base = init_booster.base_score.copy()
     else:
-        base = np.atleast_1d(np.asarray(init_fn(y, w_np), dtype=np.float64))
+        base = np.atleast_1d(np.asarray(init_fn(base_y, base_w), dtype=np.float64))
         if not p["boost_from_average"]:
             base = np.zeros_like(base)
     # rf averages trees that each fit the base score's residual
@@ -1084,10 +1230,12 @@ def train(params: Dict[str, Any], x, y=None, weight: Optional[np.ndarray] = None
         cat_smooth=float(p["cat_smooth"]), max_cat_threshold=int(p["max_cat_threshold"]),
         max_depth=int(p["max_depth"]), max_delta_step=float(p["max_delta_step"]))
     L = cfg.num_leaves
-    # summation-exact rounding bound: the next power of two over the row count
-    n_bound = 1 << max(int(n) - 1, 1).bit_length()
-    # percentile leaf renewal: quantile at its alpha, l1 at the median
-    renew_alpha = (None if fobj is not None
+    # summation-exact rounding bound: the next power of two over the (global,
+    # padded) row count
+    n_bound = 1 << max(int(n_glob) - 1, 1).bit_length()
+    # percentile leaf renewal: quantile at its alpha, l1 at the median (not
+    # on a mesh, as in the reference)
+    renew_alpha = (None if fobj is not None or layout is not None
                    else {"quantile": float(p["alpha"]), "l1": 0.5, "mae": 0.5}.get(obj_name))
 
     if y_d is None:
@@ -1100,11 +1248,22 @@ def train(params: Dict[str, Any], x, y=None, weight: Optional[np.ndarray] = None
         raw = torch.zeros(n, C, dtype=torch.float32, device=dev) + torch.as_tensor(
             base, dtype=torch.float32, device=dev)
     ones = torch.ones(n, dtype=torch.float32, device=dev)
+    tmesh = live = None
+    if layout is not None:
+        # the padding slots (weight -0.0) count 0 in every histogram
+        live = ~(torch.signbit(w_d) & (w_d == 0))
+        ones = live.to(torch.float32)
+        voting = parallelism.startswith("voting")
+        block = (layout.feature_block(d) if layout.model_size > 1 and not sparse_in
+                 and not voting else None)
+        tmesh = TreeMesh(layout, voting, int(p["top_k"]), block,
+                         None if block is None else binned[:, block[0]:block[1]].contiguous())
     fmask = torch.ones(d, dtype=torch.float32, device=dev)
     if not sparse_in:  # every tree of the fit; kernel E reads fmask through its pointer
         workspace = SplitWorkspace(d, fmask, cat_mask, cfg, dev)
         partition = RowPartition(n, L, dev)
-    sampler = Sampler(p, y_d, d, goss=boosting == "goss")
+    sampler = Sampler(p, y_d, d, goss=boosting == "goss",
+                      shard=None if layout is None else layout.data_rank)
 
     dart = boosting == "dart"
     # DART (f64 margins), ndcg (query groups) and callbacks (a record each
@@ -1152,8 +1311,12 @@ def train(params: Dict[str, Any], x, y=None, weight: Optional[np.ndarray] = None
                     raw[:, c] = raw[:, c] - (lr * tree_scales[t]) * replay(trees[t][c])
 
         g, h = (fobj or grad_fn)(raw[:, 0] if C == 1 else raw, y_d, w_d)
-        g = _preround(torch.as_tensor(g, device=dev).to(torch.float32).reshape(n, C), n_bound)
-        h = _preround(torch.as_tensor(h, device=dev).to(torch.float32).reshape(n, C), n_bound)
+        g = torch.as_tensor(g, device=dev).to(torch.float32).reshape(n, C)
+        h = torch.as_tensor(h, device=dev).to(torch.float32).reshape(n, C)
+        if layout is None:
+            g, h = _preround(g, n_bound), _preround(h, n_bound)
+        else:  # the max all-reduced: every rank on the single-device grid
+            g, h = _preround(g, n_bound, layout), _preround(h, n_bound, layout)
         fm = sampler.feature_mask(k2)
         if fm is not None:  # kernel E reads fmask through its packed pointer
             fmask.copy_(fm.pin_memory() if dev.type == "cuda" else fm, non_blocking=True)
@@ -1161,17 +1324,20 @@ def train(params: Dict[str, Any], x, y=None, weight: Optional[np.ndarray] = None
         if bw is None:
             bw = ones
         else:
+            if live is not None:
+                bw = torch.where(live, bw, 0.0)
             sampled.append(torch.count_nonzero(bw))
         grown = []
         for c in range(C):
             if sparse_in:
                 tree, node = grow_tree_sparse(binned, g[:, c].contiguous(),
                                               h[:, c].contiguous(), bw, fmask, cfg,
-                                              cat_mask=cat_mask)
+                                              cat_mask=cat_mask, mesh=tmesh)
             else:
                 tree, node = grow_tree(binned, g[:, c].contiguous(), h[:, c].contiguous(),
                                        bw, fmask, cfg, cat_mask=cat_mask,
-                                       workspace=workspace, partition=partition)
+                                       workspace=workspace, partition=partition,
+                                       mesh=tmesh)
             if renew_alpha is not None and C == 1:
                 tree = tree._replace(leaf_value=_renewed_leaf_values(
                     node, y_d, raw[:, 0], w_d * bw, renew_alpha, L))
@@ -1289,7 +1455,11 @@ def train(params: Dict[str, Any], x, y=None, weight: Optional[np.ndarray] = None
         best_iteration=best_iter if (patience and evals_in) else None,
         feature_names=list(feature_names) if feature_names else None, cat_set=cat_set)
     booster.evals_result = evals
-    booster.sampled_rows = (torch.stack(sampled[:T]).cpu().numpy() if sampled else None)
+    if sampled:
+        sampled = torch.stack(sampled[:T])
+        if layout is not None:  # every rank's rows (a data coordinate's ranks share them)
+            sampled = all_reduce(sampled.contiguous(), layout, "sum", ("data",))
+        booster.sampled_rows = sampled.cpu().numpy()
     if init_booster is not None and init_booster.num_trees:
         booster = _merge_boosters(init_booster, booster)
     return booster

@@ -22,7 +22,10 @@ Four ways in:
 The dataset's device is ``device`` (the GPU by default, ``"cpu"`` for the
 plain PyTorch path); a CPU tensor given with ``device=None`` moves to the
 GPU. The binning parameters are fixed here and win over those of any fit
-that uses the dataset (LightGBM's Dataset owns binning).
+that uses the dataset (LightGBM's Dataset owns binning). On a mesh
+(``train(ds, mesh=...)``) each rank takes its block of the rows: a
+device-resident dataset's cached bins by row on its device (no binning
+again), a host dataset's bins, a CSR dataset's rows binned a block.
 """
 
 from __future__ import annotations

@@ -21,8 +21,11 @@ booster continuing the last (``train``'s ``init_booster``); the classifier's
 Params keep the reference's names and defaults; ``init_score_col`` is
 admitted in the input schema and not read, and ``verbosity`` and
 ``use_barrier_execution_mode`` are accepted for API parity, as in the
-reference. The distributed Params (``mesh``, ``parallelism``, ``top_k``)
-come with that path.
+reference. ``mesh`` (a :class:`~synapseml_tpu_torch.runtime.layout.SpecLayout`
+or a ``DeviceMesh`` over an initialised process group) trains every fit
+over the mesh's ranks (``train(..., mesh=)``), each rank calling ``fit``
+on the same table; ``parallelism`` (``data_parallel`` | ``voting_parallel``)
+and ``top_k`` choose how, with the reference's names and defaults.
 
 ``device`` picks where fit and transform run: the GPU by default, ``"cpu"``
 for the plain PyTorch versions of the kernels.
@@ -146,6 +149,16 @@ class _LightGBMBase(Estimator):
     num_batches = Param("split training into k sequential batches with model "
                         "continuation (reference numBatches)", int, default=0)
     verbosity = Param("verbosity", int, default=-1)
+    parallelism = Param("data_parallel (full histogram allreduce) | "
+                        "voting_parallel (PV-tree: top-k feature vote + "
+                        "candidate-only reduce)", str, default="data_parallel",
+                        validator=ParamValidators.in_list(
+                            ["data_parallel", "voting_parallel"]))
+    top_k = Param("voting_parallel: local vote size (global select 2k; "
+                  "reference topK)", int, default=20,
+                  validator=ParamValidators.gt(0))
+    mesh = ComplexParam("optional SpecLayout or DeviceMesh for distributed training",
+                        object, default=None)
 
     objective = Param("training objective", str, default="regression")
 
@@ -205,6 +218,7 @@ class _LightGBMBase(Estimator):
             "categorical_feature": (list(self.categorical_slot_indexes)
                                     + list(self.categorical_slot_names)) or None,
             "cat_smooth": self.cat_smooth, "max_cat_threshold": self.max_cat_threshold,
+            "parallelism": self.parallelism, "top_k": self.top_k,
         }
 
     def _split_validation(self, table: Table):
@@ -245,7 +259,7 @@ class _LightGBMBase(Estimator):
             raise ValueError(
                 "categorical_slot_names requires slot-name metadata on the features "
                 f"column: Table(meta={{{self.features_col!r}: {{'slot_names': [...]}}}})")
-        kw.update(device=self.device, eval_set=eval_set,
+        kw.update(device=self.device, eval_set=eval_set, mesh=self.mesh,
                   feature_names=list(slot_names) if slot_names is not None else None)
         n_batches = int(self.num_batches)
         if n_batches > 1 and group_sizes is not None:

@@ -33,6 +33,10 @@ version pads a query to its chunk's widest with -inf, and NaN sorts after
 that padding, so it agrees on NaN scores only where the query is its
 chunk's widest (``cap=1`` makes every query its own chunk); a pair with a
 NaN score has NaN terms either way.
+
+On a mesh, queries are sharded whole (:func:`group_aligned_layout`, the
+reference's group-aligned layout): each rank's kernel F runs over its own
+:class:`QueryGroups`.
 """
 
 from __future__ import annotations
@@ -45,7 +49,8 @@ import torch
 
 from ..kernels.build import CudaKernel
 
-__all__ = ["QueryGroups", "lambda_grads", "lambda_grads_plain", "LAMBDARANK_KERNEL",
+__all__ = ["QueryGroups", "lambda_grads", "lambda_grads_plain", "group_aligned_layout",
+           "LAMBDARANK_KERNEL",
            "SMEM_DOCS", "TOP_MAX", "CHUNK_COLS", "pair_count", "cell_count", "exp_f32"]
 
 _P = ctypes.c_void_p
@@ -142,6 +147,32 @@ class QueryGroups:
                 acc = acc + ideal[:, r] * disc[r]
             out[torch.from_numpy(qs)] = acc
         return torch.clamp(out, min=1e-12)
+
+
+def group_aligned_layout(group_sizes, n_shards: int):
+    """Queries to shards whole, by the reference's greedy row balance
+    (``make_lambdarank_mesh``, ``boost.py:237-285``): a query goes to the
+    shard its row midpoint falls in under an even ``n / n_shards`` split,
+    so each shard holds a contiguous run of queries. Returns (``order``
+    (n_shards * local,) int64, the input row of each slot, padding slots
+    row 0; ``w_mask`` (n_shards * local,) f64, 1 on a real row, 0 on
+    padding; ``local``, the rows a shard; the query ids of each shard)."""
+    sizes = np.asarray(group_sizes, dtype=np.int64).reshape(-1)
+    n = int(sizes.sum())
+    starts = np.zeros(len(sizes) + 1, dtype=np.int64)
+    np.cumsum(sizes, out=starts[1:])
+    mids = starts[:-1] + sizes / 2.0
+    shard_of = np.minimum((mids / (n / n_shards)).astype(np.int64), n_shards - 1)
+    per_shard = [np.nonzero(shard_of == s)[0] for s in range(n_shards)]
+    local = max(max(int(sizes[qs].sum()) for qs in per_shard), 1)
+    order = np.zeros(n_shards * local, dtype=np.int64)
+    w_mask = np.zeros(n_shards * local, dtype=np.float64)
+    for s, qs in enumerate(per_shard):
+        if len(qs):  # the shard's queries are consecutive: one run of rows
+            lo, hi = int(starts[qs[0]]), int(starts[qs[-1] + 1])
+            order[s * local:s * local + hi - lo] = np.arange(lo, hi)
+            w_mask[s * local:s * local + hi - lo] = 1.0
+    return order, w_mask, local, per_shard
 
 
 def _padded(sizes: np.ndarray, starts: np.ndarray, gc: int):

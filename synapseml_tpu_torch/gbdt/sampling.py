@@ -116,9 +116,12 @@ class Sampler:
     bagging period into ``bkey`` for ``k1`` (GOSS: the iteration; otherwise
     ``it // max(bagging_freq, 1)``). The row weights come from ``k1``, the
     feature mask from ``k2``. Made once a fit, called once an iteration, in
-    order."""
+    order. ``shard``: on a mesh, the rank's data coordinate, folded into
+    ``k1`` when a row mask draws (the reference's ``bag_rng_live``,
+    ``boost.py:1202``, ``:1300-1302``), so each shard draws its own rows."""
 
-    def __init__(self, p: dict, y: torch.Tensor, n_features: int, goss: bool):
+    def __init__(self, p: dict, y: torch.Tensor, n_features: int, goss: bool,
+                 shard: Optional[int] = None):
         self.key = prng_key(p["seed"])
         self.bkey = prng_key(p["bagging_seed"])
         self.y = y
@@ -136,12 +139,14 @@ class Sampler:
         elif self.bfreq > 0 and bf < 1.0:
             self.fractions = (bf, bf)
         self._bag = (None, None)  # (period, weights) of the last bag drawn
+        self.shard = shard if (goss or self.fractions is not None) else None
 
     def keys(self, it: int) -> Tuple[Key, Key]:
         """(k1, k2) of iteration ``it``; advances the key."""
         self.key, k2 = split(self.key)
         period = it if self.goss else it // max(self.bfreq, 1)
-        return fold_in(self.bkey, period), k2
+        k1 = fold_in(self.bkey, period)
+        return (k1 if self.shard is None else fold_in(k1, self.shard)), k2
 
     def feature_mask(self, k2: Key) -> Optional[torch.Tensor]:
         """(d,) f32 host tensor of 0/1, ``u(k2, d) < feature_fraction`` (all

@@ -33,6 +33,11 @@ flowing into a LightGBM estimator: a few stored entries a row over up to
   and ``index_add_``); :func:`sparse_hist_rows_plain` is the row walk's
   plain twin. On gradients pre-rounded by ``boost._preround`` every sum is
   exact in any order, so all of them agree bit for bit.
+- :func:`shard_sparse_binned` is a rank's block of the rows on a
+  data-parallel mesh (the reference's ``shard_sparse_binned``,
+  ``sparse.py:531``), and :func:`sparse_hist_mesh` is G's mesh use: the
+  side forced from the all-reduced member counts, no sibling subtraction in
+  the kernel (the grower all-reduces the sum first).
 """
 
 from __future__ import annotations
@@ -48,7 +53,8 @@ from ..kernels.build import CudaKernel
 __all__ = ["CSRMatrix", "SparseBinned", "is_sparse_input", "as_csr", "build_sparse_binned",
            "pack_entries",
            "sparse_histogram", "sparse_histogram_split", "sparse_histogram_side",
-           "sparse_hist", "sparse_hist_plain", "sparse_hist_rows_plain", "sparse_column",
+           "sparse_hist", "sparse_hist_mesh", "sparse_hist_plain", "sparse_hist_rows_plain",
+           "sparse_column", "shard_sparse_binned", "SPARSE_HIST_MESH_KERNEL",
            "leaf_feature_hist", "g_plan", "g_hot", "g_path", "g_summed_sides",
            "g_summed_entries",
            "SPARSE_HIST_KERNEL", "SPARSE_HIST_TRACE", "G_ENTRIES", "G_SMEM", "G_HOT_SMEM",
@@ -465,6 +471,28 @@ def build_sparse_binned(csr: CSRMatrix, mapper, device="cpu") -> SparseBinned:
                         mapper.zero_bins(compact=True), n, d, B)
 
 
+def shard_sparse_binned(csr: CSRMatrix, mapper, n_shards: int, row_pad: int, rank: int,
+                        device="cpu") -> Tuple[SparseBinned, int]:
+    """Rank ``rank``'s block of the rows on a data-parallel mesh of
+    ``n_shards`` (the reference's ``shard_sparse_binned``, ``sparse.py:531``):
+    the rows, padded with ``row_pad`` wrapped copies of the first ones (the
+    caller gives them weight -0.0), split into equal contiguous blocks; the
+    block is binned and laid out by :func:`build_sparse_binned` with local
+    row ids. Returns (the block's SparseBinned, rows a block)."""
+    n, _ = csr.shape
+    if row_pad > n:
+        # wrapped padding replicates the first row_pad rows
+        raise ValueError(
+            f"sparse training set has {n} rows for {n_shards} shards "
+            f"(needs {row_pad} wrapped padding rows); use fewer shards or more rows")
+    total = n + row_pad
+    if total % n_shards:
+        raise ValueError(f"padded rows {total} not divisible by {n_shards}")
+    local = total // n_shards
+    rows = np.arange(rank * local, (rank + 1) * local) % n
+    return build_sparse_binned(csr.take_rows(rows), mapper, device), local
+
+
 # ---------------------------------------------------------------------------------
 # The sparse histogram (kernel G)
 # ---------------------------------------------------------------------------------
@@ -474,6 +502,13 @@ SPARSE_HIST_KERNEL = CudaKernel(
     argtypes=[ctypes.c_void_p, ctypes.c_void_p],
     replaces="synapseml_tpu/gbdt/sparse.py:312 (_cell_sum_fn, with the zero-bin "
              "residual of sparse_histogram_split :377 and sparse_histogram_side :415)")
+# G's mesh use (sparse_hist_mesh): the same entry with the side forced and
+# no parent, counted apart
+SPARSE_HIST_MESH_KERNEL = CudaKernel(
+    name="gbdt_sparse_hist_mesh", source="sparse_hist", symbol="smt_sparse_hist",
+    argtypes=[ctypes.c_void_p, ctypes.c_void_p],
+    replaces="synapseml_tpu/gbdt/grow.py:665 (the mesh's half pass: counts psum'd "
+             ":674-677, the smaller child summed, psum'd, then subtracted :686-695)")
 # G's four device kernels' names in a profiler trace, as substrings
 SPARSE_HIST_TRACE = ("sparse_",)
 
@@ -599,10 +634,31 @@ def sparse_hist(sb: SparseBinned, panel: torch.Tensor, side: torch.Tensor,
     path by :func:`g_path`), then the stream, the row walk and the walk's
     epilogue, of which the path's run and the others return at once."""
     _check_g(sb, panel, side, out, totals, ctrl, parent)
-    dev = sb.device
-    if dev.type == "cpu":
+    if sb.device.type == "cpu":
         sparse_hist_plain(sb, panel, side, out, totals, ctrl, parent)
         return
+    _launch_g(SPARSE_HIST_KERNEL, sb, panel, side, out, totals, ctrl, parent)
+
+
+def sparse_hist_mesh(sb: SparseBinned, panel: torch.Tensor, side: torch.Tensor,
+                     out: torch.Tensor, totals: torch.Tensor, ctrl: torch.Tensor) -> None:
+    """Kernel G's mesh use: :func:`sparse_hist` with no ``parent``, so a
+    half-mode call (``ctrl`` = (1, slot, forced), ``forced`` from the
+    all-reduced member counts) sums only the forced side into its slot of
+    ``out`` and leaves the other slot as it was; the grower all-reduces the
+    sum and subtracts it from the kept global parent. CPU tensors take
+    :func:`sparse_hist_plain`; CUDA tensors launch G, counted by
+    ``SPARSE_HIST_MESH_KERNEL``."""
+    _check_g(sb, panel, side, out, totals, ctrl, None)
+    if sb.device.type == "cpu":
+        sparse_hist_plain(sb, panel, side, out, totals, ctrl)
+        return
+    _launch_g(SPARSE_HIST_MESH_KERNEL, sb, panel, side, out, totals, ctrl, None)
+
+
+def _launch_g(kernel: CudaKernel, sb: SparseBinned, panel, side, out, totals, ctrl,
+              parent) -> None:
+    dev = sb.device
     if dev.type != "cuda":
         raise ValueError(f"kernel G needs a SparseBinned built on a CUDA device, got {dev}")
     if sb.plan is None:
@@ -620,7 +676,7 @@ def sparse_hist(sb: SparseBinned, panel: torch.Tensor, side: torch.Tensor,
                       ("totals", totals), ("parent", parent))},
                   n=sb.n, d=sb.d, B=sb.n_bins, nnz=sb.nnz, n_items=pl.items.shape[0],
                   max_feats=pl.max_feats, n_hot=pl.n_hot, device=dev.index)
-    SPARSE_HIST_KERNEL(ctypes.byref(args), torch.cuda.current_stream(dev).cuda_stream)
+    kernel(ctypes.byref(args), torch.cuda.current_stream(dev).cuda_stream)
 
 
 def _panel4(ghc: torch.Tensor) -> torch.Tensor:

@@ -27,6 +27,12 @@ device. CPU tensors take the plain versions (:func:`split_search_plain`, and
 the same step bookkeeping over it). On gradients pre-rounded by
 ``boost._preround`` every prefix is exact in any order, and the kernel, which
 rounds the gain as the torch ops do, gives the same bits.
+
+:func:`vote_splits` is the voting-parallel search (PV-tree, the reference's
+``best_splits`` voting branch, ``grow.py:300-347``): each rank scores its
+LOCAL histograms per (leaf, feature) with the full-table entry, votes for
+its ``top_k`` features a leaf, the votes are all-reduced, the ``2 top_k``
+most voted features' histograms are all-reduced and scored again.
 """
 
 from __future__ import annotations
@@ -37,9 +43,11 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..kernels.build import CudaKernel
+from ..runtime.collectives import all_reduce
 
 __all__ = ["split_search", "split_search_plain", "split_gains_plain", "category_key",
-           "left_set", "SplitWorkspace", "StepRecord", "SPLIT_KERNEL"]
+           "left_set", "vote_splits", "stable_top_k", "SplitWorkspace", "StepRecord",
+           "SPLIT_KERNEL"]
 
 _POINTERS = ("hists", "fmask", "cmask", "feat_gain", "feat_bin", "leaf_gain", "leaf_feat",
              "leaf_bin", "cat_left", "tickets", "parent", "feat", "bin", "gains", "cat_sets",
@@ -196,6 +204,62 @@ def split_search(hists: torch.Tensor, feature_mask: torch.Tensor, cat_mask, n_ac
     args.full, args.n_active = 1, int(n_active)
     SPLIT_KERNEL(ctypes.byref(args), 0, torch.cuda.current_stream(dev).cuda_stream)
     return gain, feat, bins
+
+
+def _per_feature(hists: torch.Tensor, cat_mask: Optional[torch.Tensor], cfg):
+    """Each (leaf, feature)'s best (gain, bin) of (N, k, B, 3) histograms,
+    unmasked: the full-table entry over the table viewed as N * k
+    one-feature leaves, once with every feature numeric and, when
+    ``cat_mask`` is given, once with every feature categorical; ``cat_mask``
+    (N, k) then picks each feature's. Returns ((N, k) f32, (N, k) int32)."""
+    N, k, B, _ = hists.shape
+    one = torch.ones(1, dtype=torch.float32, device=hists.device)
+    view = hists.reshape(N * k, 1, B, 3)
+    gain, _, bins = split_search(view, one, None, N * k, cfg)
+    gain, bins = gain.view(N, k), bins.view(N, k)
+    if cat_mask is not None:
+        g_cat, _, b_cat = split_search(view, one, one, N * k, cfg)
+        is_cat = cat_mask > 0
+        gain = torch.where(is_cat, g_cat.view(N, k), gain)
+        bins = torch.where(is_cat, b_cat.view(N, k), bins)
+    return gain, bins
+
+
+def stable_top_k(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Indices of the ``k`` largest entries of each row of ``x``, the lower
+    index first among equal values (``lax.top_k``'s order)."""
+    return torch.sort(x, dim=-1, descending=True, stable=True).indices[..., :k]
+
+
+def vote_splits(hists: torch.Tensor, feature_mask: torch.Tensor, cat_mask, cfg, layout,
+                top_k: int):
+    """Voting-parallel best (gain, feature, bin) of each of N leaves from
+    this rank's LOCAL (N, d, B, 3) histograms: (N,) f32, (N,) int32, (N,)
+    int32, the same on every rank of ``layout``'s data axis.
+
+    Per leaf, each rank votes for its ``min(top_k, d)`` best features
+    (local gains); the votes are all-reduced and the ``min(2 top_k, d)``
+    most voted (the lower index first among ties) are the candidates; their
+    histograms are all-reduced and scored, and the leaf's best is the first
+    maximum over (candidate, bin). The gains come from kernel E's
+    full-table entry (:func:`_per_feature`). Two collectives."""
+    N, d, B, _ = hists.shape
+    k_local, k_global = min(top_k, d), min(2 * top_k, d)
+    neg_inf = torch.tensor(float("-inf"), device=hists.device)
+    gain, _ = _per_feature(hists, None if cat_mask is None else cat_mask.expand(N, d), cfg)
+    gain = torch.where(feature_mask > 0, gain, neg_inf)
+    votes = torch.zeros(N, d, dtype=torch.float32, device=hists.device)
+    votes.scatter_add_(1, stable_top_k(gain, k_local),
+                       torch.ones(N, k_local, dtype=torch.float32, device=hists.device))
+    all_reduce(votes, layout, "sum", ("data",))
+    sel = stable_top_k(votes, k_global)                                   # (N, 2k)
+    cand = torch.gather(hists, 1, sel[:, :, None, None].expand(N, k_global, B, 3))
+    all_reduce(cand, layout, "sum", ("data",))
+    gain, bins = _per_feature(cand, None if cat_mask is None else cat_mask[sel], cfg)
+    gain = torch.where(feature_mask[sel] > 0, gain, neg_inf)
+    j = torch.argmax(gain, dim=1, keepdim=True)  # the first maximum, as jnp.argmax
+    return (gain.gather(1, j)[:, 0], sel.gather(1, j)[:, 0].to(torch.int32),
+            bins.gather(1, j)[:, 0].to(torch.int32))
 
 
 class StepRecord(NamedTuple):

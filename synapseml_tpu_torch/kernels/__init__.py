@@ -10,8 +10,11 @@ def all_kernels():
 
     return {k.name: k for k in (histogram.HIST_KERNEL, histogram.HIST_ROWS_KERNEL,
                                 histogram.SIBLING_KERNEL, partition.PARTITION_KERNEL,
+                                partition.PARTITION_MESH_KERNEL,
+                                partition.PARTITION_PICK_KERNEL,
                                 device_predict.SCORE_KERNEL, device_predict.LEAF_KERNEL,
                                 device_predict.BIN_KERNEL,
                                 split_search.SPLIT_KERNEL, sparse.SPARSE_HIST_KERNEL,
+                                sparse.SPARSE_HIST_MESH_KERNEL,
                                 lambdarank.LAMBDARANK_KERNEL,
                                 flash.FLASH_KERNEL, flash.FLASH_F32_KERNEL)}

@@ -552,15 +552,22 @@ def rows_histogrammed(parent: np.ndarray, leaf_counts: np.ndarray) -> Tuple[int,
     return split, right, small
 
 
+def _no_mesh(mesh) -> None:
+    if mesh is not None:
+        raise ValueError("the full-pass oracles grow on one device; train without mesh=")
+
+
 def grow_full_pass(binned, grad, hess, row_weight, feature_mask, cfg: TreeConfig,
-                   cat_mask=None, workspace=None, partition=None):
+                   cat_mask=None, workspace=None, partition=None, mesh=None):
     """``grow.grow_tree`` without the row partition: each step routes every
     row by the split (``node``), histograms the right child over all n rows
     (kernel A's full entry, the rows weighted by ``went_right``) and takes
     the left as parent minus child. The port's growth before kernel P, and
     the reference's full pass: the oracle that ``grow_tree`` equals bit for
     bit wherever histogram sums are exact, and the baseline that
-    ``tools/profile_fit.py --ab full_pass`` times. ``partition`` is ignored."""
+    ``tools/profile_fit.py --ab full_pass`` times. ``partition`` is ignored;
+    there is no mesh path (``mesh`` must be None)."""
+    _no_mesh(mesh)
     n, d = binned.shape
     ws = workspace if workspace is not None else SplitWorkspace(d, feature_mask, cat_mask,
                                                                  cfg, binned.device)
@@ -591,11 +598,13 @@ def _sparse_hist_both(sb, panel, side, out, totals, ctrl, parent=None):
 
 
 def grow_sparse_full_pass(sb, grad, hess, row_weight, feature_mask, cfg: TreeConfig,
-                          cat_mask=None):
+                          cat_mask=None, mesh=None):
     """``grow.grow_tree_sparse`` with the reference's full pass: kernel G
     sums both children of every split from the entries, none by
     subtraction from a kept parent. The oracle that ``grow_tree_sparse``
-    equals bit for bit wherever histogram sums are exact."""
+    equals bit for bit wherever histogram sums are exact (no mesh path:
+    ``mesh`` must be None)."""
+    _no_mesh(mesh)
     shipped = grow.sparse_hist
     grow.sparse_hist = _sparse_hist_both
     try:

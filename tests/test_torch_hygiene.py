@@ -27,7 +27,8 @@ def test_port_modules_import_no_jax_and_no_reference():
     assert "synapseml_tpu_torch.parallel.flash" in mods
     assert "synapseml_tpu_torch.gbdt.sparse" in mods
     for sub in ("gbdt.dataset", "stages.basic", "featurize.stages", "train.stages",
-                "exploratory.balance", "cyber.scalers", "native.murmur"):
+                "exploratory.balance", "cyber.scalers", "native.murmur", "runtime.layout",
+                "runtime.collectives"):
         assert f"synapseml_tpu_torch.{sub}" in mods, sub
     code = "\n".join(
         ["import sys", f"sys.path.insert(0, {_ROOT!r})"]
@@ -36,6 +37,30 @@ def test_port_modules_import_no_jax_and_no_reference():
            "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
            "or m == 'synapseml_tpu' or m.startswith('synapseml_tpu.'))",
            "assert not bad, f'imported at module import time: {bad[:5]}'"])
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          timeout=120, cwd=_ROOT)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_mesh_modules_and_rank_side_import_no_jax_and_no_reference():
+    """The mesh's modules and the rank side of the mesh tests (the module
+    that gloo ranks import, ``tests/torch_mesh.py``) load neither JAX nor
+    the JAX package, and name neither in an import."""
+    files = [os.path.join(_ROOT, "synapseml_tpu_torch", "runtime", f)
+             for f in ("layout.py", "collectives.py")]
+    files.append(os.path.join(_ROOT, "tests", "torch_mesh.py"))
+    for path in files:
+        with open(path) as f:
+            src = f.read()
+        assert not re.search(r"^\s*(import|from)\s+jax\b", src, re.M), path
+        assert not re.search(r"^\s*(import|from)\s+synapseml_tpu\b(?!_torch)", src, re.M), path
+    code = "\n".join(
+        ["import sys", f"sys.path.insert(0, {_ROOT!r})",
+         "import synapseml_tpu_torch.runtime.layout, synapseml_tpu_torch.runtime.collectives",
+         "import tests.torch_mesh",
+         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
+         "or m == 'synapseml_tpu' or m.startswith('synapseml_tpu.'))",
+         "assert not bad, f'imported: {bad[:5]}'"])
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                           timeout=120, cwd=_ROOT)
     assert proc.returncode == 0, proc.stderr
@@ -69,3 +94,25 @@ def test_sparse_hist_binding_matches_its_source():
                 (decl.split()[0], None, decl.split(None, 1)[1])
             fields += [n.strip().lstrip("*") for n in names.split(",")]
     assert fields == [name for name, _ in sparse._GArgs._fields_]
+
+
+def test_partition_binding_matches_its_source():
+    """Kernel P's one-launch step, its mesh entry and its pick are bound to
+    ``csrc/partition.cu``'s entry points, and ``_PartArgs`` mirrors the
+    source's ``PartArgs`` field for field (the mesh entry's ``counts`` and
+    ``mesh`` included)."""
+    from synapseml_tpu_torch.gbdt import partition
+    from synapseml_tpu_torch.kernels import all_kernels
+    from synapseml_tpu_torch.kernels.build import CSRC_DIR
+
+    ks = all_kernels()
+    src = (CSRC_DIR / "partition.cu").read_text()
+    for name, k in (("gbdt_partition", partition.PARTITION_KERNEL),
+                    ("gbdt_partition_mesh", partition.PARTITION_MESH_KERNEL),
+                    ("gbdt_partition_pick", partition.PARTITION_PICK_KERNEL)):
+        assert ks[name] is k and k.source == "partition"
+        assert f'extern "C" int {k.symbol}(' in src
+    body = re.search(r"struct PartArgs \{(.*?)\};", src, re.S).group(1)
+    fields = [decl.strip().split()[-1].lstrip("*")
+              for decl in re.sub(r"//[^\n]*", "", body).split(";") if decl.strip()]
+    assert fields == [name for name, _ in partition._PartArgs._fields_]

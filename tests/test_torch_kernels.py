@@ -21,10 +21,12 @@ from synapseml_tpu_torch.gbdt.grow import TreeConfig, grow_tree
 from synapseml_tpu_torch.gbdt.histogram import (HIST_KERNEL, HIST_ROWS_KERNEL, SIBLING_KERNEL,
                                                 histogram, histogram_plain, histogram_rows,
                                                 histogram_rows_plain, sibling)
-from synapseml_tpu_torch.gbdt.partition import PARTITION_KERNEL, RowPartition
+from synapseml_tpu_torch.gbdt.partition import (PARTITION_KERNEL, PARTITION_MESH_KERNEL,
+                                                PARTITION_PICK_KERNEL, RowPartition)
 from synapseml_tpu_torch.gbdt.metrics import METRICS
 from synapseml_tpu_torch.gbdt.sparse import (G_PATH_STREAM, G_PATH_WALK, SPARSE_HIST_KERNEL,
-                                             CSRMatrix, g_path, g_summed_entries, sparse_hist,
+                                             SPARSE_HIST_MESH_KERNEL, CSRMatrix, g_path,
+                                             g_summed_entries, sparse_hist, sparse_hist_mesh,
                                              sparse_hist_plain, sparse_hist_rows_plain)
 from synapseml_tpu_torch.gbdt.split_search import (SPLIT_KERNEL, SplitWorkspace,
                                                    split_gains_plain, split_search,
@@ -935,3 +937,100 @@ def test_grow_tree_sparse_reads_nothing_back(cuda):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert (tree.parent >= 0).sum() > 0 and (tree.bin < 0).any()
+
+
+# -- the mesh's entries (their plain twins' CPU tests: tests/test_torch_mesh.py) --------
+
+def _mesh_partition_steps(dev, bins, ids, seg, side, node, steps, flip):
+    """Kernel P's mesh entry, then its pick (on ``dev``), or their plain
+    twins (CPU), over ``steps`` from one state; between the two the local
+    counts get another rank's (``flip``: counts that make the locally
+    smaller child the globally larger). The state after each step."""
+    part = RowPartition(ids.shape[1], seg.shape[0], dev)
+    part.begin_tree()
+    for t, a in ((part.ids, ids), (part.seg, seg), (part.side, side)):
+        t.copy_(torch.from_numpy(a))
+    node_t = torch.from_numpy(node.copy()).to(dev)
+    bins_t = torch.from_numpy(bins).to(dev)
+    states = []
+    for s, leaf, feat, ok, in_set in steps:
+        choice, ok_t = torch.tensor([leaf, feat]).to(dev), torch.tensor([ok]).to(dev)
+        part.split(s, bins_t, node_t, choice, ok_t, torch.from_numpy(in_set).to(dev),
+                   mesh=True)
+        local = part.counts.cpu().numpy().copy()
+        if flip:
+            other = 2 * ids.shape[1] + 1
+            extra = [0, other] if local[1] <= local[0] else [other, 0]
+            part.counts.add_(torch.tensor(extra, dtype=torch.int32, device=dev))
+        part.pick(s, choice, ok_t)
+        states.append({name: t.cpu().numpy().copy() for name, t in (
+            ("ids", part.ids), ("seg", part.seg), ("side", part.side), ("small", part.small),
+            ("smaller_right", part.smaller_right), ("node", node_t))})
+        states[-1]["counts"] = local
+    return states
+
+
+@pytest.mark.parametrize("flip", [False, True])
+@pytest.mark.parametrize("n,d", [(257, 33), (1_000_003, 28)])
+@pytest.mark.parametrize("case", sorted(PARTITION_CASES))
+def test_partition_mesh_entry_matches_plain(cuda, case, n, d, flip):
+    """Kernel P's mesh entry (routing, local counts) and its pick (the
+    smaller child from the counts after another rank's are added) against
+    their plain twins, two steps in a row, each entry launched once a
+    step; with no other rank's counts the mesh entry and pick ARE the
+    one-launch step."""
+    bins, ids, seg, side, node, s, leaf, in_set = partition_case(n, 17, d, np.int16, case,
+                                                                 seed=d)
+    steps = [(s, leaf, d - 1, True, in_set),
+             (s + 1, s + 1, 0, True, np.random.default_rng(d).random(17) < 0.5)]
+    before = (PARTITION_KERNEL.launches, PARTITION_MESH_KERNEL.launches,
+              PARTITION_PICK_KERNEL.launches)
+    card = _mesh_partition_steps(cuda, bins, ids, seg, side, node, steps, flip)
+    torch.cuda.synchronize()
+    assert (PARTITION_KERNEL.launches, PARTITION_MESH_KERNEL.launches,
+            PARTITION_PICK_KERNEL.launches) == (before[0], before[1] + 2, before[2] + 2)
+    cpu = _mesh_partition_steps("cpu", bins, ids, seg, side, node, steps, flip)
+    for got, want in zip(card, cpu):
+        _same_partition(got, want)
+        np.testing.assert_array_equal(got["counts"], want["counts"])
+    if not flip:
+        for got, want in zip(card, _partition_steps("cpu", bins, ids, seg, side, node, steps)):
+            _same_partition(got, want)
+
+
+def test_partition_mesh_entry_inert_step(cuda):
+    """An inert step: the mesh entry writes counts (0, 0) and moves nothing;
+    the pick records the empty child on the right."""
+    bins, ids, seg, side, node, s, leaf, in_set = partition_case(5000, 9, 4, np.int8, "deep",
+                                                                 seed=1)
+    card = _mesh_partition_steps(cuda, bins, ids, seg, side, node,
+                                 [(s, leaf, 0, False, in_set)], False)[0]
+    assert card["counts"].tolist() == [0, 0]
+    np.testing.assert_array_equal(card["ids"], ids)
+    np.testing.assert_array_equal(card["node"], node)
+    assert card["small"].tolist() == [0, 0, 0] and bool(card["smaller_right"][0])
+
+
+@pytest.mark.parametrize("forced", [0, 1])
+@pytest.mark.parametrize("case", SPARSE_HIST_CASES)
+def test_sparse_hist_mesh_entry_bit_equal(cuda, case, forced):
+    """Kernel G's mesh use (the side forced, no parent): the forced side's
+    histogram and both totals bit-equal to the plain version, the other
+    slot left as it was, one launch counted by the mesh entry's counter."""
+    sb, panel, side, _ = sparse_hist_case(case, cuda)
+    ctrl = torch.tensor([1, 0, forced], dtype=torch.int32, device=cuda)
+    shape = (2, sb.d, sb.n_bins, 3)
+    runs = []
+    for fn in (sparse_hist_mesh, sparse_hist_plain):
+        out = torch.full(shape, float("nan"), device=cuda)
+        tot = torch.full((2, 3), float("nan"), device=cuda)
+        before = (SPARSE_HIST_KERNEL.launches, SPARSE_HIST_MESH_KERNEL.launches)
+        fn(sb, panel, side, out, tot, ctrl)
+        torch.cuda.synchronize()
+        mine = fn is sparse_hist_mesh
+        assert (SPARSE_HIST_KERNEL.launches, SPARSE_HIST_MESH_KERNEL.launches) == (
+            before[0], before[1] + mine)
+        runs.append((out, tot))
+    (out, tot), (want, want_tot) = runs
+    assert _same_bits(out[forced], want[forced]) and _same_bits(tot, want_tot)
+    assert out[1 - forced].isnan().all()
