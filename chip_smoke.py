@@ -129,6 +129,26 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    rank 0's; (c) P's mesh entry and pick at phase 4's P splits and G's mesh
    use at phase 2g's half splits, bit-equal to their plain twins and timed
    (their rows of the kernels line);
+2j. the VW learner (``vw/``, kernel V): (a) ``VowpalWabbitClassifier(
+   num_bits=18, batch_size=256, num_passes=2)`` fit on phase 2g's
+   1,048,576 training reviews as a sparse (indices, values) column, then
+   transform of its 262,144 held-out reviews: kernel V once a batch a pass
+   (8,192) and no other kernel, none in the transform (it scores on the
+   host), held-out AUC > VW_AUC_FLOOR; the fit's and transform's wall
+   seconds and ``pad_examples``' share of the fit; a 16,384-review fit
+   (logistic; squared with l2) with identical states on the card and the
+   CPU; (b) kernel V against its plain version over the first 64 batches,
+   each loss, the sparse regime and l1 + l2: bit-equal states, each timed
+   (a launch, a plain step) beside its bound (the batch's idx/val/y/weight,
+   the distinct 32-byte sectors of w, s and g2 read and written, 16 B a
+   slot in a dense regime), a traced pass giving each device kernel's time
+   a launch (rows, slots, dense) and the host's clock the time to submit a
+   launch; (c) at 65,536 reviews a one-rank NCCL
+   ``SpecLayout.build(data=1)`` fit equal to the single-device fit, and two
+   gloo ranks on ``cuda:0``: at data=2 rank 1's state equal to rank 0's, at
+   (data=1, fsdp=2) the replicated (data=1, model=2) state bit for bit, with
+   the collectives counted (one sum and one max a pass, one all-gather over
+   fsdp a pass) and at most half the vectors at rest;
 3. flash attention's entry point, all causal: in bf16 (the wgmma kernel) at
    the headline shape (B=1, S=32768, H=8, D=64), the grouped-query serving
    shape (B=8, S=8192, H=8, H_kv=2, D=64), the headline length at D=128, and
@@ -264,6 +284,8 @@ SHAP_ROWS = 65_536
 # the other two return at once)
 G_KERNEL_NAMES = (("sparse_rows",), ("sparse_entries",), ("sparse_walk",), ("sparse_epilogue",))
 G_KERNELS_A_CALL = len(G_KERNEL_NAMES)
+# kernel V's device kernels: rows and slots every launch, dense with l1 or l2
+V_KERNEL_NAMES = (("vw_rows_kernel",), ("vw_slots_kernel",), ("vw_dense_kernel",))
 # kernel F against its plain version, in f32 ulps: both take exp_f32 and sum
 # over j in j order, so the two agree bit for bit
 F_ULPS = 0
@@ -282,6 +304,19 @@ TREE_CHECK_ROWS = 16_384      # rows the plain replay checks at S=254
 # (16,384), at 12,288 the padded rows stay under 16,384
 N_MESH, N_MESH_TEST = 1_048_576, 262_144
 MESH_TOP_K = 5
+# phase 2j: VowpalWabbitClassifier at the reference's defaults but passes,
+# on phase 2g's reviews; kernel V's step checks over the first 64 batches in
+# the sparse regime and a dense one (l1 and l2 set); the squared fit's l2 of
+# the card-against-CPU check; the mesh fits' reviews
+VW_PARAMS = dict(num_bits=18, batch_size=256, num_passes=2)
+# far above chance (0.5), below what the lexicon label allows: on the CPU
+# the same fit over 16,384 reviews reaches a held-out AUC of 0.845, over
+# 65,536 reviews 0.877 (2^18 slots, 16,384 held-out reviews)
+VW_AUC_FLOOR = 0.80
+VW_STEP_BATCHES = 64
+VW_STEP_REGIMES = ("sparse", "l1_l2")
+VW_L2 = 1e-4
+VW_MESH_ROWS = 65_536
 MESH_HASHED_ROWS = 65_536
 MESH_RANK_QUERIES, MESH_RANK_DOCS = 102, 12_288
 MESH_TIMEOUT_S = 300
@@ -899,16 +934,6 @@ def leaf_local_phase(kernels, gbdt, x_tr, y_tr, x_te, split_steps) -> dict:
     return {"record": rec, "booster": local}
 
 
-def pairs_column(csr) -> np.ndarray:
-    """A CSR matrix as the VW featurizer's column: one (indices, values) pair
-    a row (uint32 indices)."""
-    col = np.empty(csr.shape[0], dtype=object)
-    ind, val, ptr = csr.indices.astype(np.uint32), csr.values, csr.indptr
-    for i in range(csr.shape[0]):
-        col[i] = (ind[ptr[i]:ptr[i + 1]], val[ptr[i]:ptr[i + 1]])
-    return col
-
-
 def dense_used_features(booster, csr):
     """(a booster over the trees' used features only, the (n, |F|) f32 dense
     values of those features): its dense predict is what CSR scoring must
@@ -938,7 +963,7 @@ def hashed_text_phase(kernels, seed, split_steps) -> dict:
     from synapseml_tpu_torch.core import Table
     from synapseml_tpu_torch.gbdt.boost import train
     from synapseml_tpu_torch.gbdt.estimators import LightGBMClassifier
-    from synapseml_tpu_torch.tools.kernel_cases import full_pass
+    from synapseml_tpu_torch.tools.kernel_cases import full_pass, pairs_column
     from synapseml_tpu_torch.tools.schema_data import FITS, hashed_text_rows
 
     n_train, n_made, params = FITS["hashed_text"]
@@ -1032,7 +1057,7 @@ def hashed_text_phase(kernels, seed, split_steps) -> dict:
            "small_fit_raw_max_diff": small_err, "split_steps": steps, "g_calls": calls}
     log(json.dumps(rec))
     return {"record": rec, "booster": booster, "x_tr": x_tr, "y_tr": y_tr,
-            "fit_params": fit_params}
+            "x_te": x_te, "y_te": y_te, "fit_params": fit_params}
 
 
 def same_booster(a, b) -> str:
@@ -1905,6 +1930,324 @@ def mesh_entry_rows(binned_tr, n_bins, lb, hashed, seed, dev) -> dict:
     return {"partition": p_runs, "pick": pick_runs, "sparse": g_runs}
 
 
+# -- phase 2j: the VW learner ---------------------------------------------------------
+
+def vw_phase(kernels, hashed):
+    """Phase 2j (a): ``VowpalWabbitClassifier`` fit on phase 2g's 1,048,576
+    training reviews as a sparse column, transform of its 262,144 held-out
+    reviews; kernel V once a batch a pass and nowhere else, the held-out
+    AUC over VW_AUC_FLOOR; a 16,384-review fit on the card and the CPU with
+    identical states (logistic, and squared with l2). Returns the record
+    and the training reviews' (indices, values) column."""
+    from synapseml_tpu_torch.core import Table
+    from synapseml_tpu_torch.tools.kernel_cases import pairs_column, vw_state_differs
+    from synapseml_tpu_torch.vw.estimators import VowpalWabbitClassifier, VowpalWabbitRegressor
+
+    x_tr, y_tr, x_te, y_te = hashed["x_tr"], hashed["y_tr"], hashed["x_te"], hashed["y_te"]
+    t0 = time.perf_counter()
+    col_tr, col_te = pairs_column(x_tr), pairs_column(x_te)
+    pairs_s = time.perf_counter() - t0
+    meta = {"features": {"type": "vw_sparse"}}
+    train_table = Table({"features": col_tr, "label": y_tr}, meta=meta)
+    test_table = Table({"features": col_te}, meta=meta)
+    model, out, fit_s, transform_s, fit_l, trans_l = fit_and_transform(
+        kernels, VowpalWabbitClassifier(**VW_PARAMS), train_table, test_table)
+    batches = -(-len(y_tr) // VW_PARAMS["batch_size"])
+    want = VW_PARAMS["num_passes"] * batches
+    others = {k: n for k, n in {**fit_l, **trans_l}.items() if n and k != "vw_step"}
+    if fit_l["vw_step"] != want or trans_l["vw_step"] or others:
+        fail(f"the VW fit launched kernel V {fit_l['vw_step']} times, not once a batch a pass "
+             f"({want}); the transform {trans_l['vw_step']} (scores on the host); other "
+             f"kernels {others}")
+    prob = np.asarray(out["probability"])[:, 1]
+    if prob.shape != (len(y_te),) or not np.isfinite(prob).all():
+        fail(f"VW probabilities: shape {prob.shape}, finite {np.isfinite(prob).all()}")
+    heldout_auc = auc(y_te, prob)
+    stats = model.performance_statistics
+    rec = {"phase": "vw_hashed_text", **VW_PARAMS, "rows_train": len(y_tr),
+           "rows_test": len(y_te), "pairs_s": pairs_s, "fit_s": fit_s,
+           "transform_s": transform_s, "fit_rows_per_s": len(y_tr) / fit_s,
+           "pad_examples_s": stats["pad_examples_s"],
+           "pad_examples_share_of_fit": stats["pad_examples_s"] / fit_s,
+           "learn_s": stats["learn_time_s"], "heldout_auc": heldout_auc,
+           "auc_floor": VW_AUC_FLOOR, "fit_launches": fit_l["vw_step"],
+           "batches_a_pass": batches}
+    if not heldout_auc > VW_AUC_FLOOR:
+        log(json.dumps(rec))
+        fail(f"VW held-out AUC {heldout_auc:.4f} <= {VW_AUC_FLOOR}")
+    small = {}
+    small_table = Table({"features": col_tr[:SMALL_FIT_ROWS], "label": y_tr[:SMALL_FIT_ROWS]},
+                        meta=meta)
+    for name, cls, extra in (("logistic", VowpalWabbitClassifier, {}),
+                             ("squared_l2", VowpalWabbitRegressor, {"l2": VW_L2})):
+        states, secs = {}, {}
+        for device in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            states[device] = cls(device=device, **VW_PARAMS, **extra).fit(small_table).state
+            secs[device] = time.perf_counter() - t0
+        differs = vw_state_differs(states["cuda"], states["cpu"])
+        if differs:
+            fail(f"VW {name} fit at {SMALL_FIT_ROWS} reviews: the card's {differs} differs "
+                 f"from the CPU's")
+        small[name] = {"card_s": secs["cuda"], "cpu_s": secs["cpu"], "identical_state": True}
+    rec["small_fits"] = {"rows": SMALL_FIT_ROWS, **small}
+    log(json.dumps(rec))
+    return rec, col_tr
+
+
+def vw_step_checks(col, labels, dev) -> dict:
+    """Phase 2j (b): kernel V against its plain version over the first
+    VW_STEP_BATCHES batches of phase 2j's training column ``col`` (labels
+    0/1), each loss, the sparse and a dense regime: bit-equal states, and
+    each timed with CUDA events (a launch, a plain step) beside its bound; a
+    trace of one pass gives each device kernel's time a launch, and the
+    host's clock the time to submit a launch."""
+    from synapseml_tpu_torch.tools.kernel_cases import VW_REGIMES, vw_state_differs
+    from synapseml_tpu_torch.vw.learner import (LOSSES, StepHyper, StepPlan, StepState,
+                                                _Scratch, batch_step, batch_step_plain,
+                                                pad_examples)
+
+    B, nb = VW_PARAMS["batch_size"], VW_STEP_BATCHES
+    dim = 1 << VW_PARAMS["num_bits"]
+    idx, val = pad_examples(col[:nb * B], VW_PARAMS["num_bits"])
+    K = idx.shape[1]
+    y01 = np.asarray(labels[:nb * B], np.float32)
+    ys = {"pm1": torch.from_numpy(np.where(y01 > 0, 1.0, -1.0).astype(np.float32)),
+          "raw": torch.from_numpy(y01)}
+    bi = torch.from_numpy(idx).to(dev).view(nb, B, K)
+    bv = torch.from_numpy(val).to(dev).view(nb, B, K)
+    bw = torch.ones(nb, B, device=dev)
+    plan = StepPlan(bi, bv, dim)
+    sectors = [plan.sectors(j) for j in range(nb)]
+    fresh = lambda: StepState(np.zeros(dim, np.float32), np.full(dim, 1e-6, np.float32),
+                              0.0, 1e-6, np.zeros(dim, np.float32), device=dev)
+    rows = {}
+    for loss in LOSSES:
+        by = ys["pm1" if loss in ("logistic", "hinge") else "raw"].to(dev).view(nb, B)
+        for regime in VW_STEP_REGIMES:
+            l1, l2 = VW_REGIMES[regime]
+            hp = StepHyper.make(loss, 0.5, l1, l2, 0.5)
+            scratch = _Scratch(B, dim, dev)
+            epoch = [0]
+
+            def kernel_pass(st):
+                for j in range(nb):
+                    batch_step(st, bi[j], bv[j], by[j], bw[j], hp, plan, j, epoch[0], scratch)
+                    epoch[0] += 1
+
+            def plain_pass(st):
+                for j in range(nb):
+                    batch_step_plain(st, bi[j], bv[j], by[j], bw[j], hp)
+
+            card, plain = fresh(), fresh()
+            _, k_ms = timed_once(lambda: kernel_pass(card))
+            _, p_ms = timed_once(lambda: plain_pass(plain))
+            differs = vw_state_differs(card.numpy(), plain.numpy())
+            if differs:
+                fail(f"kernel V ({loss}, {regime}): the state's {differs} differs from the "
+                     f"plain version's after {nb} batches")
+            scratch_st = fresh()
+            ms = time_ms(lambda: kernel_pass(scratch_st), 5) / nb
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            kernel_pass(scratch_st)
+            host_us = (time.perf_counter() - t0) / nb * 1e6
+            # the trace can miss the first launches of a pass (the tracer
+            # starts behind the host), so a kernel's time a launch is the
+            # mean over the events it holds
+            traced = kernel_times(lambda: kernel_pass(scratch_st), V_KERNEL_NAMES)
+            seen = {key[0]: traced[key][1] for key in V_KERNEL_NAMES}
+            if (not 0 < seen["vw_rows_kernel"] <= nb or not 0 < seen["vw_slots_kernel"] <= nb
+                    or (seen["vw_dense_kernel"] > 0) != hp.dense
+                    or seen["vw_dense_kernel"] > nb):
+                fail(f"kernel V ({loss}, {regime}): a trace of {nb} launches saw the device "
+                     f"kernels {seen} times (rows and slots once a launch, dense once a "
+                     f"launch with l1 or l2 set)")
+            device_us = {key[0]: traced[key][0] * 1e3 / traced[key][1] for key in V_KERNEL_NAMES
+                         if traced[key][1]}
+            n_bytes = np.mean([8 * B * K + 8 * B + 2 * 3 * 32 * s
+                               + (16 * dim if hp.dense else 0) for s in sectors])
+            b = bound(n_bytes, 0, F32_FLOPS)
+            rows[f"{loss}-{regime}"] = {"ms": ms, "first_pass_ms": k_ms / nb,
+                                        "device_us": sum(device_us.values()),
+                                        "device_us_by_kernel": device_us,
+                                        "traced_kernel_events": seen,
+                                        "host_us_a_launch": host_us,
+                                        "plain_ms": p_ms / nb, "bound_ms": b[0],
+                                        "bound_by": b[1], "bytes": float(n_bytes)}
+    rec = {"phase": "vw_step_checks", "batches": nb, "batch": B, "K": K, "slots": dim,
+           "plan_entries": plan.entries, "mean_sectors": float(np.mean(sectors)),
+           "bit_equal": True, "steps": rows}
+    log(json.dumps(rec))
+    return rec
+
+
+def vw_mesh_rows(col, labels):
+    """(idx, val, y +-1) of phase 2j (c): the first VW_MESH_ROWS reviews of
+    the training column ``col`` (labels 0/1)."""
+    from synapseml_tpu_torch.vw.learner import pad_examples
+
+    idx, val = pad_examples(col[:VW_MESH_ROWS], VW_PARAMS["num_bits"])
+    y = np.where(np.asarray(labels[:VW_MESH_ROWS]) > 0, 1.0, -1.0).astype(np.float32)
+    return idx, val, y
+
+
+def vw_nccl_one_rank(kernels, idx, val, y) -> dict:
+    """Phase 2j (c) first part: ``train_linear(mesh=SpecLayout.build(data=1))``
+    in a one-rank NCCL group equals the single-device fit of the same rows
+    on the card, with one sum and one max all-reduce a pass."""
+    import torch.distributed as dist
+
+    from synapseml_tpu_torch.runtime import collectives
+    from synapseml_tpu_torch.runtime.layout import SpecLayout
+    from synapseml_tpu_torch.tools.kernel_cases import vw_state_differs
+    from synapseml_tpu_torch.vw.learner import train_linear
+
+    kw = dict(loss="logistic", **VW_PARAMS)
+    single = train_linear(idx, val, y, **kw)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        layout = SpecLayout.build(data=1)
+        reset(kernels)
+        collectives.reset_counts()
+        t0 = time.perf_counter()
+        st = train_linear(idx, val, y, mesh=layout, **kw)
+        fit_s = time.perf_counter() - t0
+        launches, coll = counts(kernels)["vw_step"], collectives.counts()
+    finally:
+        dist.destroy_process_group()
+    P = VW_PARAMS["num_passes"]
+    want = P * -(-len(y) // VW_PARAMS["batch_size"])
+    differs = vw_state_differs(st, single)
+    rec = {"phase": "vw_mesh_nccl_one_rank", "rows": len(y), "fit_s": fit_s,
+           "launches": launches, "collectives": coll, "same_state_as_single_device": not differs}
+    log(json.dumps(rec))
+    if differs:
+        fail(f"the one-rank NCCL VW fit's {differs} differs from the single-device fit")
+    if launches != want or coll != {"sum:data": P, "max:data": P}:
+        fail(f"the one-rank NCCL VW fit launched kernel V {launches} times (want {want}) and "
+             f"made the collectives {coll}")
+    return rec
+
+
+def _vw_rank_main(rank: int, store: str, rows, outbox) -> None:
+    """A rank of phase 2j (c): ``cuda:0`` in a two-rank gloo world."""
+    import traceback
+
+    import torch.distributed as dist
+
+    try:
+        torch.cuda.set_device(0)
+        os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+        dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                                world_size=2)
+        try:
+            outbox.put((rank, True, _vw_rank_fits(*rows)))
+        finally:
+            dist.destroy_process_group()
+    except BaseException:  # the traceback goes back to the parent
+        outbox.put((rank, False, traceback.format_exc()))
+
+
+def _vw_rank_fits(idx, val, y) -> dict:
+    """Phase 2j (c)'s fits on one rank: data=2; (data=1, fsdp=2) and its
+    replicated twin (data=1, model=2)."""
+    from synapseml_tpu_torch.kernels import all_kernels
+    from synapseml_tpu_torch.runtime import collectives
+    from synapseml_tpu_torch.runtime.layout import SpecLayout
+    from synapseml_tpu_torch.vw.learner import train_linear
+
+    kernels = all_kernels()
+    layouts = {"data2": SpecLayout.build(data=2), "fsdp2": SpecLayout.build(data=1, fsdp=2),
+               "replicated2": SpecLayout.build(data=1, model=2)}
+    out = {}
+    for name, layout in layouts.items():
+        reset(kernels)
+        collectives.reset_counts()
+        rec: dict = {}
+        t0 = time.perf_counter()
+        st = train_linear(idx, val, y, loss="logistic", mesh=layout, stats=rec, **VW_PARAMS)
+        out[name] = {"state": st, "fit_s": time.perf_counter() - t0,
+                     "launches": counts(kernels)["vw_step"],
+                     "collectives": collectives.counts(), "at_rest_bytes": rec["at_rest_bytes"],
+                     "layout": layout.describe()}
+    return out
+
+
+def vw_two_ranks_phase(rows) -> dict:
+    """Phase 2j (c) second part: two processes on ``cuda:0`` in one gloo
+    world. At data=2 every rank's state equals rank 0's, with one sum and
+    one max all-reduce a pass; at (data=1, fsdp=2) the state is the
+    replicated (data=1, model=2) fit's bit for bit, with one all-gather over
+    fsdp a pass and at most half the vectors at rest."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from synapseml_tpu_torch.tools.kernel_cases import vw_state_differs
+
+    ctx = mp.get_context("spawn")
+    outbox = ctx.Queue()
+    store_dir = tempfile.mkdtemp(prefix="smt_vw_mesh_")
+    t0 = time.perf_counter()
+    procs = [ctx.Process(target=_vw_rank_main,
+                         args=(r, os.path.join(store_dir, "store"), rows, outbox))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    got, errors = {}, []
+    try:
+        for _ in procs:
+            try:
+                rank, ok, res = outbox.get(timeout=MESH_TIMEOUT_S)
+            except Exception:
+                fail(f"phase 2j: a rank gave no result in {MESH_TIMEOUT_S} s")
+            (got.__setitem__(rank, res) if ok else errors.append(f"rank {rank}:\n{res}"))
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+                p.join()
+        shutil.rmtree(store_dir, ignore_errors=True)
+    if errors:
+        fail("phase 2j (c): a rank failed\n" + "\n".join(errors))
+    P = VW_PARAMS["num_passes"]
+    n = len(rows[2])
+    per_rank = -(-n // 2)
+    batches = {"data2": -(-per_rank // VW_PARAMS["batch_size"]),
+               "fsdp2": -(-n // VW_PARAMS["batch_size"])}
+    batches["replicated2"] = batches["fsdp2"]
+    fits = {}
+    for name, r0 in got[0].items():
+        for rank in (1,):
+            differs = vw_state_differs(got[rank][name]["state"], r0["state"])
+            if differs:
+                fail(f"phase 2j {name}: rank {rank}'s {differs} differs from rank 0's")
+        want_coll = {"sum:data": P, "max:data": P}
+        if name == "fsdp2":
+            want_coll["gather:fsdp"] = P
+        for rank in (0, 1):
+            g = got[rank][name]
+            if g["launches"] != P * batches[name] or g["collectives"] != want_coll:
+                fail(f"phase 2j {name}: rank {rank} launched kernel V {g['launches']} times "
+                     f"(want {P * batches[name]}), collectives {g['collectives']} (want "
+                     f"{want_coll})")
+        fits[name] = {k: r0[k] for k in ("fit_s", "launches", "collectives", "at_rest_bytes",
+                                         "layout")}
+    differs = vw_state_differs(got[0]["fsdp2"]["state"], got[0]["replicated2"]["state"])
+    if differs:
+        fail(f"phase 2j: the (data=1, fsdp=2) fit's {differs} differs from the replicated fit")
+    full = 3 * (1 << VW_PARAMS["num_bits"]) * 4
+    if not all(b <= full // 2 + 8 for b in fits["fsdp2"]["at_rest_bytes"]):
+        fail(f"phase 2j: fsdp at-rest bytes {fits['fsdp2']['at_rest_bytes']} over half of "
+             f"{full}")
+    rec = {"phase": "vw_mesh_two_ranks_one_card", "backend": "gloo", "rows": n,
+           "wall_s": time.perf_counter() - t0, "fsdp_equals_replicated": True, "fits": fits}
+    log(json.dumps(rec))
+    return rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2175,6 +2518,18 @@ def main() -> int:
                                 hashed, args.seed, dev)
     del binned_2i
     log(f"phase 2i in {time.perf_counter() - t0:.1f} s")
+
+    # -- phase 2j: the VW learner: fit -> transform, kernel V, the mesh ------------------
+    t0 = time.perf_counter()
+    vw, vw_col = vw_phase(kernels, hashed)
+    vw_steps = vw_step_checks(vw_col, hashed["y_tr"], dev)
+    vw_rows = vw_mesh_rows(vw_col, hashed["y_tr"])
+    del vw_col
+    vw_nccl = vw_nccl_one_rank(kernels, *vw_rows)
+    torch.cuda.empty_cache()
+    vw_two = vw_two_ranks_phase(vw_rows)
+    del vw_rows
+    log(f"phase 2j in {time.perf_counter() - t0:.1f} s")
 
     # -- phase 3: flash attention's entry point -----------------------------------------
     gen = torch.Generator(device=dev).manual_seed(args.seed)
@@ -2894,6 +3249,21 @@ def main() -> int:
            shape=f"phase 2g's rows, the first tree's root split, the smaller side forced, "
                  f"no parent", shapes=mesh_rows["sparse"],
            launches_rank_1=two["hashed_text_data2"]["launches_rank1"]["gbdt_sparse_hist_mesh"])
+
+    # kernel V's row: a launch of the main path's configuration (logistic,
+    # sparse regime) over phase 2j (b)'s batches (ms: CUDA events around
+    # the loop of launches, the host's submission included; beside it the
+    # traced device time, split by device kernel), its launches in the fit
+    vw_main = vw_steps["steps"]["logistic-sparse"]
+    record("vw_step", vw["fit_launches"], 0.0, vw_main["ms"], vw_main["plain_ms"],
+           (vw_main["bound_ms"], vw_main["bound_by"]), None,
+           shape=f"a batch of {VW_PARAMS['batch_size']} hashed reviews at 2^"
+                 f"{VW_PARAMS['num_bits']} slots (K={vw_steps['K']}), logistic, l1 = l2 = 0",
+           device_us=vw_main["device_us"], device_us_by_kernel=vw_main["device_us_by_kernel"],
+           host_us_a_launch=vw_main["host_us_a_launch"],
+           launches_a_pass=vw["batches_a_pass"], steps=vw_steps["steps"],
+           launches_nccl_one_rank=vw_nccl["launches"],
+           launches_two_rank_fits={k: f["launches"] for k, f in vw_two["fits"].items()})
 
     missing = set(kernels) - {r["name"] for r in rows}
     if missing:

@@ -7,6 +7,7 @@ def all_kernels():
     """The port's hand kernels, by name (importing their modules binds them)."""
     from ..gbdt import device_predict, histogram, lambdarank, partition, sparse, split_search
     from ..parallel import flash
+    from ..vw import learner
 
     return {k.name: k for k in (histogram.HIST_KERNEL, histogram.HIST_ROWS_KERNEL,
                                 histogram.SIBLING_KERNEL, partition.PARTITION_KERNEL,
@@ -17,4 +18,5 @@ def all_kernels():
                                 split_search.SPLIT_KERNEL, sparse.SPARSE_HIST_KERNEL,
                                 sparse.SPARSE_HIST_MESH_KERNEL,
                                 lambdarank.LAMBDARANK_KERNEL,
-                                flash.FLASH_KERNEL, flash.FLASH_F32_KERNEL)}
+                                flash.FLASH_KERNEL, flash.FLASH_F32_KERNEL,
+                                learner.VW_KERNEL)}

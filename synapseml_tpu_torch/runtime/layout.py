@@ -1,20 +1,27 @@
-"""The port's named mesh: rows over ``data``, feature blocks over ``model``.
+"""The port's named mesh: rows over ``data``, feature blocks over ``model``,
+parameter storage over ``fsdp``.
 
-Port of the GBDT half of ``synapseml_tpu/runtime/layout.py``
-(``SpecLayout``, ``:53-200``, ``feature_blocks`` ``:234`` and ``as_layout``
-``:451``) over a ``torch.distributed`` :class:`DeviceMesh`. A layout is
-built by every rank of an initialised process group, in the same order
-(``init_device_mesh`` is collective): ``SpecLayout.build(data=4, model=2)``
-is a (4, 2) mesh named ``("data", "model")``; ``model`` unset leaves the
-model axis at 1. The mesh spans the whole world, rank ``r`` at coordinate
-``(r // model, r % model)``. It is built on ``"cuda"`` by default and on
-``"cpu"`` when asked (the tests' gloo worlds). A raw 1-D ``DeviceMesh``
-(:func:`as_layout`) is data-parallel only.
+Port of ``synapseml_tpu/runtime/layout.py``'s mesh (``SpecLayout``,
+``:53-200``, ``feature_blocks`` ``:234`` and ``as_layout`` ``:451``) over a
+``torch.distributed`` :class:`DeviceMesh`. A layout is built by every rank
+of an initialised process group, in the same order (``init_device_mesh`` is
+collective): ``SpecLayout.build(data=4, model=2)`` is a (4, 2) mesh named
+``("data", "model")``; ``model`` unset leaves the model axis at 1. With
+``fsdp=f`` a third axis sits between them, a (data, fsdp, model) mesh, over
+which an engine stores its parameters row-sharded between uses and
+all-gathers them at the point of use (``collectives.all_gather``; the VW
+learner's state): rows still shard over ``data`` only (the reference's
+``batch()``, ``:203-211``), so the ranks of one fsdp group see the same
+rows. The mesh spans the whole world in row-major order of its axes (rank
+``r`` at ``(r // model, r % model)`` on a 2-D mesh). It is built on
+``"cuda"`` by default and on ``"cpu"`` when asked (the tests' gloo worlds).
+A raw 1-D ``DeviceMesh`` (:func:`as_layout`) is data-parallel only.
 
 There is no silent mesh of one: with no process group initialised,
 :meth:`SpecLayout.build` and :func:`as_layout` raise
 :class:`MeshUnavailableError`. The parameter specs of the JAX package's
-layout (``fsdp``, ``col_weight``, ``batch``) have no counterpart here.
+layout (``col_weight``, ``batch``, ``fsdp_weight``) have no counterpart
+here: placement is the engine's own.
 """
 
 from __future__ import annotations
@@ -47,21 +54,26 @@ class SpecLayout:
     """A named :class:`DeviceMesh` and this rank's place in it.
 
     ``data_axis`` names the row axis; ``model_axis`` the feature axis, or
-    None for a 1-D mesh (data-parallel only). Groups are the mesh's own:
-    :meth:`group` gives the process group over one axis or over both."""
+    None for a 1-D mesh (data-parallel only); ``fsdp_axis`` the storage
+    axis, or None (a 2-D or 1-D mesh). Groups are the mesh's own:
+    :meth:`group` gives the process group over one axis or over several."""
 
-    def __init__(self, mesh, data_axis: str = "data", model_axis: Optional[str] = "model"):
+    def __init__(self, mesh, data_axis: str = "data", model_axis: Optional[str] = "model",
+                 fsdp_axis: Optional[str] = None):
         names = tuple(mesh.mesh_dim_names or ())
         if data_axis not in names:
             raise ValueError(f"mesh axes {names} have no {data_axis!r} axis")
         if model_axis is not None and model_axis not in names:
             raise ValueError(f"mesh axes {names} have no {model_axis!r} axis")
+        if fsdp_axis is not None and fsdp_axis not in names:
+            raise ValueError(f"mesh axes {names} have no {fsdp_axis!r} axis")
         if mesh.size() != dist.get_world_size():
             raise ValueError(f"the mesh holds {mesh.size()} ranks, the process group "
                              f"{dist.get_world_size()}: a layout spans the whole world")
         self.mesh = mesh
         self.data_axis = data_axis
         self.model_axis = model_axis
+        self.fsdp_axis = fsdp_axis
         coord = mesh.get_coordinate()
         if coord is None:
             raise ValueError(f"rank {dist.get_rank()} is not in the mesh")
@@ -71,29 +83,39 @@ class SpecLayout:
 
     @classmethod
     def build(cls, data: Optional[int] = None, model: Optional[int] = None, *,
-              device_type: str = "cuda") -> "SpecLayout":
-        """A (data, model) mesh over every rank of the process group.
+              fsdp: Optional[int] = None, device_type: str = "cuda") -> "SpecLayout":
+        """A (data, model) mesh over every rank of the process group, or with
+        ``fsdp`` a (data, fsdp, model) one.
 
         ``model=m`` puts ``m`` ranks on the model axis and the rest on data
-        (``world // m``); ``data`` alone leaves the model axis at 1;
-        neither: every rank on data. ``data * model`` must be the world
-        size."""
+        (``world // (m * fsdp)``); ``data`` alone leaves the model axis at
+        1; neither: every rank not on fsdp on data. ``data * fsdp * model``
+        must be the world size; ``fsdp`` unset keeps the 2-D mesh."""
         from torch.distributed.device_mesh import init_device_mesh
 
         require_process_group()
         world = dist.get_world_size()
+        f2 = int(fsdp) if fsdp else 1
+        if f2 < 1 or world % f2:
+            raise ValueError(f"fsdp axis size {fsdp} must divide the world size {world}")
         if model is None:
-            d2, m2 = (int(data) if data else world), 1
+            d2, m2 = (int(data) if data else world // f2), 1
         elif data is None:
             m2 = int(model)
-            if m2 < 1 or world % m2:
-                raise ValueError(f"model axis size {model} must divide the world size {world}")
-            d2 = world // m2
+            if m2 < 1 or world % (m2 * f2):
+                raise ValueError(f"model x fsdp axis sizes {model} x {f2} must divide the "
+                                 f"world size {world}")
+            d2 = world // (m2 * f2)
         else:
             d2, m2 = int(data), int(model)
-        if min(d2, m2) < 1 or d2 * m2 != world:
-            raise ValueError(f"mesh shape ({d2}, {m2}) holds {d2 * m2} ranks; the process "
+        if min(d2, m2) < 1 or d2 * f2 * m2 != world:
+            shape = (d2, f2, m2) if fsdp else (d2, m2)
+            raise ValueError(f"mesh shape {shape} holds {d2 * f2 * m2} ranks; the process "
                              f"group has {world}")
+        if fsdp:
+            return cls(init_device_mesh(device_type, (d2, f2, m2),
+                                        mesh_dim_names=("data", "fsdp", "model")),
+                       fsdp_axis="fsdp")
         return cls(init_device_mesh(device_type, (d2, m2), mesh_dim_names=("data", "model")))
 
     @classmethod
@@ -110,7 +132,9 @@ class SpecLayout:
             data_axis = "data" if "data" in names else names[0]
         if model_axis is _UNSET:
             model_axis = "model" if ("model" in names and data_axis != "model") else None
-        return cls(mesh, data_axis, model_axis)
+        fsdp_axis = "fsdp" if ("fsdp" in names and "fsdp" not in (data_axis, model_axis)) \
+            else None
+        return cls(mesh, data_axis, model_axis, fsdp_axis)
 
     # -- sizes and coordinates ---------------------------------------------------------
 
@@ -130,6 +154,10 @@ class SpecLayout:
         return 1 if self.model_axis is None else self._size(self.model_axis)
 
     @property
+    def fsdp_size(self) -> int:
+        return 1 if self.fsdp_axis is None else self._size(self.fsdp_axis)
+
+    @property
     def data_rank(self) -> int:
         """This rank's coordinate on the data axis (its row block)."""
         return self._coord[self.data_axis]
@@ -140,11 +168,19 @@ class SpecLayout:
         return 0 if self.model_axis is None else self._coord[self.model_axis]
 
     @property
+    def fsdp_rank(self) -> int:
+        """This rank's coordinate on the fsdp axis (its slice of a stored
+        parameter)."""
+        return 0 if self.fsdp_axis is None else self._coord[self.fsdp_axis]
+
+    @property
     def coordinate(self) -> Tuple[int, int]:
         return self.data_rank, self.model_rank
 
     def describe(self) -> dict:
         out = {self.data_axis: self.data_size}
+        if self.fsdp_axis is not None:
+            out[self.fsdp_axis] = self.fsdp_size
         if self.model_axis is not None:
             out[self.model_axis] = self.model_size
         return out
@@ -152,18 +188,22 @@ class SpecLayout:
     # -- groups -----------------------------------------------------------------------
 
     def group(self, axes: Tuple[str, ...] = ("data",)):
-        """The process group over ``axes``: ``("data",)``, ``("model",)`` or
-        both (the whole mesh, which is the world)."""
+        """The process group over ``axes``: ``("data",)``, ``("model",)``,
+        ``("fsdp",)``, or every axis of the mesh (the world; data and model
+        together on a mesh whose fsdp axis is 1 or absent)."""
         axes = tuple(axes)
-        if axes == ("data",):
-            return self.mesh.get_group(self.data_axis)
-        if axes == ("model",):
-            if self.model_axis is None:
-                raise ValueError("a 1-D layout has no model axis")
-            return self.mesh.get_group(self.model_axis)
-        if set(axes) == {"data", "model"}:
+        if len(axes) == 1:
+            name = {"data": self.data_axis, "model": self.model_axis,
+                    "fsdp": self.fsdp_axis}.get(axes[0])
+            if name is None:
+                raise ValueError(f"this layout has no {axes[0]!r} axis")
+            return self.mesh.get_group(name)
+        if set(axes) in ({"data", "model"}, {"data", "fsdp", "model"}):
+            if "fsdp" not in axes and self.fsdp_size > 1:
+                raise ValueError("data and model together are not the world on a layout "
+                                 "with an fsdp axis over more than one rank")
             return dist.group.WORLD
-        raise ValueError(f"axes must be ('data',), ('model',) or both, got {axes}")
+        raise ValueError(f"axes must be one axis or every axis, got {axes}")
 
     # -- feature blocks ----------------------------------------------------------------
 

@@ -1,7 +1,7 @@
 """Edge-case inputs for kernels D (device binning), E (split search), F
-(the LambdaRank gradient), G (the sparse histogram) and P (the row
-partition), and the full-pass growths that the dense and the sparse
-growth are held to.
+(the LambdaRank gradient), G (the sparse histogram), P (the row
+partition) and V (the VW learner's step), and the full-pass growths that
+the dense and the sparse growth are held to.
 
 Shared by ``tests/test_torch_kernels.py`` (on the card),
 ``tests/test_torch_categorical.py``, ``tests/test_torch_split_step.py`` and
@@ -27,6 +27,7 @@ from ..gbdt.histogram import histogram
 from ..gbdt.sparse import (G_ENTRIES, CSRMatrix, SparseBinned, build_sparse_binned,
                            pack_entries, sparse_hist)
 from ..gbdt.split_search import SplitWorkspace, _thresh_l1, left_set
+from ..vw.learner import pad_examples
 
 __all__ = ["bin_edge_case", "bin_ragged_case", "split_cases", "step_cases",
            "LARGEST_KERNEL_A_BINS", "offgrid_split_case", "check_offgrid", "check_left_sets",
@@ -34,7 +35,8 @@ __all__ = ["bin_edge_case", "bin_ragged_case", "split_cases", "step_cases",
            "RANK_CASES_WIDE", "rank_case", "rank_nan_case", "one_split_text", "TWO_TREES",
            "native_texts", "many_thresholds_text", "many_thresholds_rows", "PARTITION_CASES",
            "partition_case", "rows_histogrammed", "grow_full_pass", "full_pass",
-           "SPARSE_HIST_CASES", "sparse_hist_case", "sparse_case_inputs"]
+           "SPARSE_HIST_CASES", "sparse_hist_case", "sparse_case_inputs",
+           "VW_STEP_CASES", "VW_REGIMES", "vw_step_case", "pairs_column", "vw_state_differs"]
 
 # the most bins kernel A takes: one feature's (B, 3) f32 histogram plus a
 # word within 227 KB of shared memory (histogram.py)
@@ -746,3 +748,82 @@ def sparse_hist_case(case: str, device="cpu", seed: int = 0):
         side_of = _leaf_sides(rng, n, np.concatenate([rng.permutation(1000)[:200],
                                                       1000 + rng.permutation(n - 1000)[:20]]))
     return (sb, *sparse_case_inputs(sb, seed, side_of))
+
+
+# -- kernel V: the VW learner's batch step ------------------------------------------------
+
+VW_STEP_CASES = ("dup_within_row", "dup_across_rows", "slot0_padding", "slot0_feature",
+                 "tail_padding_rows", "hashed_text")
+# (l1, l2): the sparse regime (only the batch's slots move) and the dense ones
+VW_REGIMES = {"sparse": (0.0, 0.0), "l1": (1e-3, 0.0), "l2": (0.0, 1e-2),
+              "l1_l2": (1e-3, 1e-2)}
+
+
+def pairs_column(csr) -> np.ndarray:
+    """A :class:`~..gbdt.sparse.CSRMatrix` as the VW featurizer's column: one
+    (indices, values) pair a row (uint32 indices)."""
+    col = np.empty(csr.shape[0], dtype=object)
+    ind, val, ptr = csr.indices.astype(np.uint32), csr.values, csr.indptr
+    for i in range(csr.shape[0]):
+        col[i] = (ind[ptr[i]:ptr[i + 1]], val[ptr[i]:ptr[i + 1]])
+    return col
+
+
+def vw_state_differs(a, b) -> str:
+    """'' when two ``LinearLearnerState`` are equal bit for bit (NaN where
+    the other has NaN), else the first field that differs."""
+    for f, x, y in zip(a._fields, a, b):
+        x, y = np.asarray(x, np.float32), np.asarray(y, np.float32)
+        nan = np.isnan(x)
+        if x.shape != y.shape or not np.array_equal(nan, np.isnan(y)) or not np.array_equal(
+                x[~nan].view(np.int32), y[~nan].view(np.int32)):
+            return f
+    return ""
+
+
+def vw_step_case(name: str, num_bits: int, seed: int = 0):
+    """(idx, val, y_regression, y_pm1) of one of :data:`VW_STEP_CASES`, at
+    2^``num_bits`` slots: 700 rows (the last batch of 256 is 188 rows and 68
+    padding rows) of up to 7 entries, except ``tail_padding_rows`` (522
+    rows: the last batch is 246 padding rows) and ``hashed_text`` (1,000
+    hashed reviews, ``schema_data.hashed_text_rows``, up to ~120 entries).
+    - ``dup_within_row``: each row's first three entries share a slot;
+    - ``dup_across_rows``: every slot drawn from 12;
+    - ``slot0_padding``: ragged rows, no real entry on slot 0;
+    - ``slot0_feature``: ragged rows, slot 0 a real feature in a third of
+      them (non-zero values, and -0.0), and some (0, +0.0) entries inside
+      rows, which act as padding does."""
+    rng = np.random.default_rng(seed)
+    dim = 1 << num_bits
+    if name == "hashed_text":
+        from .schema_data import hashed_text_rows
+
+        csr, y01 = hashed_text_rows(seed, 1000, num_bits)
+        idx, val = pad_examples(pairs_column(csr), num_bits)
+        y_pm1 = np.where(y01 > 0, 1.0, -1.0).astype(np.float32)
+        y_reg = (y01 + rng.normal(0.0, 0.5, len(y01))).astype(np.float32)
+        return idx, val, y_reg, y_pm1
+    n, K = (522 if name == "tail_padding_rows" else 700), 7
+    pool = 12 if name == "dup_across_rows" else dim - 1
+    idx = (1 + rng.integers(0, pool, size=(n, K))).astype(np.int32)
+    val = (rng.normal(size=(n, K)) * rng.uniform(0.1, 20.0, size=(1, K))).astype(np.float32)
+    if name == "dup_within_row":
+        idx[:, 1] = idx[:, 0]
+        idx[:, 2] = idx[:, 0]
+    if name in ("slot0_padding", "slot0_feature", "tail_padding_rows"):
+        lens = rng.integers(1, K + 1, size=n)
+        past = np.arange(K)[None, :] >= lens[:, None]
+        idx[past] = 0
+        val[past] = 0.0
+    if name == "slot0_feature":
+        real = rng.random(n) < 1 / 3
+        idx[real, 0] = 0
+        val[real & (rng.random(n) < 0.1), 0] = -0.0
+        inside = (rng.random(n) < 0.1) & (idx[:, 2] != 0)
+        idx[inside, 1] = 0
+        val[inside, 1] = 0.0
+    w_true = rng.normal(size=dim).astype(np.float32)
+    score = (w_true[idx] * val).sum(axis=1)
+    y_reg = (score + rng.normal(0.0, 0.3, n)).astype(np.float32)
+    y_pm1 = np.where(score > np.median(score), 1.0, -1.0).astype(np.float32)
+    return idx, val, y_reg, y_pm1

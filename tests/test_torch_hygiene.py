@@ -3,6 +3,7 @@ modules loads neither JAX nor the JAX package, and ``chip_smoke.py`` names
 neither. Checked in a subprocess, immune to what this pytest session imported
 (conftest.py imports jax eagerly)."""
 
+import ctypes
 import os
 import pkgutil
 import re
@@ -28,7 +29,8 @@ def test_port_modules_import_no_jax_and_no_reference():
     assert "synapseml_tpu_torch.gbdt.sparse" in mods
     for sub in ("gbdt.dataset", "stages.basic", "featurize.stages", "train.stages",
                 "exploratory.balance", "cyber.scalers", "native.murmur", "runtime.layout",
-                "runtime.collectives"):
+                "runtime.collectives", "vw.learner", "vw.estimators", "vw.featurizer",
+                "vw.convert"):
         assert f"synapseml_tpu_torch.{sub}" in mods, sub
     code = "\n".join(
         ["import sys", f"sys.path.insert(0, {_ROOT!r})"]
@@ -116,3 +118,28 @@ def test_partition_binding_matches_its_source():
     fields = [decl.strip().split()[-1].lstrip("*")
               for decl in re.sub(r"//[^\n]*", "", body).split(";") if decl.strip()]
     assert fields == [name for name, _ in partition._PartArgs._fields_]
+
+
+def test_vw_step_binding_matches_its_source():
+    """Kernel V is registered, bound to ``csrc/vw_step.cu``'s entry point,
+    and ``_VArgs`` mirrors the source's ``VArgs`` field for field, type for
+    type."""
+    from synapseml_tpu_torch.kernels import all_kernels
+    from synapseml_tpu_torch.kernels.build import CSRC_DIR
+    from synapseml_tpu_torch.vw import learner
+
+    k = all_kernels()["vw_step"]
+    assert k is learner.VW_KERNEL and k.source == "vw_step"
+    src = (CSRC_DIR / "vw_step.cu").read_text()
+    assert f'extern "C" int {k.symbol}(' in src
+    body = re.search(r"struct VArgs \{(.*?)\};", src, re.S).group(1)
+    fields = []
+    for decl in re.sub(r"//[^\n]*", "", body).split(";"):
+        decl = decl.strip()
+        if decl:
+            kind, names = decl.split(None, 1) if "*" not in decl else \
+                (decl.rsplit(None, 1)[0], decl.rsplit(None, 1)[1])
+            kind = "ptr" if "*" in decl else kind
+            fields += [(n.strip().lstrip("*"), kind) for n in names.split(",")]
+    ctype = {ctypes.c_void_p: "ptr", ctypes.c_float: "float", ctypes.c_int: "int"}
+    assert fields == [(name, ctype[t]) for name, t in learner._VArgs._fields_]

@@ -46,6 +46,11 @@ from synapseml_tpu_torch.tools.kernel_cases import (PARTITION_CASES, RANK_CASES,
                                                     rank_nan_case,
                                                     split_cases, step_cases)
 from synapseml_tpu_torch.tools.kernel_cases import SPARSE_HIST_CASES, sparse_hist_case
+from synapseml_tpu_torch.tools.kernel_cases import (VW_REGIMES, VW_STEP_CASES, vw_state_differs,
+                                                    vw_step_case)
+from synapseml_tpu_torch.vw.learner import LOSSES as VW_LOSSES
+from synapseml_tpu_torch.vw.learner import (VW_KERNEL, StepPlan, train_linear,
+                                            train_linear_plain)
 from synapseml_tpu_torch.tools.schema_data import (ADULT_CATEGORICAL, SAMPLED_MODES,
                                                    adult_rows, adult_unseen_codes,
                                                    hashed_text_rows, higgs_width_rows,
@@ -1034,3 +1039,59 @@ def test_sparse_hist_mesh_entry_bit_equal(cuda, case, forced):
     (out, tot), (want, want_tot) = runs
     assert _same_bits(out[forced], want[forced]) and _same_bits(tot, want_tot)
     assert out[1 - forced].isnan().all()
+
+
+# -- kernel V: the VW learner's batch step ----------------------------------------------
+
+@pytest.mark.parametrize("bits", [10, 18])
+@pytest.mark.parametrize("regime", sorted(VW_REGIMES))
+@pytest.mark.parametrize("loss", VW_LOSSES)
+@pytest.mark.parametrize("case", VW_STEP_CASES)
+def test_vw_step_kernel_bit_equal(cuda, case, loss, regime, bits):
+    """Kernel V's fit (one launch a batch) equals the plain step's on the
+    card and on the CPU, bit for bit: duplicate slots within and across
+    rows, slot 0 as padding and as a feature, a last batch of padding rows,
+    each loss and regime, 2^10 and 2^18 slots."""
+    idx, val, y_reg, y_pm1 = vw_step_case(case, bits)
+    y = y_pm1 if loss in ("logistic", "hinge") else y_reg
+    l1, l2 = VW_REGIMES[regime]
+    kw = dict(num_bits=bits, loss=loss, l1=l1, l2=l2, num_passes=2, quantile_tau=0.3)
+    VW_KERNEL.launches = 0
+    card = train_linear(idx, val, y, device="cuda", **kw)
+    torch.cuda.synchronize()
+    nb = -(-len(y) // 256)
+    assert VW_KERNEL.launches == 2 * nb
+    assert not vw_state_differs(card, train_linear_plain(idx, val, y, device="cuda", **kw))
+    assert not vw_state_differs(card, train_linear(idx, val, y, device="cpu", **kw))
+
+
+@pytest.mark.parametrize("regime", ["sparse", "l2"])
+def test_vw_step_kernel_nonfinite_gradient(cuda, regime):
+    """An infinite label in a padded row: its padding adds NaN to slot 0, on
+    the card as in the plain version (the state goes NaN alike)."""
+    idx, val, y_reg, _ = vw_step_case("slot0_padding", 10)
+    y_reg = y_reg.copy()
+    y_reg[3] = np.inf
+    l1, l2 = VW_REGIMES[regime]
+    kw = dict(num_bits=10, loss="squared", l1=l1, l2=l2, num_passes=1)
+    card = train_linear(idx, val, y_reg, device="cuda", **kw)
+    assert np.isnan(card.g2[0])
+    assert not vw_state_differs(card, train_linear(idx, val, y_reg, device="cpu", **kw))
+
+
+def test_vw_step_plan_lists_each_batch_slot_once(cuda):
+    """The fit's plan on the card: each batch's distinct slots once, slot 0
+    in every batch with padding, the entries of a slot in row-major order."""
+    idx, val, _, _ = vw_step_case("slot0_feature", 10)
+    bi = torch.from_numpy(np.concatenate([idx, np.zeros((68, 7), np.int32)])).cuda()
+    bv = torch.from_numpy(np.concatenate([val, np.zeros((68, 7), np.float32)])).cuda()
+    plan = StepPlan(bi.view(3, 256, 7), bv.view(3, 256, 7), 1 << 10)
+    for j, (u0, u1) in enumerate(plan.ranges):
+        slots = plan.uslot[u0:u1].cpu().numpy()
+        assert len(np.unique(slots)) == len(slots) and 0 in slots
+        ent = plan.ent.cpu().numpy()
+        for u in range(u0, u1):
+            e = ent[plan.useg[u]:plan.useg[u + 1]]
+            e = e[e >= 0]
+            assert np.all(np.diff(e) > 0)
+            assert np.all(bi.view(3, -1)[j].cpu().numpy()[e] == slots[u - u0])

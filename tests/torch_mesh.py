@@ -107,8 +107,8 @@ def _rank_main(rank: int, size: int, store: str, inbox, outbox) -> None:
 
 def _layout(state, spec):
     """The layout of ``spec`` (built once a rank): ``("build", data, model)``
-    a :class:`SpecLayout`, ``("raw", shape, names)`` a raw DeviceMesh, None
-    no mesh."""
+    a :class:`SpecLayout`, ``("fsdp", data, fsdp, model)`` one with an fsdp
+    axis, ``("raw", shape, names)`` a raw DeviceMesh, None no mesh."""
     if spec is None:
         return None
     key = ("layout",) + tuple(spec)
@@ -119,6 +119,9 @@ def _layout(state, spec):
 
         if spec[0] == "build":
             state[key] = SpecLayout.build(data=spec[1], model=spec[2], device_type="cpu")
+        elif spec[0] == "fsdp":
+            state[key] = SpecLayout.build(data=spec[1], fsdp=spec[2], model=spec[3],
+                                          device_type="cpu")
         elif spec[0] == "raw":
             state[key] = init_device_mesh("cpu", tuple(spec[1]), mesh_dim_names=tuple(spec[2]))
         else:
@@ -231,4 +234,28 @@ class _CallCounter:
         self._saved.clear()
 
 
-CASES = {"fit": case_fit, "estimator": case_estimator}
+def case_vw_fit(state, layout=None, idx=None, val=None, y=None, **kw) -> dict:
+    """``vw.learner.train_linear(idx, val, y, mesh=layout, device="cpu",
+    **kw)``: the state, the collectives counted and the fit's record."""
+    from synapseml_tpu_torch.runtime import collectives
+    from synapseml_tpu_torch.vw.learner import train_linear
+
+    lay = _layout(state, layout)
+    collectives.reset_counts()
+    rec: Dict[str, Any] = {}
+    st = train_linear(idx, val, y, mesh=lay, device="cpu", stats=rec, **kw)
+    return dict(state=st._asdict(), collectives=collectives.counts(), stats=rec)
+
+
+def case_vw_estimator(state, layout=None, col=None, y=None, **params) -> dict:
+    """``VowpalWabbitRegressor(mesh=layout, device="cpu", **params)`` fit on a
+    table of the sparse column ``col`` and labels ``y``: the model's state."""
+    from synapseml_tpu_torch.core import Table
+    from synapseml_tpu_torch.vw.estimators import VowpalWabbitRegressor
+
+    est = VowpalWabbitRegressor(mesh=_layout(state, layout), device="cpu", **params)
+    return est.fit(Table({"features": col, "label": y})).state._asdict()
+
+
+CASES = {"fit": case_fit, "estimator": case_estimator, "vw_fit": case_vw_fit,
+         "vw_estimator": case_vw_estimator}
