@@ -132,18 +132,21 @@ Phases, each of which ends the run with a non-zero exit when it fails:
 2j. the VW learner (``vw/``, kernel V): (a) ``VowpalWabbitClassifier(
    num_bits=18, batch_size=256, num_passes=2)`` fit on phase 2g's
    1,048,576 training reviews as a sparse (indices, values) column, then
-   transform of its 262,144 held-out reviews: kernel V once a batch a pass
-   (8,192) and no other kernel, none in the transform (it scores on the
-   host), held-out AUC > VW_AUC_FLOOR; the fit's and transform's wall
-   seconds and ``pad_examples``' share of the fit; a 16,384-review fit
-   (logistic; squared with l2) with identical states on the card and the
-   CPU; (b) kernel V against its plain version over the first 64 batches,
-   each loss, the sparse regime and l1 + l2: bit-equal states, each timed
-   (a launch, a plain step) beside its bound (the batch's idx/val/y/weight,
-   the distinct 32-byte sectors of w, s and g2 read and written, 16 B a
-   slot in a dense regime), a traced pass giving each device kernel's time
-   a launch (rows, slots, dense) and the host's clock the time to submit a
-   launch; (c) at 65,536 reviews a one-rank NCCL
+   transform of its 262,144 held-out reviews: kernel V once a pass (2
+   launches, each a persistent kernel over the pass's 4,096 batches) and no
+   other kernel, none in the transform (it scores on the host), held-out
+   AUC > VW_AUC_FLOOR; the fit's and transform's wall seconds and
+   ``pad_examples``' share of the fit; a 16,384-review fit (logistic;
+   squared with l2) with identical states on the card and the CPU; (b)
+   kernel V against its plain version over the first 64 batches, each loss,
+   the sparse regime and l1 + l2, the pass launched whole (one launch, as
+   the fit launches it) and batch by batch (one launch a batch): both
+   bit-equal to the plain steps, each timed (a pass, the plain steps of a
+   pass) beside its bound (the batches' idx/val/y/weight, and once the
+   union over the batches of the 32-byte sectors of w, s and g2 read and
+   written; in a dense regime w and g2 whole), a trace of four passes
+   giving the device time a batch and the host's clock the time to submit
+   a pass; (c) at 65,536 reviews a one-rank NCCL
    ``SpecLayout.build(data=1)`` fit equal to the single-device fit, and two
    gloo ranks on ``cuda:0``: at data=2 rank 1's state equal to rank 0's, at
    (data=1, fsdp=2) the replicated (data=1, model=2) state bit for bit, with
@@ -284,8 +287,8 @@ SHAP_ROWS = 65_536
 # the other two return at once)
 G_KERNEL_NAMES = (("sparse_rows",), ("sparse_entries",), ("sparse_walk",), ("sparse_epilogue",))
 G_KERNELS_A_CALL = len(G_KERNEL_NAMES)
-# kernel V's device kernels: rows and slots every launch, dense with l1 or l2
-V_KERNEL_NAMES = (("vw_rows_kernel",), ("vw_slots_kernel",), ("vw_dense_kernel",))
+# kernel V's device kernel: one a launch (a launch runs a range of batches)
+V_KERNEL_NAMES = (("vw_pass_kernel",),)
 # kernel F against its plain version, in f32 ulps: both take exp_f32 and sum
 # over j in j order, so the two agree bit for bit
 F_ULPS = 0
@@ -314,6 +317,7 @@ VW_PARAMS = dict(num_bits=18, batch_size=256, num_passes=2)
 # 65,536 reviews 0.877 (2^18 slots, 16,384 held-out reviews)
 VW_AUC_FLOOR = 0.80
 VW_STEP_BATCHES = 64
+VW_TRACED_PASSES = 4
 VW_STEP_REGIMES = ("sparse", "l1_l2")
 VW_L2 = 1e-4
 VW_MESH_ROWS = 65_536
@@ -1953,10 +1957,10 @@ def vw_phase(kernels, hashed):
     model, out, fit_s, transform_s, fit_l, trans_l = fit_and_transform(
         kernels, VowpalWabbitClassifier(**VW_PARAMS), train_table, test_table)
     batches = -(-len(y_tr) // VW_PARAMS["batch_size"])
-    want = VW_PARAMS["num_passes"] * batches
+    want = VW_PARAMS["num_passes"]
     others = {k: n for k, n in {**fit_l, **trans_l}.items() if n and k != "vw_step"}
     if fit_l["vw_step"] != want or trans_l["vw_step"] or others:
-        fail(f"the VW fit launched kernel V {fit_l['vw_step']} times, not once a batch a pass "
+        fail(f"the VW fit launched kernel V {fit_l['vw_step']} times, not once a pass "
              f"({want}); the transform {trans_l['vw_step']} (scores on the host); other "
              f"kernels {others}")
     prob = np.asarray(out["probability"])[:, 1]
@@ -1969,7 +1973,8 @@ def vw_phase(kernels, hashed):
            "transform_s": transform_s, "fit_rows_per_s": len(y_tr) / fit_s,
            "pad_examples_s": stats["pad_examples_s"],
            "pad_examples_share_of_fit": stats["pad_examples_s"] / fit_s,
-           "learn_s": stats["learn_time_s"], "heldout_auc": heldout_auc,
+           "learn_s": stats["learn_time_s"], "learn_seconds": stats["learn_seconds"],
+           "heldout_auc": heldout_auc,
            "auc_floor": VW_AUC_FLOOR, "fit_launches": fit_l["vw_step"],
            "batches_a_pass": batches}
     if not heldout_auc > VW_AUC_FLOOR:
@@ -1998,14 +2003,16 @@ def vw_phase(kernels, hashed):
 def vw_step_checks(col, labels, dev) -> dict:
     """Phase 2j (b): kernel V against its plain version over the first
     VW_STEP_BATCHES batches of phase 2j's training column ``col`` (labels
-    0/1), each loss, the sparse and a dense regime: bit-equal states, and
-    each timed with CUDA events (a launch, a plain step) beside its bound; a
-    trace of one pass gives each device kernel's time a launch, and the
-    host's clock the time to submit a launch."""
+    0/1), each loss, the sparse and a dense regime, the pass launched whole
+    (one launch, as the fit launches it) and batch by batch (one launch a
+    batch): both bit-equal to the plain steps, each timed with CUDA events
+    (a pass; the plain steps of a pass) beside its bound; a trace of each
+    gives the device time a batch, and the host's clock the time to submit
+    a pass."""
     from synapseml_tpu_torch.tools.kernel_cases import VW_REGIMES, vw_state_differs
     from synapseml_tpu_torch.vw.learner import (LOSSES, StepHyper, StepPlan, StepState,
                                                 _Scratch, batch_step, batch_step_plain,
-                                                pad_examples)
+                                                pad_examples, step_batches)
 
     B, nb = VW_PARAMS["batch_size"], VW_STEP_BATCHES
     dim = 1 << VW_PARAMS["num_bits"]
@@ -2019,6 +2026,9 @@ def vw_step_checks(col, labels, dev) -> dict:
     bw = torch.ones(nb, B, device=dev)
     plan = StepPlan(bi, bv, dim)
     sectors = [plan.sectors(j) for j in range(nb)]
+    # the state's sectors a launch of the nb batches reads and writes once
+    launch_sectors = plan.sectors(0, nb)
+    longs = [u1 - plan.long_from[j] for j, (_, u1) in enumerate(plan.ranges)]
     fresh = lambda: StepState(np.zeros(dim, np.float32), np.full(dim, 1e-6, np.float32),
                               0.0, 1e-6, np.zeros(dim, np.float32), device=dev)
     rows = {}
@@ -2028,55 +2038,65 @@ def vw_step_checks(col, labels, dev) -> dict:
             l1, l2 = VW_REGIMES[regime]
             hp = StepHyper.make(loss, 0.5, l1, l2, 0.5)
             scratch = _Scratch(B, dim, dev)
-            epoch = [0]
 
-            def kernel_pass(st):
+            def whole(st):
+                step_batches(st, bi, bv, by, bw, hp, plan, 0, nb, scratch)
+
+            def by_batch(st):
                 for j in range(nb):
-                    batch_step(st, bi[j], bv[j], by[j], bw[j], hp, plan, j, epoch[0], scratch)
-                    epoch[0] += 1
+                    batch_step(st, bi[j], bv[j], by[j], bw[j], hp, plan, j, scratch)
 
             def plain_pass(st):
                 for j in range(nb):
                     batch_step_plain(st, bi[j], bv[j], by[j], bw[j], hp)
 
-            card, plain = fresh(), fresh()
-            _, k_ms = timed_once(lambda: kernel_pass(card))
+            plain = fresh()
             _, p_ms = timed_once(lambda: plain_pass(plain))
-            differs = vw_state_differs(card.numpy(), plain.numpy())
-            if differs:
-                fail(f"kernel V ({loss}, {regime}): the state's {differs} differs from the "
-                     f"plain version's after {nb} batches")
-            scratch_st = fresh()
-            ms = time_ms(lambda: kernel_pass(scratch_st), 5) / nb
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            kernel_pass(scratch_st)
-            host_us = (time.perf_counter() - t0) / nb * 1e6
-            # the trace can miss the first launches of a pass (the tracer
-            # starts behind the host), so a kernel's time a launch is the
-            # mean over the events it holds
-            traced = kernel_times(lambda: kernel_pass(scratch_st), V_KERNEL_NAMES)
-            seen = {key[0]: traced[key][1] for key in V_KERNEL_NAMES}
-            if (not 0 < seen["vw_rows_kernel"] <= nb or not 0 < seen["vw_slots_kernel"] <= nb
-                    or (seen["vw_dense_kernel"] > 0) != hp.dense
-                    or seen["vw_dense_kernel"] > nb):
-                fail(f"kernel V ({loss}, {regime}): a trace of {nb} launches saw the device "
-                     f"kernels {seen} times (rows and slots once a launch, dense once a "
-                     f"launch with l1 or l2 set)")
-            device_us = {key[0]: traced[key][0] * 1e3 / traced[key][1] for key in V_KERNEL_NAMES
-                         if traced[key][1]}
-            n_bytes = np.mean([8 * B * K + 8 * B + 2 * 3 * 32 * s
-                               + (16 * dim if hp.dense else 0) for s in sectors])
+            row = {}
+            for how, fn in (("whole", whole), ("by_batch", by_batch)):
+                card = fresh()
+                _, first_ms = timed_once(lambda: fn(card))
+                differs = vw_state_differs(card.numpy(), plain.numpy())
+                if differs:
+                    fail(f"kernel V ({loss}, {regime}, launched {how}): the state's {differs} "
+                         f"differs from the plain version's after {nb} batches")
+                timed = fresh()
+                ms = time_ms(lambda: fn(timed), 5)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn(timed)
+                host_us = (time.perf_counter() - t0) * 1e6
+                # the tracer can miss a trace's first launches (it starts
+                # behind the host), which is all of a short trace of whole
+                # passes: the trace pauses on the host first and holds
+                # VW_TRACED_PASSES passes, and a batch's device time is the
+                # mean over the launches it holds
+                traced_ms, events = kernel_times(
+                    lambda: [time.sleep(0.05)] + [fn(timed) for _ in range(VW_TRACED_PASSES)],
+                    V_KERNEL_NAMES)[V_KERNEL_NAMES[0]]
+                per_launch = nb if how == "whole" else 1
+                most = VW_TRACED_PASSES * nb // per_launch
+                if not 0 < events <= most:
+                    fail(f"kernel V ({loss}, {regime}, launched {how}): a trace of "
+                         f"{VW_TRACED_PASSES} passes saw {events} launches of vw_pass_kernel "
+                         f"(want 1 to {most})")
+                row[how] = {"ms": ms, "first_pass_ms": first_ms, "us_a_batch": ms * 1e3 / nb,
+                            "device_us_a_batch": traced_ms * 1e3 / events / per_launch,
+                            "traced_launches": events, "host_us_to_submit_a_pass": host_us}
+            # each batch's idx/val/y/weight read once; the union of the
+            # batches' sectors of w, s and g2 read and written once (in a
+            # dense regime w and g2 whole, and s's sectors)
+            state = (2 * 32 * launch_sectors + 16 * dim if hp.dense
+                     else 2 * 3 * 32 * launch_sectors)
+            n_bytes = float(nb * (8 * B * K + 8 * B) + state)
             b = bound(n_bytes, 0, F32_FLOPS)
-            rows[f"{loss}-{regime}"] = {"ms": ms, "first_pass_ms": k_ms / nb,
-                                        "device_us": sum(device_us.values()),
-                                        "device_us_by_kernel": device_us,
-                                        "traced_kernel_events": seen,
-                                        "host_us_a_launch": host_us,
-                                        "plain_ms": p_ms / nb, "bound_ms": b[0],
-                                        "bound_by": b[1], "bytes": float(n_bytes)}
+            rows[f"{loss}-{regime}"] = {"ms": row["whole"]["ms"], "plain_ms": p_ms,
+                                        "bound_ms": b[0], "bound_by": b[1], "bytes": n_bytes,
+                                        **row}
     rec = {"phase": "vw_step_checks", "batches": nb, "batch": B, "K": K, "slots": dim,
            "plan_entries": plan.entries, "mean_sectors": float(np.mean(sectors)),
+           "launch_sectors": launch_sectors,
+           "long_list": plan.long_list, "mean_long_lists": float(np.mean(longs)),
            "bit_equal": True, "steps": rows}
     log(json.dumps(rec))
     return rec
@@ -2117,7 +2137,7 @@ def vw_nccl_one_rank(kernels, idx, val, y) -> dict:
     finally:
         dist.destroy_process_group()
     P = VW_PARAMS["num_passes"]
-    want = P * -(-len(y) // VW_PARAMS["batch_size"])
+    want = P  # once a pass
     differs = vw_state_differs(st, single)
     rec = {"phase": "vw_mesh_nccl_one_rank", "rows": len(y), "fit_s": fit_s,
            "launches": launches, "collectives": coll, "same_state_as_single_device": not differs}
@@ -2229,9 +2249,9 @@ def vw_two_ranks_phase(rows) -> dict:
             want_coll["gather:fsdp"] = P
         for rank in (0, 1):
             g = got[rank][name]
-            if g["launches"] != P * batches[name] or g["collectives"] != want_coll:
+            if g["launches"] != P or g["collectives"] != want_coll:
                 fail(f"phase 2j {name}: rank {rank} launched kernel V {g['launches']} times "
-                     f"(want {P * batches[name]}), collectives {g['collectives']} (want "
+                     f"(want {P}: once a pass), collectives {g['collectives']} (want "
                      f"{want_coll})")
         fits[name] = {k: r0[k] for k in ("fit_s", "launches", "collectives", "at_rest_bytes",
                                          "layout")}
@@ -3251,17 +3271,21 @@ def main() -> int:
            launches_rank_1=two["hashed_text_data2"]["launches_rank1"]["gbdt_sparse_hist_mesh"])
 
     # kernel V's row: a launch of the main path's configuration (logistic,
-    # sparse regime) over phase 2j (b)'s batches (ms: CUDA events around
-    # the loop of launches, the host's submission included; beside it the
-    # traced device time, split by device kernel), its launches in the fit
+    # sparse regime) over phase 2j (b)'s 64 batches, as the fit launches it
+    # (ms: CUDA events around the launch; plain: the 64 plain steps; bound:
+    # the launch's bytes; beside it the traced device time a batch and
+    # the same batches launched one by one), its launches in the fit
     vw_main = vw_steps["steps"]["logistic-sparse"]
     record("vw_step", vw["fit_launches"], 0.0, vw_main["ms"], vw_main["plain_ms"],
-           (vw_main["bound_ms"], vw_main["bound_by"]), None,
-           shape=f"a batch of {VW_PARAMS['batch_size']} hashed reviews at 2^"
-                 f"{VW_PARAMS['num_bits']} slots (K={vw_steps['K']}), logistic, l1 = l2 = 0",
-           device_us=vw_main["device_us"], device_us_by_kernel=vw_main["device_us_by_kernel"],
-           host_us_a_launch=vw_main["host_us_a_launch"],
-           launches_a_pass=vw["batches_a_pass"], steps=vw_steps["steps"],
+           (vw_main["bound_ms"], vw_main["bound_by"]), None, bytes_moved=vw_main["bytes"],
+           shape=f"one launch of {VW_STEP_BATCHES} batches of {VW_PARAMS['batch_size']} "
+                 f"hashed reviews at 2^{VW_PARAMS['num_bits']} slots (K={vw_steps['K']}), "
+                 f"logistic, l1 = l2 = 0",
+           us_a_batch=vw_main["whole"]["us_a_batch"],
+           device_us_a_batch=vw_main["whole"]["device_us_a_batch"],
+           host_us_to_submit_a_pass=vw_main["whole"]["host_us_to_submit_a_pass"],
+           by_batch=vw_main["by_batch"], launches_a_pass=1,
+           batches_a_pass=vw["batches_a_pass"], steps=vw_steps["steps"],
            launches_nccl_one_rank=vw_nccl["launches"],
            launches_two_rank_fits={k: f["launches"] for k, f in vw_two["fits"].items()})
 

@@ -36,7 +36,8 @@ __all__ = ["bin_edge_case", "bin_ragged_case", "split_cases", "step_cases",
            "native_texts", "many_thresholds_text", "many_thresholds_rows", "PARTITION_CASES",
            "partition_case", "rows_histogrammed", "grow_full_pass", "full_pass",
            "SPARSE_HIST_CASES", "sparse_hist_case", "sparse_case_inputs",
-           "VW_STEP_CASES", "VW_REGIMES", "vw_step_case", "pairs_column", "vw_state_differs"]
+           "VW_STEP_CASES", "VW_ODD_BATCHES", "VW_REGIMES", "vw_step_case", "vw_case_batch",
+           "pairs_column", "vw_state_differs"]
 
 # the most bins kernel A takes: one feature's (B, 3) f32 histogram plus a
 # word within 227 KB of shared memory (histogram.py)
@@ -753,7 +754,11 @@ def sparse_hist_case(case: str, device="cpu", seed: int = 0):
 # -- kernel V: the VW learner's batch step ------------------------------------------------
 
 VW_STEP_CASES = ("dup_within_row", "dup_across_rows", "slot0_padding", "slot0_feature",
-                 "tail_padding_rows", "hashed_text")
+                 "tail_padding_rows", "hashed_text", "warp_paths")
+# batch sizes that reach kernel V's other branches: a bias summed by warp
+# shuffles alone (P <= 32), blocks of a 16-block cluster without rows (8), and
+# rows the card does not stage in shared memory (2,048 at K >= 101)
+VW_ODD_BATCHES = (8, 32, 2048)
 # (l1, l2): the sparse regime (only the batch's slots move) and the dense ones
 VW_REGIMES = {"sparse": (0.0, 0.0), "l1": (1e-3, 0.0), "l2": (0.0, 1e-2),
               "l1_l2": (1e-3, 1e-2)}
@@ -781,21 +786,46 @@ def vw_state_differs(a, b) -> str:
     return ""
 
 
+def vw_case_batch(name: str) -> int:
+    """The batch size a test takes for one of :data:`VW_STEP_CASES`: 256,
+    except ``warp_paths``' 300 (not a power of two)."""
+    return 300 if name == "warp_paths" else 256
+
+
 def vw_step_case(name: str, num_bits: int, seed: int = 0):
     """(idx, val, y_regression, y_pm1) of one of :data:`VW_STEP_CASES`, at
     2^``num_bits`` slots: 700 rows (the last batch of 256 is 188 rows and 68
     padding rows) of up to 7 entries, except ``tail_padding_rows`` (522
-    rows: the last batch is 246 padding rows) and ``hashed_text`` (1,000
-    hashed reviews, ``schema_data.hashed_text_rows``, up to ~120 entries).
+    rows: the last batch is 246 padding rows), ``hashed_text`` (1,000
+    hashed reviews, ``schema_data.hashed_text_rows``, up to ~120 entries)
+    and ``warp_paths`` (700 rows of up to K = 131 entries, batches of 300:
+    the last one partial).
     - ``dup_within_row``: each row's first three entries share a slot;
     - ``dup_across_rows``: every slot drawn from 12;
     - ``slot0_padding``: ragged rows, no real entry on slot 0;
     - ``slot0_feature``: ragged rows, slot 0 a real feature in a third of
       them (non-zero values, and -0.0), and some (0, +0.0) entries inside
-      rows, which act as padding does."""
+      rows, which act as padding does;
+    - ``warp_paths``: kernel V's warp paths: K = 131 (more than a warp's
+      128 entries at once, not a multiple of 4), a fifth of the rows full,
+      the rest ragged; slot 1 in every row (a list of a whole batch), six
+      slots drawn for one entry in a hundred (lists of about 40 entries a
+      full batch at 2^10 slots and more: about the long-list threshold),
+      slot 0 as padding."""
     rng = np.random.default_rng(seed)
     dim = 1 << num_bits
-    if name == "hashed_text":
+    if name == "warp_paths":
+        n, K = 700, 131
+        idx = (2 + rng.integers(0, dim - 2, size=(n, K))).astype(np.int32)
+        hot = rng.random((n, K)) < 0.01
+        idx[hot] = 2 + rng.integers(0, 6, size=int(hot.sum()))
+        idx[:, 0] = 1
+        val = (rng.normal(size=(n, K)) * rng.uniform(0.1, 20.0, size=(1, K))).astype(np.float32)
+        lens = np.where(rng.random(n) < 0.2, K, rng.integers(1, K + 1, size=n))
+        past = np.arange(K)[None, :] >= lens[:, None]
+        idx[past] = 0
+        val[past] = 0.0
+    elif name == "hashed_text":
         from .schema_data import hashed_text_rows
 
         csr, y01 = hashed_text_rows(seed, 1000, num_bits)
@@ -803,10 +833,11 @@ def vw_step_case(name: str, num_bits: int, seed: int = 0):
         y_pm1 = np.where(y01 > 0, 1.0, -1.0).astype(np.float32)
         y_reg = (y01 + rng.normal(0.0, 0.5, len(y01))).astype(np.float32)
         return idx, val, y_reg, y_pm1
-    n, K = (522 if name == "tail_padding_rows" else 700), 7
-    pool = 12 if name == "dup_across_rows" else dim - 1
-    idx = (1 + rng.integers(0, pool, size=(n, K))).astype(np.int32)
-    val = (rng.normal(size=(n, K)) * rng.uniform(0.1, 20.0, size=(1, K))).astype(np.float32)
+    else:
+        n, K = (522 if name == "tail_padding_rows" else 700), 7
+        pool = 12 if name == "dup_across_rows" else dim - 1
+        idx = (1 + rng.integers(0, pool, size=(n, K))).astype(np.int32)
+        val = (rng.normal(size=(n, K)) * rng.uniform(0.1, 20.0, size=(1, K))).astype(np.float32)
     if name == "dup_within_row":
         idx[:, 1] = idx[:, 0]
         idx[:, 2] = idx[:, 0]

@@ -20,7 +20,8 @@ mesh=)``), each rank calling ``fit`` on the same table. The models score on
 the host in numpy, as the reference's do, so a state trained anywhere
 scores the same bits. A fitted model's ``performance_statistics`` holds the
 fit's record: rows, passes, batches a pass, the seconds of ``pad_examples``
-and of learning, and kernel V's launches.
+and of learning (and learning's parts: ``learn_seconds``), and kernel V's
+launches.
 """
 
 from __future__ import annotations
@@ -141,7 +142,7 @@ class _VWBase(Estimator):
         stats = {"rows": len(y), "passes": int(kw["num_passes"]),
                  "learn_time_s": time.perf_counter() - t0, "pad_examples_s": pad_s,
                  "batches_a_pass": rec["batches_a_pass"], "device": rec["device"],
-                 "kernel_launches": rec["kernel_launches"]}
+                 "kernel_launches": rec["kernel_launches"], "learn_seconds": rec["seconds"]}
         return state, stats
 
 

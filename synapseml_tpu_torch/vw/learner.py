@@ -7,21 +7,22 @@ hinge | quantile. :func:`train_linear` runs every pass of a fit in one call,
 on the GPU unless the caller passes ``device="cpu"``.
 
 One batch step (:func:`batch_step`) is kernel V (``csrc/vw_step.cu``) on a
-CUDA tensor and :func:`batch_step_plain` on a CPU tensor. Both compute the
-reference's step in the order and with the roundings its XLA program takes
-on the CPU (the prediction's sum over k as a chain of fused multiply-adds,
-the scatter started at ``l2 * w`` and taken in row-major order, the fused
-``g2 + g * g``), except three places where the port fixes its own: XLA
-replaces ``lr * g / sqrt(g2)`` by ``(lr * g) * rsqrt(g2)`` fused into the
-subtraction, with its own ``rsqrt`` (an ulp off for many inputs),
-and the logistic loss's ``exp`` by its own polynomial, where the port
-divides by a correctly rounded square root and takes ``exp_f32`` (the same
-op for op on both devices); and the order of XLA's sum behind the bias
-mean is not one the port could pin down, so the port sums pairwise. With
-XLA's ``rsqrt`` and the fused subtractions patched in, the hinge and
-quantile losses (whose gradients sum exactly in any order) give the
-reference's state bit for bit over padding, duplicate slots and slot 0 as
-a feature. So the port agrees with the reference within a tolerance that
+CUDA tensor and :func:`batch_step_plain` on a CPU tensor; on the card a
+fit's pass is one launch of kernel V over all its batches
+(:func:`step_batches`). Both compute the reference's step in the order and
+with the roundings its XLA program takes on the CPU (the prediction's sum
+over k as a chain of fused multiply-adds, the scatter started at ``l2 * w``
+and taken in row-major order, the fused ``g2 + g * g``), except three places
+where the port fixes its own: XLA replaces ``lr * g / sqrt(g2)`` by ``(lr *
+g) * rsqrt(g2)`` fused into the subtraction, with its own ``rsqrt`` (an ulp
+off for many inputs), and the logistic loss's ``exp`` by its own polynomial,
+where the port divides by a correctly rounded square root and takes
+``exp_f32`` (the same op for op on both devices); and the order of XLA's sum
+behind the bias mean is not one the port could pin down, so the port sums
+pairwise. With XLA's ``rsqrt`` and the fused subtractions patched in, the
+hinge and quantile losses (whose gradients sum exactly in any order) give
+the reference's state bit for bit over padding, duplicate slots and slot 0
+as a feature. So the port agrees with the reference within a tolerance that
 those three cause, and the card gives the CPU's state bit for bit.
 
 Under a mesh each data rank passes over its own block of rows (the
@@ -38,6 +39,7 @@ only, the state is bit-identical to the replicated path.
 from __future__ import annotations
 
 import ctypes
+import time
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -47,8 +49,9 @@ from ..core.serialization import register_state_class
 from ..kernels.build import CudaKernel
 
 __all__ = ["LinearLearnerState", "pad_examples", "train_linear", "train_linear_plain",
-           "predict_linear", "batch_step", "batch_step_plain", "StepPlan", "StepState",
-           "StepHyper", "VW_KERNEL", "LOSSES", "fma_f32", "sqrt_f32"]
+           "predict_linear", "batch_step", "batch_step_plain", "step_batches", "StepPlan",
+           "StepState", "StepHyper", "VW_KERNEL", "V_LONG_LIST", "V_CLUSTER_CTAS", "LOSSES",
+           "fma_f32", "sqrt_f32"]
 
 LOSSES = ("squared", "logistic", "hinge", "quantile")
 
@@ -138,7 +141,8 @@ class StepState:
         self.buf[dim:2 * dim] = torch.as_tensor(np.asarray(g2, np.float32))
         self.buf[2 * dim] = float(np.float32(bias))
         self.buf[2 * dim + 1] = float(np.float32(bias_g2))
-        self.s = torch.as_tensor(np.asarray(scale, np.float32)).to(device).contiguous()
+        # a copy: the caller's scales (an init state's) stay as they were
+        self.s = torch.tensor(np.asarray(scale, np.float32), device=device)
 
     @property
     def w(self) -> torch.Tensor:
@@ -352,10 +356,18 @@ def batch_step_plain(st: StepState, bi: torch.Tensor, bv: torch.Tensor, by: torc
 
 # -- kernel V --------------------------------------------------------------------------
 
-_V_POINTERS = ("idx", "val", "y", "wt", "ebm", "ent", "useg", "uslot", "umax",
-               "w", "g2", "bias", "s", "dl", "tree", "flags", "mark")
+_V_POINTERS = ("idx", "val", "y", "wt", "ebm", "ent", "evals", "useg", "uslot", "umax",
+               "ulong", "bounds", "ws", "bias")
 _V_FLOATS = ("lr", "l1", "l2", "lr_l1", "q_hi", "q_lo")
-_V_INTS = ("B", "K", "P", "u0", "u1", "dim", "loss", "dense", "epoch")
+_V_INTS = ("B", "K", "P", "j0", "j1", "dim", "loss", "dense", "ctas")
+
+# A slot list of more than V_LONG_LIST entries in a batch is a long list: a
+# warp sums it (its terms in parallel, then the ordered adds); a shorter one
+# is a thread's. The blocks of kernel V's thread-block cluster: 16 (more
+# than 8 is a non-portable cluster size, which the H100 allows). Both chosen
+# by tools/vw_step_bench.py on the H100 (PERF.md, PR 18).
+V_LONG_LIST = 16
+V_CLUSTER_CTAS = 16
 
 
 class _VArgs(ctypes.Structure):
@@ -372,19 +384,34 @@ VW_KERNEL = CudaKernel(
     replaces="synapseml_tpu/vw/learner.py:130 (train_linear -> batch_step, lax.scan :156)")
 
 
+def _segments(key: torch.Tensor):
+    """(each entry's run, each run's first entry) of a key whose equal values
+    are adjacent."""
+    new = torch.ones_like(key, dtype=torch.bool)
+    new[1:] = key[1:] != key[:-1]
+    return torch.cumsum(new.long(), 0) - 1, torch.nonzero(new)[:, 0]
+
+
 class StepPlan:
     """Kernel V's plan of a fit's batches, built once a fit on the device (the
     batches are the same in every pass).
 
     Over the (nb, B, K) entries that are not padding (:func:`_dropped`),
-    stable-sorted by (batch, slot): ``ent`` each entry's place in its batch
-    (``r * K + k``; -1 for the one stand-in entry that puts slot 0 in the
-    list of a batch whose only slot-0 entries are padding), ``useg`` the
-    (U + 1,) starts of each batch's distinct slots, ``uslot`` the slots,
-    ``umax`` the batch's max |v| of each, ``ebm`` (nb, B, K) each entry's
-    slot's ``umax`` (0 on padding), ``ranges`` each batch's [u0, u1)."""
+    grouped by batch and then by slot, each slot's entries in row-major
+    order: a batch's distinct slots come as its short lists (at most
+    ``long_list`` entries: a thread sums one), the longest first and then
+    by slot (so a warp's threads walk lists of one length), then its long
+    lists by slot (a warp sums one). ``ent`` each entry's place in its
+    batch (``r * K + k``; -1 for the one stand-in entry that puts slot 0 in
+    the list of a batch whose only slot-0 entries are padding), ``evals``
+    its value, ``useg`` the (U + 1,) starts of the slots' entries,
+    ``uslot`` the slots, ``umax`` the batch's max |v| of each, ``ebm`` (nb,
+    B, K) each entry's slot's ``umax`` (0 on padding), ``ranges`` each
+    batch's [u0, u1), ``ulong`` (nb,) and ``long_from`` each batch's first
+    long list, ``bounds`` (nb, 4) each batch's u0, u1, e0, e1."""
 
-    def __init__(self, idx: torch.Tensor, val: torch.Tensor, dim: int):
+    def __init__(self, idx: torch.Tensor, val: torch.Tensor, dim: int,
+                 long_list: int = V_LONG_LIST):
         nb, B, K = idx.shape
         dev = idx.device
         drop = _dropped(idx, val).reshape(nb, B * K)
@@ -398,88 +425,147 @@ class StepPlan:
         keep[stand_in, first_drop[stand_in]] = True
         flat = torch.nonzero(keep.reshape(-1))[:, 0]
         batch = flat // (B * K)
-        place = flat - batch * (B * K)
         slot = idx.reshape(-1)[flat].long()
         key = batch * dim + slot
         order = torch.sort(key, stable=True).indices
-        key, place, flat = key[order], place[order], flat[order]
-        new = torch.ones_like(key, dtype=torch.bool)
-        new[1:] = key[1:] != key[:-1]
-        seg = torch.cumsum(new.long(), 0) - 1
-        starts = torch.nonzero(new)[:, 0]
+        key, flat = key[order], flat[order]
+        # then stable by (batch, long, a short list's length descending):
+        # each list stays whole and in row-major order
+        seg, _ = _segments(key)
+        size = torch.bincount(seg)[seg]
+        is_long = size > long_list
+        rank = torch.where(is_long, 0, long_list + 1 - size)
+        order = torch.sort(((key // dim) * 2 + is_long.long()) * (long_list + 2) + rank,
+                           stable=True).indices
+        key, flat, is_long = key[order], flat[order], is_long[order]
+        seg, starts = _segments(key)
         absv = val.reshape(-1)[flat].abs()
         umax = torch.zeros(len(starts), dtype=torch.float32, device=dev)
         umax.scatter_reduce_(0, seg, absv, "amax", include_self=True)
         ebm = torch.zeros(nb * B * K, dtype=torch.float32, device=dev)
         real = ~drop.reshape(-1)[flat]
         ebm[flat[real]] = umax[seg[real]]
+        place = flat - (key // dim) * (B * K)
+        self.long_list = int(long_list)
         self.ent = torch.where(real, place, -1).to(torch.int32).contiguous()
+        self.evals = val.reshape(-1)[flat].contiguous()
         self.useg = torch.cat([starts, starts.new_tensor([len(key)])]).to(torch.int32).contiguous()
         self.uslot = (key[starts] % dim).to(torch.int32).contiguous()
         self.umax = umax.contiguous()
         self.ebm = ebm.view(nb, B, K)
-        ubatch = (key[starts] // dim).cpu()
-        bounds = torch.searchsorted(ubatch, torch.arange(nb + 1)).tolist()
+        ubatch = key[starts] // dim
+        ukind = ubatch * 2 + is_long[starts].long()
+        ubound = torch.searchsorted(ubatch, torch.arange(nb + 1, device=dev))
+        self.ulong = torch.searchsorted(ukind, torch.arange(nb, device=dev) * 2 + 1).to(
+            torch.int32).contiguous()
+        ebound = self.useg[ubound]
+        self.bounds = torch.stack([ubound[:-1], ubound[1:], ebound[:-1], ebound[1:]], 1).to(
+            torch.int32).contiguous()
+        bounds = ubound.tolist()
         self.ranges: List[Tuple[int, int]] = list(zip(bounds[:-1], bounds[1:]))
+        self.long_from: List[int] = self.ulong.tolist()
         self.entries = int(len(key))
 
-    def sectors(self, j: int) -> int:
-        """Distinct 32-byte sectors of one 2^b f32 vector that batch ``j``
-        touches (each of ``w``, ``s``, ``g2``)."""
-        u0, u1 = self.ranges[j]
+    def sectors(self, j0: int, j1: Optional[int] = None) -> int:
+        """Distinct 32-byte sectors of one 2^b f32 vector that the batches
+        ``[j0, j1)`` touch together (default: batch ``j0`` alone), in each
+        of ``w``, ``s``, ``g2``."""
+        j1 = j0 + 1 if j1 is None else j1
+        u0, u1 = self.ranges[j0][0], self.ranges[j1 - 1][1]
         return int(torch.unique(self.uslot[u0:u1] // 8).numel())
 
 
 class _Scratch:
-    """Kernel V's scratch of one fit on one device: the rows' ``dl`` and the
-    bias tree (P floats each, P the batch padded to a power of two), the
-    padding flags, and each slot's last dense-regime batch (``mark``)."""
+    """Kernel V's scratch of one fit on one device: the state as one 16-byte
+    record a slot, ``ws`` (dim, 4) = {w, g2, s, mark} (mark's bits the
+    place in its launch of the batch that last updated the slot in the
+    dense regime, -1 at each launch).
+    The rows' ``dl``, the bias tree and the padding flags live in the
+    cluster's shared memory."""
 
     def __init__(self, B: int, dim: int, device):
         self.P = 1 << max(B - 1, 0).bit_length()
-        self.dl = torch.zeros(self.P, dtype=torch.float32, device=device)
-        self.tree = torch.zeros(self.P, dtype=torch.float32, device=device)
-        self.flags = torch.zeros(1, dtype=torch.int32, device=device)
-        self.mark = torch.full((dim,), -1, dtype=torch.int32, device=device)
+        self.ws = torch.empty(dim, 4, dtype=torch.float32, device=device)
+        self._unmarked = torch.full((dim,), -1, dtype=torch.int32, device=device).view(
+            torch.float32)
+
+    def pack(self, st: "StepState") -> None:
+        torch.stack([st.w, st.g2, st.s, self._unmarked], 1, out=self.ws)
+
+    def unpack(self, st: "StepState") -> None:
+        st.w.copy_(self.ws[:, 0])
+        st.g2.copy_(self.ws[:, 1])
+        st.s.copy_(self.ws[:, 2])
 
 
-def batch_step(st: StepState, bi: torch.Tensor, bv: torch.Tensor, by: torch.Tensor,
-               bw: torch.Tensor, hp: StepHyper, plan: Optional[StepPlan] = None,
-               j: int = 0, epoch: int = 0, scratch: Optional[_Scratch] = None) -> None:
-    """One batch step in place on ``st``: :func:`batch_step_plain` for CPU
-    tensors, kernel V (one launch) for CUDA tensors. On the card ``plan``
-    is the fit's :class:`StepPlan` and ``j`` this batch's place in it;
-    ``epoch`` numbers the step within the fit (the dense regime's marks);
-    ``scratch`` is reused across a fit's steps."""
-    if bi.device.type == "cpu":
-        return batch_step_plain(st, bi, bv, by, bw, hp)
-    if bi.device.type != "cuda":
-        raise ValueError(f"unsupported device {bi.device}")
-    if plan is None:
-        raise ValueError("kernel V needs the fit's StepPlan")
-    B, K = bi.shape
+def _check(bi, bv, by, bw, shape) -> None:
     for t, dt in ((bi, torch.int32), (bv, torch.float32), (by, torch.float32),
                   (bw, torch.float32)):
         if t.dtype != dt or not t.is_contiguous() or t.device != bi.device:
             raise ValueError("kernel V takes contiguous int32 idx and f32 val/y/weight "
                              "on one device")
-    if tuple(plan.ebm.shape[1:]) != (B, K) or not 0 <= j < len(plan.ranges):
-        raise ValueError(f"batch {j} of shape {(B, K)} is not in the plan "
-                         f"{tuple(plan.ebm.shape)}")
+    if tuple(bi.shape) != shape or tuple(bv.shape) != shape or tuple(by.shape) != shape[:-1] \
+            or tuple(bw.shape) != shape[:-1]:
+        raise ValueError(f"kernel V's batches: idx {tuple(bi.shape)}, val {tuple(bv.shape)}, "
+                         f"y {tuple(by.shape)}, weight {tuple(bw.shape)}; want {shape}")
+
+
+def _launch(st: StepState, bi, bv, by, bw, hp: StepHyper, plan: StepPlan, j0: int, j1: int,
+            scratch: Optional[_Scratch]) -> None:
+    """One launch of kernel V over the plan's batches [j0, j1); ``bi`` ...
+    ``bw`` hold those batches' data, batch j0 first."""
+    if plan is None:
+        raise ValueError("kernel V needs the fit's StepPlan")
+    B, K = plan.ebm.shape[1:]
+    if not 0 <= j0 < j1 <= len(plan.ranges):
+        raise ValueError(f"batches [{j0}, {j1}) are not in the plan's {len(plan.ranges)}")
+    _check(bi, bv, by, bw, (j1 - j0, B, K))
     if scratch is None:
         scratch = _Scratch(B, st.dim, bi.device)
-    u0, u1 = plan.ranges[j]
     a = _VArgs(idx=bi.data_ptr(), val=bv.data_ptr(), y=by.data_ptr(), wt=bw.data_ptr(),
-               ebm=plan.ebm[j].data_ptr(), ent=plan.ent.data_ptr(),
+               ebm=plan.ebm.data_ptr(), ent=plan.ent.data_ptr(), evals=plan.evals.data_ptr(),
                useg=plan.useg.data_ptr(), uslot=plan.uslot.data_ptr(),
-               umax=plan.umax.data_ptr(), w=st.w.data_ptr(), g2=st.g2.data_ptr(),
-               bias=st.bias.data_ptr(), s=st.s.data_ptr(), dl=scratch.dl.data_ptr(),
-               tree=scratch.tree.data_ptr(), flags=scratch.flags.data_ptr(),
-               mark=scratch.mark.data_ptr(), lr=hp.lr, l1=hp.l1, l2=hp.l2,
-               lr_l1=hp.lr_l1, q_hi=hp.q_hi, q_lo=hp.q_lo, B=B, K=K, P=scratch.P,
-               u0=u0, u1=u1, dim=st.dim, loss=hp.loss, dense=int(hp.dense), epoch=epoch)
+               umax=plan.umax.data_ptr(), ulong=plan.ulong.data_ptr(),
+               bounds=plan.bounds.data_ptr(), ws=scratch.ws.data_ptr(),
+               bias=st.bias.data_ptr(),
+               lr=hp.lr, l1=hp.l1, l2=hp.l2, lr_l1=hp.lr_l1, q_hi=hp.q_hi, q_lo=hp.q_lo,
+               B=B, K=K, P=scratch.P, j0=j0, j1=j1, dim=st.dim, loss=hp.loss,
+               dense=int(hp.dense), ctas=V_CLUSTER_CTAS)
     with torch.cuda.device(bi.device):
+        scratch.pack(st)
         VW_KERNEL(ctypes.addressof(a), torch.cuda.current_stream(bi.device).cuda_stream)
+        scratch.unpack(st)
+
+
+def step_batches(st: StepState, bi: torch.Tensor, bv: torch.Tensor, by: torch.Tensor,
+                 bw: torch.Tensor, hp: StepHyper, plan: Optional[StepPlan] = None, j0: int = 0,
+                 j1: Optional[int] = None, scratch: Optional[_Scratch] = None) -> None:
+    """Batches ``[j0, j1)`` of a fit's (nb, B, K) / (nb, B) tensors, in place
+    on ``st``, as ``j1 - j0`` calls of :func:`batch_step` would: one
+    :func:`batch_step_plain` a batch for CPU tensors, ONE launch of kernel V
+    for CUDA tensors (a persistent kernel that steps the batches in order)."""
+    j1 = len(bi) if j1 is None else j1
+    if bi.device.type == "cpu":
+        for j in range(j0, j1):
+            batch_step_plain(st, bi[j], bv[j], by[j], bw[j], hp)
+        return
+    if bi.device.type != "cuda":
+        raise ValueError(f"unsupported device {bi.device}")
+    _launch(st, bi[j0:j1], bv[j0:j1], by[j0:j1], bw[j0:j1], hp, plan, j0, j1, scratch)
+
+
+def batch_step(st: StepState, bi: torch.Tensor, bv: torch.Tensor, by: torch.Tensor,
+               bw: torch.Tensor, hp: StepHyper, plan: Optional[StepPlan] = None,
+               j: int = 0, scratch: Optional[_Scratch] = None) -> None:
+    """One batch step in place on ``st``: :func:`batch_step_plain` for CPU
+    tensors, kernel V (one launch of the one batch) for CUDA tensors. On the
+    card ``plan`` is the fit's :class:`StepPlan` and ``j`` this batch's place
+    in it; ``scratch`` is reused across a fit's steps."""
+    if bi.device.type == "cpu":
+        return batch_step_plain(st, bi, bv, by, bw, hp)
+    if bi.device.type != "cuda":
+        raise ValueError(f"unsupported device {bi.device}")
+    _launch(st, bi[None], bv[None], by[None], bw[None], hp, plan, j, j + 1, scratch)
 
 
 # -- the fit ---------------------------------------------------------------------------
@@ -492,13 +578,22 @@ def _rows_of(n: int, shards: int, rank: int, batch_size: int):
     return rank * per, per, nb
 
 
-def _batches(a: np.ndarray, first: int, per: int, nb: int, batch_size: int) -> np.ndarray:
+def _batches(a: np.ndarray, first: int, per: int, nb: int, batch_size: int,
+             device) -> torch.Tensor:
     """Rows [first, first + per) of ``a`` (zero rows past its end), padded
-    with zero rows to ``nb`` whole batches: (nb, batch_size, ...)."""
-    out = np.zeros((nb * batch_size,) + a.shape[1:], dtype=a.dtype)
-    take = a[first:min(first + per, len(a))]
+    with zero rows to ``nb`` whole batches, on ``device``: (nb, batch_size,
+    ...). The rows go to the device as they are and are padded there."""
+    take = torch.from_numpy(np.ascontiguousarray(a[first:min(first + per, len(a))])).to(device)
+    out = torch.zeros((nb * batch_size,) + a.shape[1:], dtype=take.dtype, device=device)
     out[:len(take)] = take
-    return out.reshape((nb, batch_size) + a.shape[1:])
+    return out.view((nb, batch_size) + a.shape[1:])
+
+
+def _synced(device) -> float:
+    """The host clock once the device's queued work is done."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return time.perf_counter()
 
 
 def _fsdp_slices(layout, dim: int):
@@ -517,11 +612,13 @@ def _fit(idx, val, y, num_bits, weight, loss, learning_rate, l1, l2, num_passes,
     val = np.asarray(val, dtype=np.float32)
     n, K = idx.shape
     dim = 1 << num_bits
-    if (idx >= dim).any():
+    t0 = time.perf_counter()
+    # extremes, not element-wise tests: one pass over each array, no temporary
+    if idx.size and idx.max() >= dim:
         raise ValueError(f"feature index >= 2^{num_bits}; mask indices with pad_examples")
-    if (idx < 0).any():
+    if idx.size and idx.min() < 0:
         raise ValueError("feature indices must be >= 0")
-    if not np.isfinite(val).all():
+    if val.size and not (np.isfinite(val.max()) and np.isfinite(val.min())):
         raise ValueError("feature values must be finite (a normalised scale needs them)")
     hp = StepHyper.make(loss, learning_rate, l1, l2, quantile_tau)
     dev = resolve_device(device)
@@ -541,13 +638,15 @@ def _fit(idx, val, y, num_bits, weight, loss, learning_rate, l1, l2, num_passes,
         layout = as_layout(mesh, data_axis=axis)
     shards, rank = (1, 0) if layout is None else (layout.data_size, layout.data_rank)
     first, per, nb = _rows_of(n, shards, rank, batch_size)
-    cut = lambda a: torch.from_numpy(_batches(a, first, per, nb, batch_size)).to(dev)
+    cut = lambda a: _batches(a, first, per, nb, batch_size, dev)
     bi, bv = cut(idx.astype(np.int32, copy=False)), cut(val)
     by, bw = cut(np.asarray(y, np.float32)), cut(w_np)
     st = StepState(*st0, device=dev)
     on_card = dev.type == "cuda" and not plain
+    t1 = _synced(dev)
     plan = StepPlan(bi, bv, dim) if on_card and nb else None
     scratch = _Scratch(batch_size, dim, dev) if on_card else None
+    t2 = _synced(dev)
     fsdp = layout is not None and layout.fsdp_size > 1
     passes = max(1, int(num_passes))
     rec = {"device": str(dev), "batches_a_pass": nb, "at_rest_bytes": []}
@@ -559,11 +658,12 @@ def _fit(idx, val, y, num_bits, weight, loss, learning_rate, l1, l2, num_passes,
     for p in range(passes):
         if fsdp:
             st = _gather(stored, layout, dim, chunk)
-        for j in range(nb):
-            if plain:
+        if plain:
+            for j in range(nb):
                 batch_step_plain(st, bi[j], bv[j], by[j], bw[j], hp)
-            else:
-                batch_step(st, bi[j], bv[j], by[j], bw[j], hp, plan, j, p * nb + j, scratch)
+        elif nb:
+            # one launch a pass on the card
+            step_batches(st, bi, bv, by, bw, hp, plan, 0, nb, scratch)
         if layout is not None:
             from ..runtime.collectives import all_reduce
 
@@ -577,9 +677,12 @@ def _fit(idx, val, y, num_bits, weight, loss, learning_rate, l1, l2, num_passes,
         else:
             rec["at_rest_bytes"].append((st.buf.numel() + st.s.numel()) * 4)
     rec["kernel_launches"] = VW_KERNEL.launches - launches0
+    t3 = _synced(dev)
+    out = st.numpy()
+    rec["seconds"] = {"inputs": t1 - t0, "plan": t2 - t1, "passes": t3 - t2,
+                      "read_back": time.perf_counter() - t3}
     if stats is not None:
         stats.update(rec)
-    out = st.numpy()
     # fold the feature scales into the weights: raw-space w = w' / s
     scale = out.scale
     w_raw = np.where(scale > 0, out.w / np.maximum(scale, 1e-12), 0.0)
@@ -635,7 +738,9 @@ def train_linear(
     ``mesh``: a :class:`~synapseml_tpu_torch.runtime.layout.SpecLayout` or a
     ``DeviceMesh``, every rank calling with the same rows. ``stats``: a dict
     filled with the fit's record (device, batches a pass, kernel V's
-    launches, each pass end's at-rest bytes of this rank's state). ``power_t`` and
+    launches, each pass end's at-rest bytes of this rank's state, and
+    ``seconds``: the inputs' checks and upload, the plan, the passes and
+    the read-back, each ended by a device synchronisation). ``power_t`` and
     ``seed`` are unused, as in the reference."""
     return _fit(idx, val, y, num_bits, weight, loss, learning_rate, l1, l2, num_passes,
                 batch_size, quantile_tau, init_state, mesh, axis, device, stats, plain=False)

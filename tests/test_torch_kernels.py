@@ -46,11 +46,14 @@ from synapseml_tpu_torch.tools.kernel_cases import (PARTITION_CASES, RANK_CASES,
                                                     rank_nan_case,
                                                     split_cases, step_cases)
 from synapseml_tpu_torch.tools.kernel_cases import SPARSE_HIST_CASES, sparse_hist_case
-from synapseml_tpu_torch.tools.kernel_cases import (VW_REGIMES, VW_STEP_CASES, vw_state_differs,
+from synapseml_tpu_torch.tools.kernel_cases import (VW_ODD_BATCHES, VW_REGIMES, VW_STEP_CASES,
+                                                    vw_case_batch, vw_state_differs,
                                                     vw_step_case)
+from synapseml_tpu_torch.vw import learner
 from synapseml_tpu_torch.vw.learner import LOSSES as VW_LOSSES
-from synapseml_tpu_torch.vw.learner import (VW_KERNEL, StepPlan, train_linear,
-                                            train_linear_plain)
+from synapseml_tpu_torch.vw.learner import (VW_KERNEL, StepHyper, StepPlan, StepState,
+                                            _Scratch, batch_step, batch_step_plain,
+                                            step_batches, train_linear, train_linear_plain)
 from synapseml_tpu_torch.tools.schema_data import (ADULT_CATEGORICAL, SAMPLED_MODES,
                                                    adult_rows, adult_unseen_codes,
                                                    hashed_text_rows, higgs_width_rows,
@@ -1043,26 +1046,85 @@ def test_sparse_hist_mesh_entry_bit_equal(cuda, case, forced):
 
 # -- kernel V: the VW learner's batch step ----------------------------------------------
 
+def _vw_card_passes(case, bits, loss, regime, passes, how, batch=None):
+    """The state after ``passes`` passes over a case's batches of ``batch``
+    rows (default: the case's) on the card from the learner's initial state:
+    ``how`` = "whole" (one launch a pass, :func:`step_batches`), "batches"
+    (one launch a batch, :func:`batch_step`) or "plain"
+    (:func:`batch_step_plain` on the card)."""
+    idx, val, y_reg, y_pm1 = vw_step_case(case, bits)
+    y = y_pm1 if loss in ("logistic", "hinge") else y_reg
+    B, dim = batch or vw_case_batch(case), 1 << bits
+    nb = -(-len(y) // B)
+    cut = lambda a: torch.from_numpy(np.concatenate(
+        [a, np.zeros((nb * B - len(a),) + a.shape[1:], a.dtype)]).reshape(
+            (nb, B) + a.shape[1:])).cuda()
+    bi, bv, by = cut(idx), cut(val), cut(y.astype(np.float32))
+    bw = cut(np.ones(len(y), np.float32))
+    l1, l2 = VW_REGIMES[regime]
+    hp = StepHyper.make(loss, 0.5, l1, l2, 0.3)
+    st = StepState(np.zeros(dim, np.float32), np.full(dim, 1e-6, np.float32), 0.0, 1e-6,
+                   np.zeros(dim, np.float32), device="cuda")
+    plan, scratch = StepPlan(bi, bv, dim), _Scratch(B, dim, bi.device)
+    before = VW_KERNEL.launches
+    for p in range(passes):
+        if how == "whole":
+            step_batches(st, bi, bv, by, bw, hp, plan, 0, nb, scratch)
+        for j in range(nb):
+            if how == "batches":
+                batch_step(st, bi[j], bv[j], by[j], bw[j], hp, plan, j, scratch)
+            elif how == "plain":
+                batch_step_plain(st, bi[j], bv[j], by[j], bw[j], hp)
+    torch.cuda.synchronize()
+    return st.numpy(), VW_KERNEL.launches - before, nb
+
+
 @pytest.mark.parametrize("bits", [10, 18])
 @pytest.mark.parametrize("regime", sorted(VW_REGIMES))
 @pytest.mark.parametrize("loss", VW_LOSSES)
 @pytest.mark.parametrize("case", VW_STEP_CASES)
 def test_vw_step_kernel_bit_equal(cuda, case, loss, regime, bits):
-    """Kernel V's fit (one launch a batch) equals the plain step's on the
-    card and on the CPU, bit for bit: duplicate slots within and across
-    rows, slot 0 as padding and as a feature, a last batch of padding rows,
-    each loss and regime, 2^10 and 2^18 slots."""
+    """Kernel V equals the plain step on the card and on the CPU, bit for
+    bit, launched a pass at a time (as the fit launches it, once a pass)
+    and a batch at a time: duplicate slots within and across rows, slot 0
+    as padding and as a feature, a last batch of padding rows, the warp
+    paths (K = 131, a slot in every row, batches of 300), each loss and
+    regime, 2^10 and 2^18 slots."""
     idx, val, y_reg, y_pm1 = vw_step_case(case, bits)
     y = y_pm1 if loss in ("logistic", "hinge") else y_reg
     l1, l2 = VW_REGIMES[regime]
-    kw = dict(num_bits=bits, loss=loss, l1=l1, l2=l2, num_passes=2, quantile_tau=0.3)
+    kw = dict(num_bits=bits, loss=loss, l1=l1, l2=l2, num_passes=2, quantile_tau=0.3,
+              batch_size=vw_case_batch(case))
     VW_KERNEL.launches = 0
     card = train_linear(idx, val, y, device="cuda", **kw)
     torch.cuda.synchronize()
-    nb = -(-len(y) // 256)
-    assert VW_KERNEL.launches == 2 * nb
+    assert VW_KERNEL.launches == 2  # once a pass
     assert not vw_state_differs(card, train_linear_plain(idx, val, y, device="cuda", **kw))
     assert not vw_state_differs(card, train_linear(idx, val, y, device="cpu", **kw))
+    whole, n_whole, nb = _vw_card_passes(case, bits, loss, regime, 2, "whole")
+    batches, n_batches, _ = _vw_card_passes(case, bits, loss, regime, 2, "batches")
+    plain, _, _ = _vw_card_passes(case, bits, loss, regime, 2, "plain")
+    assert (n_whole, n_batches) == (2, 2 * nb)
+    assert not vw_state_differs(whole, plain)
+    assert not vw_state_differs(batches, plain)
+
+
+@pytest.mark.parametrize("regime", ["sparse", "l1_l2"])
+@pytest.mark.parametrize("loss", VW_LOSSES)
+@pytest.mark.parametrize("case", ["slot0_feature", "hashed_text", "warp_paths"])
+@pytest.mark.parametrize("batch", VW_ODD_BATCHES)
+def test_vw_step_kernel_batch_sizes_bit_equal(cuda, batch, case, loss, regime):
+    """Kernel V at batch sizes that reach its other branches: the bias
+    summed by shuffles alone (8 and 32 rows), blocks of the cluster without
+    rows (8), rows not staged in shared memory (2,048): two passes launched
+    whole and batch by batch, each bit-equal to the plain steps on the card,
+    at 2^18 slots."""
+    whole, n_whole, nb = _vw_card_passes(case, 18, loss, regime, 2, "whole", batch)
+    batches, n_batches, _ = _vw_card_passes(case, 18, loss, regime, 2, "batches", batch)
+    plain, _, _ = _vw_card_passes(case, 18, loss, regime, 2, "plain", batch)
+    assert (n_whole, n_batches) == (2, 2 * nb)
+    assert not vw_state_differs(whole, plain)
+    assert not vw_state_differs(batches, plain)
 
 
 @pytest.mark.parametrize("regime", ["sparse", "l2"])
@@ -1081,17 +1143,45 @@ def test_vw_step_kernel_nonfinite_gradient(cuda, regime):
 
 def test_vw_step_plan_lists_each_batch_slot_once(cuda):
     """The fit's plan on the card: each batch's distinct slots once, slot 0
-    in every batch with padding, the entries of a slot in row-major order."""
+    in every batch with padding, the entries of a slot in row-major order,
+    the short lists (at most V_LONG_LIST entries) before the long ones."""
     idx, val, _, _ = vw_step_case("slot0_feature", 10)
     bi = torch.from_numpy(np.concatenate([idx, np.zeros((68, 7), np.int32)])).cuda()
     bv = torch.from_numpy(np.concatenate([val, np.zeros((68, 7), np.float32)])).cuda()
-    plan = StepPlan(bi.view(3, 256, 7), bv.view(3, 256, 7), 1 << 10)
+    plan = StepPlan(bi.view(3, 256, 7), bv.view(3, 256, 7), 1 << 10, long_list=4)
+    ent, useg = plan.ent.cpu().numpy(), plan.useg.cpu().numpy()
     for j, (u0, u1) in enumerate(plan.ranges):
         slots = plan.uslot[u0:u1].cpu().numpy()
         assert len(np.unique(slots)) == len(slots) and 0 in slots
-        ent = plan.ent.cpu().numpy()
+        sizes = np.diff(useg[u0:u1 + 1])
+        ul = plan.long_from[j] - u0
+        assert 0 < ul < len(slots)
+        assert np.all(sizes[:ul] <= 4) and np.all(sizes[ul:] > 4)
         for u in range(u0, u1):
-            e = ent[plan.useg[u]:plan.useg[u + 1]]
+            e = ent[useg[u]:useg[u + 1]]
             e = e[e >= 0]
             assert np.all(np.diff(e) > 0)
             assert np.all(bi.view(3, -1)[j].cpu().numpy()[e] == slots[u - u0])
+
+
+@pytest.mark.parametrize("what", ["shared_memory", "cluster"])
+def test_vw_step_kernel_launch_that_cannot_fit_raises(cuda, what, monkeypatch):
+    """A launch the card cannot place raises with the CUDA error's text and
+    leaves the state and the launch count as they were: a batch whose dl
+    and bias tree do not fit in a block's shared memory (2^16 rows), or a
+    cluster of 32 blocks (the H100 takes at most 16)."""
+    (B, K), dim = ((1 << 16, 4) if what == "shared_memory" else (256, 4)), 1 << 10
+    if what == "cluster":
+        monkeypatch.setattr(learner, "V_CLUSTER_CTAS", 32)
+    g = torch.Generator().manual_seed(0)
+    bi = torch.randint(1, dim, (1, B, K), generator=g, dtype=torch.int32).cuda()
+    bv = torch.rand(1, B, K, generator=g).cuda()
+    by, bw = torch.ones(1, B, device="cuda"), torch.ones(1, B, device="cuda")
+    hp = StepHyper.make("squared", 0.5, 0.0, 0.0, 0.5)
+    st = StepState(np.zeros(dim, np.float32), np.full(dim, 1e-6, np.float32), 0.0, 1e-6,
+                   np.zeros(dim, np.float32), device="cuda")
+    before, buf = VW_KERNEL.launches, st.buf.clone()
+    with pytest.raises(RuntimeError, match="smt_vw_step: CUDA error"):
+        step_batches(st, bi, bv, by, bw, hp, StepPlan(bi, bv, dim))
+    torch.cuda.synchronize()
+    assert VW_KERNEL.launches == before and torch.equal(st.buf, buf)

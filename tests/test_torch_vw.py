@@ -16,11 +16,13 @@
   pairwise). With XLA's ``rsqrt`` and the fused forms patched into the
   port's two step helpers, the hinge and quantile losses, whose gradients
   are sums exact in any order, give the reference's state bit for bit;
-- kernel V's schedule, modelled in numpy op for op (the padding skipped and
-  its effect applied once, the plan's slot lists, the dense regime's
-  marks), against the plain step at 0 ulps on every case of
-  ``kernel_cases.VW_STEP_CASES``: what the card tests then hold the CUDA
-  kernel to.
+- kernel V's plan (each batch's short and long slot lists) and its
+  schedule, modelled on the CPU op for op (a warp's gathers and then the
+  ordered chain of a row; a long list's terms and then its ordered adds;
+  the padding skipped and its effect applied once; the dense regime's
+  marks; several batches carried in one launch), against the plain step
+  at 0 ulps on every case of ``kernel_cases.VW_STEP_CASES``: what the card
+  tests then hold the CUDA kernel to.
 """
 
 import numpy as np
@@ -37,7 +39,8 @@ from synapseml_tpu.vw import learner as ref
 
 from synapseml_tpu_torch.core import Pipeline, Table, load_stage
 from synapseml_tpu_torch.gbdt.metrics import METRICS
-from synapseml_tpu_torch.tools.kernel_cases import (VW_REGIMES, VW_STEP_CASES, vw_state_differs,
+from synapseml_tpu_torch.tools.kernel_cases import (VW_ODD_BATCHES, VW_REGIMES, VW_STEP_CASES,
+                                                    vw_case_batch, vw_state_differs,
                                                     vw_step_case)
 from synapseml_tpu_torch.vw import (VectorZipper, VowpalWabbitClassifier,
                                     VowpalWabbitContextualBandit, VowpalWabbitFeaturizer,
@@ -452,6 +455,16 @@ def test_train_linear_bit_equal_with_xla_rsqrt(monkeypatch, case, loss, regime):
     assert not vw_state_differs(a, b)
 
 
+def test_train_linear_leaves_the_init_state():
+    """A fit from an init state leaves the caller's arrays as they were (the
+    device state is a copy, the scales included)."""
+    init = _init_state(10)
+    before = [np.array(x, copy=True) for x in init]
+    idx, val, y_reg, _ = vw_step_case("slot0_feature", 10)
+    train_linear(idx, val, y_reg, num_bits=10, init_state=init, device="cpu")
+    assert not vw_state_differs(port.LinearLearnerState(*before), init)
+
+
 def test_train_linear_rejects_bad_input():
     idx, val, y = _linear_rows(1, n=10)
     with pytest.raises(ValueError, match="feature index"):
@@ -593,131 +606,224 @@ def test_stages_registered():
 
 # -- kernel V's schedule, modelled on the CPU ----------------------------------------------
 
-def _f32(x):
-    return np.float32(x)
+_NEUTRAL = -0.0  # x + (-0) = x for every x: the kernel's skipped term
 
 
-def _t(x):
-    return torch.tensor([x], dtype=torch.float32)
+def _vw_batches(case, bits, rows=None, batch=None):
+    """(bi, bv, by_reg, by_pm1, bw) of a case cut into its batches of
+    ``batch`` rows (default: the case's; the last one padded with zero rows
+    of weight 0), at most ``rows`` rows."""
+    idx, val, y_reg, y_pm1 = vw_step_case(case, bits)
+    B = batch or vw_case_batch(case)
+    n = len(idx) if rows is None else min(rows, len(idx))
+    nb = -(-n // B)
+
+    def cut(a):
+        out = np.zeros((nb * B,) + a.shape[1:], a.dtype)
+        out[:n] = a[:n]
+        return torch.from_numpy(out.reshape((nb, B) + a.shape[1:]))
+
+    return (cut(idx), cut(val), cut(y_reg.astype(np.float32)), cut(y_pm1.astype(np.float32)),
+            cut(np.ones(len(idx), np.float32)))
 
 
-def _fma(a, b, c):
-    return np.float32(port.fma_f32(_t(a), _t(b), _t(c))[0].item())
-
-
-@np.errstate(invalid="ignore")
-def _model_step_w(w, g, g2, hp):
-    """csrc/vw_step.cu's update_slot."""
-    g2n = _fma(g, g, g2)
-    root = np.sqrt(g2n)
-    wn = _f32(w - _f32(_f32(hp.lr * g) / root))
+def _model_step(w, g2, g, hp):
+    """csrc/vw_step.cu's step_slot over tensors: the slots' new (w, g2)."""
+    g2n = port.fma_f32(g, g, g2)
+    root = port.sqrt_f32(g2n)
+    wn = w - (hp.lr * g) / root
     if hp.l1:
-        m = _f32(abs(wn) - _f32(_f32(hp.lr_l1) / root))
-        m = m if (m > 0 or m != m) else _f32(0.0)
-        sg = _f32(1.0) if wn > 0 else (_f32(-1.0) if wn < 0 else wn)
-        wn = _f32(sg * m)
+        m = wn.abs() - torch.full_like(root, hp.lr_l1) / root
+        m = torch.where((m > 0) | torch.isnan(m), m, 0.0)
+        wn = torch.where(wn > 0, 1.0, torch.where(wn < 0, -1.0, wn)) * m
     return wn, g2n
 
 
-@np.errstate(invalid="ignore")
-def _kernel_model(st: StepState, bi, bv, by, bw, hp, plan: StepPlan, j, epoch, mark):
-    """One launch of kernel V in numpy, in the source's order: the rows
-    kernel (padding skipped, one fma of w[0] by +0 for a padded row, the
-    flags), the slots kernel over the plan's list (then the bias tree), the
-    dense kernel over the unmarked slots."""
-    B, K = bi.shape
+def _ordered_sums(g, terms, lens):
+    """Each list's sum in its order: ``g[l]`` plus ``terms[l, 0..lens[l])``
+    one add at a time (the lists side by side, as the kernel's threads and
+    warps run)."""
+    for e in range(int(lens.max()) if len(lens) else 0):
+        on = lens > e
+        g[on] = g[on] + terms[on, e]
+    return g
+
+
+def _kernel_model(st: StepState, bi, bv, by, bw, hp, plan: StepPlan, j0, j1):
+    """One launch of kernel V over the plan's batches [j0, j1) (``bi`` ...
+    ``bw`` hold them, batch j0 first), on the CPU in the source's schedule,
+    the state carried from batch to batch as in the persistent kernel:
+    - rows, a warp a row: the gathers of a 128-entry chunk at once, each
+      entry's bvn, the live (w, bvn) pairs compacted in k order with a
+      neutral pair (-0, +0) after an odd count, then the fma chain over the
+      pairs; one fma of w[0] by +0 for a padded row; the padding flags;
+    - slots: the short lists (a thread each) and then the long lists (a
+      warp each: the terms of a 128-entry chunk computed at once, then
+      added in order in groups of four, -0 past the list's end); slot 0's
+      flag term; the bias summed pairwise;
+    - the dense regime: every slot not marked with the batch's place in the
+      launch (the marks are -1 when a launch starts)."""
+    B, K = plan.ebm.shape[1:]
     P = 1 << max(B - 1, 0).bit_length()
-    w, g2, s = st.w.numpy(), st.g2.numpy(), st.s.numpy()
-    bias = st.bias.numpy()
-    ebm = plan.ebm[j].numpy()
-    idx, val, y, wt = bi.numpy(), bv.numpy(), by.numpy(), bw.numpy()
-    dl = np.zeros(P, np.float32)
-    flags = 0
-    for r in range(B):
-        acc, padded = _f32(0.0), False
-        for k in range(K):
-            i, v = idx[r, k], val[r, k]
-            if i == 0 and np.float32(v).view(np.int32) == 0:
-                padded = True
+    w, g2, s, bias = st.w, st.g2, st.s, st.bias
+    mark = torch.full((st.dim,), -1)
+    chunk = 128
+    for j in range(j0, j1):
+        jj = epoch = j - j0
+        idx, val, ebm = bi[jj], bv[jj], plan.ebm[j]
+        # 1. rows
+        drop = port._dropped(idx, val)
+        live = ~drop
+        bvn = val / torch.clamp_min(torch.maximum(s[idx.long()], ebm), 1e-12)
+        acc = torch.zeros(B)
+        for k0 in range(0, K, chunk):
+            lv = live[:, k0:k0 + chunk]
+            at = torch.cumsum(lv.long(), 1) - 1
+            n = int(lv.sum(1).max())
+            pw = torch.full((B, n + 1), _NEUTRAL)
+            pb = torch.zeros(B, n + 1)
+            r, k = torch.nonzero(lv, as_tuple=True)
+            pw[r, at[r, k]] = w[idx[:, k0:k0 + chunk].long()][r, k]
+            pb[r, at[r, k]] = bvn[:, k0:k0 + chunk][r, k]
+            for q in range(n + (n & 1)):
+                acc = port.fma_f32(pw[:, q], pb[:, q], acc)
+        padded = drop.any(1)
+        acc = torch.where(padded, port.fma_f32(w[:1].expand(B), torch.zeros(B), acc), acc)
+        dl = port._loss_grad(hp, acc + bias[0], by[jj], bw[jj])
+        z = dl[padded] * 0.0
+        flags = (1 if bool(torch.isnan(z).any()) else 0) | \
+                (2 if bool((~torch.isnan(z) & ~torch.signbit(z)).any()) else 0)
+        # 2. slots: the short lists, then the long ones
+        u0, u1 = plan.ranges[j]
+        ul = plan.long_from[j]
+        new_w, new_g2 = w.clone(), g2.clone()
+        for a, b, width in ((u0, ul, 8), (ul, u1, chunk)):
+            if a == b:
                 continue
-            sn = max(s[i], ebm[r, k])
-            acc = _fma(w[i], _f32(v / max(sn, _f32(1e-12))), acc)
-        if padded:
-            acc = _fma(w[0], _f32(0.0), acc)
-        p = _f32(acc + bias[0])
-        d = port._loss_grad(hp, _t(p), _t(y[r]), _t(wt[r]))[0].item()
-        dl[r] = d
-        if padded:
-            z = _f32(_f32(d) * _f32(0.0))
-            flags |= 1 if z != z else (0 if np.signbit(z) else 2)
-    u0, u1 = plan.ranges[j]
-    ent, useg = plan.ent.numpy(), plan.useg.numpy()
-    uslot, umax = plan.uslot.numpy(), plan.umax.numpy()
-    new_w, new_g2 = {}, {}
-    for u in range(u0, u1):
-        slot = int(uslot[u])
-        sn = max(s[slot], umax[u])
-        den = max(sn, _f32(1e-12))
-        g = _f32(hp.l2 * w[slot]) if (hp.dense and hp.l2) else _f32(0.0)
-        for e in ent[useg[u]:useg[u + 1]]:
-            if e >= 0:
-                g = _f32(g + _f32(dl[e // K] * _f32(val.reshape(-1)[e] / den)))
-        if slot == 0:
-            if flags & 1:
-                g = _f32(g + np.float32(np.nan))
-            elif flags & 2:
-                g = _f32(g + _f32(0.0))
-        s[slot] = sn
-        new_w[slot], new_g2[slot] = _model_step_w(w[slot], g, g2[slot], hp)
+            slots = plan.uslot[a:b].long()
+            sn = torch.maximum(s[slots], plan.umax[a:b])
+            den = torch.clamp_min(sn, 1e-12)
+            starts, ends = plan.useg[a:b].long(), plan.useg[a + 1:b + 1].long()
+            # whole groups: a thread's eight loads, a warp's adds four at a time
+            group = 8 if width == 8 else 4
+            lens = -(-(ends - starts) // group) * group
+            pos = starts[:, None] + torch.arange(int(lens.max()))[None, :]
+            inside = pos < ends[:, None]
+            p = torch.where(inside, plan.ent[pos.clamp_max(plan.entries - 1)].long(), -1)
+            ev = plan.evals[pos.clamp_max(plan.entries - 1)]
+            terms = torch.where(p >= 0, dl[(p // K).clamp_min(0)] * (ev / den[:, None]),
+                                _NEUTRAL)
+            g = hp.l2 * w[slots] if (hp.dense and hp.l2) else torch.zeros(len(slots))
+            g = _ordered_sums(g, terms, lens)
+            zero = slots == 0
+            if zero.any() and flags:
+                g[zero] = g[zero] + (np.nan if flags & 1 else 0.0)
+            s[slots] = sn
+            new_w[slots], new_g2[slots] = _model_step(w[slots], g2[slots], g, hp)
+            if hp.dense:
+                mark[slots] = epoch
+        total = dl.new_zeros(P)
+        total[:B] = dl
+        while len(total) > 1:
+            total = total[0::2] + total[1::2]
+        gb = total[0] / torch.full_like(total[0], float(B))
+        bg2n = port.fma_f32(gb, gb, bias[1])
+        bias.copy_(torch.stack([bias[0] - (hp.lr * gb) / port.sqrt_f32(bg2n), bg2n]))
+        w.copy_(new_w)
+        g2.copy_(new_g2)
+        # 3. the dense regime's untouched slots
         if hp.dense:
-            mark[slot] = epoch
-    tree = dl.copy()
-    step = 2
-    while step <= P:
-        for i in range(0, P, step):
-            tree[i] = _f32(tree[i] + tree[i + step // 2])
-        step *= 2
-    gb = _f32(tree[0] / _f32(B))
-    bg2n = _fma(gb, gb, bias[1])
-    bias[0] = _f32(bias[0] - _f32(_f32(hp.lr * gb) / np.sqrt(bg2n)))
-    bias[1] = bg2n
-    for slot in new_w:
-        w[slot], g2[slot] = new_w[slot], new_g2[slot]
-    if hp.dense:
-        for slot in np.nonzero(mark != epoch)[0]:
-            g = _f32(hp.l2 * w[slot]) if hp.l2 else _f32(0.0)
-            w[slot], g2[slot] = _model_step_w(w[slot], g, g2[slot], hp)
+            rest = mark != epoch
+            g = hp.l2 * w[rest] if hp.l2 else torch.zeros(int(rest.sum()))
+            w[rest], g2[rest] = _model_step(w[rest], g2[rest], g, hp)
+
+
+@pytest.mark.parametrize("long_list", [4, 32])
+@pytest.mark.parametrize("case", VW_STEP_CASES)
+def test_step_plan_short_and_long_lists(case, long_list):
+    """Each batch's distinct slots are in exactly one of its short lists (at
+    most ``long_list`` entries, the longest first, then by slot) and its
+    long lists (more, by slot), short first; every real entry in its slot's
+    list once, in row-major order, with its value; slot 0 listed wherever
+    the batch has padding; each batch's slots and entries in ``bounds``."""
+    bi, bv, _, _, _ = _vw_batches(case, 10)
+    nb, B, K = bi.shape
+    plan = StepPlan(bi, bv, 1 << 10, long_list)
+    ent, useg = plan.ent.numpy(), plan.useg.numpy()
+    uslot, evals = plan.uslot.numpy(), plan.evals.numpy()
+    assert plan.ulong.tolist() == plan.long_from
+    assert plan.bounds.tolist() == [[u0, u1, int(useg[u0]), int(useg[u1])]
+                                    for u0, u1 in plan.ranges]
+    for j, (u0, u1) in enumerate(plan.ranges):
+        ul = plan.long_from[j]
+        assert u0 <= ul <= u1
+        idx, val = bi[j].reshape(-1).numpy(), bv[j].reshape(-1).numpy()
+        real = ~port._dropped(bi[j], bv[j]).reshape(-1).numpy()
+        want = set(idx[real].tolist()) | ({0} if not real.all() else set())
+        sizes = np.diff(useg[u0:u1 + 1])
+        assert np.all(sizes[:ul - u0] <= long_list) and np.all(sizes[ul - u0:] > long_list)
+        short = np.diff(sizes[:ul - u0])
+        assert np.all(short <= 0) and np.all(np.diff(uslot[u0:ul])[short == 0] > 0)
+        assert np.all(np.diff(uslot[ul:u1]) > 0)
+        assert set(uslot[u0:u1].tolist()) == want and len(uslot[u0:u1]) == len(want)
+        seen = []
+        for u in range(u0, u1):
+            e = ent[useg[u]:useg[u + 1]]
+            v = evals[useg[u]:useg[u + 1]]
+            live = e >= 0
+            assert np.all(np.diff(e[live]) > 0)
+            assert np.all(idx[e[live]] == uslot[u])
+            assert np.array_equal(v[live].view(np.int32), val[e[live]].view(np.int32))
+            assert live.all() or (uslot[u] == 0 and (~live).sum() == 1)
+            seen += e[live].tolist()
+        assert sorted(seen) == np.nonzero(real)[0].tolist()
 
 
 @pytest.mark.parametrize("regime", sorted(VW_REGIMES))
 @pytest.mark.parametrize("loss", LOSSES)
 @pytest.mark.parametrize("case", [c for c in VW_STEP_CASES if c != "hashed_text"])
 def test_kernel_schedule_model_equals_plain(case, loss, regime):
-    """Kernel V's schedule (``_kernel_model``) over two batches at 2^6 slots
-    (many shared slots) against :func:`batch_step_plain`, bit for bit."""
-    idx, val, y_reg, y_pm1 = vw_step_case(case, 6)
-    y = y_pm1 if loss in ("logistic", "hinge") else y_reg
-    n = 300
-    nb = 2
-    pad = nb * 256 - n
-
-    def rows(a):
-        out = np.concatenate([a[:n], np.zeros((pad,) + a.shape[1:], a.dtype)])
-        return torch.from_numpy(out.reshape((nb, 256) + a.shape[1:]))
-
-    bi, bv, by = rows(idx), rows(val), rows(y.astype(np.float32))
-    bw = rows(np.ones(len(y), np.float32))
+    """Kernel V's schedule (``_kernel_model``): two batches at 2^6 slots
+    (many shared slots, long lists), the second partial, carried in one
+    launch, against :func:`batch_step_plain` a batch, bit for bit."""
+    B = vw_case_batch(case)
+    bi, bv, by_reg, by_pm1, bw = _vw_batches(case, 6, rows=B + 44)
+    by = by_pm1 if loss in ("logistic", "hinge") else by_reg
+    nb = len(bi)
     l1, l2 = VW_REGIMES[regime]
     hp = StepHyper.make(loss, 0.5, l1, l2, 0.25)
     init = _init_state(6)
     init = init._replace(w=init.w * init.scale)
     a, b = StepState(*init, device="cpu"), StepState(*init, device="cpu")
     plan = StepPlan(bi, bv, 1 << 6)
-    mark = np.full(1 << 6, -1, np.int32)
     for j in range(nb):
         port.batch_step_plain(a, bi[j], bv[j], by[j], bw[j], hp)
-        _kernel_model(b, bi[j], bv[j], by[j], bw[j], hp, plan, j, j, mark)
-        assert not vw_state_differs(a.numpy(), b.numpy())
+    _kernel_model(b, bi, bv, by, bw, hp, plan, 0, nb)
+    assert not vw_state_differs(a.numpy(), b.numpy())
+
+
+@pytest.mark.parametrize("regime", ["sparse", "l1_l2"])
+@pytest.mark.parametrize("loss", LOSSES)
+@pytest.mark.parametrize("case", ["slot0_feature", "warp_paths"])
+@pytest.mark.parametrize("batch", VW_ODD_BATCHES)
+def test_kernel_schedule_model_batch_sizes(batch, case, loss, regime):
+    """Kernel V's schedule at batch sizes that reach its other branches (a
+    bias summed by shuffles alone at 8 and 32 rows, blocks without rows at
+    8, rows the card does not stage at 2,048): the case's first two batches
+    and a part of a third (all of it past 2,048 rows: one partial batch) at
+    2^6 slots, in one launch, against :func:`batch_step_plain` a batch, bit
+    for bit."""
+    bi, bv, by_reg, by_pm1, bw = _vw_batches(case, 6, rows=2 * batch + 3, batch=batch)
+    by = by_pm1 if loss in ("logistic", "hinge") else by_reg
+    l1, l2 = VW_REGIMES[regime]
+    hp = StepHyper.make(loss, 0.5, l1, l2, 0.25)
+    init = _init_state(6)
+    init = init._replace(w=init.w * init.scale)
+    a, b = StepState(*init, device="cpu"), StepState(*init, device="cpu")
+    for j in range(len(bi)):
+        port.batch_step_plain(a, bi[j], bv[j], by[j], bw[j], hp)
+    _kernel_model(b, bi, bv, by, bw, hp, StepPlan(bi, bv, 1 << 6), 0, len(bi))
+    assert not vw_state_differs(a.numpy(), b.numpy())
 
 
 def test_kernel_schedule_model_nonfinite_gradient():
@@ -736,8 +842,21 @@ def test_kernel_schedule_model_nonfinite_gradient():
     a, b = StepState(*init, device="cpu"), StepState(*init, device="cpu")
     plan = StepPlan(bi[None], bv[None], 1 << 6)
     port.batch_step_plain(a, bi, bv, by, bw, hp)
-    _kernel_model(b, bi, bv, by, bw, hp, plan, 0, 0, np.full(1 << 6, -1, np.int32))
+    _kernel_model(b, bi[None], bv[None], by[None], bw[None], hp, plan, 0, 1)
     assert np.isnan(a.g2[0].item())
+    assert not vw_state_differs(a.numpy(), b.numpy())
+
+
+def test_step_batches_cpu_is_the_plain_step_a_batch():
+    """:func:`step_batches` on CPU tensors: the plain step over the batches
+    [j0, j1), as many calls of :func:`batch_step` would give."""
+    bi, bv, by, _, bw = _vw_batches("warp_paths", 10)
+    hp = StepHyper.make("squared", 0.5, 0.0, 1e-2, 0.5)
+    init = _init_state(10)
+    a, b = StepState(*init, device="cpu"), StepState(*init, device="cpu")
+    port.step_batches(a, bi, bv, by, bw, hp, j0=1, j1=3)
+    for j in (1, 2):
+        port.batch_step(b, bi[j], bv[j], by[j], bw[j], hp)
     assert not vw_state_differs(a.numpy(), b.numpy())
 
 
