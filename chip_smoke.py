@@ -152,6 +152,24 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    (data=1, fsdp=2) the replicated (data=1, model=2) state bit for bit, with
    the collectives counted (one sum and one max a pass, one all-gather over
    fsdp a pass) and at most half the vectors at rest;
+2k. the ONNX executor (``onnx/``, kernels Q and R), each run through the
+   user's entry point after a first call that builds its plan, with the
+   launch counts set to 0 just before it and read after: (a) the zoo's
+   ResNet-50 through ``ONNXModel(batch_size=128)`` over 1,024 seeded
+   224 x 224 images under the f32 and the bf16 policy (no Q or R launch;
+   features (1024, 2048)); (b) BERT-base (12 layers, hidden 768) in bf16
+   over 512 sequences of 128 tokens at batch 64; (c) ``quantize_dynamic_graph``
+   of BERT-base over the same sequences (Q's matmul entry once for each of
+   the 74 rewritten MatMuls a batch) and of ResNet-50 over 256 images (Q's
+   conv entry 53 times a batch); (d) LSTM (peepholes) and GRU
+   (linear_before_reset=0) graphs and the configurations cuDNN computes
+   (LSTM without peepholes, GRU with linear_before_reset=1) at GNMT's width
+   (S=128, B=64, I=H=1,024) in f32 and bf16, kernel R once a call; each
+   with its wall seconds and rows a second, and its first rows held to the
+   port's CPU run (f32 within 1e-4 of each output's max-abs; bf16 and the
+   quantized graphs within 2e-2 of each row's norm; a quantized graph's
+   rows as one batch on both devices, since DynamicQuantizeLinear's range
+   spans its batch);
 3. flash attention's entry point, all causal: in bf16 (the wgmma kernel) at
    the headline shape (B=1, S=32768, H=8, D=64), the grouped-query serving
    shape (B=8, S=8192, H=8, H_kv=2, D=64), the headline length at D=128, and
@@ -211,7 +229,13 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    version, and in bf16 also within FLASH_ROW_TOL of it as an error
    relative to each output row's norm (a limit the script first shows to
    lie well below what one skipped key tile of the kernel would give); then
-   each kernel, its
+   kernel Q bit-equal to its plain version (int32 on the host's CPU) at
+   BERT-base's FFN-in projection and ResNet-50's stage-0 3x3 at batch 128,
+   each timed with every other projection and ResNet-50 conv shape, with
+   torch._int_mm on int8 x int8 beside the matmul entry; kernel R within
+   1e-5 (f32) / 2e-2 (bf16, row norms) of its plain version on the card at
+   GNMT's width, cuDNN's LSTM / GRU layer beside the configurations it
+   computes; then each kernel, its
    plain version and the one PyTorch call that computes the same function
    (where there is one) timed with CUDA events; every flash shape's line
    also gives its ex2 floor, the least time of one SFU exponential per
@@ -324,6 +348,27 @@ VW_MESH_ROWS = 65_536
 MESH_HASHED_ROWS = 65_536
 MESH_RANK_QUERIES, MESH_RANK_DOCS = 102, 12_288
 MESH_TIMEOUT_S = 300
+# phase 2k: the ONNX executor at bench.py's shapes (ResNet-50 at batch 128,
+# BERT-base at 64 sequences of 128 tokens), the quantized graphs
+# (quantize_dynamic_graph), and LSTM / GRU at GNMT's layer width (Wu et al.
+# 2016: 1,024 units); each held to the port's CPU run over its first rows:
+# f32 within ONNX_F32_TOL of each output's max-abs, bf16 within ONNX_ROW_TOL
+# of each row's norm (tests/torch_onnx.py's), the quantized graphs within
+# ONNX_QUANT_TOL of each row's norm and the same argmax: kernel Q is
+# bit-equal to its plain version, but the f32 ops between (LayerNorm's
+# mean and variance, Softmax) sum in another order on the card, a
+# DynamicQuantizeLinear then rounds a few activations to the next step,
+# and at BERT-base's 12 layers that compounds to 2.4-3.4 % of a row's norm
+# (0.3 % for ResNet-50; the quantized model is itself 5.4-5.6 % from the
+# float one, ResNet-50's 2.3-2.4 %: phase 2k on an NVIDIA H100 80GB HBM3 at
+# 700 W, PERF.md)
+N_ONNX_IMAGES, ONNX_IMAGE_BATCH, ONNX_CPU_IMAGES = 1024, 128, 8
+N_ONNX_SEQS, ONNX_SEQ_BATCH, ONNX_SEQ_LEN, ONNX_CPU_SEQS = 512, 64, 128, 4
+N_QUANT_IMAGES, QUANT_CPU_IMAGES, QUANT_CPU_SEQS = 256, 4, 2
+BERT_VOCAB = 30522
+RNN_GNMT = (128, 64, 1024)    # S, B, I = H
+ONNX_F32_TOL, ONNX_ROW_TOL, ONNX_QUANT_TOL = 1e-4, 2e-2, 5e-2
+INT8_TC_OPS = 1979e12         # H100 SXM dense int8 tensor-core rate
 # kernel P's pick reads ok, the counts, the leaf, the child's seg and side,
 # and writes small and smaller_right
 PICK_BYTES = 1 + 8 + 8 + 8 + 4 + 12 + 1
@@ -2268,6 +2313,380 @@ def vw_two_ranks_phase(rows) -> dict:
     return rec
 
 
+# -- phase 2k: the ONNX executor -----------------------------------------------------------
+
+ONNX_KERNELS = ("onnx_qmatmul", "onnx_qconv", "onnx_rnn_steps")
+
+
+def _onnx_err(card: torch.Tensor, cpu: torch.Tensor, rows: bool) -> float:
+    """max|card - cpu| over max|cpu| (f32), or the largest error relative to a
+    row's norm (a row: the last axis; bf16 and quantized graphs)."""
+    g, w = card.detach().cpu().double(), cpu.detach().cpu().double()
+    if g.shape != w.shape:
+        fail(f"onnx: card output {tuple(g.shape)} against CPU {tuple(w.shape)}")
+    if not rows:
+        return float((g - w).abs().max() / w.abs().max().clamp_min(1e-30))
+    g, w = g.reshape(-1, g.shape[-1]), w.reshape(-1, w.shape[-1])
+    return float(((g - w).norm(dim=1) / w.norm(dim=1).clamp_min(1e-30)).max())
+
+
+def _onnx_launches(kernels) -> dict:
+    return {name: kernels[name].launches for name in ONNX_KERNELS}
+
+
+def onnx_stage_run(kernels, name, model_bytes, feed, data, fetch, batch, policy, cpu_rows,
+                   want_launches, float_bytes=None) -> dict:
+    """One ``ONNXModel.transform`` over ``data`` on the card at ``batch`` rows a
+    call, after a first call (one batch: it builds the plan and uploads the
+    weights) and with the launch counts set to 0 just before the timed
+    transform and read just after (they must be ``want_launches``); then
+    the first ``cpu_rows`` rows against the port's CPU run. A float graph's
+    rows do not depend on their batch, so they are read from the timed
+    output; a quantized graph's DynamicQuantizeLinear takes its range over
+    the whole batch, so the card and the CPU each run those rows as one
+    batch, and the float graph it came from (``float_bytes``) gives the
+    quantization's own error on them, for scale."""
+    from synapseml_tpu_torch.core import Table
+    from synapseml_tpu_torch.onnx import ONNXModel, OnnxFunction
+
+    stage = ONNXModel(model_bytes=model_bytes, feed_dict={feed: "x"},
+                      fetch_dict={k: k for k in fetch}, batch_size=batch, dtype_policy=policy)
+    t0 = time.perf_counter()
+    stage.transform(Table({"x": data[:batch]}))
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    reset(kernels)
+    t0 = time.perf_counter()
+    out = stage.transform(Table({"x": data}))
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = _onnx_launches(kernels)
+    if launches != want_launches:
+        fail(f"phase 2k {name}: launches {launches}, want {want_launches}")
+    cpu = OnnxFunction(model_bytes, dtype_policy=policy, device="cpu")({feed: data[:cpu_rows]})
+    quantized = float_bytes is not None
+    if quantized:
+        card = stage.fn({feed: data[:cpu_rows]})
+        card = {k: card[k] for k in fetch}
+    else:
+        card = {k: torch.from_numpy(np.asarray(out[k][:cpu_rows])) for k in fetch}
+    rows = policy == "bfloat16" or quantized
+    errs = {k: _onnx_err(card[k], cpu[k], rows) for k in fetch}
+    tol = ONNX_QUANT_TOL if quantized else ONNX_ROW_TOL if rows else ONNX_F32_TOL
+    if quantized and not torch.equal(card["logits"].cpu().argmax(-1), cpu["logits"].argmax(-1)):
+        fail(f"phase 2k {name}: the card's and the CPU's argmax differ")
+    for k, e in errs.items():
+        if not (e <= tol):
+            fail(f"phase 2k {name}: {k} differs from the CPU run by {e} > {tol}")
+        if not np.isfinite(np.asarray(out[k], np.float64)).all():
+            fail(f"phase 2k {name}: {k} is not finite")
+    rec = {"phase": "onnx", "model": name, "dtype_policy": policy, "rows": len(data),
+           "batch": batch, "first_batch_s": first_s, "wall_s": wall_s,
+           "rows_per_s": len(data) / wall_s, "launches": launches,
+           "cpu_rows_checked": cpu_rows, "err_vs_cpu": errs,
+           "tolerance": {"kind": "row norm" if rows else "max-abs", "value": tol},
+           "shapes": {k: list(np.asarray(out[k]).shape) for k in fetch}}
+    if quantized:
+        ref = OnnxFunction(float_bytes, device="cpu")({feed: data[:cpu_rows]})
+        rec["quantized_vs_float_on_cpu"] = {k: _onnx_err(cpu[k], ref[k], True) for k in fetch}
+    log(json.dumps(rec))
+    return rec
+
+
+def onnx_rnn_run(kernels, name, model_bytes, x, policy) -> dict:
+    """An LSTM / GRU graph through ``OnnxFunction`` on the card (kernel R, one
+    launch a call), timed after a first call, against the port's CPU run."""
+    from synapseml_tpu_torch.onnx import OnnxFunction
+
+    fn = OnnxFunction(model_bytes, dtype_policy=policy)
+    fn({"x": x})
+    reset(kernels)
+    t0 = time.perf_counter()
+    card = fn({"x": x})
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = _onnx_launches(kernels)
+    if launches != {"onnx_qmatmul": 0, "onnx_qconv": 0, "onnx_rnn_steps": 1}:
+        fail(f"phase 2k {name} ({policy}): launches {launches}, want kernel R once")
+    cpu = OnnxFunction(model_bytes, dtype_policy=policy, device="cpu")({"x": x})
+    rows = policy == "bfloat16"
+    errs = {k: _onnx_err(card[k], cpu[k], rows) for k in cpu}
+    tol = ONNX_ROW_TOL if rows else ONNX_F32_TOL
+    if not all(e <= tol for e in errs.values()):
+        fail(f"phase 2k {name} ({policy}): outputs differ from the CPU run: {errs} > {tol}")
+    rec = {"phase": "onnx_rnn", "graph": name, "dtype_policy": policy,
+           "S_B_I_H": list(x.shape) + [RNN_GNMT[2]], "wall_s": wall_s,
+           "launches": launches, "err_vs_cpu": errs}
+    log(json.dumps(rec))
+    return rec
+
+
+def onnx_phase(kernels, seed: int) -> dict:
+    """Phase 2k (see the module's doc). Returns the runs' records and the
+    launch counts phase 4 reports."""
+    from synapseml_tpu_torch.models.zoo import bert_encoder, resnet
+    from synapseml_tpu_torch.onnx.wire import serialize_model
+    from synapseml_tpu_torch.tools.onnx_graphs import (quantize_dynamic_graph,
+                                                       quantized_node_counts, recurrent_graph)
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(seed)
+    images = rng.standard_normal((N_ONNX_IMAGES, 3, 224, 224), dtype=np.float32)
+    ids = rng.integers(0, BERT_VOCAB, size=(N_ONNX_SEQS, ONNX_SEQ_LEN))
+    none = {k: 0 for k in ONNX_KERNELS}
+    runs = {}
+    r50 = resnet(50, seed=seed)
+    r50_bytes = serialize_model(r50)
+    for policy in ("float32", "bfloat16"):
+        runs[f"resnet50_{policy}"] = onnx_stage_run(
+            kernels, "ResNet-50", r50_bytes, "data", images, ("logits", "features"),
+            ONNX_IMAGE_BATCH, policy, ONNX_CPU_IMAGES, none)
+    if runs["resnet50_float32"]["shapes"]["features"] != [N_ONNX_IMAGES, 2048]:
+        fail(f"phase 2k: ResNet-50 features {runs['resnet50_float32']['shapes']['features']}")
+    bert = bert_encoder(seed=seed)
+    bert_bytes = serialize_model(bert)
+    runs["bert_base_bfloat16"] = onnx_stage_run(
+        kernels, "BERT-base", bert_bytes, "input_ids", ids, ("logits", "pooled"),
+        ONNX_SEQ_BATCH, "bfloat16", ONNX_CPU_SEQS, none)
+    # the quantized graphs: kernel Q's entries launch once a rewritten node a batch
+    qbert = quantize_dynamic_graph(bert)
+    del bert
+    n_mm = quantized_node_counts(qbert)["MatMulInteger"]
+    runs["bert_base_quantized"] = onnx_stage_run(
+        kernels, "BERT-base quantize_dynamic", serialize_model(qbert), "input_ids", ids,
+        ("logits", "pooled"), ONNX_SEQ_BATCH, "float32", QUANT_CPU_SEQS,
+        {**none, "onnx_qmatmul": n_mm * (N_ONNX_SEQS // ONNX_SEQ_BATCH)}, float_bytes=bert_bytes)
+    del qbert, bert_bytes
+    qr50 = quantize_dynamic_graph(r50)
+    n_conv = quantized_node_counts(qr50)["ConvInteger"]
+    if n_conv != 53:
+        fail(f"phase 2k: quantized ResNet-50 has {n_conv} ConvInteger nodes, not 53")
+    runs["resnet50_quantized"] = onnx_stage_run(
+        kernels, "ResNet-50 quantize_dynamic", serialize_model(qr50), "data",
+        images[:N_QUANT_IMAGES], ("logits", "features"), ONNX_IMAGE_BATCH, "float32",
+        QUANT_CPU_IMAGES, {**none, "onnx_qconv": n_conv * (N_QUANT_IMAGES // ONNX_IMAGE_BATCH)},
+        float_bytes=r50_bytes)
+    del qr50, images
+    # LSTM (peepholes) and GRU (linear_before_reset=0), and the configurations
+    # cuDNN computes (phase 4's library time)
+    S, B, H = RNN_GNMT
+    x = rng.standard_normal((S, B, H), dtype=np.float32)
+    graphs = {"lstm_peepholes": recurrent_graph("LSTM", S, B, H, H, seed=seed, peepholes=True),
+              "gru_lbr0": recurrent_graph("GRU", S, B, H, H, seed=seed, linear_before_reset=0),
+              "lstm_cudnn_config": recurrent_graph("LSTM", S, B, H, H, seed=seed),
+              "gru_lbr1": recurrent_graph("GRU", S, B, H, H, seed=seed, linear_before_reset=1)}
+    for gname, g in graphs.items():
+        mb = serialize_model(g)
+        for policy in ("float32", "bfloat16"):
+            runs[f"{gname}_{policy}"] = onnx_rnn_run(kernels, gname, mb, x, policy)
+    rnn_launches = sum(r["launches"]["onnx_rnn_steps"] for k, r in runs.items()
+                       if k.startswith(("lstm", "gru")))
+    rec = {"phase": "onnx_summary", "phase_s": time.perf_counter() - t_phase,
+           "images_per_s": {p: runs[f"resnet50_{p}"]["rows_per_s"]
+                            for p in ("float32", "bfloat16")},
+           "bert_base_bf16_sequences_per_s": runs["bert_base_bfloat16"]["rows_per_s"],
+           "quantized_rows_per_s": {"bert_base": runs["bert_base_quantized"]["rows_per_s"],
+                                    "resnet50": runs["resnet50_quantized"]["rows_per_s"]}}
+    log(json.dumps(rec))
+    return {"runs": runs, "launches": {
+        "onnx_qmatmul": runs["bert_base_quantized"]["launches"]["onnx_qmatmul"],
+        "onnx_qconv": runs["resnet50_quantized"]["launches"]["onnx_qconv"],
+        "onnx_rnn_steps": rnn_launches}, "summary": rec}
+
+
+# ResNet-50's convolutions a batch (the zoo's graph): the stem, per stage
+# one of each first-block conv and (blocks - 1) of each later one
+RESNET50_BLOCKS = (3, 4, 6, 3)
+
+
+def _resnet50_conv_count(name: str) -> int:
+    if name.startswith("stem"):
+        return 1
+    reps = RESNET50_BLOCKS[int(name[1])]
+    if "_later_" in name:
+        return reps - 1
+    return reps if "_expand_" in name else 1
+
+
+def onnx_kernel_rows(seed: int, dev) -> dict:
+    """Phase 4's rows of kernels Q and R: each against its plain version at a
+    main-path shape and timed with CUDA events beside its bound and, where
+    one torch call computes the same function, that call's time.
+
+    - Q's matmul entry at BERT-base's FFN-in projection (8,192 x 768 x
+      3,072; uint8 activations with a zero point, int8 weights), and the
+      other two projections; the plain version (int32 matmul) runs on the
+      host's CPU (CUDA has no int32 matmul), timed by the host's clock; the
+      library time is torch._int_mm's on int8 x int8 without zero points
+      (the only form it takes), beside the kernel's own time there;
+    - Q's conv entry at ResNet-50's 3x3 of stage 0 at batch 128, and every
+      ResNet-50 conv shape at batch 128 (the sum over a batch's 53 convs);
+      plain on the host's CPU; no torch call convolves integers on CUDA;
+    - R at GNMT's width, the configuration cuDNN computes (an LSTM without
+      peepholes, f32): the plain version (the step in torch ops) on the
+      card, and cuDNN's LSTM layer (torch.nn.LSTM, input projection
+      included) as the library time, beside R with the projection; the
+      peephole LSTM, both GRU modes and bf16 as further shapes."""
+    from synapseml_tpu_torch.onnx.qgemm import qconv, qconv_plain, qmatmul, qmatmul_plain
+    from synapseml_tpu_torch.onnx.rnn import (gru_steps, gru_steps_plain, lstm_steps,
+                                              lstm_steps_plain)
+    from synapseml_tpu_torch.tools.kernel_cases import (BERT_BASE_PROJECTIONS, RESNET50_CONVS,
+                                                        rnn_step_case)
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    u8 = lambda *shape: torch.randint(0, 256, shape, generator=gen, device=dev,
+                                      dtype=torch.int32).to(torch.uint8)
+    s8 = lambda *shape: torch.randint(-127, 128, shape, generator=gen, device=dev,
+                                      dtype=torch.int32).to(torch.int8)
+    rows = {}
+
+    def host_ms(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    # -- Q, matmul entry
+    za = torch.tensor(117, dtype=torch.uint8, device=dev)
+    zb = torch.tensor(0, dtype=torch.int8, device=dev)
+    shapes = {}
+    for name, (M, K, N) in BERT_BASE_PROJECTIONS.items():
+        a, b = u8(64, M // 64, K), s8(K, N)
+        ms = time_ms(lambda: qmatmul(a, b, za, zb), 20)
+        bnd = bound(M * K + K * N + 4 * M * N, 2.0 * M * N * K, INT8_TC_OPS)
+        entry = {"M_K_N": [M, K, N], "ms": ms, "bound_ms": bnd[0], "bound_by": bnd[1],
+                 "tops": 2.0 * M * N * K / ms / 1e9}
+        if name == "ffn1_768x3072":
+            got = qmatmul(a, b, za, zb).cpu()
+            want, plain = host_ms(lambda: qmatmul_plain(a.cpu(), b.cpu(), za.cpu(), zb.cpu()))
+            entry["max_abs_err"] = float((got.double() - want.double()).abs().max())
+            entry["plain_ms"], entry["plain_device"] = plain, "cpu"
+            # int8 x int8 without zero points: the one form torch._int_mm computes
+            a8 = s8(M, K)
+            k_ms = time_ms(lambda: qmatmul(a8, b), 20)
+            lib_ms = time_ms(lambda: torch._int_mm(a8, b), 20)
+            if not torch.equal(qmatmul(a8, b), torch._int_mm(a8, b)):
+                fail("kernel Q (int8 x int8) differs from torch._int_mm")
+            entry["int8_int8_no_zero_points"] = {"ms": k_ms, "torch_int_mm_ms": lib_ms}
+            del a8
+        shapes[name] = entry
+        del a, b
+    main = shapes["ffn1_768x3072"]
+    if main["max_abs_err"] != 0:
+        fail(f"kernel Q (matmul) differs from its plain version by {main['max_abs_err']}")
+    rows["onnx_qmatmul"] = dict(
+        err=main["max_abs_err"], ms=main["ms"], plain_ms=main["plain_ms"],
+        bound=(main["bound_ms"], main["bound_by"]), library_ms=None,
+        extra={"shape": "BERT-base FFN-in: (64 x 128 tokens) x 768 uint8 with a zero point, "
+                        "768 x 3,072 int8, int32 out",
+               "plain_device": "cpu", "tops": main["tops"], "shapes": shapes})
+
+    # -- Q, conv entry
+    xz = torch.tensor(131, dtype=torch.uint8, device=dev)
+    wz = torch.tensor(0, dtype=torch.int8, device=dev)
+    conv_shapes, batch_ms = {}, 0.0
+    for name, c in RESNET50_CONVS.items():
+        n_img = ONNX_IMAGE_BATCH
+        x, w = u8(n_img, *c["x"][1:]), s8(*c["w"])
+        st = c["attrs"].get("strides", [1, 1])
+        p = c["attrs"].get("pads", [0, 0, 0, 0])
+        pads = ((p[0], p[2]), (p[1], p[3]))
+        run = lambda: qconv(x, w, xz, wz, st, pads, (1, 1), 1)
+        ms = time_ms(run, 10)
+        out = run()
+        M, N = n_img * out.shape[2] * out.shape[3], out.shape[1]
+        K = w.shape[1] * w.shape[2] * w.shape[3]
+        bnd = bound(x.numel() + w.numel() + 4 * out.numel(), 2.0 * M * N * K, INT8_TC_OPS)
+        entry = {"x": [n_img, *c["x"][1:]], "w": list(c["w"]), "strides": st, "ms": ms,
+                 "bound_ms": bnd[0], "bound_by": bnd[1], "tops": 2.0 * M * N * K / ms / 1e9,
+                 "convs_a_batch": _resnet50_conv_count(name)}
+        batch_ms += ms * entry["convs_a_batch"]
+        if name == "s0_later_3x3":
+            want, plain = host_ms(lambda: qconv_plain(x.cpu(), w.cpu(), xz.cpu(), wz.cpu(), st,
+                                                              pads))
+            entry["max_abs_err"] = float((out.cpu().double() - want.double()).abs().max())
+            entry["plain_ms"] = plain
+        conv_shapes[name] = entry
+        del x, w, out
+    if sum(e["convs_a_batch"] for e in conv_shapes.values()) != 53:
+        fail("phase 4: the ResNet-50 conv shapes do not count 53 convs a batch")
+    main = conv_shapes["s0_later_3x3"]
+    if main["max_abs_err"] != 0:
+        fail(f"kernel Q (conv) differs from its plain version by {main['max_abs_err']}")
+    rows["onnx_qconv"] = dict(
+        err=main["max_abs_err"], ms=main["ms"], plain_ms=main["plain_ms"],
+        bound=(main["bound_ms"], main["bound_by"]), library_ms=None,
+        extra={"shape": "ResNet-50 stage-0 3x3 at batch 128: x (128, 64, 56, 56) uint8 with a "
+                        "zero point, w (64, 64, 3, 3) int8, pad 1",
+               "plain_device": "cpu", "tops": main["tops"],
+               "ms_a_resnet50_batch_of_128": batch_ms, "shapes": conv_shapes})
+
+    # -- R
+    S, B, H = RNN_GNMT
+    rshapes = {}
+    for name, kind, lbr, dtype, peep in (
+            ("lstm_cudnn_config_f32", "LSTM", 0, torch.float32, False),
+            ("lstm_peepholes_f32", "LSTM", 0, torch.float32, True),
+            ("lstm_peepholes_bf16", "LSTM", 0, torch.bfloat16, True),
+            ("gru_lbr0_f32", "GRU", 0, torch.float32, True),
+            ("gru_lbr0_bf16", "GRU", 0, torch.bfloat16, True),
+            ("gru_lbr1_f32", "GRU", 1, torch.float32, True)):
+        c = rnn_step_case(kind, S, B, H, dtype, dev, seed=seed, peepholes=peep)
+        if kind == "LSTM":
+            run = lambda: lstm_steps(c["gx"], c["r"], c["h0"], c["c0"], c["p"])
+            plain = lambda: lstm_steps_plain(c["gx"], c["r"], c["h0"], c["c0"], c["p"])
+        else:
+            run = lambda: gru_steps(c["gx"], c["r"], c["h0"], c["rb"], lbr)
+            plain = lambda: gru_steps_plain(c["gx"], c["r"], c["h0"], c["rb"], lbr)
+        got, want = run(), plain()
+        if dtype == torch.float32:
+            err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+            tol = 1e-5
+        else:
+            err = max(_onnx_err(g.float(), w.float(), True) for g, w in zip(got, want))
+            tol = ONNX_ROW_TOL
+        if not err <= tol:
+            fail(f"kernel R {name}: {err} > {tol} from its plain version")
+        g_ = 4 if kind == "LSTM" else 3
+        esz = 4 if dtype == torch.float32 else 2
+        n_bytes = esz * (S * B * g_ * H + g_ * H * H + 2 * B * H + S * B * H + B * H)
+        bnd = bound(n_bytes, 2.0 * S * B * g_ * H * H,
+                    F32_FLOPS if dtype == torch.float32 else BF16_TC_FLOPS)
+        entry = {"kind": kind, "linear_before_reset": lbr, "dtype": str(dtype),
+                 "peepholes": peep if kind == "LSTM" else None, "max_err": err,
+                 "ms": time_ms(run, 5), "plain_ms": time_ms(plain, 2),
+                 "bound_ms": bnd[0], "bound_by": bnd[1], "launches_a_call": 1,
+                 "device_launches_a_call": S * (2 if kind == "GRU" and not lbr else 1)}
+        if name in ("lstm_cudnn_config_f32", "gru_lbr1_f32"):
+            # cuDNN's layer (torch.nn.LSTM / GRU: PyTorch's GRU is ONNX's
+            # linear_before_reset=1) computes the input projection too:
+            # time R with the projection beside it
+            layer = (torch.nn.LSTM if kind == "LSTM" else torch.nn.GRU)(H, H).to(dev)
+            xin = torch.randn(S, B, H, generator=gen, device=dev)
+            w_ih, b_ih = layer.weight_ih_l0.detach(), layer.bias_ih_l0.detach()
+            with torch.no_grad():
+                entry["library_ms"] = time_ms(lambda: layer(xin), 5)
+
+                def with_projection():
+                    gx = torch.matmul(xin, w_ih.T) + b_ih
+                    return (lstm_steps(gx, c["r"], c["h0"], c["c0"]) if kind == "LSTM"
+                            else gru_steps(gx, c["r"], c["h0"], c["rb"], lbr))
+
+                entry["ms_with_input_projection"] = time_ms(with_projection, 5)
+            del layer, xin
+        rshapes[name] = entry
+        del c, got, want
+    main = rshapes["lstm_cudnn_config_f32"]
+    rows["onnx_rnn_steps"] = dict(
+        err=main["max_err"], ms=main["ms"], plain_ms=main["plain_ms"],
+        bound=(main["bound_ms"], main["bound_by"]), library_ms=main["library_ms"],
+        extra={"shape": f"LSTM S={S} B={B} I=H={H} f32, no peepholes (a configuration cuDNN "
+                        f"computes), all S steps in one call",
+               "library": "torch.nn.LSTM on cuDNN, input projection included",
+               "ms_with_input_projection": main["ms_with_input_projection"],
+               "shapes": rshapes})
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2550,6 +2969,12 @@ def main() -> int:
     vw_two = vw_two_ranks_phase(vw_rows)
     del vw_rows
     log(f"phase 2j in {time.perf_counter() - t0:.1f} s")
+
+    # -- phase 2k: the ONNX executor: ResNet-50, BERT-base, quantized, LSTM / GRU ---------
+    t0 = time.perf_counter()
+    onnx = onnx_phase(kernels, args.seed)
+    torch.cuda.empty_cache()
+    log(f"phase 2k in {time.perf_counter() - t0:.1f} s")
 
     # -- phase 3: flash attention's entry point -----------------------------------------
     gen = torch.Generator(device=dev).manual_seed(args.seed)
@@ -3288,6 +3713,13 @@ def main() -> int:
            batches_a_pass=vw["batches_a_pass"], steps=vw_steps["steps"],
            launches_nccl_one_rank=vw_nccl["launches"],
            launches_two_rank_fits={k: f["launches"] for k, f in vw_two["fits"].items()})
+
+    # kernels Q and R (phase 2k's ONNX executor): their launches in phase 2k
+    t0 = time.perf_counter()
+    for name, r in onnx_kernel_rows(args.seed, dev).items():
+        record(name, onnx["launches"][name], r["err"], r["ms"], r["plain_ms"], r["bound"],
+               r["library_ms"], **r["extra"])
+    log(f"phase 4 kernels Q and R in {time.perf_counter() - t0:.1f} s")
 
     missing = set(kernels) - {r["name"] for r in rows}
     if missing:

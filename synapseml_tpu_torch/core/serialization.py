@@ -4,7 +4,7 @@ The port's counterpart of the JAX package's ``core/serialization.py``, with
 the same on-disk layout: a stage saves to a directory holding
 ``metadata.json`` (class name, module, uid, simple params) plus one entry per
 set complex param — nested stages recurse, arrays and tensors become ``.npy``
-(tensors are stored as numpy, whatever device they were on), and objects
+(tensors are stored as numpy, whatever device they were on), bytes ``.bin``, and objects
 exposing ``state_dict()`` / ``from_state_dict()`` get a typed JSON + npz pair.
 Classes resolve through the port's OWN registries, never the reference's.
 """
@@ -58,6 +58,10 @@ def _save_value(value, path: str) -> Dict[str, Any]:
     if isinstance(value, PipelineStage):
         save_stage(value, path + ".stage")
         return {"kind": "stage"}
+    if isinstance(value, (bytes, bytearray)):
+        with open(path + ".bin", "wb") as f:
+            f.write(bytes(value))
+        return {"kind": "bytes"}
     if _arrayish(value):
         value = _as_numpy(value)
         np.save(path + ".npy", value, allow_pickle=value.dtype == object)
@@ -96,6 +100,9 @@ def _load_value(desc: Dict[str, Any], path: str):
     kind = desc["kind"]
     if kind == "stage":
         return load_stage(path + ".stage")
+    if kind == "bytes":
+        with open(path + ".bin", "rb") as f:
+            return f.read()
     if kind == "ndarray":
         return np.load(path + ".npy", allow_pickle=desc.get("pickled", False))
     if kind == "stages":

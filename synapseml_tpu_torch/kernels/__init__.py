@@ -6,6 +6,7 @@ from .build import CudaKernel, build  # noqa: F401
 def all_kernels():
     """The port's hand kernels, by name (importing their modules binds them)."""
     from ..gbdt import device_predict, histogram, lambdarank, partition, sparse, split_search
+    from ..onnx import qgemm, rnn
     from ..parallel import flash
     from ..vw import learner
 
@@ -19,4 +20,5 @@ def all_kernels():
                                 sparse.SPARSE_HIST_MESH_KERNEL,
                                 lambdarank.LAMBDARANK_KERNEL,
                                 flash.FLASH_KERNEL, flash.FLASH_F32_KERNEL,
-                                learner.VW_KERNEL)}
+                                learner.VW_KERNEL, qgemm.QMATMUL_KERNEL, qgemm.QCONV_KERNEL,
+                                rnn.RNN_KERNEL)}

@@ -1,12 +1,13 @@
 """Edge-case inputs for kernels D (device binning), E (split search), F
 (the LambdaRank gradient), G (the sparse histogram), P (the row
-partition) and V (the VW learner's step), and the full-pass growths that
-the dense and the sparse growth are held to.
+partition), V (the VW learner's step), Q (the ONNX integer GEMM / conv) and
+R (the ONNX LSTM / GRU steps), and the full-pass growths that the dense and
+the sparse growth are held to.
 
 Shared by ``tests/test_torch_kernels.py`` (on the card),
 ``tests/test_torch_categorical.py``, ``tests/test_torch_split_step.py`` and
-``tests/test_torch_ranker.py``, ``tests/test_torch_sparse.py`` (the plain
-versions on the CPU) and
+``tests/test_torch_ranker.py``, ``tests/test_torch_sparse.py``,
+``tests/test_torch_onnx_quant.py`` (the plain versions on the CPU) and
 ``chip_smoke.py`` (phase 4), so they check the same cases. Everything is
 made from a seed with numpy.
 """
@@ -37,7 +38,9 @@ __all__ = ["bin_edge_case", "bin_ragged_case", "split_cases", "step_cases",
            "partition_case", "rows_histogrammed", "grow_full_pass", "full_pass",
            "SPARSE_HIST_CASES", "sparse_hist_case", "sparse_case_inputs",
            "VW_STEP_CASES", "VW_ODD_BATCHES", "VW_REGIMES", "vw_step_case", "vw_case_batch",
-           "pairs_column", "vw_state_differs"]
+           "pairs_column", "vw_state_differs", "Q_KINDS", "Q_SIGN_PAIRS", "Q_ZP_FORMS",
+           "Q_CONV_CASES", "RESNET50_CONVS", "BERT_BASE_PROJECTIONS", "q_operand",
+           "q_zero_point", "q_seed", "rnn_step_case"]
 
 # the most bins kernel A takes: one feature's (B, 3) f32 histogram plus a
 # word within 227 KB of shared memory (histogram.py)
@@ -858,3 +861,95 @@ def vw_step_case(name: str, num_bits: int, seed: int = 0):
     y_reg = (score + rng.normal(0.0, 0.3, n)).astype(np.float32)
     y_pm1 = np.where(score > np.median(score), 1.0, -1.0).astype(np.float32)
     return idx, val, y_reg, y_pm1
+
+
+# -- kernel Q (the quantized ONNX ops' integer GEMM / conv) ------------------------------
+
+Q_KINDS = {"u8": np.uint8, "s8": np.int8}
+Q_SIGN_PAIRS = (("u8", "u8"), ("u8", "s8"), ("s8", "u8"), ("s8", "s8"))
+# zero-point forms of (A, B): absent, scalar, per row of A, per column of B
+Q_ZP_FORMS = (("none", "none"), ("scalar", "scalar"), ("row", "scalar"), ("scalar", "col"),
+              ("row", "col"))
+# NCHW x OIHW convolutions with the ONNX attributes that reach kernel Q
+Q_CONV_CASES = {
+    "plain": dict(x=(2, 3, 9, 9), w=(4, 3, 3, 3), attrs={}),
+    "pads": dict(x=(1, 4, 7, 8), w=(6, 4, 3, 3), attrs={"pads": [1, 2, 0, 1]}),
+    "stride2": dict(x=(2, 3, 11, 11), w=(5, 3, 7, 7), attrs={"strides": [2, 2],
+                                                              "pads": [3, 3, 3, 3]}),
+    "dilation2": dict(x=(1, 4, 12, 12), w=(4, 4, 3, 3), attrs={"dilations": [2, 2],
+                                                                "pads": [2, 2, 2, 2]}),
+    "groups": dict(x=(2, 64, 6, 6), w=(64, 2, 3, 3), attrs={"group": 32, "pads": [1, 1, 1, 1],
+                                                            "strides": [2, 2],
+                                                            "dilations": [2, 2]}),
+    "same_upper": dict(x=(1, 2, 6, 5), w=(3, 2, 2, 3), attrs={"auto_pad": "SAME_UPPER"}),
+    "1d": dict(x=(2, 3, 10), w=(4, 3, 3), attrs={"pads": [1, 1]}),
+}
+
+
+def _resnet50_convs(n: int = 2) -> Dict[str, dict]:
+    """ResNet-50's convolutions at 224 x 224 (the zoo's v1.5 graph), one of
+    each shape: the stem, and per stage the first block's 1x1 / 3x3 (stride 2
+    from stage 1) / expanding 1x1 / shortcut, and the later blocks' 1x1 and
+    3x3."""
+    out = {"stem_7x7_s2": dict(x=(n, 3, 224, 224), w=(64, 3, 7, 7),
+                               attrs={"strides": [2, 2], "pads": [3, 3, 3, 3]})}
+    c, hw = 64, 56
+    for stage, width in enumerate((64, 128, 256, 512)):
+        s = 1 if stage == 0 else 2
+        cout = 4 * width
+        o = hw // s
+        out[f"s{stage}_first_1x1"] = dict(x=(n, c, hw, hw), w=(width, c, 1, 1), attrs={})
+        out[f"s{stage}_first_3x3_s{s}"] = dict(x=(n, width, hw, hw), w=(width, width, 3, 3),
+                                               attrs={"strides": [s, s], "pads": [1, 1, 1, 1]})
+        out[f"s{stage}_expand_1x1"] = dict(x=(n, width, o, o), w=(cout, width, 1, 1), attrs={})
+        out[f"s{stage}_shortcut_s{s}"] = dict(x=(n, c, hw, hw), w=(cout, c, 1, 1),
+                                              attrs={"strides": [s, s]})
+        out[f"s{stage}_later_1x1"] = dict(x=(n, cout, o, o), w=(width, cout, 1, 1), attrs={})
+        out[f"s{stage}_later_3x3"] = dict(x=(n, width, o, o), w=(width, width, 3, 3),
+                                          attrs={"pads": [1, 1, 1, 1]})
+        c, hw = cout, o
+    return out
+
+
+RESNET50_CONVS = _resnet50_convs()
+# (M, K, N) of BERT-base's projections at batch 64 x 128 tokens
+BERT_BASE_PROJECTIONS = {"qkvo_768x768": (8192, 768, 768), "ffn1_768x3072": (8192, 768, 3072),
+                         "ffn2_3072x768": (8192, 3072, 768)}
+
+
+def q_seed(*parts) -> int:
+    """A stable seed from a case's name parts (Python's str hash is salted)."""
+    import zlib
+
+    return zlib.crc32("-".join(str(p) for p in parts).encode())
+
+
+def q_operand(rng: np.random.Generator, shape, kind: str) -> np.ndarray:
+    lo, hi = (0, 256) if kind == "u8" else (-128, 128)
+    return rng.integers(lo, hi, size=shape).astype(Q_KINDS[kind])
+
+
+def q_zero_point(rng: np.random.Generator, kind: str, form: str, n: int):
+    """None, a scalar, or n values (per row / column / channel)."""
+    if form == "none":
+        return None
+    return q_operand(rng, () if form == "scalar" else (n,), kind)
+
+
+# -- kernel R (the ONNX LSTM / GRU steps) ---------------------------------------------------
+
+def rnn_step_case(kind: str, S: int, B: int, H: int, dtype, device="cpu", seed: int = 0,
+                  peepholes: bool = True, rb: bool = True):
+    """Operands of the LSTM (kind 'LSTM': gx (S, B, 4H), r (4H, H), h0, c0,
+    p (3H)) or GRU ('GRU': gx (S, B, 3H), r (3H, H), h0, rb (3H)) steps, from
+    a seed, in ``dtype`` on ``device``: gx ~ N(0, 1), R ~ N(0, 1/H)."""
+    g = 4 if kind == "LSTM" else 3
+    gen = torch.Generator().manual_seed(seed)
+    mk = lambda *shape, s=1.0: (torch.randn(*shape, generator=gen) * s).to(dtype).to(device)
+    out = {"gx": mk(S, B, g * H), "r": mk(g * H, H, s=H ** -0.5), "h0": mk(B, H, s=0.5)}
+    if kind == "LSTM":
+        out["c0"] = mk(B, H, s=0.5)
+        out["p"] = mk(3 * H, s=0.1) if peepholes else None
+    else:
+        out["rb"] = mk(3 * H, s=0.1) if rb else None
+    return out

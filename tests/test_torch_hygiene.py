@@ -30,7 +30,8 @@ def test_port_modules_import_no_jax_and_no_reference():
     for sub in ("gbdt.dataset", "stages.basic", "featurize.stages", "train.stages",
                 "exploratory.balance", "cyber.scalers", "native.murmur", "runtime.layout",
                 "runtime.collectives", "vw.learner", "vw.estimators", "vw.featurizer",
-                "vw.convert"):
+                "vw.convert", "onnx.wire", "onnx.builder", "onnx.ops", "onnx.qgemm", "onnx.rnn",
+                "onnx.importer", "onnx.model", "models.zoo", "tools.onnx_graphs"):
         assert f"synapseml_tpu_torch.{sub}" in mods, sub
     code = "\n".join(
         ["import sys", f"sys.path.insert(0, {_ROOT!r})"]
@@ -143,3 +144,70 @@ def test_vw_step_binding_matches_its_source():
             fields += [(n.strip().lstrip("*"), kind) for n in names.split(",")]
     ctype = {ctypes.c_void_p: "ptr", ctypes.c_float: "float", ctypes.c_int: "int"}
     assert fields == [(name, ctype[t]) for name, t in learner._VArgs._fields_]
+
+
+def test_onnx_modules_import_no_ml_dtypes_and_name_neither_package():
+    """The ONNX executor, the zoo and the graph tools load no ``ml_dtypes``
+    (numpy's bfloat16; the card's machine has none), and name neither JAX nor
+    the JAX package in an import; ``chip_smoke.py`` imports no ``ml_dtypes``."""
+    pkg = os.path.join(_ROOT, "synapseml_tpu_torch")
+    files = [os.path.join(pkg, "onnx", f) for f in sorted(os.listdir(os.path.join(pkg, "onnx")))
+             if f.endswith(".py")]
+    files += [os.path.join(pkg, "models", "zoo.py"), os.path.join(pkg, "tools", "onnx_graphs.py"),
+              os.path.join(_ROOT, "chip_smoke.py")]
+    for path in files:
+        with open(path) as f:
+            src = f.read()
+        assert not re.search(r"^\s*(import|from)\s+(jax|ml_dtypes)\b", src, re.M), path
+        assert not re.search(r"^\s*(import|from)\s+synapseml_tpu\b(?!_torch)", src, re.M), path
+    code = "\n".join(
+        ["import sys", f"sys.path.insert(0, {_ROOT!r})",
+         "import synapseml_tpu_torch.onnx.importer, synapseml_tpu_torch.onnx.model",
+         "import synapseml_tpu_torch.models.zoo, synapseml_tpu_torch.tools.onnx_graphs",
+         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+         "('jax', 'ml_dtypes', 'synapseml_tpu'))",
+         "assert not bad, f'imported: {bad[:5]}'"])
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          timeout=120, cwd=_ROOT)
+    assert proc.returncode == 0, proc.stderr
+
+
+def _struct_fields(src: str, name: str):
+    """(field, kind) of ``struct <name>`` in a CUDA source: kind "ptr",
+    "long long", "float" or "int"."""
+    body = re.search(r"struct %s \{(.*?)\};" % name, src, re.S).group(1)
+    fields = []
+    for decl in re.sub(r"//[^\n]*", "", body).split(";"):
+        decl = " ".join(decl.split())
+        if not decl:
+            continue
+        if "*" in decl:
+            kind, names = "ptr", decl.split("*", 1)[1]
+            names = names.replace("*", "")
+        else:
+            parts = decl.split()
+            n_kind = 2 if parts[:2] == ["long", "long"] else 1
+            kind, names = " ".join(parts[:n_kind]), " ".join(parts[n_kind:])
+        fields += [(n.strip(), kind) for n in names.split(",")]
+    return fields
+
+
+def test_qgemm_and_rnn_bindings_match_their_sources():
+    """Kernels Q (two entries) and R are registered, bound to
+    ``csrc/qgemm.cu`` / ``csrc/rnn_step.cu``, and ``_QArgs`` / ``_RArgs``
+    mirror the sources' ``QArgs`` / ``RArgs`` field for field, type for type."""
+    from synapseml_tpu_torch.kernels import all_kernels
+    from synapseml_tpu_torch.kernels.build import CSRC_DIR
+    from synapseml_tpu_torch.onnx import qgemm, rnn
+
+    ks = all_kernels()
+    ctype = {ctypes.c_void_p: "ptr", ctypes.c_longlong: "long long", ctypes.c_float: "float",
+             ctypes.c_int: "int"}
+    for kernels, mod, struct, args in (
+            ((qgemm.QMATMUL_KERNEL, qgemm.QCONV_KERNEL), qgemm, "QArgs", qgemm._QArgs),
+            ((rnn.RNN_KERNEL,), rnn, "RArgs", rnn._RArgs)):
+        src = (CSRC_DIR / f"{kernels[0].source}.cu").read_text()
+        for k in kernels:
+            assert ks[k.name] is k
+            assert f'extern "C" int {k.symbol}(' in src
+        assert _struct_fields(src, struct) == [(n, ctype[t]) for n, t in args._fields_]

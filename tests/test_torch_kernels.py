@@ -49,6 +49,13 @@ from synapseml_tpu_torch.tools.kernel_cases import SPARSE_HIST_CASES, sparse_his
 from synapseml_tpu_torch.tools.kernel_cases import (VW_ODD_BATCHES, VW_REGIMES, VW_STEP_CASES,
                                                     vw_case_batch, vw_state_differs,
                                                     vw_step_case)
+from synapseml_tpu_torch.onnx import qgemm as onnx_qgemm
+from synapseml_tpu_torch.onnx import rnn as onnx_rnn
+from synapseml_tpu_torch.onnx.ops import OPS as ONNX_OPS
+from synapseml_tpu_torch.tools.kernel_cases import (BERT_BASE_PROJECTIONS, Q_CONV_CASES,
+                                                    Q_SIGN_PAIRS, Q_ZP_FORMS, RESNET50_CONVS,
+                                                    q_operand, q_seed, q_zero_point,
+                                                    rnn_step_case)
 from synapseml_tpu_torch.vw import learner
 from synapseml_tpu_torch.vw.learner import LOSSES as VW_LOSSES
 from synapseml_tpu_torch.vw.learner import (VW_KERNEL, StepHyper, StepPlan, StepState,
@@ -1185,3 +1192,239 @@ def test_vw_step_kernel_launch_that_cannot_fit_raises(cuda, what, monkeypatch):
         step_batches(st, bi, bv, by, bw, hp, StepPlan(bi, bv, dim))
     torch.cuda.synchronize()
     assert VW_KERNEL.launches == before and torch.equal(st.buf, buf)
+
+
+# -- kernel Q: the ONNX integer GEMM / conv --------------------------------------------------
+
+class _Live:
+    """A computed ONNX op input (a tensor on the device the op runs on)."""
+
+    def __init__(self, a):
+        self.a = np.asarray(a)
+
+
+def _onnx_op(op_type, inputs, attrs, device):
+    ins = [torch.from_numpy(np.array(v.a)).to(device) if isinstance(v, _Live) else v
+           for v in inputs]
+    out = ONNX_OPS[op_type](ins, dict(attrs), {"op_type": op_type, "opset": 17})
+    torch.cuda.synchronize()
+    return tuple(o.cpu() for o in out) if isinstance(out, tuple) else out.cpu()
+
+
+def _q_card_equals_plain(op_type, inputs, attrs=None):
+    """The op on the card (kernel Q, one launch) bit-equal to the op on the
+    CPU (Q's plain version)."""
+    kernel = onnx_qgemm.QCONV_KERNEL if "Conv" in op_type else onnx_qgemm.QMATMUL_KERNEL
+    before = kernel.launches
+    got = _onnx_op(op_type, inputs, attrs or {}, "cuda")
+    assert kernel.launches == before + 1
+    want = _onnx_op(op_type, inputs, attrs or {}, "cpu")
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.equal(got, want), f"{op_type}: {(got != want).sum().item()} values differ"
+
+
+@pytest.mark.parametrize("ka,kb", Q_SIGN_PAIRS)
+@pytest.mark.parametrize("za_form,zb_form", Q_ZP_FORMS)
+def test_qgemm_matmul_kernel_bit_equal_to_plain(cuda, ka, kb, za_form, zb_form):
+    rng = np.random.default_rng(q_seed(ka, kb, za_form, zb_form, "card"))
+    for M, K, N in ((7, 37, 5), (130, 200, 129), (257, 768, 65), (1, 1, 1)):
+        a, b = q_operand(rng, (M, K), ka), q_operand(rng, (K, N), kb)
+        _q_card_equals_plain("MatMulInteger", [_Live(a), _Live(b),
+                                               q_zero_point(rng, ka, za_form, M),
+                                               q_zero_point(rng, kb, zb_form, N)])
+
+
+def test_qgemm_matmul_kernel_batches_broadcasts_and_wraps(cuda):
+    rng = np.random.default_rng(1)
+    a, b = q_operand(rng, (2, 3, 6, 48), "u8"), q_operand(rng, (48, 4), "s8")
+    _q_card_equals_plain("MatMulInteger", [_Live(a), b, np.uint8(9), np.int8(-3)])
+    b3 = q_operand(rng, (3, 48, 4), "s8")
+    _q_card_equals_plain("MatMulInteger", [_Live(a), _Live(b3), np.uint8(9),
+                                           q_operand(rng, (4,), "s8")])
+    _q_card_equals_plain("MatMulInteger", [_Live(a[0, 0]), _Live(b3), q_operand(rng, (6,), "u8")])
+    _q_card_equals_plain("MatMulInteger", [_Live(a[0, 0, 0]), _Live(b)])   # 1-D A
+    # 255 x 127 over 70,000 products passes 2^31: the sum wraps modulo 2^32
+    K = 70_000
+    _q_card_equals_plain("MatMulInteger", [_Live(np.full((2, K), 255, np.uint8)),
+                                           _Live(np.full((K, 3), 127, np.int8))])
+
+
+@pytest.mark.parametrize("ka,kb", Q_SIGN_PAIRS)
+@pytest.mark.parametrize("ky", ["u8", "s8"])
+def test_qgemm_qlinear_matmul_epilogue_bit_equal(cuda, ka, kb, ky):
+    rng = np.random.default_rng(q_seed(ka, kb, ky, "qlm-card"))
+    M, K, N = 300, 160, 70
+    a, b = q_operand(rng, (M, K), ka), q_operand(rng, (K, N), kb)
+    for per_axis in (False, True):
+        _q_card_equals_plain("QLinearMatMul", [
+            _Live(a), rng.uniform(0.01, 0.05, size=M if per_axis else ()).astype(np.float32),
+            q_operand(rng, (M,) if per_axis else (), ka), _Live(b),
+            rng.uniform(0.01, 0.05, size=N if per_axis else ()).astype(np.float32),
+            q_operand(rng, (N,) if per_axis else (), kb),
+            rng.uniform(0.5, 2.0, size=M if per_axis else ()).astype(np.float32),
+            q_operand(rng, (M,) if per_axis else (), ky)])
+
+
+@pytest.mark.parametrize("case", sorted(Q_CONV_CASES))
+@pytest.mark.parametrize("kx,kw", Q_SIGN_PAIRS)
+def test_qgemm_conv_kernel_bit_equal_to_plain(cuda, case, kx, kw):
+    c = Q_CONV_CASES[case]
+    rng = np.random.default_rng(q_seed(case, kx, kw, "card"))
+    x, w = q_operand(rng, c["x"], kx), q_operand(rng, c["w"], kw)
+    for w_zp in (q_operand(rng, (), kw), q_operand(rng, (c["w"][0],), kw)):
+        _q_card_equals_plain("ConvInteger", [_Live(x), _Live(w), q_operand(rng, (), kx), w_zp],
+                             c["attrs"])
+    _q_card_equals_plain("ConvInteger", [_Live(x), _Live(w)], c["attrs"])
+    # the zero point computed on the card (DynamicQuantizeLinear's), read there
+    _q_card_equals_plain("ConvInteger", [_Live(x), _Live(w), _Live(q_operand(rng, (), kx))],
+                         c["attrs"])
+
+
+@pytest.mark.parametrize("kx,kw", Q_SIGN_PAIRS)
+@pytest.mark.parametrize("ky", ["u8", "s8"])
+def test_qgemm_qlinear_conv_epilogue_bit_equal(cuda, kx, kw, ky):
+    c = Q_CONV_CASES["groups"]
+    rng = np.random.default_rng(q_seed(kx, kw, ky, "qlc-card"))
+    x, w = q_operand(rng, c["x"], kx), q_operand(rng, c["w"], kw)
+    co = c["w"][0]
+    ins = [_Live(x), np.float32(0.021), q_operand(rng, (), kx), _Live(w),
+           rng.uniform(0.001, 0.02, size=co).astype(np.float32), q_operand(rng, (co,), kw),
+           np.float32(0.37), q_operand(rng, (), ky),
+           rng.integers(-5000, 5000, size=co).astype(np.int32)]
+    _q_card_equals_plain("QLinearConv", ins, c["attrs"])
+    _q_card_equals_plain("QLinearConv", ins[:8], c["attrs"])
+
+
+@pytest.mark.parametrize("name", sorted(RESNET50_CONVS))
+def test_qgemm_resnet50_conv_shapes_bit_equal(cuda, name):
+    """Every ResNet-50 convolution shape at 224 x 224 (batch 2), in the
+    types quantize_dynamic gives (uint8 activations, int8 weights), a
+    scalar and a per-channel weight zero point."""
+    c = RESNET50_CONVS[name]
+    rng = np.random.default_rng(q_seed(name))
+    x, w = q_operand(rng, c["x"], "u8"), q_operand(rng, c["w"], "s8")
+    for w_zp in (np.int8(0), q_operand(rng, (c["w"][0],), "s8")):
+        _q_card_equals_plain("ConvInteger", [_Live(x), _Live(w), np.uint8(131), w_zp],
+                             c["attrs"])
+
+
+@pytest.mark.parametrize("name", sorted(BERT_BASE_PROJECTIONS))
+def test_qgemm_bert_base_projection_shapes_bit_equal(cuda, name):
+    M, K, N = BERT_BASE_PROJECTIONS[name]
+    rng = np.random.default_rng(q_seed(name))
+    a = q_operand(rng, (64, M // 64, K), "u8")   # (batch, tokens, hidden), as the graph has it
+    b = q_operand(rng, (K, N), "s8")
+    _q_card_equals_plain("MatMulInteger", [_Live(a), b, _Live(np.uint8(117)), np.int8(0)])
+
+
+# -- kernel R: the ONNX LSTM / GRU steps -----------------------------------------------------
+
+def _rnn_err(got, want, dtype):
+    got, want = got.float(), want.float()
+    if dtype == torch.float32:
+        return float((got - want).abs().max())
+    g, w = got.reshape(-1, got.shape[-1]), want.reshape(-1, want.shape[-1])
+    return float(((g - w).norm(dim=1) / w.norm(dim=1).clamp_min(1e-30)).max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("kind,lbr", [("LSTM", 0), ("GRU", 0), ("GRU", 1)])
+def test_rnn_kernel_matches_plain_at_gnmt_width(cuda, kind, lbr, dtype):
+    """S=128, B=64, I=H=1024 (GNMT's layer width): within 1e-5 (f32, max
+    abs) / 2e-2 (bf16, a row's norm) of the plain version on the card; one
+    launch of the wrapper for all S steps."""
+    c = rnn_step_case(kind, 128, 64, 1024, dtype, "cuda", seed=3)
+    before = onnx_rnn.RNN_KERNEL.launches
+    if kind == "LSTM":
+        got = onnx_rnn.lstm_steps(c["gx"], c["r"], c["h0"], c["c0"], c["p"], 3.0)
+        want = onnx_rnn.lstm_steps_plain(c["gx"], c["r"], c["h0"], c["c0"], c["p"], 3.0)
+    else:
+        got = onnx_rnn.gru_steps(c["gx"], c["r"], c["h0"], c["rb"], lbr, None)
+        want = onnx_rnn.gru_steps_plain(c["gx"], c["r"], c["h0"], c["rb"], lbr, None)
+    torch.cuda.synchronize()
+    assert onnx_rnn.RNN_KERNEL.launches == before + 1
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        assert _rnn_err(g, w, dtype) <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("acts", [("Sigmoid", "Tanh", "Tanh"), ("Relu", "Sigmoid", "Relu"),
+                                  ("Tanh", "Relu", "Sigmoid")])
+def test_rnn_kernel_ragged_shapes_and_activations(cuda, dtype, acts):
+    """Batch and hidden sizes off the kernel's tiles, every activation, a
+    clip, no peepholes / no recurrent bias, and a zero-length sequence."""
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    for S, B, H in ((5, 37, 33), (1, 1, 17), (0, 3, 8)):
+        c = rnn_step_case("LSTM", S, B, H, dtype, "cuda", seed=S, peepholes=S != 1)
+        got = onnx_rnn.lstm_steps(c["gx"], c["r"], c["h0"], c["c0"], c["p"], 1.25, acts)
+        want = onnx_rnn.lstm_steps_plain(c["gx"], c["r"], c["h0"], c["c0"], c["p"], 1.25, acts)
+        for g, w in zip(got, want):
+            assert g.shape == w.shape and (g.numel() == 0 or _rnn_err(g, w, dtype) <= tol)
+        for lbr in (0, 1):
+            c = rnn_step_case("GRU", S, B, H, dtype, "cuda", seed=S, rb=S != 1)
+            got = onnx_rnn.gru_steps(c["gx"], c["r"], c["h0"], c["rb"], lbr, 1.25, acts[:2])
+            want = onnx_rnn.gru_steps_plain(c["gx"], c["r"], c["h0"], c["rb"], lbr, 1.25,
+                                            acts[:2])
+            for g, w in zip(got, want):
+                assert g.shape == w.shape and (g.numel() == 0 or _rnn_err(g, w, dtype) <= tol)
+
+
+# -- the ONNX executor on the card -------------------------------------------------------------
+
+def test_onnx_resnet50_on_card_matches_cpu(cuda):
+    """The zoo's ResNet-50 at 224 x 224 (batch 2) on the card against the
+    port's CPU run: f32 within 1e-4 of each output's max-abs (TF32 off under
+    the f32 policy), bf16 within 2e-2 of each row's norm; no Q or R launch."""
+    from synapseml_tpu_torch.models import build_model_bytes
+    from synapseml_tpu_torch.onnx import OnnxFunction
+
+    mb = build_model_bytes("ResNet50")
+    x = np.random.default_rng(0).normal(size=(2, 3, 224, 224)).astype(np.float32)
+    launches = (onnx_qgemm.QCONV_KERNEL.launches, onnx_qgemm.QMATMUL_KERNEL.launches,
+                onnx_rnn.RNN_KERNEL.launches)
+    for policy, tol in (("float32", 1e-4), ("bfloat16", 2e-2)):
+        card = OnnxFunction(mb, dtype_policy=policy)({"data": x})
+        cpu = OnnxFunction(mb, dtype_policy=policy, device="cpu")({"data": x})
+        for k in ("logits", "features"):
+            g, w = card[k].cpu().double(), cpu[k].double()
+            assert card[k].device.type == "cuda" and card[k].dtype == torch.float32
+            if policy == "float32":
+                assert float((g - w).abs().max()) <= tol * float(w.abs().max())
+            else:
+                assert float(((g - w).norm(dim=1) / w.norm(dim=1)).max()) <= tol
+    assert launches == (onnx_qgemm.QCONV_KERNEL.launches, onnx_qgemm.QMATMUL_KERNEL.launches,
+                        onnx_rnn.RNN_KERNEL.launches)
+
+
+def test_onnx_quantized_graphs_launch_q_and_recurrent_launch_r(cuda):
+    """quantize_dynamic_graph of ResNet-18 launches kernel Q's conv entry once
+    for each of its 20 convolutions, of BERTTiny its matmul entry once for
+    each of its 14 weighted MatMuls; an LSTM graph launches R once; each
+    holds the port's CPU run."""
+    from synapseml_tpu_torch.models.zoo import bert_encoder, resnet
+    from synapseml_tpu_torch.onnx import OnnxFunction
+    from synapseml_tpu_torch.onnx.wire import serialize_model
+    from synapseml_tpu_torch.tools.onnx_graphs import quantize_dynamic_graph, recurrent_graph
+
+    cases = [(quantize_dynamic_graph(resnet(18, num_classes=10)), onnx_qgemm.QCONV_KERNEL, 20,
+              {"data": np.random.default_rng(1).normal(size=(2, 3, 64, 64)).astype(np.float32)}),
+             (quantize_dynamic_graph(bert_encoder(layers=2, hidden=128, heads=2, vocab=1000)),
+              onnx_qgemm.QMATMUL_KERNEL, 14,
+              {"input_ids": np.random.default_rng(2).integers(0, 1000, (2, 16))}),
+             (recurrent_graph("LSTM", 12, 4, 16, 32, peepholes=True, clip=2.0),
+              onnx_rnn.RNN_KERNEL, 1,
+              {"x": np.random.default_rng(3).normal(size=(12, 4, 16)).astype(np.float32)})]
+    for model, kernel, n, feeds in cases:
+        mb = serialize_model(model)
+        fn = OnnxFunction(mb)
+        before = kernel.launches
+        card = fn(feeds)
+        torch.cuda.synchronize()
+        assert kernel.launches == before + n
+        cpu = OnnxFunction(mb, device="cpu")(feeds)
+        for k, w in cpu.items():
+            g = card[k].cpu().double().reshape(-1, w.shape[-1])
+            w = w.double().reshape(-1, w.shape[-1])
+            assert float(((g - w).norm(dim=1) / w.norm(dim=1).clamp_min(1e-30)).max()) <= 2e-2
