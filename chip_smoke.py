@@ -161,10 +161,13 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    over 512 sequences of 128 tokens at batch 64; (c) ``quantize_dynamic_graph``
    of BERT-base over the same sequences (Q's matmul entry once for each of
    the 74 rewritten MatMuls a batch) and of ResNet-50 over 256 images (Q's
-   conv entry 53 times a batch); (d) LSTM (peepholes) and GRU
-   (linear_before_reset=0) graphs and the configurations cuDNN computes
-   (LSTM without peepholes, GRU with linear_before_reset=1) at GNMT's width
-   (S=128, B=64, I=H=1,024) in f32 and bf16, kernel R once a call; each
+   conv entry and its channels-last copy 53 times a batch), each with a
+   trace of one batch that names Q's wgmma kernels; (d) LSTM (peepholes)
+   and GRU (linear_before_reset=0) graphs and the configurations cuDNN
+   computes (LSTM without peepholes, GRU with linear_before_reset=1) at
+   GNMT's width (S=128, B=64, I=H=1,024) in f32 and bf16, kernel R's
+   persistent entry once a call, and an LSTM at RNN_STEPWISE (H=2,048) on
+   its one-launch-a-step entry; each
    with its wall seconds and rows a second, and its first rows held to the
    port's CPU run (f32 within 1e-4 of each output's max-abs; bf16 and the
    quantized graphs within 2e-2 of each row's norm; a quantized graph's
@@ -232,10 +235,12 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    kernel Q bit-equal to its plain version (int32 on the host's CPU) at
    BERT-base's FFN-in projection and ResNet-50's stage-0 3x3 at batch 128,
    each timed with every other projection and ResNet-50 conv shape, with
-   torch._int_mm on int8 x int8 beside the matmul entry; kernel R within
-   1e-5 (f32) / 2e-2 (bf16, row norms) of its plain version on the card at
-   GNMT's width, cuDNN's LSTM / GRU layer beside the configurations it
-   computes; then each kernel, its
+   torch._int_mm on int8 x int8 beside the matmul entry, and its
+   channels-last copy bit-equal to its plain version; kernel R within 1e-5
+   (f32) / 2e-2 (bf16, row norms) of its plain version on the card at
+   GNMT's width (persistent entry) and at RNN_STEPWISE (the other entry),
+   cuDNN's LSTM / GRU layer beside the configurations it computes; then
+   each kernel, its
    plain version and the one PyTorch call that computes the same function
    (where there is one) timed with CUDA events; every flash shape's line
    also gives its ex2 floor, the least time of one SFU exponential per
@@ -367,6 +372,14 @@ N_ONNX_SEQS, ONNX_SEQ_BATCH, ONNX_SEQ_LEN, ONNX_CPU_SEQS = 512, 64, 128, 4
 N_QUANT_IMAGES, QUANT_CPU_IMAGES, QUANT_CPU_SEQS = 256, 4, 2
 BERT_VOCAB = 30522
 RNN_GNMT = (128, 64, 1024)    # S, B, I = H
+# a width whose R the persistent entry cannot hold (J = 16 units a block, 64
+# rows of R: more than a product's 32), so kernel R's one-launch-a-step
+# entry serves it; a short sequence keeps its CPU check brief
+RNN_STEPWISE = (8, 64, 2048)  # S, B, I = H
+# the first design of kernels Q and R in phase 2k (PERF.md: NVIDIA H100
+# 80GB HBM3, 700.00 W), printed beside this run's as a record
+FIRST_DESIGN_QUANT_ROWS_PER_S = {"bert_base": 830, "resnet50": 1052}
+FIRST_DESIGN_RNN_GRAPH_MS = {"lstm": [17.6, 24.3], "gru": [15.0, 29.7]}
 ONNX_F32_TOL, ONNX_ROW_TOL, ONNX_QUANT_TOL = 1e-4, 2e-2, 5e-2
 INT8_TC_OPS = 1979e12         # H100 SXM dense int8 tensor-core rate
 # kernel P's pick reads ok, the counts, the leaf, the child's seg and side,
@@ -2116,9 +2129,13 @@ def vw_step_checks(col, labels, dev) -> dict:
                 # passes: the trace pauses on the host first and holds
                 # VW_TRACED_PASSES passes, and a batch's device time is the
                 # mean over the launches it holds
-                traced_ms, events = kernel_times(
-                    lambda: [time.sleep(0.05)] + [fn(timed) for _ in range(VW_TRACED_PASSES)],
-                    V_KERNEL_NAMES)[V_KERNEL_NAMES[0]]
+                for attempt in range(3):   # a trace that holds none of V's launches is retaken
+                    traced_ms, events = kernel_times(
+                        lambda: [time.sleep(0.05)] + [fn(timed) for _ in range(VW_TRACED_PASSES)],
+                        V_KERNEL_NAMES)[V_KERNEL_NAMES[0]]
+                    if events:
+                        break
+                    log(f"profiler: trace {attempt + 1} of 3 held no launch of vw_pass_kernel")
                 per_launch = nb if how == "whole" else 1
                 most = VW_TRACED_PASSES * nb // per_launch
                 if not 0 < events <= most:
@@ -2315,7 +2332,8 @@ def vw_two_ranks_phase(rows) -> dict:
 
 # -- phase 2k: the ONNX executor -----------------------------------------------------------
 
-ONNX_KERNELS = ("onnx_qmatmul", "onnx_qconv", "onnx_rnn_steps")
+ONNX_KERNELS = ("onnx_qmatmul", "onnx_qconv", "onnx_qconv_channels_last", "onnx_rnn_steps",
+                "onnx_rnn_stepwise")
 
 
 def _onnx_err(card: torch.Tensor, cpu: torch.Tensor, rows: bool) -> float:
@@ -2387,15 +2405,28 @@ def onnx_stage_run(kernels, name, model_bytes, feed, data, fetch, batch, policy,
            "tolerance": {"kind": "row norm" if rows else "max-abs", "value": tol},
            "shapes": {k: list(np.asarray(out[k]).shape) for k in fetch}}
     if quantized:
+        # kernel Q's device kernels in a trace of one batch: the wgmma / TMA
+        # design (qgemm_kernel<..>), by name, with their launches and ms
+        x_b = torch.from_numpy(np.asarray(data[:batch])).to(stage.fn.device)
+        evts = _device_events(lambda: stage.fn({feed: x_b}))
+        from synapseml_tpu_torch.tools.profile_fit import _device_us
+
+        q_evts = {e.key: {"launches": e.count, "device_ms": _device_us(e) / 1e3}
+                  for e in evts if "qgemm_kernel" in e.key}
+        if not q_evts:
+            fail(f"phase 2k {name}: no qgemm_kernel in the trace of a batch")
+        rec["traced_q_kernels"] = q_evts
         ref = OnnxFunction(float_bytes, device="cpu")({feed: data[:cpu_rows]})
         rec["quantized_vs_float_on_cpu"] = {k: _onnx_err(cpu[k], ref[k], True) for k in fetch}
     log(json.dumps(rec))
     return rec
 
 
-def onnx_rnn_run(kernels, name, model_bytes, x, policy) -> dict:
+def onnx_rnn_run(kernels, name, model_bytes, x, policy, entry="onnx_rnn_steps") -> dict:
     """An LSTM / GRU graph through ``OnnxFunction`` on the card (kernel R, one
-    launch a call), timed after a first call, against the port's CPU run."""
+    launch a call of ``entry``: the persistent one, or the one-launch-a-step
+    one at a width whose R it cannot hold), timed after a first call,
+    against the port's CPU run."""
     from synapseml_tpu_torch.onnx import OnnxFunction
 
     fn = OnnxFunction(model_bytes, dtype_policy=policy)
@@ -2406,8 +2437,8 @@ def onnx_rnn_run(kernels, name, model_bytes, x, policy) -> dict:
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches = _onnx_launches(kernels)
-    if launches != {"onnx_qmatmul": 0, "onnx_qconv": 0, "onnx_rnn_steps": 1}:
-        fail(f"phase 2k {name} ({policy}): launches {launches}, want kernel R once")
+    if launches != {**{k: 0 for k in ONNX_KERNELS}, entry: 1}:
+        fail(f"phase 2k {name} ({policy}): launches {launches}, want {entry} once")
     cpu = OnnxFunction(model_bytes, dtype_policy=policy, device="cpu")({"x": x})
     rows = policy == "bfloat16"
     errs = {k: _onnx_err(card[k], cpu[k], rows) for k in cpu}
@@ -2415,7 +2446,7 @@ def onnx_rnn_run(kernels, name, model_bytes, x, policy) -> dict:
     if not all(e <= tol for e in errs.values()):
         fail(f"phase 2k {name} ({policy}): outputs differ from the CPU run: {errs} > {tol}")
     rec = {"phase": "onnx_rnn", "graph": name, "dtype_policy": policy,
-           "S_B_I_H": list(x.shape) + [RNN_GNMT[2]], "wall_s": wall_s,
+           "S_B_I_H": list(x.shape) + [x.shape[-1]], "wall_s": wall_s,
            "launches": launches, "err_vs_cpu": errs}
     log(json.dumps(rec))
     return rec
@@ -2464,7 +2495,9 @@ def onnx_phase(kernels, seed: int) -> dict:
     runs["resnet50_quantized"] = onnx_stage_run(
         kernels, "ResNet-50 quantize_dynamic", serialize_model(qr50), "data",
         images[:N_QUANT_IMAGES], ("logits", "features"), ONNX_IMAGE_BATCH, "float32",
-        QUANT_CPU_IMAGES, {**none, "onnx_qconv": n_conv * (N_QUANT_IMAGES // ONNX_IMAGE_BATCH)},
+        QUANT_CPU_IMAGES, {**none, "onnx_qconv": n_conv * (N_QUANT_IMAGES // ONNX_IMAGE_BATCH),
+                           "onnx_qconv_channels_last":
+                               n_conv * (N_QUANT_IMAGES // ONNX_IMAGE_BATCH)},
         float_bytes=r50_bytes)
     del qr50, images
     # LSTM (peepholes) and GRU (linear_before_reset=0), and the configurations
@@ -2479,19 +2512,33 @@ def onnx_phase(kernels, seed: int) -> dict:
         mb = serialize_model(g)
         for policy in ("float32", "bfloat16"):
             runs[f"{gname}_{policy}"] = onnx_rnn_run(kernels, gname, mb, x, policy)
-    rnn_launches = sum(r["launches"]["onnx_rnn_steps"] for k, r in runs.items()
-                       if k.startswith(("lstm", "gru")))
+    # a width past the persistent entry's reach: the one-launch-a-step entry
+    Sw, Bw, Hw = RNN_STEPWISE
+    xw = rng.standard_normal((Sw, Bw, Hw), dtype=np.float32)
+    runs["lstm_wide_stepwise_float32"] = onnx_rnn_run(
+        kernels, "lstm_wide_stepwise", serialize_model(recurrent_graph("LSTM", Sw, Bw, Hw, Hw,
+                                                                       seed=seed)),
+        xw, "float32", entry="onnx_rnn_stepwise")
+    rnn_launches = {k: sum(r["launches"][k] for n, r in runs.items()
+                           if n.startswith(("lstm", "gru")))
+                    for k in ("onnx_rnn_steps", "onnx_rnn_stepwise")}
     rec = {"phase": "onnx_summary", "phase_s": time.perf_counter() - t_phase,
            "images_per_s": {p: runs[f"resnet50_{p}"]["rows_per_s"]
                             for p in ("float32", "bfloat16")},
            "bert_base_bf16_sequences_per_s": runs["bert_base_bfloat16"]["rows_per_s"],
            "quantized_rows_per_s": {"bert_base": runs["bert_base_quantized"]["rows_per_s"],
-                                    "resnet50": runs["resnet50_quantized"]["rows_per_s"]}}
+                                    "resnet50": runs["resnet50_quantized"]["rows_per_s"]},
+           "first_design_quantized_rows_per_s": FIRST_DESIGN_QUANT_ROWS_PER_S,
+           "rnn_graph_ms": {n: r["wall_s"] * 1e3 for n, r in runs.items()
+                            if n.startswith(("lstm", "gru"))},
+           "first_design_rnn_graph_ms_range": FIRST_DESIGN_RNN_GRAPH_MS}
     log(json.dumps(rec))
     return {"runs": runs, "launches": {
         "onnx_qmatmul": runs["bert_base_quantized"]["launches"]["onnx_qmatmul"],
         "onnx_qconv": runs["resnet50_quantized"]["launches"]["onnx_qconv"],
-        "onnx_rnn_steps": rnn_launches}, "summary": rec}
+        "onnx_qconv_channels_last":
+            runs["resnet50_quantized"]["launches"]["onnx_qconv_channels_last"],
+        **rnn_launches}, "summary": rec}
 
 
 # ResNet-50's convolutions a batch (the zoo's graph): the stem, per stage
@@ -2514,20 +2561,32 @@ def onnx_kernel_rows(seed: int, dev) -> dict:
     one torch call computes the same function, that call's time.
 
     - Q's matmul entry at BERT-base's FFN-in projection (8,192 x 768 x
-      3,072; uint8 activations with a zero point, int8 weights), and the
-      other two projections; the plain version (int32 matmul) runs on the
-      host's CPU (CUDA has no int32 matmul), timed by the host's clock; the
-      library time is torch._int_mm's on int8 x int8 without zero points
-      (the only form it takes), beside the kernel's own time there;
+      3,072; uint8 activations with a zero point, int8 weights packed once,
+      as the executor packs a weight), and the other two projections; also
+      with the weight packed a call (a B computed in the graph: one more
+      pass over B, counted in that bound); the plain version (int32 matmul)
+      runs on the host's CPU (CUDA has no int32 matmul), timed by the
+      host's clock; the library time is torch._int_mm's on int8 x int8
+      without zero points (the only form it takes), beside the kernel's own
+      time there;
     - Q's conv entry at ResNet-50's 3x3 of stage 0 at batch 128, and every
       ResNet-50 conv shape at batch 128 (the sum over a batch's 53 convs);
-      plain on the host's CPU; no torch call convolves integers on CUDA;
+      the kernel's time includes the wrapper's channels-last copy of x,
+      whose bytes are counted apart (``bytes_moved``); plain on the host's
+      CPU; no torch call convolves integers on CUDA;
     - R at GNMT's width, the configuration cuDNN computes (an LSTM without
       peepholes, f32): the plain version (the step in torch ops) on the
       card, and cuDNN's LSTM layer (torch.nn.LSTM, input projection
       included) as the library time, beside R with the projection; the
-      peephole LSTM, both GRU modes and bf16 as further shapes."""
-    from synapseml_tpu_torch.onnx.qgemm import qconv, qconv_plain, qmatmul, qmatmul_plain
+      peephole LSTM, both GRU modes (GRU with linear_before_reset=1 beside
+      torch.nn.GRU) and bf16 as further shapes, each on the persistent
+      entry (one launch a call);
+    - R's one-launch-a-step entry at RNN_STEPWISE (an LSTM whose R the
+      persistent entry cannot hold), beside torch.nn.LSTM at that width."""
+    from synapseml_tpu_torch.onnx import rnn as onnx_rnn
+    from synapseml_tpu_torch.onnx.qgemm import (channels_last, channels_last_plain,
+                                                pack_conv_w, pack_matmul_b, qconv, qconv_plain,
+                                                qmatmul, qmatmul_plain)
     from synapseml_tpu_torch.onnx.rnn import (gru_steps, gru_steps_plain, lstm_steps,
                                               lstm_steps_plain)
     from synapseml_tpu_torch.tools.kernel_cases import (BERT_BASE_PROJECTIONS, RESNET50_CONVS,
@@ -2547,29 +2606,34 @@ def onnx_kernel_rows(seed: int, dev) -> dict:
 
     # -- Q, matmul entry
     za = torch.tensor(117, dtype=torch.uint8, device=dev)
-    zb = torch.tensor(0, dtype=torch.int8, device=dev)
     shapes = {}
     for name, (M, K, N) in BERT_BASE_PROJECTIONS.items():
         a, b = u8(64, M // 64, K), s8(K, N)
-        ms = time_ms(lambda: qmatmul(a, b, za, zb), 20)
+        packed = pack_matmul_b(b)
+        ms = time_ms(lambda: qmatmul(a, b, za, packed=packed), 20)
         bnd = bound(M * K + K * N + 4 * M * N, 2.0 * M * N * K, INT8_TC_OPS)
         entry = {"M_K_N": [M, K, N], "ms": ms, "bound_ms": bnd[0], "bound_by": bnd[1],
-                 "tops": 2.0 * M * N * K / ms / 1e9}
+                 "tops": 2.0 * M * N * K / ms / 1e9,
+                 "ms_b_packed_a_call": time_ms(lambda: qmatmul(a, b, za), 20),
+                 "bound_b_packed_a_call_ms": bound(M * K + 3 * K * N + 4 * M * N,
+                                                   2.0 * M * N * K, INT8_TC_OPS)[0]}
         if name == "ffn1_768x3072":
-            got = qmatmul(a, b, za, zb).cpu()
-            want, plain = host_ms(lambda: qmatmul_plain(a.cpu(), b.cpu(), za.cpu(), zb.cpu()))
+            got = qmatmul(a, b, za, packed=packed).cpu()
+            want, plain = host_ms(lambda: qmatmul_plain(a.cpu(), b.cpu(), za.cpu()))
             entry["max_abs_err"] = float((got.double() - want.double()).abs().max())
             entry["plain_ms"], entry["plain_device"] = plain, "cpu"
             # int8 x int8 without zero points: the one form torch._int_mm computes
             a8 = s8(M, K)
-            k_ms = time_ms(lambda: qmatmul(a8, b), 20)
+            k_ms = time_ms(lambda: qmatmul(a8, b, packed=packed), 20)
             lib_ms = time_ms(lambda: torch._int_mm(a8, b), 20)
-            if not torch.equal(qmatmul(a8, b), torch._int_mm(a8, b)):
+            if not torch.equal(qmatmul(a8, b, packed=packed), torch._int_mm(a8, b)):
                 fail("kernel Q (int8 x int8) differs from torch._int_mm")
-            entry["int8_int8_no_zero_points"] = {"ms": k_ms, "torch_int_mm_ms": lib_ms}
+            entry["int8_int8_no_zero_points"] = {
+                "ms": k_ms, "ms_b_packed_a_call": time_ms(lambda: qmatmul(a8, b), 20),
+                "torch_int_mm_ms": lib_ms}
             del a8
         shapes[name] = entry
-        del a, b
+        del a, b, packed
     main = shapes["ffn1_768x3072"]
     if main["max_abs_err"] != 0:
         fail(f"kernel Q (matmul) differs from its plain version by {main['max_abs_err']}")
@@ -2577,12 +2641,11 @@ def onnx_kernel_rows(seed: int, dev) -> dict:
         err=main["max_abs_err"], ms=main["ms"], plain_ms=main["plain_ms"],
         bound=(main["bound_ms"], main["bound_by"]), library_ms=None,
         extra={"shape": "BERT-base FFN-in: (64 x 128 tokens) x 768 uint8 with a zero point, "
-                        "768 x 3,072 int8, int32 out",
+                        "768 x 3,072 int8 packed once, int32 out",
                "plain_device": "cpu", "tops": main["tops"], "shapes": shapes})
 
     # -- Q, conv entry
     xz = torch.tensor(131, dtype=torch.uint8, device=dev)
-    wz = torch.tensor(0, dtype=torch.int8, device=dev)
     conv_shapes, batch_ms = {}, 0.0
     for name, c in RESNET50_CONVS.items():
         n_img = ONNX_IMAGE_BATCH
@@ -2590,23 +2653,27 @@ def onnx_kernel_rows(seed: int, dev) -> dict:
         st = c["attrs"].get("strides", [1, 1])
         p = c["attrs"].get("pads", [0, 0, 0, 0])
         pads = ((p[0], p[2]), (p[1], p[3]))
-        run = lambda: qconv(x, w, xz, wz, st, pads, (1, 1), 1)
+        packed = pack_conv_w(w)
+        run = lambda: qconv(x, w, xz, None, st, pads, (1, 1), 1, packed=packed)
         ms = time_ms(run, 10)
         out = run()
         M, N = n_img * out.shape[2] * out.shape[3], out.shape[1]
         K = w.shape[1] * w.shape[2] * w.shape[3]
         bnd = bound(x.numel() + w.numel() + 4 * out.numel(), 2.0 * M * N * K, INT8_TC_OPS)
+        x_cl = n_img * packed.cin_p * x.shape[2] * x.shape[3]
         entry = {"x": [n_img, *c["x"][1:]], "w": list(c["w"]), "strides": st, "ms": ms,
                  "bound_ms": bnd[0], "bound_by": bnd[1], "tops": 2.0 * M * N * K / ms / 1e9,
-                 "convs_a_batch": _resnet50_conv_count(name)}
+                 "convs_a_batch": _resnet50_conv_count(name),
+                 "channels_last_ms": time_ms(lambda: channels_last(x, 1, packed.cin_p, xz), 10),
+                 "bytes_moved": x.numel() + w.numel() + 4 * out.numel() + x.numel() + x_cl + x_cl}
         batch_ms += ms * entry["convs_a_batch"]
         if name == "s0_later_3x3":
-            want, plain = host_ms(lambda: qconv_plain(x.cpu(), w.cpu(), xz.cpu(), wz.cpu(), st,
-                                                              pads))
+            want, plain = host_ms(lambda: qconv_plain(x.cpu(), w.cpu(), xz.cpu(), None, st,
+                                                      pads))
             entry["max_abs_err"] = float((out.cpu().double() - want.double()).abs().max())
             entry["plain_ms"] = plain
         conv_shapes[name] = entry
-        del x, w, out
+        del x, w, out, packed
     if sum(e["convs_a_batch"] for e in conv_shapes.values()) != 53:
         fail("phase 4: the ResNet-50 conv shapes do not count 53 convs a batch")
     main = conv_shapes["s0_later_3x3"]
@@ -2616,20 +2683,30 @@ def onnx_kernel_rows(seed: int, dev) -> dict:
         err=main["max_abs_err"], ms=main["ms"], plain_ms=main["plain_ms"],
         bound=(main["bound_ms"], main["bound_by"]), library_ms=None,
         extra={"shape": "ResNet-50 stage-0 3x3 at batch 128: x (128, 64, 56, 56) uint8 with a "
-                        "zero point, w (64, 64, 3, 3) int8, pad 1",
+                        "zero point, w (64, 64, 3, 3) int8 packed once, pad 1",
                "plain_device": "cpu", "tops": main["tops"],
+               "bytes_moved": main["bytes_moved"], "channels_last_ms": main["channels_last_ms"],
                "ms_a_resnet50_batch_of_128": batch_ms, "shapes": conv_shapes})
 
+    # -- Q, the conv entry's channels-last copy, at stage 0's widest input
+    # (the later blocks' 1x1 reads 256 channels of 56 x 56)
+    x = u8(ONNX_IMAGE_BATCH, 256, 56, 56)
+    got, want = channels_last(x, 1, 256, xz), channels_last_plain(x, 1, 256, xz)
+    if not torch.equal(got, want):
+        fail("kernel Q's channels-last entry differs from its plain version")
+    lib = lambda: x.contiguous(memory_format=torch.channels_last)
+    if not torch.equal(lib().permute(0, 2, 3, 1).reshape(got.shape), got):
+        fail("channels-last: the library call's layout differs from the entry's")
+    rows["onnx_qconv_channels_last"] = dict(
+        err=0.0, ms=time_ms(lambda: channels_last(x, 1, 256, xz), 10),
+        plain_ms=time_ms(lambda: channels_last_plain(x, 1, 256, xz), 10),
+        bound=bound(2 * x.numel(), 0, INT8_TC_OPS), library_ms=time_ms(lib, 10),
+        extra={"shape": "x (128, 256, 56, 56) uint8 into (128, 1, 56, 56, 256)",
+               "library": "x.contiguous(memory_format=torch.channels_last)"})
+    del x, got, want
+
     # -- R
-    S, B, H = RNN_GNMT
-    rshapes = {}
-    for name, kind, lbr, dtype, peep in (
-            ("lstm_cudnn_config_f32", "LSTM", 0, torch.float32, False),
-            ("lstm_peepholes_f32", "LSTM", 0, torch.float32, True),
-            ("lstm_peepholes_bf16", "LSTM", 0, torch.bfloat16, True),
-            ("gru_lbr0_f32", "GRU", 0, torch.float32, True),
-            ("gru_lbr0_bf16", "GRU", 0, torch.bfloat16, True),
-            ("gru_lbr1_f32", "GRU", 1, torch.float32, True)):
+    def r_case(name, kind, lbr, dtype, peep, S, B, H, want_entry):
         c = rnn_step_case(kind, S, B, H, dtype, dev, seed=seed, peepholes=peep)
         if kind == "LSTM":
             run = lambda: lstm_steps(c["gx"], c["r"], c["h0"], c["c0"], c["p"])
@@ -2637,7 +2714,13 @@ def onnx_kernel_rows(seed: int, dev) -> dict:
         else:
             run = lambda: gru_steps(c["gx"], c["r"], c["h0"], c["rb"], lbr)
             plain = lambda: gru_steps_plain(c["gx"], c["r"], c["h0"], c["rb"], lbr)
-        got, want = run(), plain()
+        before = {k.name: k.launches for k in (onnx_rnn.RNN_KERNEL, onnx_rnn.RNN_STEP_KERNEL)}
+        got = run()
+        torch.cuda.synchronize()
+        served = [n for n, v in before.items() if all_launches()[n] > v]
+        if served != [want_entry]:
+            fail(f"kernel R {name}: served by {served}, want {want_entry}")
+        want = plain()
         if dtype == torch.float32:
             err = max(float((g - w).abs().max()) for g, w in zip(got, want))
             tol = 1e-5
@@ -2652,11 +2735,13 @@ def onnx_kernel_rows(seed: int, dev) -> dict:
         bnd = bound(n_bytes, 2.0 * S * B * g_ * H * H,
                     F32_FLOPS if dtype == torch.float32 else BF16_TC_FLOPS)
         entry = {"kind": kind, "linear_before_reset": lbr, "dtype": str(dtype),
-                 "peepholes": peep if kind == "LSTM" else None, "max_err": err,
+                 "S_B_H": [S, B, H], "peepholes": peep if kind == "LSTM" else None,
+                 "max_err": err, "entry": want_entry,
                  "ms": time_ms(run, 5), "plain_ms": time_ms(plain, 2),
                  "bound_ms": bnd[0], "bound_by": bnd[1], "launches_a_call": 1,
-                 "device_launches_a_call": S * (2 if kind == "GRU" and not lbr else 1)}
-        if name in ("lstm_cudnn_config_f32", "gru_lbr1_f32"):
+                 "device_launches_a_call": 1 if want_entry == "onnx_rnn_steps" else
+                 S * (2 if kind == "GRU" and not lbr else 1)}
+        if kind == "LSTM" and not peep or kind == "GRU" and lbr:
             # cuDNN's layer (torch.nn.LSTM / GRU: PyTorch's GRU is ONNX's
             # linear_before_reset=1) computes the input projection too:
             # time R with the projection beside it
@@ -2673,17 +2758,44 @@ def onnx_kernel_rows(seed: int, dev) -> dict:
 
                 entry["ms_with_input_projection"] = time_ms(with_projection, 5)
             del layer, xin
-        rshapes[name] = entry
         del c, got, want
+        return entry
+
+    kernel_objs = {k.name: k for k in (onnx_rnn.RNN_KERNEL, onnx_rnn.RNN_STEP_KERNEL)}
+    all_launches = lambda: {n: k.launches for n, k in kernel_objs.items()}
+    S, B, H = RNN_GNMT
+    rshapes = {name: r_case(name, kind, lbr, dtype, peep, S, B, H, "onnx_rnn_steps")
+               for name, kind, lbr, dtype, peep in (
+                   ("lstm_cudnn_config_f32", "LSTM", 0, torch.float32, False),
+                   ("lstm_peepholes_f32", "LSTM", 0, torch.float32, True),
+                   ("lstm_peepholes_bf16", "LSTM", 0, torch.bfloat16, True),
+                   ("gru_lbr0_f32", "GRU", 0, torch.float32, True),
+                   ("gru_lbr0_bf16", "GRU", 0, torch.bfloat16, True),
+                   ("gru_lbr1_f32", "GRU", 1, torch.float32, True))}
     main = rshapes["lstm_cudnn_config_f32"]
+    gru = rshapes["gru_lbr1_f32"]
     rows["onnx_rnn_steps"] = dict(
-        err=main["max_err"], ms=main["ms"], plain_ms=main["plain_ms"],
+        err=max(r["max_err"] for r in rshapes.values() if "float32" in r["dtype"]),
+        ms=main["ms"], plain_ms=main["plain_ms"],
         bound=(main["bound_ms"], main["bound_by"]), library_ms=main["library_ms"],
         extra={"shape": f"LSTM S={S} B={B} I=H={H} f32, no peepholes (a configuration cuDNN "
-                        f"computes), all S steps in one call",
+                        f"computes), all S steps in one persistent launch",
                "library": "torch.nn.LSTM on cuDNN, input projection included",
                "ms_with_input_projection": main["ms_with_input_projection"],
+               "gru_lbr1": {"ms_with_input_projection": gru["ms_with_input_projection"],
+                            "torch_nn_gru_ms": gru["library_ms"]},
                "shapes": rshapes})
+    Sw, Bw, Hw = RNN_STEPWISE
+    wide = r_case("lstm_wide_stepwise_f32", "LSTM", 0, torch.float32, False, Sw, Bw, Hw,
+                  "onnx_rnn_stepwise")
+    rows["onnx_rnn_stepwise"] = dict(
+        err=wide["max_err"], ms=wide["ms"], plain_ms=wide["plain_ms"],
+        bound=(wide["bound_ms"], wide["bound_by"]), library_ms=wide["library_ms"],
+        extra={"shape": f"LSTM S={Sw} B={Bw} I=H={Hw} f32, no peepholes: R past the "
+                        f"persistent entry's reach, one launch a step",
+               "library": "torch.nn.LSTM on cuDNN, input projection included",
+               "ms_with_input_projection": wide["ms_with_input_projection"],
+               "device_launches_a_call": wide["device_launches_a_call"]})
     return rows
 
 

@@ -21,4 +21,5 @@ def all_kernels():
                                 lambdarank.LAMBDARANK_KERNEL,
                                 flash.FLASH_KERNEL, flash.FLASH_F32_KERNEL,
                                 learner.VW_KERNEL, qgemm.QMATMUL_KERNEL, qgemm.QCONV_KERNEL,
-                                rnn.RNN_KERNEL)}
+                                qgemm.QCL_KERNEL,
+                                rnn.RNN_KERNEL, rnn.RNN_STEP_KERNEL)}

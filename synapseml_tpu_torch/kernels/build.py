@@ -22,7 +22,8 @@ import tempfile
 from pathlib import Path
 from typing import Dict, Iterable, List, Optional, Sequence
 
-__all__ = ["CudaKernel", "build", "nvcc_path", "CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS"]
+__all__ = ["CudaKernel", "build", "library", "nvcc_path", "CSRC_DIR", "BUILD_DIR",
+           "NVCC_FLAGS"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG / "csrc"
@@ -91,6 +92,18 @@ def build(names: Optional[Iterable[str]] = None, log: Optional[List[str]] = None
     return out
 
 
+_LIBRARIES: Dict[str, ctypes.CDLL] = {}
+
+
+def library(source: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<source>.cu`` (built at first use), one
+    ``ctypes`` handle a source."""
+    lib = _LIBRARIES.get(source)
+    if lib is None:
+        lib = _LIBRARIES[source] = ctypes.CDLL(str(build([source])[source]))
+    return lib
+
+
 class CudaKernel:
     """One C entry point of one ``csrc`` library, with its launch count.
 
@@ -112,7 +125,7 @@ class CudaKernel:
         self._errstr = None
 
     def _load(self):
-        lib = ctypes.CDLL(str(build([self.source])[self.source]))
+        lib = library(self.source)
         fn = getattr(lib, self.symbol)
         fn.argtypes = self.argtypes
         fn.restype = ctypes.c_int

@@ -61,13 +61,16 @@ class ConstStore:
     Keyed by identity: an entry holds its value, so an id in the store always
     names the same object. The executor adds every initializer (uploaded at
     construction) and every folded value of a plan; ops reach the store
-    through :func:`_t` while the executor runs them."""
+    through :func:`_t` while the executor runs them. An entry also keeps the
+    forms a kernel wants its constant in (:meth:`packed`: kernel Q's packed
+    weights), made once a device; ``packs`` counts them."""
 
     def __init__(self):
         self._entries: Dict[int, list] = {}
+        self.packs = 0
 
     def add(self, value, device: Optional[torch.device] = None) -> None:
-        e = self._entries.setdefault(id(value), [value, {}])
+        e = self._entries.setdefault(id(value), [value, {}, {}])
         if device is not None and device.type != "cpu":
             self.tensor(value, device)
 
@@ -82,11 +85,21 @@ class ConstStore:
             t = e[1][device] = _host_tensor(value).to(device)
         return t
 
+    def packed(self, value, device: torch.device, kind: str, make):
+        """``make(tensor)`` of the constant ``value``'s copy on ``device``, made
+        the first time ``kind`` is asked for there and kept with the entry."""
+        e = self._entries[id(value)]
+        got = e[2].get((kind, device))
+        if got is None:
+            got = e[2][(kind, device)] = make(self.tensor(value, device))
+            self.packs += 1
+        return got
+
     def channels_last(self, device: torch.device) -> None:
         """Keep the 4-D floating constants' copies on ``device`` in torch's
         channels-last memory format (convolution weights, for the opt-in
         channels-last run)."""
-        for value, copies in self._entries.values():
+        for value, copies, _ in self._entries.values():
             t = copies.get(device)
             if t is not None and t.dim() == 4 and t.dtype.is_floating_point:
                 copies[device] = t.contiguous(memory_format=torch.channels_last)
@@ -1117,8 +1130,29 @@ def _matmul_integer(inputs, attrs, ctx):
     dev = _dev(*inputs)
     a, b = _t(inputs[0], dev), _t(inputs[1], dev)
     a_zp = _t(inputs[2] if len(inputs) > 2 else None, dev)
-    b_zp = _t(inputs[3] if len(inputs) > 3 else None, dev)
-    return qgemm.qmatmul(a, b, a_zp, b_zp)
+    b_zp = _t(_nonzero_zp(inputs[3] if len(inputs) > 3 else None), dev)
+    return qgemm.qmatmul(a, b, a_zp, b_zp, packed=_packed_b(inputs[1], b, dev, False))
+
+
+def _nonzero_zp(zp):
+    """A zero point, or None where it is a graph constant of zeros (the plan
+    then knows that B's zero point takes no row sums of A)."""
+    if isinstance(zp, (np.ndarray, np.generic)) and not np.any(zp):
+        return None
+    return zp
+
+
+def _packed_b(const, b: torch.Tensor, dev, conv: bool):
+    """Kernel Q's packed form of a constant B (a 2-D matmul B, or a conv
+    weight), made once a device and kept by the executor's store; None for
+    a B computed in the graph (packed a call by the wrapper)."""
+    store = _STORE.get()
+    if store is None or not is_const(const) or not store.owns(const) or \
+            (not conv and b.dim() != 2):
+        return None
+    if conv:
+        return store.packed(const, b.device, "qconv_w", qgemm.pack_conv_w)
+    return store.packed(const, b.device, "qmatmul_b", qgemm.pack_matmul_b)
 
 
 def _conv_geometry(attrs, x_shape, w_shape):
@@ -1138,8 +1172,9 @@ def _conv_integer(inputs, attrs, ctx):
     dev = _dev(*inputs)
     x, w = _t(inputs[0], dev), _t(inputs[1], dev)
     x_zp = _t(inputs[2] if len(inputs) > 2 else None, dev)
-    w_zp = _t(inputs[3] if len(inputs) > 3 else None, dev)
-    return qgemm.qconv(x, w, x_zp, w_zp, *_conv_geometry(attrs, x.shape, w.shape))
+    w_zp = _t(_nonzero_zp(inputs[3] if len(inputs) > 3 else None), dev)
+    return qgemm.qconv(x, w, x_zp, w_zp, *_conv_geometry(attrs, x.shape, w.shape),
+                       packed=_packed_b(inputs[1], w, dev, True))
 
 
 def _f32(v, dev) -> torch.Tensor:
@@ -1160,8 +1195,9 @@ def _qlinear_conv(inputs, attrs, ctx):
     xt, wt = _t(x, dev), _t(w, dev)
     scale = _f32(x_scale, dev) * _f32(w_scale, dev) / _f32(y_scale, dev)
     rq = qgemm.Requant(scale, _t(y_zp, dev), None if bias is None else _t(bias, dev))
-    return qgemm.qconv(xt, wt, _t(x_zp, dev), _t(w_zp, dev),
-                       *_conv_geometry(attrs, xt.shape, wt.shape), rq=rq)
+    return qgemm.qconv(xt, wt, _t(x_zp, dev), _t(_nonzero_zp(w_zp), dev),
+                       *_conv_geometry(attrs, xt.shape, wt.shape), rq=rq,
+                       packed=_packed_b(w, wt, dev, True))
 
 
 @op("QLinearMatMul")
@@ -1180,7 +1216,9 @@ def _qlinear_matmul(inputs, attrs, ctx):
     scale = _row(a_scale).to(torch.float32) * _f32(b_scale, dev) / \
         _row(y_scale).to(torch.float32)
     rq = qgemm.Requant(scale, _row(y_zp))
-    return qgemm.qmatmul(_t(a, dev), _t(b, dev), _t(a_zp, dev), _t(b_zp, dev), rq)
+    bt = _t(b, dev)
+    return qgemm.qmatmul(_t(a, dev), bt, _t(a_zp, dev), _t(_nonzero_zp(b_zp), dev), rq,
+                         packed=_packed_b(b, bt, dev, False))
 
 
 @op("Where")

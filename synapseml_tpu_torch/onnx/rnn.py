@@ -4,11 +4,17 @@
 / ``_gru``) project the whole sequence at once (``gx = x W^T + b``, a
 ``torch.matmul``, outside the recurrence as in the reference) and hand the
 time steps to :func:`lstm_steps` / :func:`gru_steps`: kernel R
-(``csrc/rnn_step.cu``, ``smt_rnn_steps``: one launch a step, all steps from
-one C call) on a CUDA tensor, the plain version (:func:`lstm_steps_plain` /
-:func:`gru_steps_plain`: the reference's step in torch ops, in a Python
-loop) on a CPU tensor. Both take every operand in one dtype, f32 or bf16,
-and round where the reference's ops round.
+(``csrc/rnn_step.cu``) on a CUDA tensor, the plain version
+(:func:`lstm_steps_plain` / :func:`gru_steps_plain`: the reference's step in
+torch ops, in a Python loop) on a CPU tensor. Both take every operand in one
+dtype, f32 or bf16, and round where the reference's ops round.
+
+Kernel R has two entries, picked by :func:`rnn_plan` from the shape before
+the launch: ``smt_rnn_persistent`` (:data:`RNN_KERNEL`), one cooperative
+launch for all S steps with each block's rows of R resident in shared
+memory and a grid barrier a step, wherever the plan places R; else
+``smt_rnn_steps`` (:data:`RNN_STEP_KERNEL`), one launch a step from one C
+call. Each counts its own launches (one a wrapper call).
 """
 
 from __future__ import annotations
@@ -18,19 +24,28 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
-from ..kernels.build import CudaKernel
+from ..kernels.build import CudaKernel, library
 
-__all__ = ["ACTIVATIONS", "RNN_KERNEL", "lstm_steps", "gru_steps", "lstm_steps_plain",
-           "gru_steps_plain"]
+__all__ = ["ACTIVATIONS", "RNN_KERNEL", "RNN_STEP_KERNEL", "rnn_plan", "lstm_steps",
+           "gru_steps", "lstm_steps_plain", "gru_steps_plain"]
 
 # the activations the reference takes (ops.py:_rnn_act), by kernel R's code
 ACTIVATIONS = {"Sigmoid": 0, "Tanh": 1, "Relu": 2}
 _TORCH_ACT = {0: torch.sigmoid, 1: torch.tanh, 2: torch.relu}
 
 RNN_KERNEL = CudaKernel(
-    name="onnx_rnn_steps", source="rnn_step", symbol="smt_rnn_steps",
+    name="onnx_rnn_steps", source="rnn_step", symbol="smt_rnn_persistent",
     argtypes=[ctypes.c_void_p, ctypes.c_void_p],
     replaces="synapseml_tpu/onnx/ops.py:1140 (LSTM lax.scan step :1131-1140; GRU :1156-1166)")
+# the one-launch-a-step entry, for shapes whose R the persistent entry cannot hold
+RNN_STEP_KERNEL = CudaKernel(
+    name="onnx_rnn_stepwise", source="rnn_step", symbol="smt_rnn_steps",
+    argtypes=[ctypes.c_void_p, ctypes.c_void_p],
+    replaces="synapseml_tpu/onnx/ops.py:1140 (LSTM lax.scan step :1131-1140; GRU :1156-1166)")
+
+# the persistent entry's constants (csrc/rnn_step.cu: kPB, kPRows, kPartLd,
+# kHBufs)
+P_BATCH_ROWS, P_ROWS, P_PART_LD, P_H_BUFS = 64, 32, 36, 3
 
 
 class _RArgs(ctypes.Structure):
@@ -39,7 +54,57 @@ class _RArgs(ctypes.Structure):
                [("clip", ctypes.c_float)] + \
                [(name, ctypes.c_int) for name in
                 ("has_clip", "S", "B", "H", "kind", "lbr", "bf16", "act_f", "act_g", "act_h",
-                 "device")]
+                 "device", "units")]
+
+
+def _p_bytes(kind: int, lbr: int, bf16: bool, B: int, H: int, J: int) -> int:
+    """The persistent entry's shared memory a block (csrc/rnn_step.cu's
+    p_layout): R's G J rows and a zero row, at a row stride 4 words past a
+    multiple of 32; the larger of the 8 warps' partial sums and three h tiles;
+    the per-unit state."""
+    kt, ldh, esz = (256, 264, 2) if bf16 else (64, 68, 4)
+    hp = -(-H // kt) * kt
+    ldr = hp + ((8 - hp) % 64 if bf16 else (4 - hp) % 32)
+    G = 4 if kind == 0 else 3
+    r_bytes = -(-(G * J + 1) * ldr * esz // 16) * 16
+    work = max(8 * P_BATCH_ROWS * P_PART_LD * 4, P_H_BUFS * P_BATCH_ROWS * ldh * esz)
+    return r_bytes + work + B * J * 4 * (2 if kind == 1 and not lbr else 1)
+
+
+def rnn_plan(kind: int, lbr: int, bf16: bool, B: int, H: int, sms: int,
+             smem: int) -> Optional[int]:
+    """Hidden units a block (J) of the persistent entry on a card of ``sms``
+    SMs and ``smem`` bytes of shared memory a block, or None where it cannot
+    run: H not a multiple of 8 (16-byte h rows), a block's rows of one
+    product past 32 (J = ceil(H / sms) units, all G gates; GRU with
+    linear_before_reset=0 multiplies z, r and h apart), or its shared memory
+    past ``smem``."""
+    if H % 8 or H < 1:
+        return None
+    J = -(-H // sms)
+    rows = (4 if kind == 0 else 3) * J if kind == 0 or lbr else 2 * J
+    if rows > P_ROWS or _p_bytes(kind, lbr, bf16, B, H, J) > smem:
+        return None
+    return J
+
+
+_LIMITS: dict = {}
+
+
+def _card_limits(dev: torch.device) -> Tuple[int, int]:
+    """(SMs, shared memory a block may opt in to) of ``dev``, asked once."""
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    got = _LIMITS.get(idx)
+    if got is None:
+        fn = library(RNN_KERNEL.source).smt_rnn_limits
+        fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        out = (ctypes.c_int * 2)()
+        err = fn(idx, out)
+        if err:
+            raise RuntimeError(f"smt_rnn_limits: CUDA error {err}")
+        got = _LIMITS[idx] = (int(out[0]), int(out[1]))
+    return got
 
 
 def _act_codes(acts: Sequence[str], n: int) -> Tuple[int, ...]:
@@ -128,12 +193,15 @@ def _launch(kind: int, gx, r, h0, c=None, p=None, rb=None, lbr=0, clip=None, act
         return t.data_ptr()
 
     y = torch.empty((S, B, H), dtype=dtype, device=dev)
+    if h0.data_ptr() % 16:   # the persistent entry streams h0 in 16-byte pieces
+        h0 = h0.clone()
     args = _RArgs()
     args.gx, args.r, args.h0 = ptr(gx, (S, B, GH)), ptr(r, (GH, H)), ptr(h0, (B, H))
     args.p, args.rb = ptr(p, (3 * H,)), ptr(rb, (3 * H,))
     args.y = y.data_ptr()
     if c is not None:
         args.c = ptr(c, (B, H))
+    units = rnn_plan(kind, lbr, dtype == torch.bfloat16, B, H, *_card_limits(dev))
     if kind == 1 and not lbr:
         scratch = torch.empty((2, B, H), dtype=dtype, device=dev)
         keep.append(scratch)
@@ -144,7 +212,9 @@ def _launch(kind: int, gx, r, h0, c=None, p=None, rb=None, lbr=0, clip=None, act
     codes = _act_codes(acts, 3 if kind == 0 else 2) + (0,)
     args.act_f, args.act_g, args.act_h = codes[:3]
     args.device = dev.index if dev.index is not None else torch.cuda.current_device()
-    RNN_KERNEL(ctypes.addressof(args), torch.cuda.current_stream(dev).cuda_stream)
+    args.units = units or 0
+    kernel = RNN_KERNEL if units else RNN_STEP_KERNEL
+    kernel(ctypes.addressof(args), torch.cuda.current_stream(dev).cuda_stream)
     return y
 
 

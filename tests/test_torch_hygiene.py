@@ -193,7 +193,7 @@ def _struct_fields(src: str, name: str):
 
 
 def test_qgemm_and_rnn_bindings_match_their_sources():
-    """Kernels Q (two entries) and R are registered, bound to
+    """Kernels Q (three entries) and R (two entries) are registered, bound to
     ``csrc/qgemm.cu`` / ``csrc/rnn_step.cu``, and ``_QArgs`` / ``_RArgs``
     mirror the sources' ``QArgs`` / ``RArgs`` field for field, type for type."""
     from synapseml_tpu_torch.kernels import all_kernels
@@ -204,8 +204,9 @@ def test_qgemm_and_rnn_bindings_match_their_sources():
     ctype = {ctypes.c_void_p: "ptr", ctypes.c_longlong: "long long", ctypes.c_float: "float",
              ctypes.c_int: "int"}
     for kernels, mod, struct, args in (
-            ((qgemm.QMATMUL_KERNEL, qgemm.QCONV_KERNEL), qgemm, "QArgs", qgemm._QArgs),
-            ((rnn.RNN_KERNEL,), rnn, "RArgs", rnn._RArgs)):
+            ((qgemm.QMATMUL_KERNEL, qgemm.QCONV_KERNEL, qgemm.QCL_KERNEL), qgemm, "QArgs",
+             qgemm._QArgs),
+            ((rnn.RNN_KERNEL, rnn.RNN_STEP_KERNEL), rnn, "RArgs", rnn._RArgs)):
         src = (CSRC_DIR / f"{kernels[0].source}.cu").read_text()
         for k in kernels:
             assert ks[k.name] is k

@@ -1317,6 +1317,84 @@ def test_qgemm_bert_base_projection_shapes_bit_equal(cuda, name):
     _q_card_equals_plain("MatMulInteger", [_Live(a), b, _Live(np.uint8(117)), np.int8(0)])
 
 
+@pytest.mark.parametrize("ka,kb", Q_SIGN_PAIRS)
+def test_qgemm_wgmma_edges_bit_equal(cuda, ka, kb):
+    """M, N and K off the wgmma tile and the TMA box (K = 1, 31, 33, 769: A's
+    rows not 16-byte aligned, copied to a padded A), an A that starts off a
+    16-byte boundary, B computed on the card (packed a call) and B's zero
+    point non-zero and 1-D (the kernel takes A's row sums)."""
+    rng = np.random.default_rng(q_seed(ka, kb, "wgmma-edges"))
+    for M, K, N in ((1, 1, 1), (129, 31, 65), (200, 33, 257), (64, 769, 64), (130, 256, 384)):
+        a, b = q_operand(rng, (M, K), ka), q_operand(rng, (K, N), kb)
+        za = q_zero_point(rng, ka, "scalar", M)
+        _q_card_equals_plain("MatMulInteger", [_Live(a), _Live(b), za,
+                                               q_zero_point(rng, kb, "col", N)])
+        _q_card_equals_plain("MatMulInteger", [_Live(a), b, za, q_zero_point(rng, kb, "scalar", N)])
+    # A one byte into its storage: the wrapper copies it to an aligned A
+    a = torch.from_numpy(q_operand(rng, (97, 65), ka).reshape(-1)).to("cuda")[1:]
+    b = torch.from_numpy(q_operand(rng, (96, 70), kb)).to("cuda")
+    a2 = a[:96 * 64].reshape(96, 64)
+    got = onnx_qgemm.qmatmul(a2, b[:64], a2[0, 0], None)
+    want = onnx_qgemm.qmatmul_plain(a2.cpu(), b[:64].cpu(), a2[0, 0].cpu(), None)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("kx,kw", Q_SIGN_PAIRS)
+def test_qgemm_conv_wgmma_edges_bit_equal(cuda, kx, kw):
+    """A per-channel w zero point with groups > 1 and dilation (A's row sums
+    in the kernel), the NCHW epilogue at N = 64 and at N not a multiple of 8,
+    channel counts that take 16-byte pieces (32) and 4-byte ones (3, 12)."""
+    rng = np.random.default_rng(q_seed(kx, kw, "conv-edges"))
+    cases = (((2, 32, 9, 9), (64, 32, 3, 3), {"pads": [1, 1, 1, 1]}),
+             ((1, 12, 8, 7), (21, 4, 3, 3), {"group": 3, "dilations": [2, 1],
+                                             "pads": [2, 1, 2, 1]}),
+             ((2, 3, 17, 15), (13, 3, 5, 5), {"strides": [2, 2], "pads": [2, 2, 2, 2]}),
+             ((1, 64, 12, 12), (64, 16, 3, 3), {"group": 4, "dilations": [2, 2],
+                                                "pads": [2, 2, 2, 2]}))
+    for xs, ws, attrs in cases:
+        x, w = q_operand(rng, xs, kx), q_operand(rng, ws, kw)
+        x_zp = q_operand(rng, (), kx)
+        _q_card_equals_plain("ConvInteger", [_Live(x), w, x_zp, q_operand(rng, (ws[0],), kw)],
+                             attrs)
+        _q_card_equals_plain("ConvInteger", [_Live(x), _Live(w), _Live(x_zp)], attrs)
+
+
+@pytest.mark.parametrize("kind", ["u8", "s8"])
+def test_qgemm_channels_last_kernel_bit_equal(cuda, kind):
+    """The conv entry's channels-last copy: pixels off the 64-pixel tile,
+    channels padded (3 -> 4, 4 groups of 6 -> 8) with the zero point's byte
+    or with 0, channel counts past one 64-channel tile."""
+    rng = np.random.default_rng(q_seed(kind, "channels-last"))
+    for shape, groups, cin_p in (((2, 3, 17, 15), 1, 4), ((1, 24, 9, 7), 4, 8),
+                                 ((3, 160, 5, 13), 1, 160), ((1, 130, 8, 8), 2, 68)):
+        x = torch.from_numpy(q_operand(rng, shape, kind)).cuda()
+        for zp in (None, torch.from_numpy(q_operand(rng, (), kind)).cuda()):
+            before = onnx_qgemm.QCL_KERNEL.launches
+            got = onnx_qgemm.channels_last(x, groups, cin_p, zp)
+            torch.cuda.synchronize()
+            assert onnx_qgemm.QCL_KERNEL.launches == before + 1
+            want = onnx_qgemm.channels_last_plain(x.cpu(), groups, cin_p,
+                                                  None if zp is None else zp.cpu())
+            assert torch.equal(got.cpu(), want)
+
+
+def test_qgemm_packed_weight_is_the_kernels_b(cuda):
+    """A weight packed once (as the executor keeps it) gives the same bits as
+    the same weight packed on each call, for both entries."""
+    rng = np.random.default_rng(11)
+    a = torch.from_numpy(q_operand(rng, (300, 200), "u8")).cuda()
+    b = torch.from_numpy(q_operand(rng, (200, 96), "s8")).cuda()
+    za = torch.tensor(37, dtype=torch.uint8, device="cuda")
+    packed = onnx_qgemm.pack_matmul_b(b)
+    assert torch.equal(onnx_qgemm.qmatmul(a, b, za, packed=packed),
+                       onnx_qgemm.qmatmul(a, b, za))
+    x = torch.from_numpy(q_operand(rng, (2, 16, 10, 10), "u8")).cuda()
+    w = torch.from_numpy(q_operand(rng, (24, 16, 3, 3), "s8")).cuda()
+    pw = onnx_qgemm.pack_conv_w(w)
+    assert torch.equal(onnx_qgemm.qconv(x, w, za, None, (1, 1), ((1, 1), (1, 1)), packed=pw),
+                       onnx_qgemm.qconv(x, w, za, None, (1, 1), ((1, 1), (1, 1))))
+
+
 # -- kernel R: the ONNX LSTM / GRU steps -----------------------------------------------------
 
 def _rnn_err(got, want, dtype):
@@ -1369,6 +1447,71 @@ def test_rnn_kernel_ragged_shapes_and_activations(cuda, dtype, acts):
                                             acts[:2])
             for g, w in zip(got, want):
                 assert g.shape == w.shape and (g.numel() == 0 or _rnn_err(g, w, dtype) <= tol)
+
+
+def _rnn_both(kind, lbr, S, B, H, dtype, seed, clip=None, acts=None):
+    """(got, want) of the LSTM / GRU steps on the card and their plain version."""
+    c = rnn_step_case(kind, S, B, H, dtype, "cuda", seed=seed)
+    if kind == "LSTM":
+        acts = acts or ("Sigmoid", "Tanh", "Tanh")
+        return (onnx_rnn.lstm_steps(c["gx"], c["r"], c["h0"], c["c0"], c["p"], clip, acts),
+                onnx_rnn.lstm_steps_plain(c["gx"], c["r"], c["h0"], c["c0"], c["p"], clip, acts))
+    acts = acts or ("Sigmoid", "Tanh")
+    return (onnx_rnn.gru_steps(c["gx"], c["r"], c["h0"], c["rb"], lbr, clip, acts),
+            onnx_rnn.gru_steps_plain(c["gx"], c["r"], c["h0"], c["rb"], lbr, clip, acts))
+
+
+def _rnn_limits():
+    return onnx_rnn._card_limits(torch.device("cuda"))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("kind,lbr", [("LSTM", 0), ("GRU", 0), ("GRU", 1)])
+def test_rnn_persistent_entry_edges(cuda, kind, lbr, dtype):
+    """The largest H whose R the persistent entry holds and the next one
+    (which takes the one-launch-a-step entry), each entry counted apart; S =
+    1 and B off the 64-row chunk (37, 100), on the persistent entry."""
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    k, bf16 = (0 if kind == "LSTM" else 1), dtype == torch.bfloat16
+    sms, smem = _rnn_limits()
+    H = 1024
+    while onnx_rnn.rnn_plan(k, lbr, bf16, 64, H + 8, sms, smem):
+        H += 8
+    assert onnx_rnn.rnn_plan(k, lbr, bf16, 64, H, sms, smem)
+    for h_, entry in ((H, onnx_rnn.RNN_KERNEL), (H + 8, onnx_rnn.RNN_STEP_KERNEL)):
+        before = (onnx_rnn.RNN_KERNEL.launches, onnx_rnn.RNN_STEP_KERNEL.launches)
+        got, want = _rnn_both(kind, lbr, 3, 64, h_, dtype, seed=h_)
+        torch.cuda.synchronize()
+        after = (onnx_rnn.RNN_KERNEL.launches, onnx_rnn.RNN_STEP_KERNEL.launches)
+        assert after == tuple(n + (e is entry) for n, e in
+                              zip(before, (onnx_rnn.RNN_KERNEL, onnx_rnn.RNN_STEP_KERNEL)))
+        for g, w in zip(got, want):
+            assert _rnn_err(g, w, dtype) <= tol
+    for S, B in ((1, 64), (4, 37), (3, 100)):
+        before = onnx_rnn.RNN_KERNEL.launches
+        got, want = _rnn_both(kind, lbr, S, B, 256, dtype, seed=S + B)
+        torch.cuda.synchronize()
+        assert onnx_rnn.RNN_KERNEL.launches == before + 1
+        for g, w in zip(got, want):
+            assert _rnn_err(g, w, dtype) <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("acts", [("Sigmoid", "Tanh", "Tanh"), ("Relu", "Sigmoid", "Relu"),
+                                  ("Tanh", "Relu", "Sigmoid")])
+def test_rnn_persistent_entry_clip_and_activations(cuda, dtype, acts):
+    """Every activation and a clip on the persistent entry (H a multiple of
+    8), LSTM and both GRU modes (linear_before_reset=0 under its two grid
+    barriers a step)."""
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    for kind, lbr in (("LSTM", 0), ("GRU", 0), ("GRU", 1)):
+        before = onnx_rnn.RNN_KERNEL.launches
+        got, want = _rnn_both(kind, lbr, 6, 19, 136, dtype, seed=7, clip=1.25,
+                              acts=acts if kind == "LSTM" else acts[:2])
+        torch.cuda.synchronize()
+        assert onnx_rnn.RNN_KERNEL.launches == before + 1
+        for g, w in zip(got, want):
+            assert _rnn_err(g, w, dtype) <= tol
 
 
 # -- the ONNX executor on the card -------------------------------------------------------------

@@ -108,3 +108,43 @@ def test_recurrent_full_length_sequence_lens_accepted():
                                  {"hidden_size": H})
     for a, b in zip((y, y_h, y_c), ref):
         assert_f32(a, b)
+
+
+# -- kernel R's entries: the plan that picks one by shape ---------------------------------------
+
+H100 = (132, 232448)   # SMs, shared memory a block may opt in to
+
+
+@pytest.mark.parametrize("kind,lbr,bf16,H,want", [
+    (0, 0, False, 1024, 8), (0, 0, True, 1024, 8), (1, 1, False, 1024, 8),
+    (1, 0, False, 1024, 8), (0, 0, False, 1056, 8), (0, 0, False, 1064, None),
+    (0, 0, False, 2048, None), (0, 0, False, 1020, None), (0, 0, False, 8, 1),
+    (1, 0, True, 1536, 12), (1, 0, True, 1544, None), (1, 1, False, 1320, None)])
+def test_rnn_plan_picks_the_entry_by_shape(kind, lbr, bf16, H, want):
+    """The persistent entry takes a shape where H is a multiple of 8, J =
+    ceil(H / SMs) units a block keep a product's rows at 32 or fewer, and
+    the block's R rows, partial sums and state fit its shared memory; else
+    None (the one-launch-a-step entry)."""
+    from synapseml_tpu_torch.onnx.rnn import rnn_plan
+
+    assert rnn_plan(kind, lbr, bf16, 64, H, *H100) == want
+
+
+def test_rnn_plan_mirrors_the_kernel_source():
+    """rnn.py's copy of the persistent entry's constants and of its shared
+    memory plan (p_layout) holds the values csrc/rnn_step.cu has."""
+    import re
+
+    from synapseml_tpu_torch.kernels.build import CSRC_DIR
+    from synapseml_tpu_torch.onnx import rnn
+
+    src = (CSRC_DIR / "rnn_step.cu").read_text()
+    const = lambda name: int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+    assert (const("kPB"), const("kPRows"), const("kHBufs")) == \
+        (rnn.P_BATCH_ROWS, rnn.P_ROWS, rnn.P_H_BUFS)
+    assert rnn.P_PART_LD == rnn.P_ROWS + 4 and "kPartLd = kPRows + 4" in src
+    assert "p_kt(int bf16) { return bf16 ? 256 : 64; }" in src
+    assert "p_ldh(int bf16) { return bf16 ? 264 : 68; }" in src
+    # GNMT's width in f32: 33 rows of R (4 x 8 and the zero row) at a row
+    # stride of 1,028 floats, the 8 warps' partial sums, the cell state
+    assert rnn._p_bytes(0, 0, False, 64, 1024, 8) == 33 * 1028 * 4 + 8 * 64 * 36 * 4 + 64 * 8 * 4
