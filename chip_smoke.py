@@ -84,7 +84,8 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    (hard checks), B in the transform, held-out AUC > HASHED_AUC_FLOOR; CSR
    ``raw_predict`` bit-equal to the dense predict over the densified
    used-feature columns (kernel D binning them); each row's contributions
-   on 65,536 held-out rows within SHAP_TOL of its margin; the full-pass
+   on HASHED_SHAP_ROWS (32,768) held-out rows within SHAP_TOL of its
+   margin; the full-pass
    oracle's fit at the same rows (``kernel_cases.grow_sparse_full_pass``:
    both children summed every step) giving the same trees as the shipped
    half pass; a 16,384-row fit at 2^14 slots giving the same trees on the
@@ -173,6 +174,31 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    quantized graphs within 2e-2 of each row's norm; a quantized graph's
    rows as one batch on both devices, since DynamicQuantizeLinear's range
    spans its batch);
+2l. sequence-parallel attention, tensor-parallel ONNX serving and the
+   topology module: (a) kernel C's log-sum-exp entries (``return_lse``) at
+   the headline shape in bf16 and at B=1, S=8192, H=8, D=128 in f32, the
+   lse within LSE_TOL of the plain version's and the output bit-equal to
+   the entry without lse, timed beside it and beside the library's
+   attention that also returns a log-sum-exp; (b) ``sequence_sharded_attention``
+   at data=1 in a one-rank NCCL group, bf16 at the headline shape and f32 at
+   the lse shape (ring: one lse launch each, the output bit-equal to
+   ``flash_attention``'s; the lse entries' launch counts set to 0 just
+   before and read after), then ring and Ulysses (``local="flash"``) over
+   two gloo ranks on ``cuda:0`` (NCCL puts no two ranks on one card), each
+   holding half the sequence, at the headline shape causal and not and at
+   the grouped-query serving shape causal: every rank's block within 5e-2
+   and FLASH_ROW_TOL (row norms) of ``flash_attention`` over the whole
+   sequence, kernel C's lse entry launched n times a rank (causal: rank r,
+   r + 1 times), the transport and the merge's time printed (two ranks
+   share one card: no speed claim); (c) the zoo's BERT-base f32 over 8 x
+   128 tokens on two gloo ranks on ``cuda:0`` under ``SpecLayout.build(
+   data=1, model=2)`` and ``(data=1, fsdp=2)``: outputs within
+   ONNX_F32_TOL of the one-device run on the card, each rank's at-rest
+   weight bytes exactly the replicated tensors plus half the planned ones,
+   the collectives counted by kind; (d) ``cluster_info()`` and
+   ``require_backend("gpu")`` on the card, and a 3-D ``ConvInteger`` (a C3D
+   block) through kernel Q, one 2-D launch a depth tap, bit-equal to
+   ``qconv_plain``;
 3. flash attention's entry point, all causal: in bf16 (the wgmma kernel) at
    the headline shape (B=1, S=32768, H=8, D=64), the grouped-query serving
    shape (B=8, S=8192, H=8, H_kv=2, D=64), the headline length at D=128, and
@@ -312,6 +338,11 @@ SMALL_LEAVES = (1024, 40)
 # the margin's own rounding, a few f32 ulps of values of order 1 to 10
 SHAP_TOL = 1e-5
 SHAP_ROWS = 65_536
+# phase 2g's rows of host TreeSHAP over the sparse model: cut from SHAP_ROWS
+# to keep the script near 950 s of its 1,200 once phase 2l came in (its
+# 65,536 rows took 234 s of a 1,003 s run on an NVIDIA H100 80GB HBM3 at
+# 700 W)
+HASHED_SHAP_ROWS = 32_768
 # kernel G's device kernels: all four run every call (the path's two work,
 # the other two return at once)
 G_KERNEL_NAMES = (("sparse_rows",), ("sparse_entries",), ("sparse_walk",), ("sparse_epilogue",))
@@ -397,6 +428,18 @@ F32_SHAPES = {
     "f32-gqa": (8, 8192, 8, 2, 64),     # the serving shape in f32
     "f32-d128": (1, 8192, 8, 8, 128),
 }
+# phase 2l: kernel C's lse entries (B, S, H, H_kv, D and dtype), the
+# sequence-parallel shapes (the flash headline and the GQA serving shape),
+# the lse limit (|kernel - plain| over max(1, |plain|): f32 sums of the same
+# products, taken in another order), the two-rank ONNX run
+LSE_SHAPES = {"headline": ((1, 32768, 8, 8, 64), torch.bfloat16),
+              "f32-d128": ((1, 8192, 8, 8, 128), torch.float32)}
+SP_SHAPES = {"headline": (1, 32768, 8, 8, 64), "gqa": (8, 8192, 8, 2, 64)}
+SP_CASES = (("headline", False), ("headline", True), ("gqa", True))
+SP_RANKS = 2
+LSE_TOL = 1e-4
+TP_SEQS, TP_SEQ_LEN = 8, 128
+SP_TIMEOUT_S = 240
 # Limit on max over rows of |kernel - plain f32|_2 / |plain f32|_2 in bf16:
 # the kernel's own roundings, of P and of its output to bf16, give about 2e-3
 # on average and at most 7.5e-3 over the 131,072 rows of d16, the narrowest
@@ -1073,14 +1116,14 @@ def hashed_text_phase(kernels, seed, split_steps) -> dict:
         fail(f"CSR raw_predict differs from the densified used-feature predict by "
              f"{float(np.abs(raw_csr - raw_dense).max())} (launches {dense_l})")
     del dense
-    # contributions on SHAP_ROWS held-out rows
-    xs = x_te[:SHAP_ROWS]
+    # contributions on HASHED_SHAP_ROWS held-out rows
+    xs = x_te[:HASHED_SHAP_ROWS]
     t0 = time.perf_counter()
     contrib = booster.predict_contrib(xs)
     shap_s = time.perf_counter() - t0
     sums = np.add.reduceat(contrib.values, contrib.indptr[:-1])
     shap_err = float(np.abs(sums - booster.raw_predict(xs)).max())
-    if contrib.shape != (SHAP_ROWS, X.shape[1] + 1) or not shap_err <= SHAP_TOL:
+    if contrib.shape != (HASHED_SHAP_ROWS, X.shape[1] + 1) or not shap_err <= SHAP_TOL:
         fail(f"hashed-text contributions: shape {contrib.shape}, additivity {shap_err}")
     # the full-pass oracle at the same rows: the shipped half pass's trees
     fit_params = dict(objective="binary", num_iterations=T, num_leaves=L)
@@ -1111,7 +1154,7 @@ def hashed_text_phase(kernels, seed, split_steps) -> dict:
            "fit_s": fit_s, "transform_s": transform_s, "fit_rows_per_s": n_train / fit_s,
            "transform_rows_per_s": len(y_te) / transform_s, "heldout_auc": heldout_auc,
            "fit_launches": fit_l, "transform_launches": trans_l,
-           "csr_equals_dense_used_features": True, "contrib_rows": SHAP_ROWS,
+           "csr_equals_dense_used_features": True, "contrib_rows": HASHED_SHAP_ROWS,
            "contrib_s": shap_s, "contrib_additivity_max_err": shap_err,
            "full_pass_fit_s": full_s, "full_pass_identical_trees": True,
            "full_pass_fit_launches": full_l["gbdt_sparse_hist"],
@@ -2799,6 +2842,386 @@ def onnx_kernel_rows(seed: int, dev) -> dict:
     return rows
 
 
+# -- phase 2l: sequence-parallel attention, tensor-parallel ONNX, topology ---------------
+
+def _lse_err(lse: torch.Tensor, want: torch.Tensor) -> float:
+    return float(((lse - want).abs() / want.abs().clamp(min=1.0)).max())
+
+
+def lse_phase(gen, dev) -> dict:
+    """Phase 2l (a): kernel C's lse entries at LSE_SHAPES (causal) against
+    the plain version, their output bit-equal to the entry without lse;
+    timed beside it and beside the library's attention that also returns
+    the log-sum-exp. Returns each shape's record."""
+    from synapseml_tpu_torch.parallel.flash import dense_attention, flash_attention, kernel_for
+
+    aten = torch.ops.aten
+    out = {}
+    for key, (shape, dtype) in LSE_SHAPES.items():
+        B, S_, H, H_kv, D = shape
+        mk = lambda h: torch.randn(B, S_, h, D, generator=gen, device=dev).to(dtype)
+        q, k, v = mk(H), mk(H_kv), mk(H_kv)
+        o, lse = flash_attention(q, k, v, causal=True, return_lse=True)
+        if not torch.equal(o, flash_attention(q, k, v, causal=True)):
+            fail(f"phase 2l: the lse entry's output ({key}) differs from the entry without lse")
+        (_, want), plain_ms = timed_once(lambda: dense_attention(
+            q.float(), k.float(), v.float(), causal=True, return_lse=True))
+        err = _lse_err(lse, want)
+        del want
+        if not err <= LSE_TOL:
+            fail(f"phase 2l: kernel C's lse ({key}) is {err} from the plain version's "
+                 f"(> {LSE_TOL})")
+        ms = time_ms(lambda: flash_attention(q, k, v, causal=True, return_lse=True), 10)
+        ms_no_lse = time_ms(lambda: flash_attention(q, k, v, causal=True), 10)
+        rep = H // H_kv
+        qt = q.transpose(1, 2).contiguous()
+        kt = k.repeat_interleave(rep, dim=2).transpose(1, 2).contiguous()
+        vt = v.repeat_interleave(rep, dim=2).transpose(1, 2).contiguous()
+        if dtype == torch.bfloat16:
+            lib = lambda: aten._scaled_dot_product_flash_attention(qt, kt, vt, 0.0, True)
+            lib_name = "aten._scaled_dot_product_flash_attention"
+        else:
+            lib = lambda: aten._scaled_dot_product_efficient_attention(qt, kt, vt, None, True,
+                                                                         0.0, True)
+            lib_name = "aten._scaled_dot_product_efficient_attention"
+        try:   # a yardstick only: a refusal leaves its time null, with the reason
+            lib_err = _lse_err(lib()[1][..., :S_].float(), lse)
+            lib_ms = time_ms(lib, 10)
+        except RuntimeError as e:
+            lib_err, lib_ms, lib_name = None, None, f"{lib_name} refused: {str(e)[:200]}"
+        del qt, kt, vt
+        pairs = B * H * causal_pairs(S_, S_)
+        flops = 4 * D * pairs
+        n_bytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel()) + 4 * B * H * S_
+        b = bound(n_bytes, flops, BF16_TC_FLOPS if dtype == torch.bfloat16
+                  else F32_3XTF32_FLOPS)
+        out[key] = {"shape": f"B={B} S={S_} H={H} H_kv={H_kv} D={D} causal "
+                             f"{'bf16' if dtype == torch.bfloat16 else 'f32'}",
+                    "kernel": kernel_for(dtype, D, lse=True).name, "max_abs_err": err,
+                    "ms": ms, "ms_without_lse": ms_no_lse, "plain_ms": plain_ms,
+                    "library_ms": lib_ms, "library": lib_name,
+                    "library_lse_vs_kernel": lib_err, "bound_ms": b[0], "bound_by": b[1],
+                    "bytes": n_bytes, "lse_tol": LSE_TOL}
+        log(json.dumps({"flash_lse": key, **out[key]}))
+        del q, k, v, o, lse
+        torch.cuda.empty_cache()
+    return out
+
+
+def sp_one_rank_phase(kernels, gen, dev) -> dict:
+    """Phase 2l (b), first part: ``sequence_sharded_attention`` at data=1 in
+    a one-rank NCCL group, the ring over one block (one launch of C's lse
+    entry) bit-equal to ``flash_attention``; bf16 at the headline shape, f32
+    at the lse shape. The launch counts set to 0 just before, read after."""
+    import torch.distributed as dist
+
+    from synapseml_tpu_torch.parallel.flash import flash_attention, kernel_for
+    from synapseml_tpu_torch.parallel.ring import sequence_sharded_attention
+    from synapseml_tpu_torch.runtime import collectives
+    from synapseml_tpu_torch.runtime.layout import SpecLayout
+
+    ins = {}
+    for key in ("headline", "f32-d128"):
+        (B, S_, H, H_kv, D), dtype = LSE_SHAPES[key]
+        mk = lambda h: torch.randn(B, S_, h, D, generator=gen, device=dev).to(dtype)
+        ins[key] = (mk(H), mk(H_kv), mk(H_kv))
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        layout = SpecLayout.build(data=1)
+        reset(kernels)
+        collectives.reset_counts()
+        t0 = time.perf_counter()
+        outs = {key: sequence_sharded_attention(*t, layout, strategy="ring", causal=True)
+                for key, t in ins.items()}
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches, coll = counts(kernels), collectives.counts()
+    finally:
+        dist.destroy_process_group()
+    for key, (q, k, v) in ins.items():
+        if not torch.equal(outs[key], flash_attention(q, k, v, causal=True)):
+            fail(f"phase 2l: sequence_sharded_attention at data=1 ({key}) differs from "
+                 f"flash_attention")
+    want = {kernel_for(torch.bfloat16, 64, lse=True).name: 1,
+            kernel_for(torch.float32, 128, lse=True).name: 1}
+    got = {name: launches[name] for name in want}
+    if got != want or any(n for name, n in launches.items() if name not in want):
+        fail(f"phase 2l: the one-rank ring launched {launches}, not {want}")
+    rec = {"phase": "sequence_parallel_nccl_one_rank", "layout": layout.describe(),
+           "shapes": {k: LSE_SHAPES[k][0] for k in ins}, "wall_s": wall_s,
+           "launches": got, "collectives": coll, "bit_equal_to_flash_attention": True}
+    log(json.dumps(rec))
+    return rec
+
+
+def _pair_main(rank: int, store: str, job: str, seed: int, outbox) -> None:
+    """A rank of phase 2l's two-rank runs: ``cuda:0`` in a two-rank gloo
+    world; ``job`` names the function it runs (``SP_JOBS``)."""
+    import datetime
+    import traceback
+
+    import torch.distributed as dist
+
+    try:
+        torch.cuda.set_device(0)
+        os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+        dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                                world_size=SP_RANKS, timeout=datetime.timedelta(seconds=120))
+        try:
+            outbox.put((rank, True, SP_JOBS[job](rank, seed)))
+        finally:
+            dist.destroy_process_group()
+    except BaseException:  # the traceback goes back to the parent
+        outbox.put((rank, False, traceback.format_exc()))
+
+
+def run_pair(job: str, seed: int) -> dict:
+    """Every rank's result of ``SP_JOBS[job]`` over two processes on
+    ``cuda:0`` in one gloo world; a rank's failure fails the phase."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    outbox = ctx.Queue()
+    store_dir = tempfile.mkdtemp(prefix="smt_pair_")
+    procs = [ctx.Process(target=_pair_main,
+                         args=(r, os.path.join(store_dir, "store"), job, seed, outbox))
+             for r in range(SP_RANKS)]
+    for p in procs:
+        p.start()
+    got, errors = {}, []
+    try:
+        for _ in procs:
+            try:
+                rank, ok, res = outbox.get(timeout=SP_TIMEOUT_S)
+            except Exception:
+                fail(f"phase 2l {job}: a rank gave no result in {SP_TIMEOUT_S} s")
+            (got.__setitem__(rank, res) if ok else errors.append(f"rank {rank}:\n{res}"))
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+                p.join()
+        shutil.rmtree(store_dir, ignore_errors=True)
+    if errors:
+        fail(f"phase 2l {job}: a rank failed\n" + "\n".join(errors))
+    return got
+
+
+def _sp_rank_runs(rank: int, seed: int) -> dict:
+    """Phase 2l (b)'s two-rank runs on one rank: ring and Ulysses (flash
+    local) over SP_CASES, each rank's block against ``flash_attention`` over
+    the whole sequence, with the launches, collectives and wall time; the
+    merge's and one ring step's kernel time."""
+    import torch.distributed as dist
+
+    from synapseml_tpu_torch.kernels import all_kernels
+    from synapseml_tpu_torch.parallel.flash import flash_attention
+    from synapseml_tpu_torch.parallel.ring import merge_lse, ring_attention, ulysses_attention
+    from synapseml_tpu_torch.runtime import collectives
+    from synapseml_tpu_torch.runtime.layout import SpecLayout
+
+    dev = torch.device("cuda", 0)
+    kernels = all_kernels()
+    layout = SpecLayout.build(data=SP_RANKS)
+    n = layout.data_size
+    out = {"layout": layout.describe(), "backend": dist.get_backend(),
+           "transport": {"ring_shift": collectives.transport(torch.empty(1, device=dev), layout),
+                         "all_to_all": "device"}, "runs": {}}
+    for key, causal in SP_CASES:
+        B, S_, H, H_kv, D = SP_SHAPES[key]
+        gen = torch.Generator(device=dev).manual_seed(seed + 100)
+        mk = lambda h: torch.randn(B, S_, h, D, generator=gen, device=dev).to(torch.bfloat16)
+        q, k, v = mk(H), mk(H_kv), mk(H_kv)
+        whole = flash_attention(q, k, v, causal=causal)
+        s = S_ // n
+        blk = slice(rank * s, (rank + 1) * s)
+        ql, kl, vl = (t[:, blk].contiguous() for t in (q, k, v))
+        want = whole[:, blk].float()
+        del q, k, v, whole
+        for strategy in ("ring", "ulysses"):
+            reset(kernels)
+            collectives.reset_counts()
+            dist.barrier()
+            t0 = time.perf_counter()
+            if strategy == "ring":
+                got = ring_attention(ql, kl, vl, layout, causal=causal)
+            else:
+                got = ulysses_attention(ql, kl, vl, layout, causal=causal, local="flash")
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+            launches = {name: c for name, c in counts(kernels).items() if c}
+            err = float((got.float() - want).abs().max())
+            rel = float(row_rel_err(got, want).max())
+            out["runs"][f"{strategy}-{key}-{'causal' if causal else 'full'}"] = {
+                "shape": SP_SHAPES[key], "causal": causal, "wall_s": wall_s,
+                "launches": launches, "collectives": collectives.counts(),
+                "max_abs_err": err, "row_rel_err": rel}
+            del got
+        # one ring step's pieces on this rank: kernel C on a block, the merge
+        o_i, lse_i = flash_attention(ql, kl, vl, return_lse=True)
+        acc = o_i.float()
+        step_ms = time_ms(lambda: flash_attention(ql, kl, vl, return_lse=True), 5)
+        merge_ms = time_ms(lambda: merge_lse(acc, lse_i, o_i, lse_i), 5)
+        out["runs"][f"ring-{key}-{'causal' if causal else 'full'}"].update(
+            kernel_step_ms=step_ms, merge_ms=merge_ms)
+        del ql, kl, vl, want, o_i, lse_i, acc
+        torch.cuda.empty_cache()
+    return out
+
+
+def _tp_rank_runs(rank: int, seed: int) -> dict:
+    """Phase 2l (c) on one rank: BERT-base f32 over TP_SEQS x TP_SEQ_LEN
+    tokens on the card without a layout, then under (data=1, model=2) and
+    (data=1, fsdp=2): each layout's outputs against the one-device run,
+    its at-rest weight bytes against the plan's, its collectives and the
+    wall time of a warm call."""
+    from synapseml_tpu_torch.models.zoo import bert_encoder
+    from synapseml_tpu_torch.onnx import OnnxFunction
+    from synapseml_tpu_torch.onnx.importer import placement_plan
+    from synapseml_tpu_torch.onnx.wire import serialize_model
+    from synapseml_tpu_torch.runtime import collectives
+    from synapseml_tpu_torch.runtime.layout import SpecLayout
+
+    dev = torch.device("cuda", 0)
+    mb = serialize_model(bert_encoder(seed=seed))
+    feeds = {"input_ids": np.random.default_rng(seed).integers(0, BERT_VOCAB,
+                                                              (TP_SEQS, TP_SEQ_LEN))}
+    single = OnnxFunction(mb, device=dev)
+    ref = {k: v.cpu() for k, v in single(feeds).items()}
+    out = {"replicated_bytes": single.at_rest_bytes(), "layouts": {}}
+    del single
+    for name, layout in (("model2", SpecLayout.build(data=1, model=2)),
+                         ("fsdp2", SpecLayout.build(data=1, fsdp=2))):
+        fn = OnnxFunction(mb, layout=layout, device=dev)
+        fn(feeds)
+        torch.cuda.synchronize()
+        collectives.reset_counts()
+        t0 = time.perf_counter()
+        res = fn(feeds)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        plan = placement_plan(mb, layout.model_size, layout.fsdp_size)
+        planned = sum(r["nbytes"] for r in plan if r["decision"] != "replicated")
+        whole = sum(r["nbytes"] for r in plan) - planned
+        out["layouts"][name] = {
+            "layout": layout.describe(), "wall_s": wall_s, "collectives": collectives.counts(),
+            "at_rest_bytes": fn.at_rest_bytes(), "want_bytes": whole + planned // 2,
+            "planned_weights": sum(r["decision"] != "replicated" for r in plan),
+            "err": {k: _onnx_err(res[k], ref[k], rows=False) for k in ref}}
+        del fn, res
+        torch.cuda.empty_cache()
+    return out
+
+
+SP_JOBS = {"attention": _sp_rank_runs, "onnx": _tp_rank_runs}
+
+
+def sp_two_ranks_phase(seed: int) -> dict:
+    """Phase 2l (b), second part (module docstring)."""
+    t0 = time.perf_counter()
+    got = run_pair("attention", seed)
+    for rank, res in got.items():
+        for name, r in res["runs"].items():
+            strategy, key = name.split("-")[:2]
+            want = ({"flash_attention_fwd_lse": rank + 1 if r["causal"] else SP_RANKS}
+                    if strategy == "ring" else {"flash_attention_fwd": 1})
+            if r["launches"] != want:
+                fail(f"phase 2l {name}: rank {rank} launched {r['launches']}, not {want}")
+            if not (r["max_abs_err"] <= 5e-2 and r["row_rel_err"] <= FLASH_ROW_TOL):
+                fail(f"phase 2l {name}: rank {rank}'s block is {r['max_abs_err']} "
+                     f"(row {r['row_rel_err']}) from flash_attention over the whole sequence")
+    rec = {"phase": "sequence_parallel_two_ranks_one_card", "backend": got[0]["backend"],
+           "transport": got[0]["transport"], "layout": got[0]["layout"],
+           "wall_s": time.perf_counter() - t0, "runs": {r: got[r]["runs"] for r in got}}
+    log(json.dumps(rec))
+    return rec
+
+
+def tp_two_ranks_phase(seed: int) -> dict:
+    """Phase 2l (c) (module docstring)."""
+    t0 = time.perf_counter()
+    got = run_pair("onnx", seed)
+    for rank, res in got.items():
+        for name, r in res["layouts"].items():
+            if not max(r["err"].values()) <= ONNX_F32_TOL:
+                fail(f"phase 2l ONNX {name}: rank {rank}'s outputs are {r['err']} from the "
+                     f"one-device run (> {ONNX_F32_TOL})")
+            if r["at_rest_bytes"] != r["want_bytes"]:
+                fail(f"phase 2l ONNX {name}: rank {rank} holds {r['at_rest_bytes']} bytes, "
+                     f"not the replicated tensors plus half the planned ones "
+                     f"({r['want_bytes']})")
+        if not got[rank]["layouts"]["model2"]["collectives"].get("gather:model"):
+            fail(f"phase 2l ONNX model2: rank {rank} gathered nothing over model")
+        if not got[rank]["layouts"]["fsdp2"]["collectives"].get("gather:fsdp"):
+            fail(f"phase 2l ONNX fsdp2: rank {rank} gathered nothing over fsdp")
+    rec = {"phase": "onnx_tensor_parallel_two_ranks_one_card", "model": "BERT-base f32",
+           "tokens": [TP_SEQS, TP_SEQ_LEN], "wall_s": time.perf_counter() - t0,
+           "replicated_bytes": got[0]["replicated_bytes"],
+           "ranks": {r: got[r]["layouts"] for r in got}}
+    log(json.dumps(rec))
+    return rec
+
+
+def topology_and_conv3d(dev) -> dict:
+    """Phase 2l (d): the topology module on the card, and a 3-D ConvInteger
+    through kernel Q (one launch a depth tap) bit-equal to its plain version
+    on the host's CPU, timed. Returns the conv's record for phase 4."""
+    from synapseml_tpu_torch.kernels import all_kernels
+    from synapseml_tpu_torch.onnx import qgemm
+    from synapseml_tpu_torch.onnx.ops import OPS
+    from synapseml_tpu_torch.runtime.topology import cluster_info, require_backend
+    from synapseml_tpu_torch.tools.kernel_cases import Q_CONV3D_CASES
+
+    info = require_backend("gpu")
+    if info != cluster_info() or info.platform != "gpu" or info.local_num_devices < 1:
+        fail(f"phase 2l: cluster_info() on the card is {info}")
+    log(json.dumps({"phase": "topology", "cluster_info": dataclasses_asdict(info)}))
+    c = Q_CONV3D_CASES["c3d"]
+    rng = np.random.default_rng(7)
+    x = rng.integers(0, 256, c["x"]).astype(np.uint8)
+    w = rng.integers(-128, 128, c["w"]).astype(np.int8)
+    x_zp, w_zp = np.uint8(118), rng.integers(-4, 5, c["w"][0]).astype(np.int8)
+    ctx = {"op_type": "ConvInteger", "opset": 17}
+    xd = torch.from_numpy(x).to(dev)
+    kern = all_kernels()["onnx_qconv"]
+    before = kern.launches
+    got = OPS["ConvInteger"]([xd, w, x_zp, w_zp], dict(c["attrs"]), dict(ctx))
+    torch.cuda.synchronize()
+    taps = c["w"][2]
+    if kern.launches - before != taps:
+        fail(f"phase 2l: the 3-D conv launched kernel Q {kern.launches - before} times, not "
+             f"once a depth tap ({taps})")
+    want, plain_ms = timed_once(lambda: OPS["ConvInteger"]([torch.from_numpy(x), w, x_zp, w_zp],
+                                                           dict(c["attrs"]), dict(ctx)))
+    if not torch.equal(got.cpu(), want):
+        fail(f"phase 2l: the 3-D conv on the card differs from qconv_plain in "
+             f"{int((got.cpu() != want).sum())} sums")
+    # timed as the executor calls it: the weight on the card, packed once
+    wd = torch.from_numpy(w).to(dev)
+    packed = qgemm.pack_conv_w(wd)
+    zps = (torch.tensor(x_zp, device=dev), torch.from_numpy(w_zp).to(dev))
+    ms = time_ms(lambda: qgemm.qconv(xd, wd, *zps, (1, 1, 1), ((1, 1),) * 3, (1, 1, 1), 1,
+                                     None, packed), 10)
+    macs = int(np.prod(got.shape)) * int(np.prod(c["w"][1:]))
+    n_bytes = x.nbytes + w.nbytes + got.numel() * got.element_size()
+    b = bound(n_bytes, 2 * macs, INT8_TC_OPS)
+    rec = {"shape": f"x {c['x']} u8, w {c['w']} s8, pads 1 (a C3D block)", "ms": ms,
+           "plain_ms": plain_ms, "bound_ms": b[0], "bound_by": b[1], "library_ms": None,
+           "launches_a_call": taps, "bit_equal": True, "macs": macs}
+    log(json.dumps({"qconv3d": rec}))
+    del xd, wd, got, want
+    return rec
+
+
+def dataclasses_asdict(obj) -> dict:
+    import dataclasses
+
+    return dataclasses.asdict(obj)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3087,6 +3510,17 @@ def main() -> int:
     onnx = onnx_phase(kernels, args.seed)
     torch.cuda.empty_cache()
     log(f"phase 2k in {time.perf_counter() - t0:.1f} s")
+
+    # -- phase 2l: sequence-parallel attention, tensor-parallel ONNX, topology -----------
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    lse_rows = lse_phase(gen, dev)
+    sp_one = sp_one_rank_phase(kernels, gen, dev)
+    sp_two = sp_two_ranks_phase(args.seed)
+    tp_two = tp_two_ranks_phase(args.seed)
+    conv3d = topology_and_conv3d(dev)
+    torch.cuda.empty_cache()
+    log(f"phase 2l in {time.perf_counter() - t0:.1f} s")
 
     # -- phase 3: flash attention's entry point -----------------------------------------
     gen = torch.Generator(device=dev).manual_seed(args.seed)
@@ -3770,6 +4204,24 @@ def main() -> int:
                tflops=main["tflops"],
                shapes={key: shape_entry(r) for key, r in mine.items()}, **extra)
 
+    # C's lse entries (phase 2l): their launches in the main path's run (the
+    # one-rank ring), the two-rank ring's on each rank, the headline and f32
+    # shapes of 2l (a); a ring step's merge beside C's step on rank 0
+    ring = {"launches_two_rank_ring": {
+                f"rank{rank}": {k: v["launches"]["flash_attention_fwd_lse"]
+                                for k, v in runs.items() if k.startswith("ring")}
+                for rank, runs in sp_two["runs"].items()},
+            "ring_step_ms_rank0": {k: {"kernel": v["kernel_step_ms"], "merge": v["merge_ms"]}
+                                   for k, v in sp_two["runs"][0].items() if "merge_ms" in v}}
+    for key, name in (("headline", "flash_attention_fwd_lse"),
+                      ("f32-d128", "flash_attention_fwd_f32_lse")):
+        r = lse_rows[key]
+        record(name, sp_one["launches"][name], r["max_abs_err"], r["ms"], r["plain_ms"],
+               (r["bound_ms"], r["bound_by"]), r["library_ms"], shape=r["shape"],
+               ms_without_lse=r["ms_without_lse"], library=r["library"],
+               library_lse_vs_kernel=r["library_lse_vs_kernel"], lse_tol=LSE_TOL,
+               bytes_moved=r["bytes"], **(ring if key == "headline" else {}))
+
     # G's row, with the device ms of the traced phase 2g fits (the last traces)
     traced = trace_hashed_fits(hashed)
     per_path = lambda field: {path: traced[path][field] for path in ("half_pass", "full_pass")}
@@ -3829,6 +4281,8 @@ def main() -> int:
     # kernels Q and R (phase 2k's ONNX executor): their launches in phase 2k
     t0 = time.perf_counter()
     for name, r in onnx_kernel_rows(args.seed, dev).items():
+        if name == "onnx_qconv":
+            r["extra"]["conv3d"] = conv3d
         record(name, onnx["launches"][name], r["err"], r["ms"], r["plain_ms"], r["bound"],
                r["library_ms"], **r["extra"])
     log(f"phase 4 kernels Q and R in {time.perf_counter() - t0:.1f} s")

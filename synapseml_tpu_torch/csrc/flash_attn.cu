@@ -7,7 +7,11 @@
 // masked scores a finite -1e30, key tiles wholly above the diagonal skipped,
 // running max m and denominator l in f32, an f32 accumulator, P cast to the
 // input dtype before P.V, output acc / max(l, 1e-30) in the input dtype. GQA:
-// query head h reads K/V head h / (H / H_kv); K/V are never expanded.
+// query head h reads K/V head h / (H / H_kv); K/V are never expanded. The
+// *_lse entries also write each query row's log-sum-exp (natural log, of
+// the scaled scores over the keys the row sees) to an f32 (B, H, S_q) array:
+// one store a row in the epilogue, which is what ring attention merges
+// blocks by (parallel/ring.py).
 //
 // Layout: q/o (B, S_q, H, D), k/v (B, S_k, H_kv, D), read strided in place
 // (a row of D values is contiguous; rows of one head are H*D apart), so the
@@ -79,6 +83,7 @@ namespace {
 
 constexpr float kNeg = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 struct Args {
   const void* q;
@@ -87,7 +92,19 @@ struct Args {
   void* o;
   int B, Sq, Sk, H, Hkv, D;
   int causal;
+  float* lse;  // (B, H, Sq) f32, or null: each row's log-sum-exp
 };
+
+// The natural log-sum-exp of one query row's scaled scores over the keys it
+// sees, from the kernel's running max m (a raw score) and sum l of
+// 2^((s - m) * cl2): m * cl2 * ln 2 + ln l. A row always sees a key (the
+// causal diagonal, S_k >= 1), so l >= 1.
+__device__ __forceinline__ void store_lse(float* lse, long long row_base, int row0, int Sq,
+                                          const float (&m)[2], const float (&l)[2],
+                                          float cl2) {
+  if (row0 < Sq) lse[row_base + row0] = fmaf(m[0], cl2 * kLn2, logf(l[0]));
+  if (row0 + 8 < Sq) lse[row_base + row0 + 8] = fmaf(m[1], cl2 * kLn2, logf(l[1]));
+}
 
 __device__ __forceinline__ float ex2(float x) {
   float y;
@@ -379,6 +396,8 @@ flash_f32_kernel(Args a, int n_qblocks) {
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
   }
   const float inv0 = 1.f / fmaxf(l[0], 1e-30f), inv1 = 1.f / fmaxf(l[1], 1e-30f);
+  if (a.lse != nullptr && t == 0)
+    store_lse(a.lse, ((long long)b * a.H + h) * a.Sq, row0, a.Sq, m, l, cl2);
   float* og = (float*)a.o + (long long)b * a.Sq * qstride + (long long)h * D;
 #pragma unroll
   for (int dn = 0; dn < D / 8; ++dn) {
@@ -427,6 +446,7 @@ struct WArgs {
   void* o;
   int Sq, Sk, H, Hkv, causal, n_qblocks;
   float scale_log2;  // log2(e) / sqrt(D)
+  float* lse;        // (B, H, Sq) f32, or null
 };
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -739,6 +759,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
       l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     }
     const float inv0 = 1.f / fmaxf(l[0], 1e-30f), inv1 = 1.f / fmaxf(l[1], 1e-30f);
+    if (a.lse != nullptr && t == 0)
+      store_lse(a.lse, ((long long)b * a.H + h) * a.Sq, row0, a.Sq, m, l, cl2);
     const long long stride = (long long)a.H * D;
     __nv_bfloat16* og = (__nv_bfloat16*)a.o + (long long)b * a.Sq * stride + (long long)h * D;
 #pragma unroll
@@ -797,7 +819,8 @@ cudaError_t launch_wgmma(const Args& a, cudaStream_t stream) {
     return cudaErrorInvalidValue;
   const int n_qblocks = (a.Sq + kWBQ - 1) / kWBQ;
   if (n_qblocks > 65535) return cudaErrorInvalidConfiguration;
-  const WArgs w{a.o, a.Sq, a.Sk, a.H, a.Hkv, a.causal, n_qblocks, kLog2e / sqrtf((float)D)};
+  const WArgs w{a.o,       a.Sq,      a.Sk, a.H, a.Hkv, a.causal, n_qblocks,
+                kLog2e / sqrtf((float)D), a.lse};
   auto kern = flash_wgmma_kernel<D>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)L::kSmem);
@@ -824,37 +847,48 @@ bool valid(const Args& a) {
          !(a.causal && a.Sq > a.Sk);
 }
 
+cudaError_t launch(const Args& a, bool bf16, cudaStream_t s) {
+  if (!valid(a)) return cudaErrorInvalidValue;
+  switch (a.D) {
+    case 16: return bf16 ? launch_wgmma<16>(a, s) : launch_f32<16>(a, s);
+    case 32: return bf16 ? launch_wgmma<32>(a, s) : launch_f32<32>(a, s);
+    case 64: return bf16 ? launch_wgmma<64>(a, s) : launch_f32<64>(a, s);
+    case 128: return bf16 ? launch_wgmma<128>(a, s) : launch_f32<128>(a, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // bf16 q, k, v at D = 16 / 32 / 64 / 128 on the wgmma kernel.
 extern "C" int smt_flash_fwd(const void* q, const void* k, const void* v, void* o, int B,
                              int Sq, int Sk, int H, int Hkv, int D, int causal, void* stream) {
-  const Args a{q, k, v, o, B, Sq, Sk, H, Hkv, D, causal};
-  if (!valid(a)) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (D) {
-    case 16: return (int)launch_wgmma<16>(a, s);
-    case 32: return (int)launch_wgmma<32>(a, s);
-    case 64: return (int)launch_wgmma<64>(a, s);
-    case 128: return (int)launch_wgmma<128>(a, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return (int)launch(Args{q, k, v, o, B, Sq, Sk, H, Hkv, D, causal, nullptr}, true,
+                     (cudaStream_t)stream);
 }
 
 // f32 q, k, v at D = 16 / 32 / 64 / 128 on the 3xTF32 kernel.
 extern "C" int smt_flash_fwd_f32(const void* q, const void* k, const void* v, void* o, int B,
                                  int Sq, int Sk, int H, int Hkv, int D, int causal,
                                  void* stream) {
-  const Args a{q, k, v, o, B, Sq, Sk, H, Hkv, D, causal};
-  if (!valid(a)) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (D) {
-    case 16: return (int)launch_f32<16>(a, s);
-    case 32: return (int)launch_f32<32>(a, s);
-    case 64: return (int)launch_f32<64>(a, s);
-    case 128: return (int)launch_f32<128>(a, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return (int)launch(Args{q, k, v, o, B, Sq, Sk, H, Hkv, D, causal, nullptr}, false,
+                     (cudaStream_t)stream);
+}
+
+// The same two kernels writing each row's log-sum-exp to lse (B, H, Sq) f32
+// as well: one f32 store a row in the epilogue.
+extern "C" int smt_flash_fwd_lse(const void* q, const void* k, const void* v, void* o,
+                                 void* lse, int B, int Sq, int Sk, int H, int Hkv, int D,
+                                 int causal, void* stream) {
+  return (int)launch(Args{q, k, v, o, B, Sq, Sk, H, Hkv, D, causal, (float*)lse}, true,
+                     (cudaStream_t)stream);
+}
+
+extern "C" int smt_flash_fwd_f32_lse(const void* q, const void* k, const void* v, void* o,
+                                     void* lse, int B, int Sq, int Sk, int H, int Hkv, int D,
+                                     int causal, void* stream) {
+  return (int)launch(Args{q, k, v, o, B, Sq, Sk, H, Hkv, D, causal, (float*)lse}, false,
+                     (cudaStream_t)stream);
 }
 
 extern "C" const char* smt_error_string(int err) {

@@ -20,6 +20,7 @@ def all_kernels():
                                 sparse.SPARSE_HIST_MESH_KERNEL,
                                 lambdarank.LAMBDARANK_KERNEL,
                                 flash.FLASH_KERNEL, flash.FLASH_F32_KERNEL,
+                                flash.FLASH_LSE_KERNEL, flash.FLASH_F32_LSE_KERNEL,
                                 learner.VW_KERNEL, qgemm.QMATMUL_KERNEL, qgemm.QCONV_KERNEL,
                                 qgemm.QCL_KERNEL,
                                 rnn.RNN_KERNEL, rnn.RNN_STEP_KERNEL)}

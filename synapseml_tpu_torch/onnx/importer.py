@@ -24,6 +24,23 @@ is on (its f32 products then lose nothing on bf16 operands).
 format, which convolutions and elementwise ops carry through; values keep
 their logical NCHW shape, so every other op is unchanged.
 
+Tensor-parallel and fsdp serving (``layout=`` a
+:class:`~synapseml_tpu_torch.runtime.layout.SpecLayout` with a model or fsdp
+axis over more than one rank; every rank of the process group builds the
+function and calls it with the same feeds): the reference's placement plan
+(:func:`placement_plan`, ``_plan_const_specs`` at importer.py:196-363)
+gives each weight initializer a spec (``_const_specs``), and each rank
+uploads only its block of it (under the bf16 policy cast first, as the
+reference does at :147-154). A ``MatMul`` / ``Gemm`` weight sharded over
+``model`` (``transB`` respected) computes the rank's output columns, which
+are all-gathered over ``model`` along the last dim; a ``Conv`` kernel
+sharded over output channels gathers along dim 1 (its bias cut to the
+rank's channels). A weight stored over ``fsdp`` is all-gathered over
+``fsdp`` at each use and dropped after. The plan covers no
+``MatMulInteger`` / ``QLinearMatMul`` weight (the reference's roles are
+MatMul, Gemm and Conv only), so kernel Q's packing is untouched. A layout
+whose model and fsdp axes are 1 runs the single-device executor.
+
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """
 
@@ -38,7 +55,8 @@ import numpy as np
 import torch
 
 from ..runtime.device import resolve_device
-from .ops import OPS, ConstStore, _STORE, is_const
+from ..runtime.layout import SpecLayout
+from .ops import OPS, ConstStore, _STORE, _host_tensor, _t as _t_dev, is_const
 from .wire import (DataType, GraphProto, ModelProto, ValueInfo, parse_model,
                    tensor_to_numpy)
 
@@ -85,19 +103,29 @@ def model_io_specs(model: "ModelProto | bytes"):
 
 # -- placement planning (pure graph analysis) -----------------------------------------------
 
+_PLAN_KEYS = ("tensor", "shape", "nbytes", "decision", "reason")
+
+
 def placement_plan(model: "ModelProto | bytes", model_size: int, fsdp_size: int = 1,
                    external_data_dir: Optional[str] = None) -> List[Dict[str, Any]]:
     """The reference's per-initializer residency decisions under a layout
     with ``model_size`` / ``fsdp_size`` (``_plan_const_specs`` /
     ``placement_report``, importer.py:196-363), as pure graph analysis:
     rows ``{tensor, shape, nbytes, decision, reason}`` (decision
-    ``sharded`` / ``fsdp`` / ``replicated``), largest tensor first. The
-    executor does not run tensor-parallel or fsdp yet (ROADMAP item 6)."""
+    ``sharded`` / ``fsdp`` / ``replicated``), largest tensor first."""
     if isinstance(model, (bytes, bytearray, memoryview)):
         model = parse_model(bytes(model))
     constants = {t.name: tensor_to_numpy(t, external_dir=external_data_dir)
                  for t in model.graph.initializer}
-    functions = list(getattr(model, "functions", []))
+    rows = _plan_rows(model.graph, list(getattr(model, "functions", [])), constants,
+                      model_size, fsdp_size)
+    return [{k: r[k] for k in _PLAN_KEYS} for r in rows]
+
+
+def _plan_rows(graph, functions, constants, model_size: int, fsdp_size: int):
+    """:func:`placement_plan`'s rows, each with the planner's ``use`` (the
+    role ``(kind, dim)`` a model-sharded weight keeps at its consumers, or
+    None) and ``store`` (the dim stored over fsdp, or None)."""
     roles: Dict[str, set] = {}
 
     def scan(graph):
@@ -121,9 +149,9 @@ def placement_plan(model: "ModelProto | bytes", model_size: int, fsdp_size: int 
                 for g in a.graphs:
                     scan(g)
 
-    scan(model.graph)
-    for f in functions:
-        scan(f)
+    scan(graph)
+    for fn in functions:
+        scan(fn)
     m, f = model_size, fsdp_size
     plan: List[Dict[str, Any]] = []
 
@@ -138,10 +166,10 @@ def placement_plan(model: "ModelProto | bytes", model_size: int, fsdp_size: int 
         return c.dtype.is_floating_point if isinstance(c, torch.Tensor) \
             else bool(np.issubdtype(c.dtype, np.floating))
 
-    def record(name: str, decision: str, reason: str) -> None:
+    def record(name: str, decision: str, reason: str, use=None, store=None) -> None:
         const = constants[name]
         plan.append({"tensor": name, "shape": shape_of(const), "nbytes": nbytes(const),
-                     "decision": decision, "reason": reason})
+                     "decision": decision, "reason": reason, "use": use, "store": store})
 
     def fsdp_store_dim(const, avoid: Optional[int]) -> Optional[int]:
         # first dim (skipping any model-sharded one) whose size splits over
@@ -165,7 +193,7 @@ def placement_plan(model: "ModelProto | bytes", model_size: int, fsdp_size: int 
                 record(name, "replicated", conflict)
                 continue
             record(name, "fsdp", f"stored over fsdp={f} on dim {sd}, all-gathered at "
-                                 f"each consumer — resolves {conflict}")
+                                 f"each consumer — resolves {conflict}", store=sd)
             continue
         kind, dim = next(iter(rs))
         if not is_float:
@@ -175,10 +203,12 @@ def placement_plan(model: "ModelProto | bytes", model_size: int, fsdp_size: int 
         if m > 1 and shape_of(const)[dim] % m == 0:
             sd = fsdp_store_dim(const, avoid=dim)
             if sd is None:
-                record(name, "sharded", f"{kind} weight: dim {dim} over model={m}")
+                record(name, "sharded", f"{kind} weight: dim {dim} over model={m}",
+                       use=(kind, dim))
             else:
                 record(name, "fsdp", f"{kind} weight: dim {dim} over model={m}, stored over "
-                                     f"fsdp={f} on dim {sd}; fsdp axis all-gathered on use")
+                                     f"fsdp={f} on dim {sd}; fsdp axis all-gathered on use",
+                       use=(kind, dim), store=sd)
             continue
         if m > 1:
             record(name, "replicated", f"{kind} dim {dim} size {shape_of(const)[dim]} not "
@@ -189,7 +219,7 @@ def placement_plan(model: "ModelProto | bytes", model_size: int, fsdp_size: int 
             record(name, "replicated", f"{kind} weight: no dim divisible by fsdp={f}")
             continue
         record(name, "fsdp", f"{kind} weight: stored over fsdp={f} on dim {sd}, "
-                             f"all-gathered on use")
+                             f"all-gathered on use", store=sd)
     for name in constants:
         if name not in roles:
             record(name, "replicated", "no weight-role consumer (bias / norm param / "
@@ -241,13 +271,19 @@ class OnnxFunction:
         self.output_names: List[str] = [vi.name for vi in self.graph.output]
         self._validate_ops(self.graph)
         self.layout = layout
+        self.device = resolve_device(device)
+        # tensor-parallel / fsdp placement: the reference's plan, made on the
+        # host constants (their f32 bytes), before the bf16 cast
+        self._const_plan: List[Dict[str, Any]] = []
+        self._const_specs: Dict[str, tuple] = {}
+        self._use_specs: Dict[str, tuple] = {}
+        self._sharded_use: Dict[str, tuple] = {}   # name -> (kind, dim, full size)
         if layout is not None and (getattr(layout, "model_size", 1) > 1
                                    or getattr(layout, "fsdp_size", 1) > 1):
-            raise NotImplementedError(
-                "tensor-parallel / fsdp ONNX execution (a layout with a model or fsdp axis "
-                "larger than 1) is not ported yet: ROADMAP queue 1 item 6; "
-                "importer.placement_plan() gives the reference's placement decisions")
-        self.device = resolve_device(device)
+            if not isinstance(layout, SpecLayout):
+                raise TypeError(f"a populated layout must be a runtime.layout.SpecLayout, "
+                                f"got {type(layout).__name__}")
+            self._plan_placement(layout)
         if dtype_policy == "bfloat16":
             # cast BEFORE folding (reference :387-396): every floating
             # constant is a bf16 value from the start
@@ -255,6 +291,8 @@ class OnnxFunction:
                 if isinstance(const, np.ndarray) and np.issubdtype(const.dtype, np.floating):
                     self.constants[name] = torch.from_numpy(
                         np.array(const, dtype=np.float32)).to(torch.bfloat16)
+        for name, spec in self._const_specs.items():   # this rank's block only
+            self.constants[name] = self._block(self.constants[name], spec)
         self._store = ConstStore()
         for const in self.constants.values():   # uploaded once, here
             self._store.add(const, self.device)
@@ -288,6 +326,93 @@ class OnnxFunction:
 
     def input_shapes(self) -> Dict[str, Optional[List[Any]]]:
         return {vi.name: vi.shape for vi in self.input_infos}
+
+    def placement_report(self) -> List[Dict[str, Any]]:
+        """The placement plan's rows under the layout (:func:`placement_plan`),
+        largest tensor first; empty without a model or fsdp axis over more
+        than one rank."""
+        return [{k: r[k] for k in _PLAN_KEYS} for r in self._const_plan]
+
+    def at_rest_bytes(self) -> int:
+        """The bytes of the initializers this rank holds on its device (its
+        blocks of the planned weights, the rest whole)."""
+        held = (self._store.tensor(c, self.device) for c in self.constants.values())
+        return sum(t.numel() * t.element_size() for t in held)
+
+    # -- tensor-parallel / fsdp placement ------------------------------------------
+
+    def _plan_placement(self, layout: SpecLayout) -> None:
+        rows = _plan_rows(self.graph, list(self.functions.values()), self.constants,
+                          layout.model_size, layout.fsdp_size)
+        self._const_plan = rows
+        for r in rows:
+            if r["decision"] == "replicated":
+                continue
+            rank = len(r["shape"])
+            use = ()
+            if r["use"] is not None:
+                kind, dim = r["use"]
+                use = (layout.conv_weight(rank=rank) if kind == "conv"
+                       else layout.col_weight(rank=rank, dim=dim))
+                self._sharded_use[r["tensor"]] = (kind, dim, r["shape"][dim])
+            spec = use if r["store"] is None else \
+                layout.fsdp_weight(rank=rank, dim=r["store"], use_spec=use or None)
+            self._const_specs[r["tensor"]] = spec
+            self._use_specs[r["tensor"]] = layout.use_spec(spec)
+
+    def _block(self, const, spec):
+        """This rank's block of a host constant under ``spec`` (a copy, so
+        the whole tensor is not kept)."""
+        t = self.layout.shard(_host_tensor(const), spec).contiguous().clone()
+        return t if isinstance(const, torch.Tensor) else t.numpy()
+
+    def _use_form(self, name: str, value) -> torch.Tensor:
+        """A planned weight as its consumer takes it: the stored block
+        all-gathered over fsdp (a transient), or the block itself."""
+        spec = self._const_specs[name]
+        if self._use_specs[name] == tuple(spec):
+            return value
+        return self.layout.gather_for_use(self._store.tensor(value, self.device), spec)
+
+    def _run_sharded(self, node, fn, inputs, attrs, ctx):
+        """A MatMul / Gemm / Conv whose weight (input 1) is sharded over
+        ``model``: this rank's output columns (channels), all-gathered over
+        ``model``."""
+        from ..runtime.collectives import all_gather
+
+        layout = self.layout
+        kind, dim, full = self._sharded_use[node.input[1]]
+        m, r = layout.model_size, layout.model_rank
+        lo, hi = r * full // m, (r + 1) * full // m
+        inputs = list(inputs)
+        inputs[1] = self._use_form(node.input[1], inputs[1])
+
+        def cut(v, axis):   # a bias / C operand's rank block along ``axis``
+            if v is None:
+                return v
+            t = _t_dev(v, self.device)
+            if t.dim() == 0 or t.shape[axis] != full or full == 1:
+                return t
+            return t.narrow(axis % t.dim(), lo, hi - lo)
+
+        if node.op_type == "Conv":
+            groups = int(attrs.get("group", 1))
+            if groups > 1 and groups % m:
+                # the rank's channels straddle groups: the whole kernel here
+                inputs[1] = all_gather(_t_dev(inputs[1], self.device), layout, "model", dim=0)
+                return fn(inputs, attrs, ctx)
+            if groups > 1:
+                x = _t_dev(inputs[0], self.device)
+                cg = x.shape[1] // groups
+                gl = groups // m
+                inputs[0] = x.narrow(1, r * gl * cg, gl * cg)
+                attrs = dict(attrs, group=gl)
+            if len(inputs) > 2:
+                inputs[2] = cut(inputs[2], 0)
+            return all_gather(fn(inputs, attrs, ctx), layout, "model", dim=1)
+        if node.op_type == "Gemm" and len(inputs) > 2:
+            inputs[2] = cut(inputs[2], -1)
+        return all_gather(fn(inputs, attrs, ctx), layout, "model", dim=-1)
 
     # -- feeds, outputs, precision -------------------------------------------------
 
@@ -411,6 +536,11 @@ class OnnxFunction:
             except KeyError:
                 raise NotImplementedError(f"unsupported ONNX op {node.op_type}") from None
             inputs = [env[name] if name else None for name in node.input]
+            sharded = len(node.input) > 1 and node.input[1] in self._sharded_use and \
+                node.op_type in ("MatMul", "Gemm", "Conv")
+            if self._const_specs and not sharded:
+                inputs = [self._use_form(name, v) if name in self._const_specs else v
+                          for name, v in zip(node.input, inputs)]
             branches = itertools.count()
 
             def subgraph_runner(sub: GraphProto, key=key, env=env, branches=branches):
@@ -432,11 +562,12 @@ class OnnxFunction:
             # shape chains (Shape -> Gather/Mod/Add -> Reshape -> Slice.ends)
             # stay static, and keep them in the plan; a shape is one of the
             # signature's, so Shape and Size keep theirs too
-            const_in = node.op_type in ("Shape", "Size") or (
+            const_in = not sharded and (node.op_type in ("Shape", "Size") or (
                 all(v is None or is_const(v) for v in inputs)
-                and node.op_type not in ("Dropout", "If"))
+                and node.op_type not in ("Dropout", "If")))
             try:
-                out = fn(inputs, node.attrs(), ctx)
+                out = self._run_sharded(node, fn, inputs, node.attrs(), ctx) if sharded \
+                    else fn(inputs, node.attrs(), ctx)
             except Exception as e:
                 raise type(e)(
                     f"while executing node {node.name or '?'} ({node.op_type}) "

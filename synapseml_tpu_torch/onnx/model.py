@@ -43,9 +43,9 @@ class ONNXModel(Transformer):
     softmax_dict = Param("col -> softmax(col) output col", dict, default={})
     argmax_dict = Param("col -> argmax(col) output col", dict, default={})
     sharding_layout = ComplexParam(
-        "optional runtime.layout.SpecLayout: tensor-parallel / fsdp serving is not "
-        "ported yet (a model or fsdp axis > 1 raises, ROADMAP item 6)", object,
-        default=None)
+        "optional runtime.layout.SpecLayout: with a model or fsdp axis over more than one "
+        "rank, weights shard over it (tensor-parallel / fsdp serving; every rank transforms "
+        "the same table)", object, default=None)
     device = Param("'cuda[:i]' (default: the GPU) or 'cpu'", str, default=None)
 
     def __init__(self, uid=None, **kw):

@@ -299,9 +299,21 @@ def _binary(fn):
     return lambda a, b: fn(*_promote(a, b))
 
 
+def _mod(a, b):
+    """``jnp.mod``: the sign of the divisor; an integer divided by zero gives
+    0 (torch's integer remainder raises on the CPU and is undefined on the
+    card)."""
+    a, b = _promote(a, b)
+    if _float(a.dtype):
+        return torch.remainder(a, b)
+    zero = b == 0
+    return torch.where(zero, torch.zeros_like(a), torch.remainder(a, torch.where(
+        zero, torch.ones_like(b), b)))
+
+
 _BINOPS = {
     "Add": _binary(torch.add), "Sub": _binary(torch.sub), "Mul": _binary(torch.mul),
-    "Div": _true_divide, "Pow": _binary(torch.pow), "Mod": _binary(torch.remainder),
+    "Div": _true_divide, "Pow": _binary(torch.pow), "Mod": _mod,
     "PRelu": _prelu,
     "And": _binary(torch.logical_and), "Or": _binary(torch.logical_or),
     "Xor": _binary(torch.logical_xor),
@@ -320,6 +332,13 @@ def _unary(fn, inexact=False):
     return impl
 
 
+def _sign(x):
+    """``jnp.sign``: NaN stays NaN and a zero keeps its sign."""
+    if not _float(x.dtype):
+        return torch.sign(x)
+    return torch.where(torch.isnan(x) | (x == 0), x, torch.sign(x))
+
+
 def _softplus(x):
     return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
 
@@ -329,7 +348,7 @@ _UNOPS = {
     "Log": _unary(torch.log, True), "Abs": _unary(torch.abs), "Neg": _unary(torch.neg),
     "Floor": _unary(torch.floor), "Ceil": _unary(torch.ceil),
     "Reciprocal": lambda x: _true_divide(1.0, x),
-    "Sign": _unary(torch.sign), "Erf": _unary(torch.erf, True),
+    "Sign": _unary(_sign), "Erf": _unary(torch.erf, True),
     "Not": _unary(torch.logical_not),
     "Relu": _unary(torch.relu), "Sigmoid": _unary(torch.sigmoid, True),
     "Tanh": _unary(torch.tanh, True), "Softplus": _unary(_softplus, True),
@@ -439,9 +458,12 @@ def _mish(inputs, attrs, ctx):
 
 @op("Gelu")
 def _gelu(inputs, attrs, ctx):
-    approx = attrs.get("approximate", "none") == "tanh"
     x = _inexact(_t(inputs[0], _dev(inputs[0])))
-    return F.gelu(x, approximate="tanh" if approx else "none")
+    if attrs.get("approximate", "none") == "tanh":
+        return F.gelu(x, approximate="tanh")
+    # jax.nn.gelu's exact form, op for op: +inf -> inf, -inf -> NaN (F.gelu
+    # gives NaN for +inf)
+    return 0.5 * x * torch.special.erfc(-x * float(np.sqrt(0.5)))
 
 
 @op("Softmax")
@@ -1053,7 +1075,22 @@ def _cast(inputs, attrs, ctx):
             result_type(np.asarray(inputs[1]))
     else:
         dtype = DataType.to_torch(int(attrs["to"]))
-    return _t(inputs[0], _dev(inputs[0])).to(dtype)
+    x = _t(inputs[0], _dev(inputs[0]))
+    if _float(x.dtype) and not dtype.is_floating_point and dtype != torch.bool:
+        return _saturating_int(x, dtype)
+    return x.to(dtype)
+
+
+def _saturating_int(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Float to integer as XLA's convert does it: toward zero, saturated at
+    the type's range, NaN to 0. Clamped here, the same on the CPU and the
+    card (``Tensor.to`` wraps or is undefined out of range)."""
+    info = torch.iinfo(dtype)
+    t = torch.trunc(x.to(torch.float64))
+    hi, lo = t >= float(info.max), t <= float(info.min)
+    inside = torch.where(hi | lo | torch.isnan(t), torch.zeros_like(t), t).to(dtype)
+    return torch.where(hi, torch.full_like(inside, info.max),
+                       torch.where(lo, torch.full_like(inside, info.min), inside))
 
 
 def _qbroadcast(x, scale, zp, axis: int):
@@ -1237,10 +1274,14 @@ def _onehot(inputs, attrs, ctx):
     d = int(_static(depth, "OneHot.depth"))
     dev = _dev(indices, values)
     vals = _t(values, dev)
-    idx = _t(indices, dev).to(torch.int64)
-    # spec: negative indices in [-depth, -1] wrap; anything else is all-off
+    idx = _t(indices, dev)
+    if not _float(idx.dtype):
+        idx = idx.to(torch.int64)
+    # spec: negative indices in [-depth, -1] wrap; anything else is all-off.
+    # A float index is compared with each column as it is (the reference's
+    # jax.nn.one_hot), so 1.7 sets no column, where the spec would truncate
     valid = (idx >= -d) & (idx <= d - 1)
-    idx = torch.where(valid, torch.where(idx < 0, idx + d, idx), -1)
+    idx = torch.where(valid, torch.where(idx < 0, idx + d, idx), torch.full_like(idx, -1))
     oh = (idx[..., None] == torch.arange(d, device=idx.device)).to(torch.float32)
     if axis != -1:
         oh = torch.movedim(oh, -1, axis % oh.dim())
@@ -1357,6 +1398,10 @@ def _resize(inputs, attrs, ctx):
             sizes = [int(np.floor(s * d)) for s, d in zip(scales, x.shape)]
     if sizes is None:
         raise ValueError("Resize needs scales or sizes")
+    if len(sizes) != x.dim():
+        # jax.image.resize's check (opset 18's ``axes`` form is not taken)
+        raise ValueError(f"Resize: shape {list(sizes)} must have the rank of the input "
+                         f"{tuple(x.shape)}")
     method = {"nearest": "nearest", "linear": "linear", "cubic": "cubic"}[mode]
     return _resize_array(x, sizes, method)
 

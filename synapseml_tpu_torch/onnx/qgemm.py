@@ -153,9 +153,13 @@ def qconv_plain(x, w, x_zp=None, w_zp=None, strides=(1, 1), pads=((0, 0), (0, 0)
         wc = wd
     conv = (F.conv1d, F.conv2d, F.conv3d)[rank - 1]
     acc = conv(xc, wc, stride=tuple(strides), groups=groups)
-    if rq is None:
-        return acc
-    chan = lambda s: s.reshape((1, -1) + (1,) * rank) if s.dim() == 1 else s
+    return acc if rq is None else _requant_conv(acc, rq)
+
+
+def _requant_conv(acc: torch.Tensor, rq: Requant) -> torch.Tensor:
+    """The QLinearConv epilogue over a conv's int32 sums, per output channel
+    along dim 1 (the plain version's, op for op)."""
+    chan = lambda s: s.reshape((1, -1) + (1,) * (acc.dim() - 2)) if s.dim() == 1 else s
     return _requant_plain(acc, Requant(chan(rq.scale), chan(rq.y_zp),
                                        None if rq.bias is None else chan(rq.bias)),
                           rq.y_zp.dtype)
@@ -179,11 +183,14 @@ def pack_matmul_b(b: torch.Tensor, colsum: bool = True) -> QPacked:
     return QPacked(bt, cs, int(K))
 
 
-def pack_conv_w(w: torch.Tensor) -> QPacked:
+def pack_conv_w(w: torch.Tensor):
     """A conv weight (Cout, cin_g, KH, KW) (1-D: (Cout, cin_g, KW)) packed for
     kernel Q: (Cout, ldb), each row the output channel's taps in (kh, kw, c)
     order, channels padded to ``cin_p`` (a multiple of 4) with zeros, zero
-    past K = KH x KW x cin_p; ``colsum`` (Cout,) int32."""
+    past K = KH x KW x cin_p; ``colsum`` (Cout,) int32. A 3-D weight (Cout,
+    cin_g, KD, KH, KW) gives a tuple, one packed 2-D weight a depth tap."""
+    if w.dim() == 5:
+        return tuple(pack_conv_w(w[:, :, kd]) for kd in range(w.shape[2]))
     w4 = w[:, :, None] if w.dim() == 3 else w
     cout, cin_g, KH, KW = w4.shape
     cin_p = (cin_g + 3) // 4 * 4
@@ -392,7 +399,7 @@ def qconv(x: torch.Tensor, w: torch.Tensor, x_zp: Optional[torch.Tensor] = None,
     """Convolution (NCHW x OIHW, ``pads`` as (begin, end) a spatial axis) of
     the zero-centred operands, int32; a padded tap counts as ``x_zp`` (real
     zero); ``w_zp`` 0-d or per output channel; with ``rq`` the QLinearConv
-    epilogue. Kernel Q on a CUDA tensor (1-D and 2-D), the plain version on
+    epilogue. Kernel Q on a CUDA tensor (1-, 2- and 3-D), the plain version on
     a CPU tensor (which ignores ``packed``). ``packed``: ``w`` packed once
     (:func:`pack_conv_w`); without it w is packed here, a pass a call."""
     if x.device.type == "cpu":
@@ -405,8 +412,10 @@ def qconv(x: torch.Tensor, w: torch.Tensor, x_zp: Optional[torch.Tensor] = None,
         out = qconv(x[:, :, None], w[:, :, None], x_zp, w_zp, (1, strides[0]),
                     ((0, 0), tuple(pads[0])), (1, dilations[0]), groups, rq, packed)
         return out[:, :, 0]
+    if rank == 3:
+        return _qconv3d(x, w, x_zp, w_zp, strides, pads, dilations, groups, rq, packed)
     if rank != 2:
-        raise NotImplementedError(f"kernel Q convolves 1-D and 2-D images, not {rank}-D")
+        raise NotImplementedError(f"kernel Q convolves 1-, 2- and 3-D images, not {rank}-D")
     if x_zp is not None and x_zp.numel() != 1:
         raise ValueError("ConvInteger: x_zero_point must be a scalar")
     n_img, C, H, W = x.shape
@@ -448,3 +457,32 @@ def qconv(x: torch.Tensor, w: torch.Tensor, x_zp: Optional[torch.Tensor] = None,
     args.out = out.data_ptr()
     _launch(QCONV_KERNEL, args, dev)
     return out
+
+
+def _qconv3d(x, w, x_zp, w_zp, strides, pads, dilations, groups, rq, packed):
+    """A 3-D conv as kernel Q's 2-D conv, one launch a depth tap ``kd``: the
+    depth axis padded with ``x_zp``'s raw value (real zero, as the plain
+    version's centred zeros), the tap's strided depth slice of x with the
+    output depth folded into the images, ``w[:, :, kd]``; the int32 sums
+    added over the taps, requantized after the last. Bit-equal to
+    :func:`qconv_plain` (the same int32 sums, modulo 2^32)."""
+    n_img, C, D, H, W = x.shape
+    cout, KD = w.shape[0], w.shape[2]
+    sd, dd, (lo, hi) = int(strides[0]), int(dilations[0]), pads[0]
+    OD = _conv_out_size(D, KD, sd, dd, pads[0])
+    if lo or hi:
+        fill = (torch.zeros((), dtype=x.dtype, device=x.device) if x_zp is None
+                else x_zp.reshape(()).to(device=x.device, dtype=x.dtype))
+        x = torch.cat([fill.expand(n_img, C, lo, H, W), x, fill.expand(n_img, C, hi, H, W)], 2)
+    if packed is None:
+        packed = pack_conv_w(w)
+    acc = None
+    for kd in range(KD):
+        start = kd * dd
+        xs = x[:, :, start:start + (OD - 1) * sd + 1:sd]          # (n, C, OD, H, W)
+        xs = xs.permute(0, 2, 1, 3, 4).reshape(n_img * OD, C, H, W)
+        part = qconv(xs, w[:, :, kd], x_zp, w_zp, strides[1:], pads[1:], dilations[1:],
+                     groups, None, packed[kd])
+        acc = part if acc is None else acc.add_(part)
+    acc = acc.reshape(n_img, OD, cout, *acc.shape[2:]).permute(0, 2, 1, 3, 4).contiguous()
+    return acc if rq is None else _requant_conv(acc, rq)

@@ -17,6 +17,12 @@ one of two kernels chosen by dtype alone (:func:`kernel_for`):
   operand split into two tf32 halves and each product formed from three, for
   about f32 accuracy (``FLASH_F32_KERNEL``).
 
+With ``return_lse=True`` the same kernel also writes each query row's
+log-sum-exp, ``m + log(l)`` of its scaled scores over the keys it sees (f32,
+(B, H, S_q); one store a row), through the source's ``*_lse`` entries,
+counted apart (``FLASH_LSE_KERNEL``, ``FLASH_F32_LSE_KERNEL``): ring
+attention merges the blocks of a row by it.
+
 Both read q, k and v through 16-byte copies (TMA, ``cp.async``), so the
 wrapper refuses a tensor whose data does not start on a 16-byte boundary.
 On CPU tensors it runs :func:`dense_attention`, the plain PyTorch version.
@@ -36,7 +42,8 @@ import torch
 from ..kernels.build import CudaKernel
 
 __all__ = ["flash_attention", "dense_attention", "kernel_for", "FLASH_KERNEL",
-           "FLASH_F32_KERNEL", "KERNEL_HEAD_DIMS", "KEY_TILE_BY_HEAD_DIM"]
+           "FLASH_F32_KERNEL", "FLASH_LSE_KERNEL", "FLASH_F32_LSE_KERNEL",
+           "KERNEL_HEAD_DIMS", "KEY_TILE_BY_HEAD_DIM"]
 
 _NEG = -1e30
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)
@@ -54,13 +61,24 @@ FLASH_KERNEL = CudaKernel(
 FLASH_F32_KERNEL = CudaKernel(
     name="flash_attention_fwd_f32", source="flash_attn", symbol="smt_flash_fwd_f32",
     argtypes=_ARGTYPES, replaces=_REPLACES)
+# the same kernels with each row's log-sum-exp written too (ring attention)
+_LSE_ARGTYPES = _ARGTYPES[:4] + [ctypes.c_void_p] + _ARGTYPES[4:]
+_LSE_REPLACES = _REPLACES + "; ring step synapseml_tpu/parallel/ring.py:87-122"
+FLASH_LSE_KERNEL = CudaKernel(
+    name="flash_attention_fwd_lse", source="flash_attn", symbol="smt_flash_fwd_lse",
+    argtypes=_LSE_ARGTYPES, replaces=_LSE_REPLACES)
+FLASH_F32_LSE_KERNEL = CudaKernel(
+    name="flash_attention_fwd_f32_lse", source="flash_attn", symbol="smt_flash_fwd_f32_lse",
+    argtypes=_LSE_ARGTYPES, replaces=_LSE_REPLACES)
 
 
-def kernel_for(dtype: torch.dtype, head_dim: int) -> CudaKernel:
+def kernel_for(dtype: torch.dtype, head_dim: int, lse: bool = False) -> CudaKernel:
     """The kernel that serves ``dtype`` (at any head dim of
     ``KERNEL_HEAD_DIMS``): the wgmma kernel for bf16, the 3xTF32 kernel for
-    f32."""
-    return FLASH_KERNEL if dtype == torch.bfloat16 else FLASH_F32_KERNEL
+    f32; ``lse`` the entry that also writes each row's log-sum-exp."""
+    if dtype == torch.bfloat16:
+        return FLASH_LSE_KERNEL if lse else FLASH_KERNEL
+    return FLASH_F32_LSE_KERNEL if lse else FLASH_F32_KERNEL
 
 
 def _check(q, k, v, causal):
@@ -78,14 +96,15 @@ def _check(q, k, v, causal):
 
 
 def dense_attention(q, k, v, causal: bool = False, pv_dtype: Optional[torch.dtype] = None,
-                    q_chunk: int = 4096):
+                    q_chunk: int = 4096, return_lse: bool = False):
     """Plain PyTorch attention, the kernel's plain version: (B, S, H, D)
     layout, f32 scores and softmax, GQA heads mapped to their K/V group.
 
     One (batch, head, query chunk) at a time, so long sequences fit in
     memory. ``pv_dtype`` casts the probabilities (and V) for the P@V
     product, as the flash kernel does; by default P@V is f32. The result is
-    in ``q``'s dtype."""
+    in ``q``'s dtype; with ``return_lse`` also each row's log-sum-exp of its
+    scaled, masked scores, f32 (B, H, S_q)."""
     _check(q, k, v, causal)
     b, s_q, h, d = q.shape
     s_k, h_kv = k.shape[1], k.shape[2]
@@ -93,6 +112,7 @@ def dense_attention(q, k, v, causal: bool = False, pv_dtype: Optional[torch.dtyp
     scale = 1.0 / math.sqrt(d)
     pv = torch.float32 if pv_dtype is None else pv_dtype
     out = torch.empty_like(q)
+    lse = torch.empty((b, h, s_q), dtype=torch.float32, device=q.device) if return_lse else None
     kpos = torch.arange(s_k, device=q.device)
     for bi in range(b):
         for hi in range(h):
@@ -107,13 +127,16 @@ def dense_attention(q, k, v, causal: bool = False, pv_dtype: Optional[torch.dtyp
                 p = torch.exp(sc - sc.amax(-1, keepdim=True))
                 p = p / p.sum(-1, keepdim=True)
                 out[bi, q0:q0 + q_chunk, hi] = (p.to(pv) @ vh).to(q.dtype)
-    return out
+                if return_lse:
+                    lse[bi, hi, q0:q0 + q_chunk] = torch.logsumexp(sc, -1)
+    return (out, lse) if return_lse else out
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = False) -> torch.Tensor:
+                    causal: bool = False, return_lse: bool = False):
     """Blockwise online-softmax attention, ``q`` (B, S_q, H, D), ``k``/``v``
-    (B, S_k, H_kv, D) -> (B, S_q, H, D) in ``q``'s dtype.
+    (B, S_k, H_kv, D) -> (B, S_q, H, D) in ``q``'s dtype; with
+    ``return_lse`` the pair (output, log-sum-exp (B, H, S_q) f32).
 
     CUDA tensors (f32 or bf16, head dim 16/32/64/128) launch kernel C (the
     kernel :func:`kernel_for` names); CPU tensors take the plain version."""
@@ -122,7 +145,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"q, k, v on different devices: {q.device}, {k.device}, "
                          f"{v.device}")
     if q.device.type == "cpu":
-        return dense_attention(q, k, v, causal=causal)
+        return dense_attention(q, k, v, causal=causal, return_lse=return_lse)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in (torch.float32,
@@ -136,16 +159,20 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"got {d}")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = torch.empty_like(q)
+    lse = torch.empty((b, h, s_q), dtype=torch.float32, device=q.device) if return_lse else None
     if q.numel() == 0 or s_k == 0:
-        return out.zero_()
+        out.zero_()
+        return (out, lse.fill_(float("-inf"))) if return_lse else out
     # TMA and cp.async read 16-byte aligned bases; the row strides (multiples
     # of 2*D bytes) always are
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.data_ptr() % 16:
             raise ValueError(f"flash kernel needs 16-byte aligned tensors; {name} starts at "
                              f"{t.data_ptr():#x}")
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr()) + \
+        ((lse.data_ptr(),) if return_lse else ())
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        kernel_for(q.dtype, d)(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                               b, s_q, s_k, h, h_kv, d, int(bool(causal)), stream)
-    return out
+        kernel_for(q.dtype, d, return_lse)(*ptrs, b, s_q, s_k, h, h_kv, d, int(bool(causal)),
+                                           stream)
+    return (out, lse) if return_lse else out

@@ -19,15 +19,28 @@ A raw 1-D ``DeviceMesh`` (:func:`as_layout`) is data-parallel only.
 
 There is no silent mesh of one: with no process group initialised,
 :meth:`SpecLayout.build` and :func:`as_layout` raise
-:class:`MeshUnavailableError`. The parameter specs of the JAX package's
-layout (``col_weight``, ``batch``, ``fsdp_weight``) have no counterpart
-here: placement is the engine's own.
+:class:`MeshUnavailableError`.
+
+The reference layout's parameter specs (``:203-369``) are here as plain
+tuples, one entry a dim, each ``None``, an axis name or a tuple of axis
+names (the dim split over them jointly, the first the major one), entry for
+entry the reference's ``PartitionSpec``: :meth:`batch`, :meth:`replicated`,
+:meth:`col_weight`, :meth:`conv_weight`, :meth:`fsdp_weight`,
+:meth:`embed_weight`, :meth:`use_spec`. A spec places a tensor by
+:meth:`shard` (this rank's block of the global tensor) and
+:meth:`gather_for_use` (the all-gather over ``fsdp`` at the point of use
+that turns a stored block into the use spec's block); :meth:`state_dict` /
+:meth:`from_state_dict` save and rebuild the mesh's shape. The reference's
+``feature_blocks()`` spec is not kept: :meth:`feature_blocks` here gives the
+model axis's column blocks, which the GBDT engine uses.
 """
 
 from __future__ import annotations
 
+import logging
 from typing import List, Optional, Tuple
 
+import torch
 import torch.distributed as dist
 
 __all__ = ["SpecLayout", "as_layout", "MeshUnavailableError", "require_process_group"]
@@ -222,6 +235,196 @@ class SpecLayout:
     def __repr__(self) -> str:
         return (f"SpecLayout({self.describe()}, device_type={self.device_type!r}, "
                 f"coordinate={self.coordinate})")
+
+    def _key(self):
+        return (self.device_type, tuple(self.mesh.mesh_dim_names), self.mesh.mesh.tolist(),
+                self.data_axis, self.model_axis, self.fsdp_axis)
+
+    def __eq__(self, other) -> bool:
+        return isinstance(other, SpecLayout) and self._key() == other._key()
+
+    def __hash__(self) -> int:
+        return hash(repr(self._key()))
+
+    @property
+    def n_devices(self) -> int:
+        return self.data_size * self.fsdp_size * self.model_size
+
+    # -- parameter specs (the reference's PartitionSpecs, as tuples) ----------------
+
+    def batch(self, rank: int = 1, dim: int = 0) -> tuple:
+        """Rows over ``data`` at ``dim`` of a rank-``rank`` tensor."""
+        axes: list = [None] * rank
+        axes[dim] = self.data_axis
+        return tuple(axes)
+
+    def replicated(self) -> tuple:
+        return ()
+
+    def col_weight(self, rank: int = 2, dim: Optional[int] = None) -> tuple:
+        """A column-sharded weight: the output-feature dim (default the
+        last) over ``model``; replicated on a layout without a model axis."""
+        axes: list = [None] * rank
+        if self.model_axis is not None:
+            axes[rank - 1 if dim is None else dim] = self.model_axis
+        return tuple(axes)
+
+    def conv_weight(self, rank: int = 4) -> tuple:
+        """A convolution kernel (OIHW): output channels over ``model``."""
+        return self.col_weight(rank=rank, dim=0)
+
+    def fsdp_weight(self, rank: int = 1, dim: int = 0, use_spec=None) -> tuple:
+        """The STORAGE spec of a parameter row-sharded over ``fsdp`` at
+        ``dim``, stacked on ``use_spec`` (default replicated): a dim already
+        over ``model`` stores over ``(fsdp, model)``. ``use_spec`` itself on a
+        layout without an fsdp axis."""
+        base: list = list(use_spec) if use_spec is not None else []
+        base += [None] * (rank - len(base))
+        if self.fsdp_axis is not None:
+            cur = base[dim]
+            if cur is None:
+                base[dim] = self.fsdp_axis
+            elif isinstance(cur, tuple):
+                base[dim] = (self.fsdp_axis,) + cur
+            else:
+                base[dim] = (self.fsdp_axis, cur)
+        return tuple(base)
+
+    def embed_weight(self, rank: int = 2) -> tuple:
+        """An embedding table's storage: rows over ``fsdp x model`` jointly."""
+        row = tuple(a for a in (self.fsdp_axis, self.model_axis) if a is not None)
+        axes: list = [None] * rank
+        if row:
+            axes[0] = row if len(row) > 1 else row[0]
+        return tuple(axes)
+
+    def use_spec(self, stored_spec) -> tuple:
+        """The point-of-use spec of a stored-over-fsdp tensor: the storage spec
+        with the fsdp axis stripped."""
+        if self.fsdp_axis is None:
+            return tuple(stored_spec)
+
+        def strip(entry):
+            if entry == self.fsdp_axis:
+                return None
+            if isinstance(entry, tuple):
+                kept = tuple(a for a in entry if a != self.fsdp_axis)
+                return kept if len(kept) > 1 else (kept[0] if kept else None)
+            return entry
+
+        return tuple(strip(e) for e in stored_spec)
+
+    # -- placement -------------------------------------------------------------------
+
+    def _axes_of(self, entry) -> Tuple[str, ...]:
+        return () if entry is None else (entry if isinstance(entry, tuple) else (entry,))
+
+    def _role(self, name: str) -> str:
+        return {self.data_axis: "data", self.model_axis: "model",
+                self.fsdp_axis: "fsdp"}[name]
+
+    def _block(self, t: torch.Tensor, dim: int, entry) -> torch.Tensor:
+        """This rank's block of ``t`` along ``dim`` under one spec entry."""
+        axes = self._axes_of(entry)
+        if not axes:
+            return t
+        n, idx = 1, 0
+        for a in axes:   # row-major over the axes, the first the major one
+            size = self._size(a)
+            idx, n = idx * size + self._coord[a], n * size
+        if t.shape[dim] % n:
+            raise ValueError(f"dim {dim} of size {t.shape[dim]} does not split over {axes} "
+                             f"({n} blocks)")
+        blk = t.shape[dim] // n
+        return t.narrow(dim, idx * blk, blk)
+
+    def shard(self, t: torch.Tensor, spec) -> torch.Tensor:
+        """This rank's block of the global tensor ``t`` under ``spec`` (a
+        view; every sharded dim must split evenly)."""
+        spec = tuple(spec)
+        if len(spec) > t.dim():
+            raise ValueError(f"spec {spec} has more entries than {t.dim()} dims")
+        for d, entry in enumerate(spec):
+            t = self._block(t, d, entry)
+        return t
+
+    def gather_for_use(self, t: torch.Tensor, stored_spec) -> torch.Tensor:
+        """This rank's stored block ``t`` -> its block under
+        :meth:`use_spec` (a new tensor; the stored block stays as it is):
+        all-gathered over ``fsdp`` along each dim the fsdp axis shards. A dim
+        stored over ``(fsdp, model)`` is gathered over both, then cut to its
+        ``model`` block. ``t`` itself on a layout without an fsdp axis."""
+        from .collectives import all_gather
+
+        if self.fsdp_axis is None:
+            return t
+        use = self.use_spec(stored_spec)
+        for d, entry in enumerate(tuple(stored_spec)):
+            if entry == use[d]:
+                continue
+            axes = self._axes_of(entry)
+            for a in reversed(axes):   # innermost first: each gather a whole super-block
+                t = all_gather(t, self, self._role(a), dim=d)
+            t = self._block(t, d, use[d])
+        return t
+
+    # -- persistence -----------------------------------------------------------------
+
+    def state_dict(self) -> dict:
+        """Axis names and sizes (a mesh is bound to live ranks; the loading
+        world rebuilds it). The fsdp keys only for a layout with an fsdp axis."""
+        out = {"data_axis": self.data_axis, "model_axis": self.model_axis or "",
+               "data": self.data_size, "model": self.model_size}
+        if self.fsdp_axis is not None:
+            out["fsdp_axis"] = self.fsdp_axis
+            out["fsdp"] = self.fsdp_size
+        return out
+
+    @staticmethod
+    def from_state_dict(d: dict, device_type: Optional[str] = None) -> "SpecLayout":
+        """Rebuild a saved layout over this world (collective: every rank
+        calls it). A layout never changes results, so a saved shape larger
+        than the world degrades to what fits, collapsing ``fsdp`` first, then
+        ``model``, then ``data`` (with a warning, as the reference); a smaller
+        one puts the ranks left over on ``data``. ``device_type`` defaults to
+        ``"cuda"`` with a card, else ``"cpu"``."""
+        require_process_group()
+        if device_type is None:
+            device_type = "cuda" if torch.cuda.is_available() else "cpu"
+        n = dist.get_world_size()
+        data_axis = str(d["data_axis"])
+        model_axis = str(d.get("model_axis") or "") or None
+        fsdp_axis = str(d.get("fsdp_axis") or "") or None
+        want_data, want_model = int(d["data"]), int(d.get("model", 1))
+        want_fsdp = int(d.get("fsdp", 1)) if fsdp_axis else 1
+        if model_axis is None:
+            from torch.distributed.device_mesh import init_device_mesh
+
+            return SpecLayout(init_device_mesh(device_type, (n,),
+                                               mesh_dim_names=(data_axis,)),
+                              data_axis=data_axis, model_axis=None)
+        if want_data * want_fsdp * want_model > n:
+            saved = f"{data_axis}={want_data}"
+            if fsdp_axis:
+                saved += f", {fsdp_axis}={want_fsdp}"
+            saved += f", {model_axis}={want_model}"
+            logging.getLogger("synapseml_tpu_torch.layout").warning(
+                "saved layout (%s) needs %d ranks, have %d; degrading", saved,
+                want_data * want_fsdp * want_model, n)
+            want_model = max(1, min(want_model, n))
+            while n % want_model:
+                want_model -= 1
+            want_fsdp = max(1, min(want_fsdp, n // want_model))
+            while (n // want_model) % want_fsdp:
+                want_fsdp -= 1
+        want_data = n // (want_fsdp * want_model)
+        if want_fsdp * want_model * want_data != n:
+            raise ValueError(f"saved layout's model x fsdp {want_model} x {want_fsdp} does "
+                             f"not divide the world of {n} ranks")
+        if fsdp_axis and want_fsdp > 1:
+            return SpecLayout.build(data=want_data, model=want_model, fsdp=want_fsdp,
+                                    device_type=device_type)
+        return SpecLayout.build(data=want_data, model=want_model, device_type=device_type)
 
 
 def as_layout(mesh_or_layout, data_axis: str = "data") -> SpecLayout:

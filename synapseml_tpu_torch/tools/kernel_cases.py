@@ -30,7 +30,7 @@ from ..gbdt.sparse import (G_ENTRIES, CSRMatrix, SparseBinned, build_sparse_binn
 from ..gbdt.split_search import SplitWorkspace, _thresh_l1, left_set
 from ..vw.learner import pad_examples
 
-__all__ = ["bin_edge_case", "bin_ragged_case", "split_cases", "step_cases",
+__all__ = ["Q_CONV3D_CASES", "bin_edge_case", "bin_ragged_case", "split_cases", "step_cases",
            "LARGEST_KERNEL_A_BINS", "offgrid_split_case", "check_offgrid", "check_left_sets",
            "synthetic_update", "grow_synthetic", "diff_runs", "rank_rows", "RANK_CASES",
            "RANK_CASES_WIDE", "rank_case", "rank_nan_case", "one_split_text", "TWO_TREES",
@@ -883,6 +883,18 @@ Q_CONV_CASES = {
                                                             "dilations": [2, 2]}),
     "same_upper": dict(x=(1, 2, 6, 5), w=(3, 2, 2, 3), attrs={"auto_pad": "SAME_UPPER"}),
     "1d": dict(x=(2, 3, 10), w=(4, 3, 3), attrs={"pads": [1, 1]}),
+}
+# NCDHW x OIDHW convolutions: kernel Q's 3-D route, one 2-D launch a depth
+# tap; "c3d" is a C3D-style video block (3x3x3, 32 -> 64 channels at 8 x 28 x
+# 28), the shape chip_smoke.py times
+Q_CONV3D_CASES = {
+    "plain": dict(x=(2, 4, 5, 9, 9), w=(6, 4, 3, 3, 3), attrs={}),
+    "pads_strides": dict(x=(1, 3, 7, 8, 8), w=(5, 3, 3, 3, 3),
+                         attrs={"pads": [1, 1, 1, 1, 2, 0], "strides": [2, 1, 2]}),
+    "dilated_groups": dict(x=(2, 4, 6, 7, 7), w=(8, 2, 2, 3, 3),
+                           attrs={"dilations": [2, 1, 1], "group": 2,
+                                  "pads": [1, 0, 1, 0, 1, 1]}),
+    "c3d": dict(x=(2, 32, 8, 28, 28), w=(64, 32, 3, 3, 3), attrs={"pads": [1, 1, 1, 1, 1, 1]}),
 }
 
 

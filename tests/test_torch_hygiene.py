@@ -31,7 +31,8 @@ def test_port_modules_import_no_jax_and_no_reference():
                 "exploratory.balance", "cyber.scalers", "native.murmur", "runtime.layout",
                 "runtime.collectives", "vw.learner", "vw.estimators", "vw.featurizer",
                 "vw.convert", "onnx.wire", "onnx.builder", "onnx.ops", "onnx.qgemm", "onnx.rnn",
-                "onnx.importer", "onnx.model", "models.zoo", "tools.onnx_graphs"):
+                "onnx.importer", "onnx.model", "models.zoo", "tools.onnx_graphs",
+                "parallel.ring", "runtime.topology", "gbdt.engine"):
         assert f"synapseml_tpu_torch.{sub}" in mods, sub
     code = "\n".join(
         ["import sys", f"sys.path.insert(0, {_ROOT!r})"]
@@ -50,8 +51,10 @@ def test_mesh_modules_and_rank_side_import_no_jax_and_no_reference():
     that gloo ranks import, ``tests/torch_mesh.py``) load neither JAX nor
     the JAX package, and name neither in an import."""
     files = [os.path.join(_ROOT, "synapseml_tpu_torch", "runtime", f)
-             for f in ("layout.py", "collectives.py")]
-    files.append(os.path.join(_ROOT, "tests", "torch_mesh.py"))
+             for f in ("layout.py", "collectives.py", "topology.py")]
+    files += [os.path.join(_ROOT, "synapseml_tpu_torch", "parallel", "ring.py"),
+              os.path.join(_ROOT, "synapseml_tpu_torch", "gbdt", "engine.py"),
+              os.path.join(_ROOT, "tests", "torch_mesh.py")]
     for path in files:
         with open(path) as f:
             src = f.read()
@@ -60,7 +63,11 @@ def test_mesh_modules_and_rank_side_import_no_jax_and_no_reference():
     code = "\n".join(
         ["import sys", f"sys.path.insert(0, {_ROOT!r})",
          "import synapseml_tpu_torch.runtime.layout, synapseml_tpu_torch.runtime.collectives",
+         "import synapseml_tpu_torch.runtime.topology, synapseml_tpu_torch.parallel.ring",
+         "import synapseml_tpu_torch.gbdt.engine, synapseml_tpu_torch.onnx.importer",
          "import tests.torch_mesh",
+         "assert {'attention', 'topology', 'layout_specs', 'dryrun', 'onnx'} <= "
+         "set(tests.torch_mesh.CASES)",
          "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
          "or m == 'synapseml_tpu' or m.startswith('synapseml_tpu.'))",
          "assert not bad, f'imported: {bad[:5]}'"])

@@ -52,7 +52,8 @@ from synapseml_tpu_torch.tools.kernel_cases import (VW_ODD_BATCHES, VW_REGIMES, 
 from synapseml_tpu_torch.onnx import qgemm as onnx_qgemm
 from synapseml_tpu_torch.onnx import rnn as onnx_rnn
 from synapseml_tpu_torch.onnx.ops import OPS as ONNX_OPS
-from synapseml_tpu_torch.tools.kernel_cases import (BERT_BASE_PROJECTIONS, Q_CONV_CASES,
+from synapseml_tpu_torch.tools.kernel_cases import (BERT_BASE_PROJECTIONS, Q_CONV3D_CASES,
+                                                    Q_CONV_CASES,
                                                     Q_SIGN_PAIRS, Q_ZP_FORMS, RESNET50_CONVS,
                                                     q_operand, q_seed, q_zero_point,
                                                     rnn_step_case)
@@ -1571,3 +1572,83 @@ def test_onnx_quantized_graphs_launch_q_and_recurrent_launch_r(cuda):
             g = card[k].cpu().double().reshape(-1, w.shape[-1])
             w = w.double().reshape(-1, w.shape[-1])
             assert float(((g - w).norm(dim=1) / w.norm(dim=1).clamp_min(1e-30)).max()) <= 2e-2
+
+
+# -- kernel C's log-sum-exp entries -------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("head_dim", KERNEL_HEAD_DIMS)
+@pytest.mark.parametrize("shape,causal", [((2, 300, 333, 4, 2), True),
+                                          ((1, 257, 257, 3, 3), False),
+                                          ((2, 130, 130, 4, 1), True)])
+def test_flash_lse_matches_plain(cuda, dtype, head_dim, shape, causal):
+    """The lse entry writes each row's log-sum-exp within 1e-4 of the plain
+    version's (relative to max(1, |lse|); f32 and bf16 scores are f32 sums of
+    the same products), and its output is the output of the entry without
+    lse, bit for bit."""
+    B, Sq, Sk, H, Hkv = shape
+    g = torch.Generator(device="cpu").manual_seed(5)
+    q = torch.randn(B, Sq, H, head_dim, generator=g).to(dtype).to(cuda)
+    k = torch.randn(B, Sk, Hkv, head_dim, generator=g).to(dtype).to(cuda)
+    v = torch.randn(B, Sk, Hkv, head_dim, generator=g).to(dtype).to(cuda)
+    kern = kernel_for(dtype, head_dim, lse=True)
+    before = kern.launches
+    out, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
+    torch.cuda.synchronize()
+    assert kern.launches == before + 1
+    _, want = dense_attention(q.float(), k.float(), v.float(), causal=causal,
+                              return_lse=True)
+    assert lse.shape == (B, H, Sq) and lse.dtype == torch.float32
+    err = ((lse - want).abs() / want.abs().clamp(min=1.0)).max()
+    assert float(err) <= 1e-4, float(err)
+    assert torch.equal(out, flash_attention(q, k, v, causal=causal))
+
+
+# -- kernel Q's 3-D convolution, and the ops whose card values were undefined --------------------
+
+@pytest.mark.parametrize("case", sorted(Q_CONV3D_CASES))
+@pytest.mark.parametrize("op", ["ConvInteger", "QLinearConv"])
+def test_qgemm_conv3d_bit_equal_to_plain(cuda, case, op):
+    """A 3-D ConvInteger / QLinearConv on the card: kernel Q's 2-D conv once a
+    depth tap, bit-equal to the 3-D plain version on the CPU."""
+    c = Q_CONV3D_CASES[case]
+    rng = np.random.default_rng(q_seed(case, op, "conv3d"))
+    x, w = q_operand(rng, c["x"], "u8"), q_operand(rng, c["w"], "s8")
+    co = c["w"][0]
+    if op == "ConvInteger":
+        ins = [_Live(x), w, np.uint8(117), q_operand(rng, (co,), "s8")]
+    else:
+        ins = [_Live(x), np.float32(0.02), np.uint8(117), w,
+               rng.uniform(0.001, 0.02, size=co).astype(np.float32), q_operand(rng, (co,), "s8"),
+               np.float32(0.4), np.uint8(128), rng.integers(-5000, 5000, co).astype(np.int32)]
+    before = onnx_qgemm.QCONV_KERNEL.launches
+    got = _onnx_op(op, ins, c["attrs"], "cuda")
+    assert onnx_qgemm.QCONV_KERNEL.launches == before + c["w"][2]   # one a depth tap
+    want = _onnx_op(op, ins, c["attrs"], "cpu")
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.equal(got, want), f"{(got != want).sum().item()} values differ"
+
+
+# the reference's values (``synapseml_tpu/onnx/ops.py`` on the CPU), which
+# the CPU tests hold the port to (``tests/test_torch_onnx.py``)
+_CARD_OP_CASES = {
+    "cast_int32": ("Cast", [np.array([1e10, -1e10, np.nan, np.inf, 3e9, -2.7], np.float32)],
+                   {"to": 6}, [2147483647, -2147483648, 0, 2147483647, 2147483647, -2]),
+    "cast_uint8": ("Cast", [np.array([-1.7, 300, np.nan, 254.9], np.float32)], {"to": 2},
+                   [0, 255, 0, 254]),
+    "cast_int8": ("Cast", [np.array([-1.7, 300, np.nan, -200, 1e9], np.float32)], {"to": 3},
+                  [-1, 127, 0, -128, 127]),
+    "mod_int32": ("Mod", [np.array([5, -5, 7, -7], np.int32), np.array([0, 0, 3, 3], np.int32)],
+                  {}, [0, 0, 1, 2]),
+    "mod_int64": ("Mod", [np.array([5, -5, 7, -7], np.int64), np.array([0, 0, 3, 3], np.int64)],
+                  {}, [0, 0, 1, 2]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_CARD_OP_CASES))
+def test_cast_and_integer_mod_on_the_card_give_the_reference_values(cuda, case):
+    op, ins, attrs, want = _CARD_OP_CASES[case]
+    got = _onnx_op(op, [_Live(a) for a in ins], attrs, "cuda")
+    np.testing.assert_array_equal(got.numpy(), np.array(want))
+    np.testing.assert_array_equal(got.numpy(), _onnx_op(op, [_Live(a) for a in ins], attrs,
+                                                        "cpu").numpy())

@@ -870,9 +870,10 @@ def test_if_with_constant_condition(cond):
 
 
 def test_populated_layout_raises_and_placement_plan_matches_reference():
-    """A layout with a model or fsdp axis > 1 raises (ROADMAP item 6); the
-    placement analysis gives the reference's decisions for the trained CNN
-    under (data=4, model=2) and (data=2, fsdp=2, model=2)."""
+    """A populated layout that is not a SpecLayout raises (tensor-parallel
+    execution itself runs in tests/test_torch_onnx_tp.py); the placement
+    analysis gives the reference's decisions for the trained CNN under
+    (data=4, model=2) and (data=2, fsdp=2, model=2)."""
     from synapseml_tpu.runtime.layout import SpecLayout
     from synapseml_tpu_torch.onnx.importer import placement_plan
 
@@ -882,7 +883,7 @@ def test_populated_layout_raises_and_placement_plan_matches_reference():
     class _Layout:
         model_size, fsdp_size = 2, 1
 
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(TypeError, match="SpecLayout"):
         OnnxFunction(model, layout=_Layout(), device="cpu")
     for (data, fsdp, m) in ((4, 1, 2), (2, 2, 2)):
         lay = SpecLayout.build(data=data, model=m, fsdp=fsdp) if fsdp > 1 else \
@@ -891,3 +892,116 @@ def test_populated_layout_raises_and_placement_plan_matches_reference():
         got = placement_plan(model, model_size=m, fsdp_size=fsdp)
         assert [(r["tensor"], r["decision"], r["reason"], r["nbytes"]) for r in got] == \
             [(r["tensor"], r["decision"], r["reason"], r["nbytes"]) for r in want]
+
+
+# -- the seven op faults of ROADMAP queue 3, held to the reference's values ----------------
+
+def test_sign_keeps_nan_and_signed_zero():
+    x = np.array([np.nan, -0.0, 0.0, 2.0, -3.0, np.inf, -np.inf], np.float32)
+    port, ref = op_both("Sign", [T(x)])
+    assert_exact(port, ref)
+    np.testing.assert_array_equal(np.signbit(port), np.signbit(ref))
+    port, ref = op_both("Sign", [T(np.array([-4, 0, 9], np.int32))])
+    assert_exact(port, ref)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float16])
+def test_gelu_exact_form_of_infinities_and_nan(dtype):
+    x = np.array([np.nan, np.inf, -np.inf, 0.0, 1.0, -2.5, 30.0, -30.0], dtype)
+    port, ref = op_both("Gelu", [T(x)], opset=20)
+    np.testing.assert_array_equal(np.isnan(port), np.isnan(ref))
+    np.testing.assert_array_equal(np.isinf(port), np.isinf(ref))
+    keep = np.isfinite(ref)
+    np.testing.assert_array_equal(port[~keep & ~np.isnan(ref)], ref[~keep & ~np.isnan(ref)])
+    assert_f32(port[keep], ref[keep], tol=1e-3 if dtype == np.float16 else 1e-6)
+    assert port[1] == np.inf and np.isnan(port[2])
+
+
+@pytest.mark.parametrize("form", ["sizes", "scales"])
+def test_resize_shorter_than_rank_raises_as_the_reference(form):
+    x = T(np.ones((1, 1, 2, 2), np.float32))
+    inputs = ([x, None, None, np.array([4, 4], np.int64)] if form == "sizes"
+              else [x, None, np.array([2.0, 2.0], np.float32)])
+    for registry in (OPS, REF_OPS):
+        with pytest.raises(ValueError):
+            vals = [jnp.asarray(v.a) if (registry is REF_OPS and isinstance(v, T)) else
+                    torch.from_numpy(v.a) if isinstance(v, T) else v for v in inputs]
+            registry["Resize"](vals, {"mode": "nearest"}, {"op_type": "Resize", "opset": 18})
+
+
+_CAST_CASES = {
+    "int32": (6, [1e10, -1e10, np.nan, np.inf, -np.inf, 3e9, -2.7, 2147483520.0]),
+    "uint8": (2, [-1.7, 300.0, np.nan, 254.9, -np.inf, 0.99]),
+    "int8": (3, [-1.7, 300.0, np.nan, -200.0, 127.9, -128.9]),
+    "uint16": (4, [-1.7, 3e5, np.nan, 65535.5, np.inf]),
+    "int16": (5, [-1.7, 3e5, np.nan, -4e4, 32767.9]),
+}
+
+
+@pytest.mark.parametrize("target", sorted(_CAST_CASES))
+@pytest.mark.parametrize("src", [np.float32, np.float64, np.float16])
+def test_cast_saturates_and_sends_nan_to_zero(target, src):
+    to, vals = _CAST_CASES[target]
+    x = np.array(vals, np.float64).astype(src)
+    port, ref = op_both("Cast", [T(x)], {"to": to})
+    assert_exact(port, ref)
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.int64, np.int8, np.uint8])
+def test_integer_mod_by_zero_gives_zero(dtype):
+    lo = 0 if dtype == np.uint8 else -7
+    a = np.array([5, lo, 7, lo, 0, 9], dtype)
+    b = np.array([0, 0, 3, 3, 0, 4], dtype)
+    port, ref = op_both("Mod", [T(a), T(b)])
+    assert_exact(port, ref)
+
+
+@pytest.mark.parametrize("axis", [-1, 0])
+def test_onehot_compares_float_indices_as_they_are(axis):
+    idx = np.array([1.7, -1.2, 2.5, 1.0, -1.0, 0.0, 3.0, -3.0], np.float32)
+    port, ref = op_both("OneHot", [T(idx), np.array(3), np.array([-2.0, 5.0], np.float32)],
+                        {"axis": axis})
+    assert_exact(port, ref)
+    # 1.7, -1.2 and 2.5 set no column (the spec would truncate them)
+    assert (port.reshape(-1) == 5.0).sum() == 4
+
+
+_CONV3D = {"plain": dict(strides=(1, 1, 1), pads=((0, 0), (0, 0), (0, 0)), dilations=(1, 1, 1)),
+           "padded": dict(strides=(1, 1, 1), pads=((1, 1), (1, 1), (1, 1)), dilations=(1, 1, 1)),
+           "strided": dict(strides=(2, 1, 2), pads=((1, 2), (0, 1), (1, 0)), dilations=(1, 1, 1)),
+           "dilated": dict(strides=(1, 2, 1), pads=((2, 0), (1, 1), (0, 0)), dilations=(2, 1, 2))}
+
+
+@pytest.mark.parametrize("case", sorted(_CONV3D))
+@pytest.mark.parametrize("requant", [False, True])
+def test_qconv_3d_by_depth_taps_equals_plain(case, requant):
+    """Kernel Q's 3-D route (a 2-D conv a depth tap, depth padded with the x
+    zero point, sums added, requantized after), run here over the 2-D plain
+    version, equals the 3-D plain version bit for bit."""
+    from synapseml_tpu_torch.onnx import qgemm
+
+    rng = np.random.default_rng(31)
+    x = torch.from_numpy(rng.integers(0, 256, (2, 6, 5, 7, 6)).astype(np.uint8))
+    w = torch.from_numpy(rng.integers(-128, 128, (8, 3, 3, 2, 3)).astype(np.int8))
+    x_zp = torch.tensor(131, dtype=torch.uint8)
+    w_zp = torch.from_numpy(rng.integers(-3, 4, 8).astype(np.int8))
+    rq = None
+    if requant:
+        rq = qgemm.Requant(torch.from_numpy(rng.uniform(1e-4, 1e-3, 8).astype(np.float32)),
+                           torch.tensor(7, dtype=torch.uint8),
+                           torch.from_numpy(rng.integers(-500, 500, 8).astype(np.int32)))
+    geo = _CONV3D[case]
+    want = qgemm.qconv_plain(x, w, x_zp, w_zp, geo["strides"], geo["pads"], geo["dilations"],
+                             2, rq)
+    got = qgemm._qconv3d(x, w, x_zp, w_zp, geo["strides"], geo["pads"], geo["dilations"], 2,
+                         rq, None)
+    assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+def test_conv_integer_3d_matches_the_reference():
+    rng = np.random.default_rng(32)
+    x = rng.integers(0, 256, (1, 4, 5, 6, 6)).astype(np.uint8)
+    w = rng.integers(0, 256, (6, 4, 2, 3, 3)).astype(np.uint8)
+    port, ref = op_both("ConvInteger", [T(x), w, np.uint8(120), np.uint8(128)],
+                        {"pads": [1, 1, 0, 1, 1, 0], "strides": [1, 2, 1]})
+    assert_exact(port, ref)

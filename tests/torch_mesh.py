@@ -257,5 +257,144 @@ def case_vw_estimator(state, layout=None, col=None, y=None, **params) -> dict:
     return est.fit(Table({"features": col, "label": y})).state._asdict()
 
 
+def case_attention(state, layout=None, q=None, k=None, v=None, strategy="ring", causal=False,
+                   local="dense", bf16=False, axis="seq") -> dict:
+    """``parallel.ring.sequence_sharded_attention`` over ``layout`` of the
+    global ``q``, ``k``, ``v`` (numpy f32; cast to bf16 when asked): the
+    output (f32 numpy), the key-block lengths the plain attention was
+    called with on this rank, the collectives counted; or the error a
+    ``ValueError`` raised."""
+    from synapseml_tpu_torch.parallel import flash
+    from synapseml_tpu_torch.parallel.ring import sequence_sharded_attention
+    from synapseml_tpu_torch.runtime import collectives
+
+    dt = torch.bfloat16 if bf16 else torch.float32
+    qt, kt, vt = (torch.from_numpy(np.asarray(a, np.float32)).to(dt) for a in (q, k, v))
+    seen: List[int] = []
+    plain = flash.dense_attention
+
+    def recording(q_, k_, v_, *a, **kw):
+        seen.append(int(k_.shape[1]))
+        return plain(q_, k_, v_, *a, **kw)
+
+    flash.dense_attention = recording
+    collectives.reset_counts()
+    try:
+        out = sequence_sharded_attention(qt, kt, vt, _layout(state, layout), strategy=strategy,
+                                         causal=causal, local=local, axis=axis)
+    except ValueError as e:
+        return {"error": str(e)}
+    finally:
+        flash.dense_attention = plain
+    return {"out": out.float().numpy(), "key_blocks": seen,
+            "collectives": collectives.counts(), "dtype": str(out.dtype)}
+
+
+def case_topology(state, axes=("data", "model"), shape=(4, 2)) -> dict:
+    """``runtime.topology`` on this rank: ``cluster_info``, the backend
+    check, meshes of ``make_mesh`` (default and ``shape``), a too-large
+    shape's error."""
+    from synapseml_tpu_torch.runtime import topology
+
+    info = topology.cluster_info()
+    out = {"info": info, "kind": topology.device_kind(),
+           "require_cpu_ok": topology.require_backend(allow_cpu=True).platform}
+    try:
+        topology.require_backend()
+    except RuntimeError as e:
+        out["refusal"] = str(e)
+    m1 = topology.make_mesh((axes[0],), device_type="cpu")
+    m2 = topology.make_mesh(axes, shape=shape, device_type="cpu")
+    out["default_1d"] = dict(zip(m1.mesh_dim_names, m1.mesh.shape))
+    out["mesh_2d"] = dict(zip(m2.mesh_dim_names, m2.mesh.shape))
+    try:
+        topology.make_mesh((axes[0],), shape=(1000,), device_type="cpu")
+    except ValueError as e:
+        out["too_big"] = str(e)
+    return out
+
+
+def case_layout_specs(state, layout=None, w=None, x=None, saved=None) -> dict:
+    """The layout's parameter specs, ``shard`` / ``gather_for_use`` of ``w``
+    under the fsdp-stored column spec and ``x @`` the gathered block
+    (all-gathered over model), and its ``state_dict`` round trip (and the
+    rebuild of ``saved`` when given)."""
+    from synapseml_tpu_torch.runtime import collectives
+
+    lay = _layout(state, layout)
+    out = {"describe": lay.describe(), "batch": lay.batch(), "batch41": lay.batch(rank=4, dim=1),
+           "replicated": lay.replicated(), "col": lay.col_weight(),
+           "col20": lay.col_weight(rank=2, dim=0), "conv": lay.conv_weight(),
+           "fsdp1": lay.fsdp_weight(rank=1),
+           "fsdp_col": lay.fsdp_weight(rank=2, dim=0, use_spec=lay.col_weight(rank=2)),
+           "fsdp_joint": lay.fsdp_weight(rank=2, dim=1, use_spec=(None, "model")),
+           "embed": lay.embed_weight(), "n_devices": lay.n_devices,
+           "state_dict": lay.state_dict()}
+    out["use"] = {k: lay.use_spec(out[k]) for k in ("fsdp_col", "fsdp_joint", "fsdp1")}
+    if w is not None:
+        wt = torch.from_numpy(np.asarray(w, np.float32))
+        collectives.reset_counts()
+        for key in ("fsdp_col", "fsdp_joint", "embed"):
+            stored = out[key]
+            local = lay.shard(wt, stored).contiguous()
+            used = lay.gather_for_use(local, stored)
+            out[f"{key}_local_bytes"] = local.numel() * local.element_size()
+            out[f"{key}_used"] = used.numpy()
+            out[f"{key}_want"] = lay.shard(wt, lay.use_spec(stored)).numpy()
+        stored = out["fsdp_col"]
+        cols = torch.from_numpy(np.asarray(x, np.float32)) @ lay.gather_for_use(
+            lay.shard(wt, stored).contiguous(), stored)
+        out["product"] = collectives.all_gather(cols, lay, "model", dim=-1).numpy() \
+            if lay.model_size > 1 else cols.numpy()
+        out["collectives"] = collectives.counts()
+    back = type(lay).from_state_dict(lay.state_dict(), device_type="cpu")
+    out["round_trip_equal"] = back == lay
+    if saved is not None:
+        out["rebuilt"] = type(lay).from_state_dict(saved, device_type="cpu").describe()
+    return out
+
+
+def case_dryrun(state, layout=None) -> dict:
+    """``gbdt.engine.dryrun_train_step`` over ``layout`` on the CPU."""
+    from synapseml_tpu_torch.gbdt.engine import dryrun_train_step
+    from synapseml_tpu_torch.runtime import collectives
+
+    collectives.reset_counts()
+    b = dryrun_train_step(_layout(state, layout), device="cpu")
+    return {"booster": booster_of(b), "collectives": collectives.counts()}
+
+
+def case_onnx(state, layout=None, model=None, feeds=None, dtype_policy="float32",
+              stage=None) -> dict:
+    """The port's ONNX executor over ``layout`` on the CPU: through
+    ``OnnxFunction`` (the outputs, ``_const_specs``, ``placement_report()``,
+    each planned weight's bytes on this rank, the collectives), or with
+    ``stage`` (the ``ONNXModel`` keyword arguments, its input column's
+    rows as ``feeds``) the stage's output columns."""
+    from synapseml_tpu_torch.core import Table
+    from synapseml_tpu_torch.onnx import ONNXModel, OnnxFunction
+    from synapseml_tpu_torch.runtime import collectives
+
+    lay = _layout(state, layout)
+    collectives.reset_counts()
+    if stage is not None:
+        st = ONNXModel(model_bytes=model, sharding_layout=lay, device="cpu", **stage)
+        col = next(iter(stage["feed_dict"].values()))
+        out = st.transform(Table({col: list(feeds)}))
+        return {c: np.asarray(out[c]) for c in out.column_names if c != col}
+    fn = OnnxFunction(model, dtype_policy=dtype_policy, layout=lay, device="cpu")
+    res = fn(feeds)
+    held = {n: int(np.asarray(fn.constants[n]).nbytes) if not isinstance(fn.constants[n],
+                                                                          torch.Tensor)
+            else fn.constants[n].numel() * fn.constants[n].element_size()
+            for n in fn._const_specs}
+    return {"outputs": {k: v.float().numpy() for k, v in res.items()},
+            "specs": dict(fn._const_specs), "report": fn.placement_report(),
+            "held_bytes": held, "at_rest_bytes": fn.at_rest_bytes(),
+            "collectives": collectives.counts()}
+
+
 CASES = {"fit": case_fit, "estimator": case_estimator, "vw_fit": case_vw_fit,
-         "vw_estimator": case_vw_estimator}
+         "vw_estimator": case_vw_estimator, "attention": case_attention,
+         "topology": case_topology, "layout_specs": case_layout_specs, "dryrun": case_dryrun,
+         "onnx": case_onnx}
