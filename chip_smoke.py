@@ -199,6 +199,34 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    ``require_backend("gpu")`` on the card, and a 3-D ``ConvInteger`` (a C3D
    block) through kernel Q, one 2-D launch a depth tap, bit-equal to
    ``qconv_plain``;
+2m. images, DL featurization, the explainers and the isolation forest:
+   (b) first, kernel L (the lasso's coordinate descent,
+   ``csrc/lasso_cd.cu``) against its plain version on the card at LIME's
+   shapes (1,000 samples, k = 32 and k = 200, 256 instances x 2 targets,
+   alpha 0.01, 100 sweeps: within LASSO_TOL of max(1, max|beta|), the same
+   zero coefficients), L, the plain version and the least-squares SVD path
+   timed; then, with every launch count set to 0 just before and read just
+   after, the main path: (a) 256 seeded uint8 BGR images of ragged sizes
+   (240-480 px a side) through ``ImageTransformer`` (shorter side 256,
+   center crop 224, Gaussian blur 5, flip), then ``ImageFeaturizer`` over
+   the zoo's ResNet-50 fetched by ``ModelDownloader(ZooRepository)`` into a
+   temporary directory, headless, f32 and bf16 at batch 64, images/s, the
+   first 8 images' features held to the port's CPU run within phase 2k's
+   tolerances; (c) a ``LightGBMClassifier`` (20 iterations, 31 leaves, the
+   8 categorical columns) fitted on 65,536 Adult-schema rows behind a
+   ``PipelineModel`` (codes cast, ``FastVectorAssembler``), explained by
+   ``TabularLIME`` (regularization 0.01: kernel L) and ``TabularSHAP``
+   (8 background rows) on 256 rows at 1,000 samples each: finite, 16 rows
+   held to the port's CPU run within EXPLAIN_TOL, SHAP's intercept plus
+   attributions within SHAP_ADD_TOL of the model's probability; (d)
+   ``ImageLIME`` over the featurizer's logits on 2 images at 1,000 samples
+   (cell size 16): finite coefficients and r2, one image at 64 samples held
+   to the port's CPU run within LIME_IMAGE_TOL; (e) ``IsolationForest``
+   (100 trees, max_samples 256, contamination 0.02) fitted on 1,048,576
+   HIGGS-schema rows, every row scored by ONE launch of kernel B's forest
+   entry (``iforest_tree_score``), the scores within FOREST_TOL of the heap
+   descent's on the card and the predictions identical; L and B's forest
+   entry must launch on that path;
 3. flash attention's entry point, all causal: in bf16 (the wgmma kernel) at
    the headline shape (B=1, S=32768, H=8, D=64), the grouped-query serving
    shape (B=8, S=8192, H=8, H_kv=2, D=64), the headline length at D=128, and
@@ -3216,6 +3244,361 @@ def topology_and_conv3d(dev) -> dict:
     return rec
 
 
+# -- phase 2m: images and DL featurization, the explainers (kernel L), the forest (B) --
+
+N_IMAGES = 256
+IMAGE_SIDES = (240, 480)
+IMAGE_STAGES = [{"action": "resize", "size": 256},
+                {"action": "centercrop", "height": 224, "width": 224},
+                {"action": "gaussiankernel", "aperturesize": 5},
+                {"action": "flip", "flipcode": 1}]
+IMAGE_BATCH = 64
+IMAGE_CHECK = 8
+# kernel L: LIME's default sample count, two targets, 256 instances (512 fits)
+LASSO_M, LASSO_INSTANCES, LASSO_TARGETS, LASSO_KS = 1000, 256, 2, (32, 200)
+LASSO_ALPHA, LASSO_ITERS = 0.01, 100
+N_TAB_TRAIN, N_TAB_EXPLAIN, TAB_SAMPLES, TAB_CHECK, TAB_BACKGROUND = 65_536, 256, 1000, 16, 8
+# card against the port's CPU run: the regressions' rounding (L against its
+# plain version, LASSO_TOL; the SVD's on each device) of coefficients
+# scaled by max(1, max|coefficient|)
+EXPLAIN_TOL = 1e-3
+# KernelSHAP: intercept + sum of attributions against the model's output
+SHAP_ADD_TOL = 1e-3
+LIME_IMAGES, LIME_SAMPLES, LIME_CELL, LIME_CHECK_SAMPLES = 2, 1000, 16.0, 64
+# the min-norm fit of 64 samples over ~196 superpixels on the card and the
+# CPU: linear in the logits, whose card and CPU runs differ by ONNX_F32_TOL
+# of their max-abs
+LIME_IMAGE_TOL = 1e-2
+N_FOREST = 1_048_576
+FOREST = dict(num_estimators=100, max_samples=256, contamination=0.02, random_seed=1)
+FOREST_TOL = 1e-6
+PHASE_2M_KERNELS = ("explainers_lasso_cd", "iforest_tree_score")
+
+
+def ragged_images(seed: int, n: int) -> np.ndarray:
+    """``n`` seeded uint8 BGR images, each side in IMAGE_SIDES."""
+    rng = np.random.default_rng([seed, 22])
+    col = np.empty(n, dtype=object)
+    for i, (h, w) in enumerate(rng.integers(IMAGE_SIDES[0], IMAGE_SIDES[1] + 1, (n, 2))):
+        col[i] = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+    return col
+
+
+def image_phase(seed: int, model_dir: str, card: str) -> dict:
+    """Phase 2m (a): ImageTransformer over ragged images, then
+    ImageFeaturizer (ResNet-50 from the zoo through ModelDownloader)."""
+    from synapseml_tpu_torch.core import Table
+    from synapseml_tpu_torch.dl import ImageFeaturizer, ModelDownloader, ZooRepository
+    from synapseml_tpu_torch.image import ImageTransformer
+
+    col = ragged_images(seed, N_IMAGES)
+    t0 = time.perf_counter()
+    schema = ModelDownloader(model_dir, ZooRepository()).download_by_name("ResNet50")
+    fetch_s = time.perf_counter() - t0
+    table = Table({"image": col})
+    stage = ImageTransformer(stages=IMAGE_STAGES)
+    stage.transform(Table({"image": col[:4]}))                  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    images = stage.transform(table)
+    torch.cuda.synchronize()
+    transformer_s = time.perf_counter() - t0
+    if images["image"].shape != (N_IMAGES, 224, 224, 3):
+        fail(f"phase 2m: ImageTransformer gave {images['image'].shape}")
+    out = {"fetch_s": fetch_s, "model_bytes": schema.size, "transformer_s": transformer_s,
+           "transformer_images_per_s": N_IMAGES / transformer_s}
+    check = Table({"image": images["image"][:IMAGE_CHECK]})
+    for policy in ("float32", "bfloat16"):
+        kw = dict(model_name="ResNet50", model_dir=model_dir, batch_size=IMAGE_BATCH,
+                  dtype_policy=policy)
+        feat = ImageFeaturizer(**kw)
+        t0 = time.perf_counter()
+        feat.transform(Table({"image": images["image"][:IMAGE_BATCH]}))   # builds the plan
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        got = feat.transform(images)["features"]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if got.shape != (N_IMAGES, 2048) or not np.isfinite(got).all():
+            fail(f"phase 2m: {policy} features {got.shape}, finite {np.isfinite(got).all()}")
+        cpu = ImageFeaturizer(device="cpu", **kw).transform(check)["features"]
+        rows = policy == "bfloat16"
+        err = _onnx_err(torch.from_numpy(got[:IMAGE_CHECK]), torch.from_numpy(cpu), rows)
+        tol = ONNX_ROW_TOL if rows else ONNX_F32_TOL
+        if not err <= tol:
+            fail(f"phase 2m: {policy} features are {err} from the CPU run (> {tol})")
+        out[policy] = {"first_batch_s": first_s, "wall_s": wall,
+                       "images_per_s": N_IMAGES / wall, "err_vs_cpu": err, "tol": tol}
+        log(f"phase 2m (a) {policy}: {N_IMAGES / wall:.1f} images/s, first batch "
+            f"{first_s:.2f} s, error vs CPU {err:.3g} (tol {tol}) [{card}]")
+    log(f"phase 2m (a): ImageTransformer {N_IMAGES / transformer_s:.1f} images/s; ResNet-50 "
+        f"fetched in {fetch_s:.2f} s ({schema.size} bytes) [{card}]")
+    return out, images["image"]
+
+
+def lasso_rows(seed: int, dev, card: str) -> dict:
+    """Phase 2m (b): kernel L against its plain version on the card at
+    LIME's shapes, L, the plain version and the SVD path timed."""
+    from synapseml_tpu_torch.explainers import regression as reg
+    from synapseml_tpu_torch.tools.kernel_cases import lasso_case
+
+    out = {"smem_k": reg.lasso_smem_k()}
+    for k in LASSO_KS:
+        X, Y, w = (torch.from_numpy(np.asarray(a, np.float32)).to(dev) for a in
+                   lasso_case(seed + k, LASSO_INSTANCES, LASSO_M, k, LASSO_TARGETS))
+        *_, Xr, Yr = reg.rescaled(X, Y, w)
+        gram, xty, sq = reg.lasso_system(Xr, Yr)
+        lam = LASSO_ALPHA * LASSO_M
+        before = reg.LASSO_KERNEL.launches
+        got = reg.lasso_cd(gram, xty, sq, lam, LASSO_ITERS)
+        torch.cuda.synchronize()
+        plain, plain_ms = timed_once(lambda: reg.lasso_cd_plain(gram, xty, sq, lam, LASSO_ITERS))
+        scale = max(1.0, plain.abs().max().item())
+        err = (got - plain).abs().max().item()
+        if not err <= reg.LASSO_TOL * scale:
+            fail(f"phase 2m (b): kernel L at k={k} is {err} from its plain version "
+                 f"(> {reg.LASSO_TOL} x {scale})")
+        if not torch.equal(got == 0, plain == 0):
+            fail(f"phase 2m (b): kernel L's zero coefficients differ from the plain version's "
+                 f"at k={k}")
+        ms = time_ms(lambda: reg.lasso_cd(gram, xty, sq, lam, LASSO_ITERS), 5)
+        svd_ms = time_ms(lambda: reg._min_norm_lstsq(Xr, Yr), 3)
+        fits = LASSO_INSTANCES * LASSO_TARGETS
+        n_bytes = 4 * (gram.numel() + xty.numel() + sq.numel() + xty.numel())
+        out[k] = {"launches_checked": reg.LASSO_KERNEL.launches - before,
+                  "max_abs_err": err, "tol": reg.LASSO_TOL * scale, "ms": ms,
+                  "plain_ms": plain_ms, "svd_ms": svd_ms,
+                  "bound": bound(n_bytes, fits * LASSO_ITERS * k * 2 * k, F32_FLOPS),
+                  "bytes": n_bytes, "gram_in_smem": k <= out["smem_k"],
+                  "nonzero_share": float((plain != 0).float().mean()),
+                  "shape": f"{fits} fits ({LASSO_INSTANCES} instances x {LASSO_TARGETS} "
+                           f"targets), m={LASSO_M}, k={k}, alpha={LASSO_ALPHA}, "
+                           f"{LASSO_ITERS} sweeps"}
+        log(f"phase 2m (b) L k={k}: {ms:.4f} ms (plain {plain_ms:.1f}, SVD path "
+            f"{svd_ms:.3f}), bound {out[k]['bound'][0]:.4f} ({out[k]['bound'][1]}), "
+            f"max|L - plain| {err:.3g} <= {reg.LASSO_TOL * scale:.3g} [{card}]")
+        del X, Y, w, Xr, Yr, gram, xty, sq, got, plain
+    return out
+
+
+def _adult_tables(seed: int):
+    """Adult rows (NaN codes as one more level) for the tabular explainers."""
+    from synapseml_tpu_torch.tools.schema_data import (ADULT_CARDINALITY, ADULT_COLUMNS,
+                                                       adult_rows)
+
+    x, y, _ = adult_rows(seed, N_TAB_TRAIN + N_TAB_EXPLAIN)
+    for name, k in ADULT_CARDINALITY.items():
+        j = ADULT_COLUMNS.index(name)
+        x[np.isnan(x[:, j]), j] = k
+    cols = {c: x[:, j].astype(np.float64) for j, c in enumerate(ADULT_COLUMNS)}
+    return x, y, cols
+
+
+def tabular_phase(seed: int, card: str) -> dict:
+    """Phase 2m (c): TabularLIME (kernel L) and TabularSHAP over a
+    LightGBMClassifier pipeline fitted on Adult-schema rows."""
+    from synapseml_tpu_torch.core import PipelineModel, Table
+    from synapseml_tpu_torch.explainers import TabularLIME, TabularSHAP
+    from synapseml_tpu_torch.featurize import FastVectorAssembler
+    from synapseml_tpu_torch.gbdt import LightGBMClassifier
+    from synapseml_tpu_torch.stages import Lambda
+    from synapseml_tpu_torch.tools.schema_data import (ADULT_CARDINALITY, ADULT_CATEGORICAL,
+                                                       ADULT_COLUMNS)
+
+    x, y, cols = _adult_tables(seed)
+    t0 = time.perf_counter()
+    clf = LightGBMClassifier(num_iterations=20, num_leaves=31, max_bin=255,
+                             categorical_slot_indexes=list(ADULT_CATEGORICAL)).fit(
+        Table({"features": x[:N_TAB_TRAIN], "label": y[:N_TAB_TRAIN]}))
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    cats = list(ADULT_CARDINALITY)
+    as_codes = lambda t: t.with_columns({c: np.asarray(t[c], np.float64) for c in cats})
+
+    def pipeline(model):
+        return PipelineModel([Lambda(transform_func=as_codes),
+                              FastVectorAssembler(input_cols=ADULT_COLUMNS), model])
+
+    card_model, cpu_model = pipeline(clf), pipeline(clf.copy({"device": "cpu"}))
+    explain = {c: v[N_TAB_TRAIN:] for c, v in cols.items()}
+    background = Table({c: v[:TAB_BACKGROUND] for c, v in cols.items()})
+    head = {c: v[:TAB_CHECK] for c, v in explain.items()}
+    out = {"fit_s": fit_s}
+    for name, make in (
+            ("lime", lambda model, dev: TabularLIME(
+                model=model, input_cols=ADULT_COLUMNS, categorical_cols=cats,
+                target_classes=[1], num_samples=TAB_SAMPLES, regularization=LASSO_ALPHA,
+                seed=seed, device=dev)),
+            ("shap", lambda model, dev: TabularSHAP(
+                model=model, input_cols=ADULT_COLUMNS, background_data=background,
+                target_classes=[1], num_samples=TAB_SAMPLES, seed=seed, device=dev))):
+        t0 = time.perf_counter()
+        res = make(card_model, None).transform(Table(explain))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        coef = np.stack([e for e in res["explanation"]])
+        r2 = np.stack([e for e in res["r2"]])
+        if not (np.isfinite(coef).all() and np.isfinite(r2).all()):
+            fail(f"phase 2m (c) {name}: coefficients or r2 not finite")
+        got = make(card_model, None).transform(Table(head))["explanation"]
+        want = make(cpu_model, "cpu").transform(Table(head))["explanation"]
+        got, want = np.stack(list(got)), np.stack(list(want))
+        scale = max(1.0, float(np.abs(want).max()))
+        err = float(np.abs(got - want).max())
+        if not err <= EXPLAIN_TOL * scale:
+            fail(f"phase 2m (c) {name}: card and CPU attributions differ by {err} "
+                 f"(> {EXPLAIN_TOL} x {scale})")
+        rec = {"rows": N_TAB_EXPLAIN, "samples": TAB_SAMPLES, "wall_s": wall,
+               "rows_per_s": N_TAB_EXPLAIN / wall, "err_vs_cpu": err,
+               "tol": EXPLAIN_TOL * scale, "median_r2": float(np.median(r2))}
+        if name == "shap":
+            probs = card_model.transform(Table(explain))["probability"][:, 1]
+            add = float(np.abs(coef[:, 0, 0] + coef[:, 0, 1:].sum(-1) - probs).max())
+            if not add <= SHAP_ADD_TOL:
+                fail(f"phase 2m (c) shap: intercept + attributions miss the model's "
+                     f"probability by {add} (> {SHAP_ADD_TOL})")
+            rec.update(additivity_err=add, background_rows=TAB_BACKGROUND,
+                       rows_scored=N_TAB_EXPLAIN * TAB_SAMPLES * TAB_BACKGROUND)
+        out[name] = rec
+        log(f"phase 2m (c) {name}: {N_TAB_EXPLAIN} rows at {TAB_SAMPLES} samples in "
+            f"{wall:.2f} s, card vs CPU {err:.3g} (tol {EXPLAIN_TOL * scale:.3g}) [{card}]")
+    return out
+
+
+def image_lime_phase(images: np.ndarray, model_dir: str, card: str) -> dict:
+    """Phase 2m (d): ImageLIME over the featurizer's logits."""
+    from synapseml_tpu_torch.core import Table
+    from synapseml_tpu_torch.dl import ImageFeaturizer
+    from synapseml_tpu_torch.explainers import ImageLIME, SuperpixelTransformer
+
+    models = {dev: ImageFeaturizer(model_name="ResNet50", model_dir=model_dir,
+                                   batch_size=IMAGE_BATCH, cut_output_layers=0,
+                                   output_col="logits", device=dev) for dev in (None, "cpu")}
+    col = np.empty(LIME_IMAGES, dtype=object)
+    col[:] = [images[i] for i in range(LIME_IMAGES)]
+    logits = models[None].transform(Table({"image": images[:1]}))["logits"]
+    target = int(np.argmax(logits[0]))
+    t0 = time.perf_counter()
+    table = SuperpixelTransformer(cell_size=LIME_CELL).transform(Table({"image": col}))
+    slic_s = time.perf_counter() - t0
+
+    def lime(dev, n):
+        return ImageLIME(model=models[dev], target_col="logits", target_classes=[target],
+                         cell_size=LIME_CELL, superpixel_col="superpixels", num_samples=n,
+                         seed=0, device=dev)
+
+    t0 = time.perf_counter()
+    res = lime(None, LIME_SAMPLES).transform(table)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    coef = [np.asarray(e) for e in res["explanation"]]
+    if not all(np.isfinite(c).all() for c in coef) or \
+            not all(np.isfinite(np.asarray(r)).all() for r in res["r2"]):
+        fail("phase 2m (d): ImageLIME's coefficients or r2 are not finite")
+    one = table.slice(0, 1)
+    got = np.asarray(lime(None, LIME_CHECK_SAMPLES).transform(one)["explanation"][0])
+    want = np.asarray(lime("cpu", LIME_CHECK_SAMPLES).transform(one)["explanation"][0])
+    scale = max(1.0, float(np.abs(want).max()))
+    err = float(np.abs(got - want).max())
+    if not err <= LIME_IMAGE_TOL * scale:
+        fail(f"phase 2m (d): ImageLIME on the card and the CPU differ by {err} "
+             f"(> {LIME_IMAGE_TOL} x {scale})")
+    log(f"phase 2m (d) ImageLIME: {LIME_IMAGES} images x {LIME_SAMPLES} samples in {wall:.2f} "
+        f"s (superpixels {slic_s:.2f} s on the host before it), {coef[0].shape[1]} "
+        f"superpixels, card vs CPU {err:.3g} [{card}]")
+    return {"images": LIME_IMAGES, "samples": LIME_SAMPLES, "wall_s": wall, "slic_s": slic_s,
+            "superpixels": [int(c.shape[1]) for c in coef], "target_class": target,
+            "err_vs_cpu": err, "tol": LIME_IMAGE_TOL * scale,
+            "median_r2": float(np.median([np.asarray(r) for r in res["r2"]]))}
+
+
+def forest_phase(seed: int, dev, kernels, card: str) -> dict:
+    """Phase 2m (e): IsolationForest on HIGGS-schema rows, all rows scored
+    through kernel B, held against the heap descent on the card."""
+    from synapseml_tpu_torch.core import Table
+    from synapseml_tpu_torch.gbdt.device_predict import device_raw_scores
+    from synapseml_tpu_torch.isolationforest import IsolationForest
+    from synapseml_tpu_torch.isolationforest import forest as F
+    from synapseml_tpu_torch.tools.schema_data import higgs_width_rows
+
+    x, _ = higgs_width_rows(seed + 7, N_FOREST)
+    table = Table({"features": x})
+    t0 = time.perf_counter()
+    reset(kernels)
+    model = IsolationForest(**FOREST).fit(table)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    fit_launches = counts(kernels)["iforest_tree_score"]     # the contamination threshold
+    reset(kernels)
+    t0 = time.perf_counter()
+    out = model.transform(table)
+    torch.cuda.synchronize()
+    transform_s = time.perf_counter() - t0
+    launches = kernels["iforest_tree_score"].launches
+    if launches != 1:
+        fail(f"phase 2m (e): the transform launched B's forest entry {launches} times, not 1")
+    xd = torch.from_numpy(x).to(dev)
+    T = FOREST["num_estimators"]
+    plain, plain_ms = timed_once(lambda: F.path_lengths_plain(
+        xd, model.tree_features, model.tree_thresholds, model.tree_path_lens,
+        model.depth_limit))
+    want = F.scores_from_total(plain, T, model.c_norm).cpu().numpy()
+    got = out["outlierScore"]
+    err = float(np.abs(got - want).max())
+    if not err <= FOREST_TOL:
+        fail(f"phase 2m (e): B's scores are {err} from the heap descent's (> {FOREST_TOL})")
+    pred_plain = (want >= model.score_threshold).astype(np.float64)
+    if not np.array_equal(out["predictedLabel"], pred_plain):
+        fail("phase 2m (e): predictions through B differ from the heap descent's")
+    plan = model._plan(x.shape[1], dev)
+    binned = F.rebin(xd, plan)
+    ones = np.ones(T, np.float32)
+    call = lambda: device_raw_scores(binned, plan.parent, plan.feature, plan.bins,
+                                     plan.leaf_value, ones, packed=plan.packed,
+                                     kernel=F.IFOREST_KERNEL)
+    ms = time_ms(call, 10)
+    rebin_ms = time_ms(lambda: F.rebin(xd, plan), 10)
+    n_bytes = (binned.numel() * binned.element_size() + plan.packed.nodes.numel() * 4
+               + plan.leaf_value.size * 4 + N_FOREST * 4)
+    flagged = float(out["predictedLabel"].mean())
+    log(f"phase 2m (e) forest: fit {fit_s:.2f} s, transform {transform_s:.2f} s "
+        f"({N_FOREST / transform_s:.0f} rows/s), B {ms:.4f} ms (plain {plain_ms:.1f}), "
+        f"re-binning {rebin_ms:.3f} ms, max|B - heap| {err:.3g}, flagged {flagged:.4f} [{card}]")
+    return {"fit_s": fit_s, "transform_s": transform_s, "rows_per_s": N_FOREST / transform_s,
+            "launches": launches, "fit_launches": fit_launches, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "rebin_ms": rebin_ms, "bytes": n_bytes,
+            "bound": bound(n_bytes, 0, F32_FLOPS), "bin_dtype": str(plan.bin_dtype),
+            "splits_a_tree": int(plan.parent.shape[-1]), "flagged_share": flagged,
+            "shape": f"{N_FOREST} x {x.shape[1]} rows, {T} trees of depth "
+                     f"{model.depth_limit} (max_samples {FOREST['max_samples']})"}
+
+
+def explainers_phase(kernels, seed: int, dev, card: str) -> dict:
+    """Phase 2m: (b) kernel L against its plain version first, then the
+    main path -- (a) images and featurization, (c) the tabular explainers,
+    (d) ImageLIME, (e) the forest -- with every launch count set to 0 just
+    before it and read just after."""
+    import tempfile
+
+    lasso = lasso_rows(seed, dev, card)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="smt-models-") as model_dir:
+        reset(kernels)
+        imgs, images = image_phase(seed, model_dir, card)
+        tab = tabular_phase(seed, card)
+        lime = image_lime_phase(images, model_dir, card)
+        path_counts = counts(kernels)
+    forest = forest_phase(seed, dev, kernels, card)
+    path_counts["iforest_tree_score"] += forest["fit_launches"] + forest["launches"]
+    for name in PHASE_2M_KERNELS:
+        if path_counts[name] < 1:
+            fail(f"phase 2m: the main path never launched {name}")
+    log(f"phase 2m launches: { {k: v for k, v in path_counts.items() if v} }")
+    return {"lasso": lasso, "images": imgs, "tabular": tab, "image_lime": lime,
+            "forest": forest, "launches": path_counts}
+
+
 def dataclasses_asdict(obj) -> dict:
     import dataclasses
 
@@ -3226,6 +3609,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
+    run_t0 = time.perf_counter()
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible; this script runs only on the GPU",
@@ -3521,6 +3905,12 @@ def main() -> int:
     conv3d = topology_and_conv3d(dev)
     torch.cuda.empty_cache()
     log(f"phase 2l in {time.perf_counter() - t0:.1f} s")
+
+    # -- phase 2m: images and featurization, the explainers (kernel L), the forest (B) ----
+    t0 = time.perf_counter()
+    expl = explainers_phase(kernels, args.seed, dev, card)
+    torch.cuda.empty_cache()
+    log(f"phase 2m in {time.perf_counter() - t0:.1f} s [{card}]")
 
     # -- phase 3: flash attention's entry point -----------------------------------------
     gen = torch.Generator(device=dev).manual_seed(args.seed)
@@ -4287,9 +4677,28 @@ def main() -> int:
                r["library_ms"], **r["extra"])
     log(f"phase 4 kernels Q and R in {time.perf_counter() - t0:.1f} s")
 
+    # kernel L (phase 2m (b)) at k = 32, its other shape beside it, and B's
+    # forest entry (phase 2m (e)): their launches in phase 2m's main path
+    main_k = LASSO_KS[0]
+    lr = expl["lasso"][main_k]
+    record("explainers_lasso_cd", expl["launches"]["explainers_lasso_cd"], lr["max_abs_err"],
+           lr["ms"], lr["plain_ms"], lr["bound"], None, shape=lr["shape"], tol=lr["tol"],
+           bytes_moved=lr["bytes"], svd_path_ms=lr["svd_ms"], smem_k=expl["lasso"]["smem_k"],
+           shapes={f"k{k}": {key: expl["lasso"][k][key] for key in
+                             ("shape", "ms", "plain_ms", "svd_ms", "max_abs_err", "tol",
+                              "bytes", "gram_in_smem", "nonzero_share")}
+                   | {"bound_ms": expl["lasso"][k]["bound"][0],
+                      "bound_by": expl["lasso"][k]["bound"][1]} for k in LASSO_KS})
+    fr = expl["forest"]
+    record("iforest_tree_score", expl["launches"]["iforest_tree_score"], fr["max_abs_err"],
+           fr["ms"], fr["plain_ms"], fr["bound"], None, shape=fr["shape"], tol=FOREST_TOL,
+           bytes_moved=fr["bytes"], rebin_ms=fr["rebin_ms"], bin_dtype=fr["bin_dtype"],
+           launches_transform=fr["launches"], launches_fit=fr["fit_launches"])
+
     missing = set(kernels) - {r["name"] for r in rows}
     if missing:
         fail(f"kernels never checked: {sorted(missing)}")
+    log(f"chip_smoke: the whole run took {time.perf_counter() - run_t0:.1f} s [{card}]")
     log(card)
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

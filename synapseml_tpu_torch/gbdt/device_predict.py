@@ -231,7 +231,8 @@ def _check(binned, parent, feature, bins, cat_set, packed: Optional[PackedTrees]
 
 
 def device_raw_scores(binned: torch.Tensor, parent, feature, bins, leaf_value, scale,
-                      cat_set=None, packed: Optional[PackedTrees] = None) -> torch.Tensor:
+                      cat_set=None, packed: Optional[PackedTrees] = None,
+                      kernel: CudaKernel = SCORE_KERNEL) -> torch.Tensor:
     """(n, d) bins -> (n, C) f32 sum over trees of ``scale_t * leaf_value``.
 
     ``binned`` is an int8/int16/int32 tensor on the device that scores; the
@@ -239,7 +240,9 @@ def device_raw_scores(binned: torch.Tensor, parent, feature, bins, leaf_value, s
     (T, C, S) int, ``leaf_value`` (T, C, S+1) f32, ``scale`` (T,), which is
     rounded to f32 as the reference does, and ``cat_set`` (T, C, S, B) int8
     or None. ``packed`` (from :func:`pack_trees` of the same trees, on the
-    same device) saves packing them again at every call."""
+    same device) saves packing them again at every call. ``kernel`` is the
+    binding that launches B and counts it (another model's use of B, such
+    as the isolation forest's, keeps its own count)."""
     _check(binned, parent, feature, bins, cat_set, packed)
     T, C, S = np.shape(parent)
     if np.shape(leaf_value) != (T, C, S + 1) or np.shape(scale) != (T,):
@@ -259,10 +262,10 @@ def device_raw_scores(binned: torch.Tensor, parent, feature, bins, leaf_value, s
     sc = torch.as_tensor(scale, device=dev).to(torch.float32).contiguous()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        SCORE_KERNEL(binned.data_ptr(), binned.element_size(), n, d,
-                     packed.nodes.data_ptr(), packed.units, int(packed.narrow),
-                     lv.data_ptr(), sc.data_ptr(),
-                     T, C, S, packed.cat_bins, out.data_ptr(), stream)
+        kernel(binned.data_ptr(), binned.element_size(), n, d,
+               packed.nodes.data_ptr(), packed.units, int(packed.narrow),
+               lv.data_ptr(), sc.data_ptr(),
+               T, C, S, packed.cat_bins, out.data_ptr(), stream)
     return out
 
 

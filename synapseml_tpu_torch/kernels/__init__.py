@@ -5,7 +5,9 @@ from .build import CudaKernel, build  # noqa: F401
 
 def all_kernels():
     """The port's hand kernels, by name (importing their modules binds them)."""
+    from ..explainers import regression
     from ..gbdt import device_predict, histogram, lambdarank, partition, sparse, split_search
+    from ..isolationforest import forest
     from ..onnx import qgemm, rnn
     from ..parallel import flash
     from ..vw import learner
@@ -23,4 +25,5 @@ def all_kernels():
                                 flash.FLASH_LSE_KERNEL, flash.FLASH_F32_LSE_KERNEL,
                                 learner.VW_KERNEL, qgemm.QMATMUL_KERNEL, qgemm.QCONV_KERNEL,
                                 qgemm.QCL_KERNEL,
-                                rnn.RNN_KERNEL, rnn.RNN_STEP_KERNEL)}
+                                rnn.RNN_KERNEL, rnn.RNN_STEP_KERNEL,
+                                regression.LASSO_KERNEL, forest.IFOREST_KERNEL)}

@@ -14,6 +14,7 @@ from __future__ import annotations
 from typing import Dict, List, Optional
 
 import numpy as np
+import torch
 
 from ..core import (ColumnSpec, ComplexParam, Param, Table, TableSchema,
                     Transformer)
@@ -21,6 +22,13 @@ from ..core.params import ParamValidators
 from .importer import OnnxFunction, model_io_specs
 
 __all__ = ["ONNXModel"]
+
+
+def _pad_rows(v, pad: int):
+    """``v`` with its last row repeated ``pad`` times (numpy or torch)."""
+    if isinstance(v, torch.Tensor):
+        return torch.cat([v, v[-1:].expand(pad, *v.shape[1:])])
+    return np.concatenate([v, np.repeat(v[-1:], pad, axis=0)])
 
 
 class ONNXModel(Transformer):
@@ -154,7 +162,9 @@ class ONNXModel(Transformer):
         return arr
 
     def transform_arrays(self, feeds: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
-        """Batched execution with pad-to-bucket; returns full-length outputs."""
+        """Batched execution with pad-to-bucket; returns full-length outputs.
+        A feed may be a torch tensor (on the model's device, it is sliced
+        there and never goes through the host)."""
         fn = self.fn
         n = len(next(iter(feeds.values())))
         if n == 0:  # empty partitions are normal in a partitioned pipeline
@@ -183,9 +193,7 @@ class ONNXModel(Transformer):
             batch = {k: v[lo:hi] for k, v in feeds.items()}
             pad = b - (hi - lo)
             if pad:
-                batch = {
-                    k: np.concatenate([v, np.repeat(v[-1:], pad, axis=0)]) for k, v in batch.items()
-                }
+                batch = {k: _pad_rows(v, pad) for k, v in batch.items()}
             result = fn(batch)
             for out_col, onnx_name in self.fetch_dict.items():
                 if onnx_name not in result:

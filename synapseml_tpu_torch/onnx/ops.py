@@ -28,12 +28,13 @@ from __future__ import annotations
 import contextvars
 import functools
 import math
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..image.resample import resize_array
 from . import qgemm, rnn
 from .wire import DataType, tensor_to_numpy
 
@@ -1341,50 +1342,6 @@ def _space_to_depth(inputs, attrs, ctx):
     return t.reshape(n, c * b * b, h // b, w // b)
 
 
-def _keys_cubic(x):
-    out = ((1.5 * x - 2.5) * x) * x + 1.0
-    out = torch.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, out)
-    return torch.where(x >= 2.0, torch.zeros_like(x), out)
-
-
-def _triangle(x):
-    return torch.clamp(1 - torch.abs(x), min=0)
-
-
-def _weight_mat(n_in: int, n_out: int, kernel, device) -> torch.Tensor:
-    """jax.image's ``compute_weight_mat`` (antialiased, no translation), f32."""
-    scale = torch.tensor(n_out / n_in if n_out else 1.0, dtype=torch.float32)
-    inv = 1.0 / scale
-    kscale = torch.clamp(inv, min=1.0)
-    sample = (torch.arange(n_out, dtype=torch.float32) + 0.5) * inv - 0.5
-    x = torch.abs(sample[None, :] - torch.arange(n_in, dtype=torch.float32)[:, None]) / kscale
-    w = kernel(x)
-    total = torch.sum(w, dim=0, keepdim=True)
-    w = torch.where(torch.abs(total) > 1000.0 * float(np.finfo(np.float32).eps),
-                    w / torch.where(total != 0, total, torch.ones_like(total)),
-                    torch.zeros_like(w))
-    keep = (sample >= -0.5) & (sample <= n_in - 0.5)
-    return torch.where(keep[None, :], w, torch.zeros_like(w)).to(device)
-
-
-def _resize_array(x: torch.Tensor, sizes: Sequence[int], method: str) -> torch.Tensor:
-    """jax.image.resize over every axis whose size changes (half-pixel
-    centres; linear and cubic antialiased when downsampling)."""
-    if method == "nearest":
-        for d, (m, n) in enumerate(zip(x.shape, sizes)):
-            if m != n:
-                off = torch.floor((torch.arange(n, dtype=torch.float32) + 0.5) * m / n)
-                x = torch.index_select(x, d, off.to(torch.int64).to(x.device))
-        return x
-    x = _inexact(x)
-    kernel = {"linear": _triangle, "cubic": _keys_cubic}[method]
-    for d, (m, n) in enumerate(zip(x.shape, sizes)):
-        if m != n:
-            w = _weight_mat(m, n, kernel, x.device).to(x.dtype)
-            x = torch.movedim(torch.tensordot(torch.movedim(x, d, -1), w, dims=1), -1, d)
-    return x
-
-
 @op("Resize")
 def _resize(inputs, attrs, ctx):
     x = _t(inputs[0], _dev(inputs[0]))
@@ -1403,7 +1360,7 @@ def _resize(inputs, attrs, ctx):
         raise ValueError(f"Resize: shape {list(sizes)} must have the rank of the input "
                          f"{tuple(x.shape)}")
     method = {"nearest": "nearest", "linear": "linear", "cubic": "cubic"}[mode]
-    return _resize_array(x, sizes, method)
+    return resize_array(x, sizes, method)
 
 
 @op("ArgMax", "ArgMin")

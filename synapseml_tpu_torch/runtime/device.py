@@ -7,12 +7,13 @@ name, never a silent fall back to the CPU.
 
 from __future__ import annotations
 
+import contextlib
 import subprocess
 from typing import Optional, Union
 
 import torch
 
-__all__ = ["DeviceUnavailableError", "resolve_device", "card_info"]
+__all__ = ["DeviceUnavailableError", "resolve_device", "card_info", "full_f32"]
 
 
 class DeviceUnavailableError(RuntimeError):
@@ -41,3 +42,17 @@ def card_info() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True, timeout=60)
     return out.stdout.strip()
+
+
+@contextlib.contextmanager
+def full_f32():
+    """f32 matmuls and convolutions in full f32 inside the block, whatever the
+    global TF32 switches say (cuDNN's is on by default, and TF32 rounds the
+    operands to 10 mantissa bits: ~1e-3 relative); restored on exit."""
+    prev = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev

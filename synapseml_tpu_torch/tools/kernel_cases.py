@@ -30,7 +30,7 @@ from ..gbdt.sparse import (G_ENTRIES, CSRMatrix, SparseBinned, build_sparse_binn
 from ..gbdt.split_search import SplitWorkspace, _thresh_l1, left_set
 from ..vw.learner import pad_examples
 
-__all__ = ["Q_CONV3D_CASES", "bin_edge_case", "bin_ragged_case", "split_cases", "step_cases",
+__all__ = ["lasso_case", "forest_rows", "forest_probe_rows", "Q_CONV3D_CASES", "bin_edge_case", "bin_ragged_case", "split_cases", "step_cases",
            "LARGEST_KERNEL_A_BINS", "offgrid_split_case", "check_offgrid", "check_left_sets",
            "synthetic_update", "grow_synthetic", "diff_runs", "rank_rows", "RANK_CASES",
            "RANK_CASES_WIDE", "rank_case", "rank_nan_case", "one_split_text", "TWO_TREES",
@@ -965,3 +965,48 @@ def rnn_step_case(kind: str, S: int, B: int, H: int, dtype, device="cpu", seed: 
     else:
         out["rb"] = mk(3 * H, s=0.1) if rb else None
     return out
+
+
+# -- kernel L (the explainers' lasso) and B's isolation-forest use --------------------
+
+def lasso_case(seed: int, n: int, m: int, k: int, t: int):
+    """(X (n, m, k), Y (n, m, t), w (n, m)) f64 for ``n * t`` lasso fits:
+    Y = X @ beta + 0.1 noise, half of beta's entries 0 and the rest 1-2 in
+    magnitude, weights in [0.5, 1.5]. At alpha = 0.01 (lam = 0.01 m) every
+    coefficient's |rho| stays far from lam at the fit's end (about m for a
+    live coefficient, sqrt(m)/10 for a zero one), so rounding moves no
+    coefficient between 0 and non-zero."""
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(n, m, k))
+    live = rng.random((n, k, t)) < 0.5
+    beta = np.where(live, rng.choice([-1.0, 1.0], (n, k, t)) * rng.uniform(1, 2, (n, k, t)),
+                    0.0)
+    Y = X @ beta + 0.1 * rng.normal(size=(n, m, t))
+    return X, Y, rng.uniform(0.5, 1.5, (n, m))
+
+
+def forest_rows(seed: int, n: int, d: int) -> np.ndarray:
+    """(n, d) f64 rows for an isolation forest: normal inliers, 2 % shifted
+    outliers."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, d))
+    out = rng.random(n) < 0.02
+    x[out] += rng.normal(4.0, 1.0, size=(int(out.sum()), d))
+    return x
+
+
+def forest_probe_rows(model, x: np.ndarray) -> np.ndarray:
+    """``x`` (f32) with rows that sit on a threshold of each split feature (a
+    tie goes left), NaN, +inf and -inf cells appended."""
+    feat = np.asarray(model.tree_features)
+    thr = np.asarray(model.tree_thresholds)
+    x = np.asarray(x, np.float32)
+    ties = np.repeat(x[:1], 64, axis=0)
+    t, i = np.nonzero(feat >= 0)
+    for r in range(64):
+        j = r % len(t)
+        ties[r, feat[t[j], i[j]]] = thr[t[j], i[j]]
+    special = np.repeat(x[:1], 3 * x.shape[1], axis=0)
+    for f in range(x.shape[1]):
+        special[3 * f:3 * f + 3, f] = (np.nan, np.inf, -np.inf)
+    return np.concatenate([x, ties, special])

@@ -32,7 +32,11 @@ def test_port_modules_import_no_jax_and_no_reference():
                 "runtime.collectives", "vw.learner", "vw.estimators", "vw.featurizer",
                 "vw.convert", "onnx.wire", "onnx.builder", "onnx.ops", "onnx.qgemm", "onnx.rnn",
                 "onnx.importer", "onnx.model", "models.zoo", "tools.onnx_graphs",
-                "parallel.ring", "runtime.topology", "gbdt.engine"):
+                "parallel.ring", "runtime.topology", "gbdt.engine", "image.ops",
+                "image.stages", "image.resample", "io.binary", "io.http", "dl.downloader",
+                "dl.featurizer", "explainers.regression", "explainers.lime",
+                "explainers.shap", "explainers.ice", "explainers.superpixel",
+                "isolationforest.forest"):
         assert f"synapseml_tpu_torch.{sub}" in mods, sub
     code = "\n".join(
         ["import sys", f"sys.path.insert(0, {_ROOT!r})"]

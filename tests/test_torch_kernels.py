@@ -1652,3 +1652,99 @@ def test_cast_and_integer_mod_on_the_card_give_the_reference_values(cuda, case):
     np.testing.assert_array_equal(got.numpy(), np.array(want))
     np.testing.assert_array_equal(got.numpy(), _onnx_op(op, [_Live(a) for a in ins], attrs,
                                                         "cpu").numpy())
+
+
+# -- kernel L (the explainers' lasso), B's isolation-forest use, the blur ------------
+
+from synapseml_tpu_torch.explainers import regression as expl_regression  # noqa: E402
+from synapseml_tpu_torch.image import ops as image_ops  # noqa: E402
+from synapseml_tpu_torch.isolationforest import forest as iforest  # noqa: E402
+from synapseml_tpu_torch.tools.kernel_cases import (forest_probe_rows, forest_rows,  # noqa: E402
+                                                    lasso_case)
+
+
+def _lasso_system(dev, n, m, k, t, seed=0):
+    X, Y, w = (torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+               for a in lasso_case(seed, n, m, k, t))
+    *_, Xr, Yr = expl_regression.rescaled(X, Y, w)
+    return expl_regression.lasso_system(Xr, Yr)
+
+
+@pytest.mark.parametrize("k", [32, 200, 256])
+def test_lasso_kernel_matches_plain_below_and_above_the_smem_limit(cuda, k):
+    limit = expl_regression.lasso_smem_k()
+    assert 200 <= limit < 256                       # 239 on the H100's 227 KB
+    gram, xty, sq = _lasso_system(cuda, 6, 1000, k, 2)
+    lam = 0.01 * 1000
+    before = expl_regression.LASSO_KERNEL.launches
+    got = expl_regression.lasso_cd(gram, xty, sq, lam, 100)
+    torch.cuda.synchronize()
+    assert expl_regression.LASSO_KERNEL.launches == before + 1
+    want = expl_regression.lasso_cd_plain(gram, xty, sq, lam, 100)
+    err = (got - want).abs().max().item()
+    assert err <= expl_regression.LASSO_TOL * max(1.0, want.abs().max().item()), err
+    assert torch.equal(got == 0, want == 0)
+
+
+def test_lasso_kernel_edge_cases(cuda):
+    gram, xty, sq = _lasso_system(cuda, 3, 300, 40, 3)
+    sq[1, 5] = 0.0                                  # a zero-variance column: beta 0
+    got = expl_regression.lasso_cd(gram, xty, sq, 3.0, 7)
+    want = expl_regression.lasso_cd_plain(gram, xty, sq, 3.0, 7)
+    assert (got[1, :, 5] == 0).all()
+    assert (got - want).abs().max().item() <= 1e-4 * max(1.0, want.abs().max().item())
+    zero = expl_regression.lasso_cd(gram, xty, sq, 3.0, 0)   # no sweep: beta stays 0
+    assert (zero == 0).all()
+    huge = expl_regression.lasso_cd(gram, xty, sq, 1e12, 3)  # lam above every |rho|
+    assert (huge == 0).all()
+
+
+def test_fit_regression_batch_on_the_card_matches_the_cpu(cuda):
+    X, Y, w = lasso_case(1, 5, 400, 12, 2)
+    X[:, :, 10:] = 0.0                              # padded columns
+    for alpha in (0.0, 0.01):
+        a = expl_regression.fit_regression_batch(X, Y, w, alpha=alpha, device="cuda")
+        b = expl_regression.fit_regression_batch(X, Y, w, alpha=alpha, device="cpu")
+        assert (a.coefficients[:, :, 10:] == 0).all()
+        np.testing.assert_allclose(a.coefficients, b.coefficients, rtol=1e-4, atol=1e-4)
+        np.testing.assert_allclose(a.r_squared, b.r_squared, rtol=1e-5, atol=1e-5)
+
+
+def test_forest_through_b_matches_the_heap_descent(cuda):
+    from synapseml_tpu_torch.core import Table
+
+    x = forest_rows(0, 20_000, 28)
+    model = iforest.IsolationForest(num_estimators=100, max_samples=256, random_seed=3,
+                                    device="cpu").fit(Table({"features": x}))
+    probe = torch.from_numpy(forest_probe_rows(model, x)).to(cuda)
+    before = iforest.IFOREST_KERNEL.launches
+    got = model.score_tensor(probe)
+    torch.cuda.synchronize()
+    assert iforest.IFOREST_KERNEL.launches == before + 1
+    T = np.shape(model.tree_features)[0]
+    heap = iforest.path_lengths_plain(probe, model.tree_features, model.tree_thresholds,
+                                      model.tree_path_lens, model.depth_limit)
+    want = iforest.scores_from_total(heap, T, model.c_norm)
+    assert torch.equal(got, want), (got - want).abs().max().item()
+    # the CPU's pow rounds a score an ulp apart from the card's at most
+    cpu = model.score_tensor(probe.cpu())
+    assert (got.cpu() - cpu).abs().max().item() <= 1e-6
+
+
+def test_blur_and_resize_stay_f32_with_tf32_switched_on(cuda):
+    prev = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        x = torch.from_numpy(np.random.default_rng(0).integers(
+            0, 255, (4, 301, 257, 3)).astype(np.uint8))
+        for fn in (lambda t: image_ops.gaussian_blur(t, 7, -1.0),
+                   lambda t: image_ops.box_blur(t, 5, 3),
+                   lambda t: image_ops.resize(t, 224, 190),
+                   lambda t: image_ops.resize(t, 512, 400, "cubic")):
+            got, want = fn(x.to(cuda)).cpu(), fn(x)
+            err = (got - want).abs().max().item()
+            assert err <= 2e-4, err                 # TF32 would be ~1e-1 at 255
+        assert torch.backends.cudnn.allow_tf32 and torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
