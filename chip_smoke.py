@@ -202,13 +202,16 @@ Phases, each of which ends the run with a non-zero exit when it fails:
 2m. images, DL featurization, the explainers and the isolation forest:
    (b) first, kernel L (the lasso's coordinate descent,
    ``csrc/lasso_cd.cu``) against its plain version on the card at LIME's
-   shapes (1,000 samples, k = 32 and k = 200, 256 instances x 2 targets,
-   alpha 0.01, 100 sweeps: within LASSO_TOL of max(1, max|beta|), the same
-   zero coefficients), L, the plain version and the least-squares SVD path
-   timed; then, with every launch count set to 0 just before and read just
-   after, the main path: (a) 256 seeded uint8 BGR images of ragged sizes
-   (240-480 px a side) through ``ImageTransformer`` (shorter side 256,
-   center crop 224, Gaussian blur 5, flip), then ``ImageFeaturizer`` over
+   shapes (1,000 samples, k = 32, k = 200 and one k past the limit of its
+   Gram matrix in shared memory (``lasso_smem_k() + 1``), 256 instances x
+   2 targets, alpha 0.01, 100 sweeps: within LASSO_TOL of max(1,
+   max|beta|), the same zero coefficients but at a tie of |rho| with lam,
+   bit-equal to its order model ``lasso_cd_order``), L, the plain version
+   and the least-squares SVD path timed; then, with every launch count set
+   to 0 just before and read just after, the main path: (a) 256 seeded
+   uint8 BGR images of ragged sizes (240-480 px a side) through
+   ``ImageTransformer`` (shorter side 256, center crop 224, Gaussian blur
+   5, flip), then ``ImageFeaturizer`` over
    the zoo's ResNet-50 fetched by ``ModelDownloader(ZooRepository)`` into a
    temporary directory, headless, f32 and bf16 at batch 64, images/s, the
    first 8 images' features held to the port's CPU run within phase 2k's
@@ -292,7 +295,8 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    torch._int_mm on int8 x int8 beside the matmul entry, and its
    channels-last copy bit-equal to its plain version; kernel R within 1e-5
    (f32) / 2e-2 (bf16, row norms) of its plain version on the card at
-   GNMT's width (persistent entry) and at RNN_STEPWISE (the other entry),
+   GNMT's width (persistent entry) and at RNN_STEPWISE (the other entry:
+   the LSTM, and the GRU with linear_before_reset=0 beside torch.nn.GRU),
    cuDNN's LSTM / GRU layer beside the configurations it computes; then
    each kernel, its
    plain version and the one PyTorch call that computes the same function
@@ -2777,7 +2781,7 @@ def onnx_kernel_rows(seed: int, dev) -> dict:
     del x, got, want
 
     # -- R
-    def r_case(name, kind, lbr, dtype, peep, S, B, H, want_entry):
+    def r_case(name, kind, lbr, dtype, peep, S, B, H, want_entry, library=False):
         c = rnn_step_case(kind, S, B, H, dtype, dev, seed=seed, peepholes=peep)
         if kind == "LSTM":
             run = lambda: lstm_steps(c["gx"], c["r"], c["h0"], c["c0"], c["p"])
@@ -2812,10 +2816,11 @@ def onnx_kernel_rows(seed: int, dev) -> dict:
                  "bound_ms": bnd[0], "bound_by": bnd[1], "launches_a_call": 1,
                  "device_launches_a_call": 1 if want_entry == "onnx_rnn_steps" else
                  S * (2 if kind == "GRU" and not lbr else 1)}
-        if kind == "LSTM" and not peep or kind == "GRU" and lbr:
+        if kind == "LSTM" and not peep or kind == "GRU" and lbr or library:
             # cuDNN's layer (torch.nn.LSTM / GRU: PyTorch's GRU is ONNX's
-            # linear_before_reset=1) computes the input projection too:
-            # time R with the projection beside it
+            # linear_before_reset=1, the nearest library call to =0)
+            # computes the input projection too: time R with the
+            # projection beside it
             layer = (torch.nn.LSTM if kind == "LSTM" else torch.nn.GRU)(H, H).to(dev)
             xin = torch.randn(S, B, H, generator=gen, device=dev)
             w_ih, b_ih = layer.weight_ih_l0.detach(), layer.bias_ih_l0.detach()
@@ -2859,14 +2864,22 @@ def onnx_kernel_rows(seed: int, dev) -> dict:
     Sw, Bw, Hw = RNN_STEPWISE
     wide = r_case("lstm_wide_stepwise_f32", "LSTM", 0, torch.float32, False, Sw, Bw, Hw,
                   "onnx_rnn_stepwise")
+    gru_wide = r_case("gru_lbr0_wide_stepwise_f32", "GRU", 0, torch.float32, True, Sw, Bw, Hw,
+                      "onnx_rnn_stepwise", library=True)
     rows["onnx_rnn_stepwise"] = dict(
-        err=wide["max_err"], ms=wide["ms"], plain_ms=wide["plain_ms"],
+        err=max(wide["max_err"], gru_wide["max_err"]), ms=wide["ms"], plain_ms=wide["plain_ms"],
         bound=(wide["bound_ms"], wide["bound_by"]), library_ms=wide["library_ms"],
         extra={"shape": f"LSTM S={Sw} B={Bw} I=H={Hw} f32, no peepholes: R past the "
                         f"persistent entry's reach, one launch a step",
                "library": "torch.nn.LSTM on cuDNN, input projection included",
                "ms_with_input_projection": wide["ms_with_input_projection"],
-               "device_launches_a_call": wide["device_launches_a_call"]})
+               "device_launches_a_call": wide["device_launches_a_call"],
+               "gru_lbr0": {key: gru_wide[key] for key in
+                            ("max_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                             "ms_with_input_projection", "device_launches_a_call")}
+               | {"torch_nn_gru_ms": gru_wide["library_ms"],
+                  "library": "torch.nn.GRU on cuDNN (linear_before_reset=1), input "
+                             "projection included"}})
     return rows
 
 
@@ -3341,15 +3354,17 @@ def lasso_rows(seed: int, dev, card: str) -> dict:
     """Phase 2m (b): kernel L against its plain version on the card at
     LIME's shapes, L, the plain version and the SVD path timed."""
     from synapseml_tpu_torch.explainers import regression as reg
-    from synapseml_tpu_torch.tools.kernel_cases import lasso_case
+    from synapseml_tpu_torch.tools.kernel_cases import lasso_case, lasso_cd_order, lasso_ties
 
     out = {"smem_k": reg.lasso_smem_k()}
-    for k in LASSO_KS:
+    out["ks"] = LASSO_KS + (out["smem_k"] + 1,)     # and the limit's far side
+    for k in out["ks"]:
         X, Y, w = (torch.from_numpy(np.asarray(a, np.float32)).to(dev) for a in
                    lasso_case(seed + k, LASSO_INSTANCES, LASSO_M, k, LASSO_TARGETS))
         *_, Xr, Yr = reg.rescaled(X, Y, w)
         gram, xty, sq = reg.lasso_system(Xr, Yr)
         lam = LASSO_ALPHA * LASSO_M
+        in_smem, fits_a_block = reg.lasso_plan(k, LASSO_TARGETS)
         before = reg.LASSO_KERNEL.launches
         got = reg.lasso_cd(gram, xty, sq, lam, LASSO_ITERS)
         torch.cuda.synchronize()
@@ -3359,9 +3374,19 @@ def lasso_rows(seed: int, dev, card: str) -> dict:
         if not err <= reg.LASSO_TOL * scale:
             fail(f"phase 2m (b): kernel L at k={k} is {err} from its plain version "
                  f"(> {reg.LASSO_TOL} x {scale})")
-        if not torch.equal(got == 0, plain == 0):
+        # the same zero coefficients, but where the plain version's |rho| ties
+        # with lam (kernel_cases.LASSO_TIE): there rounding decides
+        flips = (got == 0) != (plain == 0)
+        ties = int(flips.sum())
+        if ties and not bool(lasso_ties(gram, xty, plain, lam)[flips].all()):
             fail(f"phase 2m (b): kernel L's zero coefficients differ from the plain version's "
-                 f"at k={k}")
+                 f"at k={k}, away from a tie with lam")
+        # and L's own order, step for step in torch ops on the card: bit-equal
+        order = lasso_cd_order(gram, xty, sq, lam, LASSO_ITERS, triangle=in_smem)
+        if not torch.equal(got, order):
+            fail(f"phase 2m (b): kernel L at k={k} is {(got - order).abs().max().item()} from "
+                 f"its order model (lasso_cd_order), not bit-equal")
+        del order
         ms = time_ms(lambda: reg.lasso_cd(gram, xty, sq, lam, LASSO_ITERS), 5)
         svd_ms = time_ms(lambda: reg._min_norm_lstsq(Xr, Yr), 3)
         fits = LASSO_INSTANCES * LASSO_TARGETS
@@ -3370,13 +3395,15 @@ def lasso_rows(seed: int, dev, card: str) -> dict:
                   "max_abs_err": err, "tol": reg.LASSO_TOL * scale, "ms": ms,
                   "plain_ms": plain_ms, "svd_ms": svd_ms,
                   "bound": bound(n_bytes, fits * LASSO_ITERS * k * 2 * k, F32_FLOPS),
-                  "bytes": n_bytes, "gram_in_smem": k <= out["smem_k"],
+                  "bytes": n_bytes, "gram_in_smem": in_smem, "fits_a_block": fits_a_block,
+                  "zero_flips_at_ties": ties, "bit_equal_to_order_model": True,
                   "nonzero_share": float((plain != 0).float().mean()),
                   "shape": f"{fits} fits ({LASSO_INSTANCES} instances x {LASSO_TARGETS} "
                            f"targets), m={LASSO_M}, k={k}, alpha={LASSO_ALPHA}, "
                            f"{LASSO_ITERS} sweeps"}
-        log(f"phase 2m (b) L k={k}: {ms:.4f} ms (plain {plain_ms:.1f}, SVD path "
-            f"{svd_ms:.3f}), bound {out[k]['bound'][0]:.4f} ({out[k]['bound'][1]}), "
+        log(f"phase 2m (b) L k={k} (Gram matrix in shared memory: {in_smem}, {fits_a_block} "
+            f"fits a block): {ms:.4f} ms (plain {plain_ms:.1f}, SVD path {svd_ms:.3f}), "
+            f"bound {out[k]['bound'][0]:.4f} ({out[k]['bound'][1]}), "
             f"max|L - plain| {err:.3g} <= {reg.LASSO_TOL * scale:.3g} [{card}]")
         del X, Y, w, Xr, Yr, gram, xty, sq, got, plain
     return out
@@ -4686,9 +4713,10 @@ def main() -> int:
            bytes_moved=lr["bytes"], svd_path_ms=lr["svd_ms"], smem_k=expl["lasso"]["smem_k"],
            shapes={f"k{k}": {key: expl["lasso"][k][key] for key in
                              ("shape", "ms", "plain_ms", "svd_ms", "max_abs_err", "tol",
-                              "bytes", "gram_in_smem", "nonzero_share")}
+                              "bytes", "gram_in_smem", "fits_a_block", "zero_flips_at_ties",
+                              "bit_equal_to_order_model", "nonzero_share")}
                    | {"bound_ms": expl["lasso"][k]["bound"][0],
-                      "bound_by": expl["lasso"][k]["bound"][1]} for k in LASSO_KS})
+                      "bound_by": expl["lasso"][k]["bound"][1]} for k in expl["lasso"]["ks"]})
     fr = expl["forest"]
     record("iforest_tree_score", expl["launches"]["iforest_tree_score"], fr["max_abs_err"],
            fr["ms"], fr["plain_ms"], fr["bound"], None, shape=fr["shape"], tol=FOREST_TOL,

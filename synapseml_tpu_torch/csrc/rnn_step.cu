@@ -44,13 +44,36 @@
 // shared memory, whose units a block would exceed 32 rows, or whose H is
 // not a multiple of 8): one launch a step (two for GRU with
 // linear_before_reset=0: the first launch writes z and r h, the second the
-// new state), all S steps launched from one C call on one stream. A block
-// takes 32 batch rows and 16 hidden units, all of their gates, so the gate
-// math of a (row, unit) pair is one thread's: a thread holds the dots of
-// two rows (b, b + 16) for every gate of its unit, k in tiles of 32 through
-// shared memory (h of the block's rows, and the G x 16 rows of R). h_{t-1} is
-// read from Y[t-1] (Y[t] is h_t), the cell state is updated in place (only
-// its own thread reads it).
+// new state), all S steps launched from one C call on one stream. Its bound
+// at the widths it serves (an LSTM at H = 2,048 f32: R is 64 MB, past the
+// card's shared memory and its 50 MB L2) is the step's FMAs, 2 B G H^2 at
+// the f32 rate, with R streamed from device memory every step. Its design:
+// - a block owns 16 hidden units, all G of their gates (64 rows of R for an
+//   LSTM), and 64 batch rows (a grid of ceil(H / 16) x ceil(B / 64)), so
+//   R is read once a step up to B = 64 (at H = 2,048: 128 blocks, under
+//   one wave on 132 SMs);
+// - k runs in tiles of 256 bytes a row (64 f32 / 128 bf16) through a ring of
+//   kSStages stages in shared memory filled by cp.async (16-byte pieces,
+//   zero-filled past B and H; where H is not a multiple of 16 bytes, plain
+//   loads fill the same ring), so three tiles load while one is multiplied;
+//   a row's stride is 272 bytes (distinct banks for 8 rows of 16 bytes);
+//   256-byte pieces of each row of R read more of a DRAM page a visit than
+//   128-byte ones did (5-7 % a call at H = 2,048);
+// - f32: FMAs on the CUDA cores, k split four ways: warp pair p takes the
+//   p-th quarter of every tile, a thread 8 batch rows (b, b + 8, ...) x 2
+//   units x G gates, so 8 + 2 G 16-byte shared loads feed 64 G FMAs; the
+//   four partial dots meet in shared memory (the ring, once drained) and
+//   are summed in pair order. By instruction count a 16-byte shared load
+//   takes four of the SM's cycles (128 bytes a cycle) whatever it
+//   broadcasts, so at 8 x 8 a thread the loads need about as many cycles
+//   as the FMAs; R's bytes (64 MB a step at H = 2,048) need 19 us at 3.35
+//   TB/s, under the FMAs' 32 us. bf16: mma.sync m16n8k16 with f32 accumulation, a warp 16
+//   batch rows x 8 units x G gates; a thread's accumulators hold G gates of
+//   4 (row, unit) pairs;
+// - every gate of a (row, unit) pair then lies in one thread's registers,
+//   in the op order of the persistent entry. h_{t-1} is read from Y[t-1]
+//   (Y[t] is h_t), the cell state is updated in place (only its own thread
+//   reads it).
 //
 // f32 and bf16: in bf16 every operand is bf16 and the dots accumulate in f32;
 // each op of the reference's step rounds to bf16 where the reference's op
@@ -87,7 +110,6 @@ struct RArgs {
 
 namespace {
 
-constexpr int kBT = 32, kJT = 16, kKT = 32, kThreads = 256;
 enum { kLstm = 0, kGruLbr = 1, kGruA = 2, kGruB = 3 };
 
 template <int MODE>
@@ -125,11 +147,91 @@ __device__ __forceinline__ float act(int kind, float v) {
   return fmaxf(v, 0.f);
 }
 
-template <typename T, int MODE>
-__global__ void __launch_bounds__(kThreads) rnn_step_kernel(const RArgs a, int t) {
+__device__ __forceinline__ void cp_async16_zfill(uint32_t dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+__device__ __forceinline__ void cp_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::: "memory"); }
+__device__ __forceinline__ void cp_wait_one() { asm volatile("cp.async.wait_group 1;\n" ::: "memory"); }
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// ------------------------------------------ the one-launch-a-step entry ----
+
+constexpr int kSB = 64;           // batch rows a block
+constexpr int kSU = 16;           // hidden units a block
+constexpr int kSThreads = 256;    // 8 warps
+constexpr int kSStages = 4;       // k-tiles in the ring: one multiplied, three loading
+constexpr int kSTile = 256;       // bytes of a row's k-tile: 64 f32 / 128 bf16
+constexpr int kSLd = kSTile + 16; // a row's stride in shared memory (bytes)
+
+// a stage: 64 rows of the product's left operand, then R's rows (gate q,
+// unit u at row 64 + 16 q + u)
+template <int G>
+__host__ __device__ constexpr int s_stage_bytes() { return (kSB + G * kSU) * kSLd; }
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// k-tile kt of the block's rows into `dst`, zero past B and H: cp.async in
+// 16-byte pieces (VEC: H a multiple of 16 bytes, the rows 16-byte aligned),
+// else plain loads
+template <typename T, int G, bool VEC>
+__device__ __forceinline__ void s_load(uint8_t* dst, const T* src, const T* R, int gate0, int B,
+                                       int H, int b0, int j0, int kt) {
+  constexpr int KT = kSTile / (int)sizeof(T), kRows = kSB + G * kSU;
+  if constexpr (VEC) {
+    constexpr int kChunks = kSTile / 16, kPer = 16 / (int)sizeof(T);
+    const uint32_t d0 = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+    for (int e = threadIdx.x; e < kRows * kChunks; e += kSThreads) {
+      const int row = e / kChunks, ch = e % kChunks, k = kt * KT + ch * kPer;
+      const T* p;
+      bool ok;
+      if (row < kSB) {
+        const int b = b0 + row;
+        ok = b < B && k < H;
+        p = src + (long long)b * H + k;
+      } else {
+        const int q = (row - kSB) / kSU, u = j0 + (row - kSB) % kSU;
+        ok = u < H && k < H;
+        p = R + ((long long)(gate0 + q) * H + u) * H + k;
+      }
+      cp_async16_zfill(d0 + row * kSLd + ch * 16, ok ? p : src, ok ? 16 : 0);
+    }
+  } else {
+    for (int e = threadIdx.x; e < kRows * KT; e += kSThreads) {
+      const int row = e / KT, kk = e % KT, k = kt * KT + kk;
+      T v = T(0.f);
+      if (row < kSB) {
+        const int b = b0 + row;
+        if (b < B && k < H) v = src[(long long)b * H + k];
+      } else {
+        const int q = (row - kSB) / kSU, u = j0 + (row - kSB) % kSU;
+        if (u < H && k < H) v = R[((long long)(gate0 + q) * H + u) * H + k];
+      }
+      reinterpret_cast<T*>(dst + row * kSLd)[kk] = v;
+    }
+  }
+}
+
+template <typename T, int MODE, bool VEC>
+__global__ void __launch_bounds__(kSThreads) rnn_step_kernel(const RArgs a, int t) {
   constexpr int G = Gates<MODE>::n;
-  __shared__ float hs[kBT][kKT + 1];
-  __shared__ float rs[G * kJT][kKT + 1];
+  constexpr bool bf = sizeof(T) == 2;
+  constexpr int KT = kSTile / (int)sizeof(T), LD = kSLd / (int)sizeof(T);
+  constexpr int kStage = s_stage_bytes<G>();
+  extern __shared__ __align__(16) uint8_t ssm[];
 
   const int H = a.H, B = a.B;
   const long long BH = (long long)B * H;
@@ -142,41 +244,127 @@ __global__ void __launch_bounds__(kThreads) rnn_step_kernel(const RArgs a, int t
   const T* R = static_cast<const T*>(a.r);
   // the gates of R this launch multiplies: LSTM i o f c; GRU z r (h); part A z r; part B h
   const int gate0 = MODE == kGruB ? 2 : 0;
+  const int j0 = blockIdx.x * kSU, b0 = blockIdx.y * kSB;
+  const int nkt = (H + KT - 1) / KT;
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
-  const int tid = threadIdx.x, j = tid % kJT, bp = tid / kJT;
-  const int j0 = blockIdx.x * kJT, b0 = blockIdx.y * kBT;
-  float acc[2][G];
 #pragma unroll
-  for (int u = 0; u < 2; ++u)
-#pragma unroll
-    for (int q = 0; q < G; ++q) acc[u][q] = 0.f;
-
-  for (int k0 = 0; k0 < H; k0 += kKT) {
-    for (int e = tid; e < kBT * kKT; e += kThreads) {
-      const int row = e / kKT, k = k0 + e % kKT, b = b0 + row;
-      hs[row][e % kKT] = (b < B && k < H) ? ld(src, (long long)b * H + k) : 0.f;
-    }
-    for (int e = tid; e < G * kJT * kKT; e += kThreads) {
-      const int row = e / kKT, q = row / kJT, jj = j0 + row % kJT, k = k0 + e % kKT;
-      rs[row][e % kKT] =
-          (jj < H && k < H) ? ld(R, ((long long)(gate0 + q) * H + jj) * H + k) : 0.f;
-    }
+  for (int s = 0; s < kSStages - 1; ++s) {
+    if (s < nkt) s_load<T, G, VEC>(ssm + s * kStage, src, R, gate0, B, H, b0, j0, s);
+    if constexpr (VEC) cp_commit();
+  }
+  // wait for tile kt (the next kSStages - 2 may stay in flight), then start
+  // tile kt + kSStages - 1 in the buffer every thread is done with
+  auto next = [&](int kt) {
+    if constexpr (VEC) cp_wait<kSStages - 2>();
     __syncthreads();
-#pragma unroll 8
-    for (int k = 0; k < kKT; ++k) {
-      const float h_a = hs[bp][k], h_b = hs[bp + 16][k];
+    const int nt = kt + kSStages - 1;
+    if (nt < nkt)
+      s_load<T, G, VEC>(ssm + (nt % kSStages) * kStage, src, R, gate0, B, H, b0, j0, nt);
+    if constexpr (VEC) cp_commit();
+  };
+
+  // the dots of this thread's 4 (batch row, unit) pairs with every gate
+  float dot[4][G];
+  int prow[4], punit[4];
+  if constexpr (!bf) {
+    // split k: warp pair kg takes the kg-th quarter of every tile's k; a
+    // thread's tile is 8 batch rows (tb + 8 i) x 2 units (tu, tu + 8) x G
+    // gates, so 8 + 2 G 16-byte loads feed 64 G FMAs
+    const int kg = w >> 1, t64 = threadIdx.x & 63, tb = t64 & 7, tu = t64 >> 3;
+    float acc[8][2 * G];
 #pragma unroll
-      for (int q = 0; q < G; ++q) {
-        const float w = rs[q * kJT + j][k];
-        acc[0][q] = fmaf(h_a, w, acc[0][q]);
-        acc[1][q] = fmaf(h_b, w, acc[1][q]);
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int n = 0; n < 2 * G; ++n) acc[i][n] = 0.f;
+    for (int kt = 0; kt < nkt; ++kt) {
+      next(kt);
+      const float* hs = reinterpret_cast<const float*>(ssm + (kt % kSStages) * kStage);
+      const float* rs = hs + kSB * LD;
+#pragma unroll
+      for (int k4 = kg * (KT / 16); k4 < (kg + 1) * (KT / 16); ++k4) {
+        float4 hv[8], rv[2 * G];
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          hv[i] = *reinterpret_cast<const float4*>(hs + (tb + 8 * i) * LD + 4 * k4);
+#pragma unroll
+        for (int n = 0; n < 2 * G; ++n)   // n = 2 q + v: gate q, unit tu + 8 v
+          rv[n] = *reinterpret_cast<const float4*>(
+              rs + ((n >> 1) * kSU + tu + 8 * (n & 1)) * LD + 4 * k4);
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int n = 0; n < 2 * G; ++n) {
+            float s = acc[i][n];
+            s = fmaf(hv[i].x, rv[n].x, s);
+            s = fmaf(hv[i].y, rv[n].y, s);
+            s = fmaf(hv[i].z, rv[n].z, s);
+            acc[i][n] = fmaf(hv[i].w, rv[n].w, s);
+          }
       }
     }
+    // the four warp pairs' partial dots through shared memory (the ring is
+    // free once every copy has landed), summed in warp-pair order
+    constexpr int PW = G * kSU + 1;  // a batch row's partials, padded
+    static_assert(4 * kSB * PW * 4 <= kSStages * kStage, "partials past the ring");
+    float* part = reinterpret_cast<float*>(ssm);
+    if constexpr (VEC) cp_wait<0>();
     __syncthreads();
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int n = 0; n < 2 * G; ++n)
+        part[(kg * kSB + tb + 8 * i) * PW + (n >> 1) * kSU + tu + 8 * (n & 1)] = acc[i][n];
+    __syncthreads();
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int pair = threadIdx.x + kSThreads * e;
+      prow[e] = pair >> 4;
+      punit[e] = pair & 15;
+#pragma unroll
+      for (int q = 0; q < G; ++q) {
+        const float* pp = part + prow[e] * PW + q * kSU + punit[e];
+        dot[e][q] = ((pp[0] + pp[kSB * PW]) + pp[2 * kSB * PW]) + pp[3 * kSB * PW];
+      }
+    }
+  } else {
+    const int ug = w & 1, mt = w >> 1, g = lane >> 2, tq = lane & 3;
+    float acc[G][4];
+#pragma unroll
+    for (int q = 0; q < G; ++q)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[q][e] = 0.f;
+    for (int kt = 0; kt < nkt; ++kt) {
+      next(kt);
+      const __nv_bfloat16* hs =
+          reinterpret_cast<const __nv_bfloat16*>(ssm + (kt % kSStages) * kStage);
+      const __nv_bfloat16* rs = hs + kSB * LD;
+#pragma unroll
+      for (int k16 = 0; k16 < KT / 16; ++k16) {
+        const __nv_bfloat16* a0 = hs + (16 * mt + g) * LD + 16 * k16 + 2 * tq;
+        uint32_t af[4];
+        af[0] = *reinterpret_cast<const uint32_t*>(a0);
+        af[1] = *reinterpret_cast<const uint32_t*>(a0 + 8 * LD);
+        af[2] = *reinterpret_cast<const uint32_t*>(a0 + 8);
+        af[3] = *reinterpret_cast<const uint32_t*>(a0 + 8 * LD + 8);
+#pragma unroll
+        for (int q = 0; q < G; ++q) {
+          const __nv_bfloat16* b0p = rs + (q * kSU + 8 * ug + g) * LD + 16 * k16 + 2 * tq;
+          mma_bf16(acc[q], af, *reinterpret_cast<const uint32_t*>(b0p),
+                   *reinterpret_cast<const uint32_t*>(b0p + 8));
+        }
+      }
+    }
+    // accumulator e of an m16n8 tile: row g + 8 (e / 2), column 2 tq + e % 2
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      prow[e] = 16 * mt + g + 8 * (e >> 1);
+      punit[e] = 8 * ug + 2 * tq + (e & 1);
+#pragma unroll
+      for (int q = 0; q < G; ++q) dot[e][q] = acc[q][e];
+    }
   }
 
-  const int jj = j0 + j;
-  if (jj >= H) return;
   const int gw = MODE == kLstm ? 4 : 3;   // gates a row of gx holds
   const T* gxt = static_cast<const T*>(a.gx) + (long long)t * B * gw * H;
   const float clip = rnd<T>(a.clip);
@@ -184,9 +372,9 @@ __global__ void __launch_bounds__(kThreads) rnn_step_kernel(const RArgs a, int t
   auto f = [&](float v) { return rnd<T>(act(a.act_f, squash(v))); };
   auto g = [&](float v) { return rnd<T>(act(a.act_g, squash(v))); };
 #pragma unroll
-  for (int u = 0; u < 2; ++u) {
-    const int b = b0 + bp + 16 * u;
-    if (b >= B) continue;
+  for (int p = 0; p < 4; ++p) {
+    const int b = b0 + prow[p], jj = j0 + punit[p];
+    if (b >= B || jj >= H) continue;
     const long long o = (long long)b * H + jj;
     const T* xg = gxt + (long long)b * gw * H;
     if constexpr (MODE == kLstm) {
@@ -194,10 +382,10 @@ __global__ void __launch_bounds__(kThreads) rnn_step_kernel(const RArgs a, int t
       T* C = static_cast<T*>(a.c);
       const float pi = P ? ld(P, jj) : 0.f, po = P ? ld(P, H + jj) : 0.f,
                   pf = P ? ld(P, 2 * H + jj) : 0.f;
-      const float zi = add<T>(ld(xg, jj), rnd<T>(acc[u][0]));
-      const float zo = add<T>(ld(xg, H + jj), rnd<T>(acc[u][1]));
-      const float zf = add<T>(ld(xg, 2 * H + jj), rnd<T>(acc[u][2]));
-      const float zc = add<T>(ld(xg, 3 * H + jj), rnd<T>(acc[u][3]));
+      const float zi = add<T>(ld(xg, jj), rnd<T>(dot[p][0]));
+      const float zo = add<T>(ld(xg, H + jj), rnd<T>(dot[p][1]));
+      const float zf = add<T>(ld(xg, 2 * H + jj), rnd<T>(dot[p][2]));
+      const float zc = add<T>(ld(xg, 3 * H + jj), rnd<T>(dot[p][3]));
       const float c = ld(C, o);
       const float gi = f(add<T>(zi, mul<T>(pi, c)));
       const float gf = f(add<T>(zf, mul<T>(pf, c)));
@@ -212,18 +400,18 @@ __global__ void __launch_bounds__(kThreads) rnn_step_kernel(const RArgs a, int t
       const float h = ld(hprev, o);
       float z, hh;
       if constexpr (MODE == kGruLbr || MODE == kGruA) {
-        z = f(add<T>(add<T>(ld(xg, jj), rnd<T>(acc[u][0])), rbz));
-        const float r = f(add<T>(add<T>(ld(xg, H + jj), rnd<T>(acc[u][1])), rbr));
+        z = f(add<T>(add<T>(ld(xg, jj), rnd<T>(dot[p][0])), rbz));
+        const float r = f(add<T>(add<T>(ld(xg, H + jj), rnd<T>(dot[p][1])), rbr));
         if constexpr (MODE == kGruA) {
           st_(static_cast<T*>(a.z), o, z);
           st_(static_cast<T*>(a.rh), o, mul<T>(r, h));
           continue;
         } else {
-          hh = g(add<T>(ld(xg, 2 * H + jj), mul<T>(r, add<T>(rnd<T>(acc[u][2]), rbh))));
+          hh = g(add<T>(ld(xg, 2 * H + jj), mul<T>(r, add<T>(rnd<T>(dot[p][2]), rbh))));
         }
       } else {
         z = ld(static_cast<const T*>(a.z), o);
-        hh = g(add<T>(add<T>(ld(xg, 2 * H + jj), rnd<T>(acc[u][0])), rbh));
+        hh = g(add<T>(add<T>(ld(xg, 2 * H + jj), rnd<T>(dot[p][0])), rbh));
       }
       st_(static_cast<T*>(a.y), t * BH + o,
          add<T>(mul<T>(rnd<T>(__fsub_rn(1.f, z)), hh), mul<T>(z, h)));
@@ -231,22 +419,50 @@ __global__ void __launch_bounds__(kThreads) rnn_step_kernel(const RArgs a, int t
   }
 }
 
-template <typename T>
-cudaError_t run(const RArgs& a, cudaStream_t stream) {
-  const dim3 grid((a.H + kJT - 1) / kJT, (a.B + kBT - 1) / kBT);
+template <typename T, int MODE, bool VEC>
+cudaError_t s_allow_smem() {
+  constexpr int bytes = kSStages * s_stage_bytes<Gates<MODE>::n>();
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(rnn_step_kernel<T, MODE, VEC>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+template <typename T, int MODE, bool VEC>
+void s_launch(const RArgs& a, int t, dim3 grid, cudaStream_t stream) {
+  rnn_step_kernel<T, MODE, VEC>
+      <<<grid, kSThreads, kSStages * s_stage_bytes<Gates<MODE>::n>(), stream>>>(a, t);
+}
+
+template <typename T, bool VEC>
+cudaError_t run_steps(const RArgs& a, cudaStream_t stream) {
+  const dim3 grid((a.H + kSU - 1) / kSU, (a.B + kSB - 1) / kSB);
+  cudaError_t err = a.kind == 0 ? s_allow_smem<T, kLstm, VEC>()
+                    : a.lbr     ? s_allow_smem<T, kGruLbr, VEC>()
+                                : s_allow_smem<T, kGruA, VEC>();
+  if (err == cudaSuccess && a.kind != 0 && !a.lbr) err = s_allow_smem<T, kGruB, VEC>();
+  if (err != cudaSuccess) return err;
   for (int t = 0; t < a.S; ++t) {
     if (a.kind == 0) {
-      rnn_step_kernel<T, kLstm><<<grid, kThreads, 0, stream>>>(a, t);
+      s_launch<T, kLstm, VEC>(a, t, grid, stream);
     } else if (a.lbr) {
-      rnn_step_kernel<T, kGruLbr><<<grid, kThreads, 0, stream>>>(a, t);
+      s_launch<T, kGruLbr, VEC>(a, t, grid, stream);
     } else {
-      rnn_step_kernel<T, kGruA><<<grid, kThreads, 0, stream>>>(a, t);
-      rnn_step_kernel<T, kGruB><<<grid, kThreads, 0, stream>>>(a, t);
+      s_launch<T, kGruA, VEC>(a, t, grid, stream);
+      s_launch<T, kGruB, VEC>(a, t, grid, stream);
     }
-    const cudaError_t err = cudaGetLastError();
+    err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
   return cudaSuccess;
+}
+
+__host__ inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
+template <typename T>
+cudaError_t run(const RArgs& a, cudaStream_t stream) {
+  const bool vec = a.H % (16 / (int)sizeof(T)) == 0 && aligned16(a.r) && aligned16(a.h0) &&
+                   aligned16(a.y) && aligned16(a.rh);
+  return vec ? run_steps<T, true>(a, stream) : run_steps<T, false>(a, stream);
 }
 
 
@@ -294,15 +510,6 @@ __host__ __device__ inline PLayout p_layout(int kind, int lbr, int bf16, int B, 
   return L;
 }
 
-__device__ __forceinline__ void cp_async16_zfill(uint32_t dst, const void* src, int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-__device__ __forceinline__ void cp_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::: "memory"); }
-__device__ __forceinline__ void cp_wait_one() { asm volatile("cp.async.wait_group 1;\n" ::: "memory"); }
-
 // h tile kt (batch rows [b0, b0 + 64), k [kt KT, kt KT + KT)) of src (B x H)
 // into `dst`, rows past B and k past H zero-filled
 template <typename T>
@@ -317,15 +524,6 @@ __device__ __forceinline__ void load_h_tile(T* dst, const T* src, int B, int H, 
                      src + (ok ? (long long)b * H + k : 0), ok ? 16 : 0);
   }
   cp_commit();
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // The partial products of batch rows [b0, b0 + 64) of src with the block's

@@ -24,7 +24,7 @@ Matmuls run in full f32 (:func:`~..runtime.device.full_f32`).
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -33,8 +33,8 @@ from ..kernels.build import CudaKernel, library
 from ..runtime.device import full_f32, resolve_device
 
 __all__ = ["RegressionResult", "fit_regression", "fit_regression_batch", "lasso_cd",
-           "lasso_cd_plain", "lasso_smem_k", "lasso_system", "rescaled", "LASSO_KERNEL",
-           "LASSO_TOL"]
+           "lasso_cd_plain", "lasso_plan", "lasso_smem_k", "lasso_system", "rescaled",
+           "LASSO_KERNEL", "LASSO_TOL"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -44,10 +44,11 @@ LASSO_KERNEL = CudaKernel(
     replaces="synapseml_tpu/explainers/regression.py:39 (_fit_core's lasso descent, :72-85)")
 
 # Kernel L against its plain version: max |beta_L - beta_plain| over a batch
-# <= LASSO_TOL * max(1, max |beta_plain|). The two sum each dot gram[j] @ beta
-# in another order (L: lane-strided partial sums and a butterfly; the plain
-# version: torch's reduction), which moves rho by a few ulps of the dot's
-# terms at every step.
+# <= LASSO_TOL * max(1, max |beta_plain|). L keeps c = Xty - gram @ beta and
+# updates it by a column of gram where a step moves beta_j (its order is
+# tools/kernel_cases.py::lasso_cd_order); the plain version sums a fresh dot
+# gram[j] @ beta each step. The same terms in another order move rho by a
+# few ulps of them at every step.
 LASSO_TOL = 1e-4
 
 
@@ -60,7 +61,8 @@ class RegressionResult(NamedTuple):
 
 def lasso_smem_k() -> int:
     """The largest k whose Gram matrix kernel L keeps in shared memory on
-    the current CUDA device (past it the rows are read from global memory)."""
+    the current CUDA device, as its packed upper triangle (336 on the H100's
+    227 KB a block; past it the rows are read from global memory)."""
     out = ctypes.c_int(0)
     fn = library("lasso_cd").smt_lasso_smem_k
     fn.argtypes = [ctypes.POINTER(ctypes.c_int)]
@@ -69,6 +71,19 @@ def lasso_smem_k() -> int:
     if err != 0:
         raise RuntimeError(f"smt_lasso_smem_k: CUDA error {err}")
     return out.value
+
+
+def lasso_plan(k: int, t: int) -> Tuple[bool, int]:
+    """Kernel L's launch for ``k`` coordinates and ``t`` fits an instance on
+    the current CUDA device: (Gram matrix in shared memory, fits a block)."""
+    out = (ctypes.c_int * 2)()
+    fn = library("lasso_cd").smt_lasso_plan
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(int(k), int(t), out)
+    if err != 0:
+        raise RuntimeError(f"smt_lasso_plan: CUDA error {err}")
+    return bool(out[0]), int(out[1])
 
 
 def lasso_cd_plain(gram: torch.Tensor, xty: torch.Tensor, sq: torch.Tensor, lam: float,

@@ -1,15 +1,16 @@
 """Edge-case inputs for kernels D (device binning), E (split search), F
 (the LambdaRank gradient), G (the sparse histogram), P (the row
-partition), V (the VW learner's step), Q (the ONNX integer GEMM / conv) and
-R (the ONNX LSTM / GRU steps), and the full-pass growths that the dense and
-the sparse growth are held to.
+partition), V (the VW learner's step), Q (the ONNX integer GEMM / conv), R
+(the ONNX LSTM / GRU steps) and L (the explainers' lasso: its fixtures, a
+torch model of its arithmetic order, the ties that rounding decides), and
+the full-pass growths that the dense and the sparse growth are held to.
 
 Shared by ``tests/test_torch_kernels.py`` (on the card),
 ``tests/test_torch_categorical.py``, ``tests/test_torch_split_step.py`` and
 ``tests/test_torch_ranker.py``, ``tests/test_torch_sparse.py``,
-``tests/test_torch_onnx_quant.py`` (the plain versions on the CPU) and
-``chip_smoke.py`` (phase 4), so they check the same cases. Everything is
-made from a seed with numpy.
+``tests/test_torch_onnx_quant.py``, ``tests/test_torch_lasso_order.py`` (the
+plain versions on the CPU) and ``chip_smoke.py`` (phases 2m and 4), so they
+check the same cases. Everything is made from a seed with numpy.
 """
 
 from __future__ import annotations
@@ -30,7 +31,7 @@ from ..gbdt.sparse import (G_ENTRIES, CSRMatrix, SparseBinned, build_sparse_binn
 from ..gbdt.split_search import SplitWorkspace, _thresh_l1, left_set
 from ..vw.learner import pad_examples
 
-__all__ = ["lasso_case", "forest_rows", "forest_probe_rows", "Q_CONV3D_CASES", "bin_edge_case", "bin_ragged_case", "split_cases", "step_cases",
+__all__ = ["lasso_case", "lasso_cd_order", "lasso_ties", "LASSO_TIE", "forest_rows", "forest_probe_rows", "Q_CONV3D_CASES", "bin_edge_case", "bin_ragged_case", "split_cases", "step_cases",
            "LARGEST_KERNEL_A_BINS", "offgrid_split_case", "check_offgrid", "check_left_sets",
            "synthetic_update", "grow_synthetic", "diff_runs", "rank_rows", "RANK_CASES",
            "RANK_CASES_WIDE", "rank_case", "rank_nan_case", "one_split_text", "TWO_TREES",
@@ -983,6 +984,65 @@ def lasso_case(seed: int, n: int, m: int, k: int, t: int):
                     0.0)
     Y = X @ beta + 0.1 * rng.normal(size=(n, m, t))
     return X, Y, rng.uniform(0.5, 1.5, (n, m))
+
+
+def lasso_cd_order(gram: torch.Tensor, xty: torch.Tensor, sq: torch.Tensor, lam: float,
+                   max_iter: int, triangle: bool = True) -> torch.Tensor:
+    """Kernel L's arithmetic in torch f32, step for step: ``gram`` (n, k, k),
+    ``xty`` (n, t, k), ``sq`` (n, k) -> beta (n, t, k).
+
+    Each fit keeps c = Xty - G beta: step j takes rho = c_j + G_jj b_j, the
+    reference's soft threshold and division, and where delta = b_j' - b_j
+    is not exactly 0, c <- c - G[j] delta, every product and difference
+    rounded on its own. A row of ``gram`` with a NaN or an infinity has a
+    NaN diagonal (its rho is NaN at every step, as the reference's dot is).
+    ``triangle`` takes G's off-diagonal entries from its upper triangle (the
+    kernel's shared-memory path); without it, row j as it lies (the path
+    past ``lasso_smem_k()``)."""
+    n, t, k = xty.shape
+    bad = ~torch.isfinite(gram).all(-1)
+    d = torch.where(bad, torch.full_like(sq, float("nan")),
+                    torch.diagonal(gram, dim1=1, dim2=2))
+    if triangle:
+        upper = torch.triu(gram, 1)
+        g = upper + upper.transpose(1, 2)
+    else:
+        g = gram.clone()
+    g.diagonal(dim1=1, dim2=2).copy_(d)
+    beta = torch.zeros(n, t, k, dtype=torch.float32, device=xty.device)
+    c = xty.clone()
+    pos = sq > 0
+    den = torch.where(pos, sq, torch.ones_like(sq))
+    for _ in range(int(max_iter)):
+        for j in range(k):
+            bj = beta[:, :, j]
+            rho = c[:, :, j] + d[:, None, j] * bj
+            soft = torch.sign(rho) * torch.clamp(torch.abs(rho) - lam, min=0.0)
+            soft = torch.where(torch.isnan(rho), rho, soft)
+            new = torch.where(pos[:, None, j], soft / den[:, None, j], torch.zeros_like(soft))
+            delta = new - bj
+            beta[:, :, j] = new
+            c = torch.where((delta != 0)[..., None], c - g[:, None, j, :] * delta[..., None], c)
+    return beta
+
+
+# A coefficient is at a tie where its |rho| lies within LASSO_TIE * lam of
+# lam: the sign of |rho| - lam is then a matter of rounding (rho's terms are
+# ~m |beta|, a few ulps of them ~1e-4 at m = 1,000), so one order may leave it
+# at 0 and another at a value of order (|rho| - lam) / sq.
+LASSO_TIE = 1e-4
+
+
+def lasso_ties(gram: torch.Tensor, xty: torch.Tensor, beta: torch.Tensor,
+               lam: float) -> torch.Tensor:
+    """(n, t, k) bool: the coefficients of ``beta`` (one descent's result)
+    whose rho = Xty_j - gram[j] @ beta + gram[j, j] beta_j lies within
+    ``LASSO_TIE * lam`` of +-lam. ``lasso_case`` keeps coefficients clear of
+    lam, but over 10^5 coefficients (k past 250, 512 fits) a few land
+    there."""
+    dot = torch.matmul(beta.unsqueeze(-2), gram.unsqueeze(1).transpose(-1, -2)).squeeze(-2)
+    rho = xty - dot + torch.diagonal(gram, dim1=1, dim2=2)[:, None, :] * beta
+    return (rho.abs() - lam).abs() <= LASSO_TIE * lam
 
 
 def forest_rows(seed: int, n: int, d: int) -> np.ndarray:

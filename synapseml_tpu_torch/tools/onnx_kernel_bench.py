@@ -19,6 +19,11 @@ events, one JSON line a shape, each with the card's name and power limit
   configurations of ``chip_smoke.py``'s phase 4, which entry served each,
   and cuDNN's LSTM / GRU layer (``torch.nn.LSTM`` / ``torch.nn.GRU``, TF32
   off, the input projection included) beside R with the projection.
+- ``rstep``: R's one-launch-a-step entry at ``chip_smoke.py``'s
+  RNN_STEPWISE (S = 8, B = 64, H = 2,048: R past every block's shared
+  memory), LSTM in f32 and bf16 and GRU with linear_before_reset=0 in f32,
+  with cuDNN's layer beside the f32 ones (``torch.nn.GRU`` computes
+  linear_before_reset=1, the nearest library call).
 
 ``--ab PARENT_TREE`` builds the parent tree's ``csrc/qgemm.cu`` and
 ``csrc/rnn_step.cu`` (``kernels/build.py::build(csrc=...)``) beside this
@@ -53,12 +58,18 @@ from synapseml_tpu_torch.tools.kernel_cases import (BERT_BASE_PROJECTIONS,  # no
 
 BATCH_IMAGES = 128
 RNN_GNMT = (128, 64, 1024)
+RNN_STEPWISE = (8, 64, 2048)
 R_SHAPES = (("lstm_cudnn_config_f32", "LSTM", 0, torch.float32, False),
             ("lstm_peepholes_f32", "LSTM", 0, torch.float32, True),
             ("lstm_peepholes_bf16", "LSTM", 0, torch.bfloat16, True),
             ("gru_lbr0_f32", "GRU", 0, torch.float32, True),
             ("gru_lbr0_bf16", "GRU", 0, torch.bfloat16, True),
             ("gru_lbr1_f32", "GRU", 1, torch.float32, True))
+R_STEPWISE_SHAPES = (("lstm_wide_f32", "LSTM", 0, torch.float32, False),
+                     ("lstm_wide_bf16", "LSTM", 0, torch.bfloat16, False),
+                     ("gru_lbr0_wide_f32", "GRU", 0, torch.float32, True))
+# the shapes timed beside cuDNN's layer
+R_CUDNN = ("lstm_cudnn_config_f32", "gru_lbr1_f32", "lstm_wide_f32", "gru_lbr0_wide_f32")
 # ResNet-50's convolutions a batch by shape (the zoo's graph: the stem, per
 # stage one of each first-block conv and (blocks - 1) of each later one)
 RESNET50_BLOCKS = (3, 4, 6, 3)
@@ -286,9 +297,9 @@ def _rnn_err(got, want, dtype) -> float:
     return max(errs)
 
 
-def bench_r(parent, gen, dev, rounds, card_text, seed):
-    S, B, H = RNN_GNMT
-    for name, kind, lbr, dtype, peep in R_SHAPES:
+def bench_r(parent, gen, dev, rounds, card_text, seed, shapes=R_SHAPES, dims=RNN_GNMT):
+    S, B, H = dims
+    for name, kind, lbr, dtype, peep in shapes:
         c = rnn_step_case(kind, S, B, H, dtype, dev, seed=seed, peepholes=peep)
         if kind == "LSTM":
             change = lambda: rnn.lstm_steps(c["gx"], c["r"], c["h0"], c["c0"], c["p"])
@@ -315,7 +326,7 @@ def bench_r(parent, gen, dev, rounds, card_text, seed):
                                               rounds, 3)
         else:
             rec["ms"] = time_ms(change, 5)
-        if name in ("lstm_cudnn_config_f32", "gru_lbr1_f32"):
+        if name in R_CUDNN:
             layer = (torch.nn.LSTM if kind == "LSTM" else torch.nn.GRU)(H, H).to(dev)
             xin = torch.randn(S, B, H, generator=gen, device=dev)
             w_ih, b_ih = layer.weight_ih_l0.detach(), layer.bias_ih_l0.detach()
@@ -337,7 +348,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--ab", type=Path, default=None, help="the parent tree to time beside")
     ap.add_argument("--rounds", type=int, default=2)
-    ap.add_argument("--only", default="q,conv,r")
+    ap.add_argument("--only", default="q,conv,r,rstep")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -359,6 +370,9 @@ def main() -> int:
         bench_conv(parent, gen, dev, args.rounds, card_text)
     if "r" in only:
         bench_r(parent, gen, dev, args.rounds, card_text, args.seed)
+    if "rstep" in only:
+        bench_r(parent, gen, dev, args.rounds, card_text, args.seed, R_STEPWISE_SHAPES,
+                RNN_STEPWISE)
     return 0
 
 

@@ -1515,6 +1515,43 @@ def test_rnn_persistent_entry_clip_and_activations(cuda, dtype, acts):
             assert _rnn_err(g, w, dtype) <= tol
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("kind,lbr", [("LSTM", 0), ("GRU", 0), ("GRU", 1)])
+def test_rnn_step_entry_at_h2048(cuda, kind, lbr, dtype):
+    """H = 2,048 (R past every block's shared memory: the one-launch-a-step
+    entry) at B = 64: within 1e-5 (f32) / 2e-2 of a row's norm (bf16) of
+    the plain steps; one counted launch of the wrapper, none of the
+    persistent entry's."""
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    sms, smem = _rnn_limits()
+    assert onnx_rnn.rnn_plan(0 if kind == "LSTM" else 1, lbr, dtype == torch.bfloat16, 64,
+                             2048, sms, smem) is None
+    before = (onnx_rnn.RNN_KERNEL.launches, onnx_rnn.RNN_STEP_KERNEL.launches)
+    got, want = _rnn_both(kind, lbr, 4, 64, 2048, dtype, seed=11, clip=None)
+    torch.cuda.synchronize()
+    assert (onnx_rnn.RNN_KERNEL.launches, onnx_rnn.RNN_STEP_KERNEL.launches) == \
+        (before[0], before[1] + 1)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        assert _rnn_err(g, w, dtype) <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("kind,lbr", [("LSTM", 0), ("GRU", 0), ("GRU", 1)])
+def test_rnn_step_entry_ragged_edges(cuda, kind, lbr, dtype):
+    """The step entry's masked edges: B of 1 and 65 (a second, almost empty
+    batch tile), H not a multiple of 8 (1,332: 16-byte f32 rows, bf16 by
+    plain loads; 1,105: odd) and S = 1, with a clip."""
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    for S, B, H in ((1, 1, 2048), (2, 65, 2048), (3, 65, 1332), (1, 1, 1105), (2, 37, 1105)):
+        before = onnx_rnn.RNN_STEP_KERNEL.launches
+        got, want = _rnn_both(kind, lbr, S, B, H, dtype, seed=S * B + H, clip=2.5)
+        torch.cuda.synchronize()
+        assert onnx_rnn.RNN_STEP_KERNEL.launches == before + 1, (S, B, H)
+        for g, w in zip(got, want):
+            assert g.shape == w.shape and _rnn_err(g, w, dtype) <= tol, (S, B, H)
+
+
 # -- the ONNX executor on the card -------------------------------------------------------------
 
 def test_onnx_resnet50_on_card_matches_cpu(cuda):
@@ -1660,7 +1697,7 @@ from synapseml_tpu_torch.explainers import regression as expl_regression  # noqa
 from synapseml_tpu_torch.image import ops as image_ops  # noqa: E402
 from synapseml_tpu_torch.isolationforest import forest as iforest  # noqa: E402
 from synapseml_tpu_torch.tools.kernel_cases import (forest_probe_rows, forest_rows,  # noqa: E402
-                                                    lasso_case)
+                                                    lasso_case, lasso_cd_order)
 
 
 def _lasso_system(dev, n, m, k, t, seed=0):
@@ -1670,11 +1707,25 @@ def _lasso_system(dev, n, m, k, t, seed=0):
     return expl_regression.lasso_system(Xr, Yr)
 
 
-@pytest.mark.parametrize("k", [32, 200, 256])
-def test_lasso_kernel_matches_plain_below_and_above_the_smem_limit(cuda, k):
+def _lasso_k(spec: str) -> int:
     limit = expl_regression.lasso_smem_k()
-    assert 200 <= limit < 256                       # 239 on the H100's 227 KB
-    gram, xty, sq = _lasso_system(cuda, 6, 1000, k, 2)
+    return {"limit": limit, "past_limit": limit + 1}.get(spec) or int(spec)
+
+
+@pytest.mark.parametrize("t", [1, 2, 5])
+@pytest.mark.parametrize("k", ["32", "200", "limit", "past_limit"])
+def test_lasso_kernel_matches_plain_below_and_above_the_smem_limit(cuda, k, t):
+    """512 fits' worth of L's cases at LIME's 1,000 samples on both sides
+    of the shared-memory limit: within LASSO_TOL of the plain version with
+    the same zero coefficients, bit-equal to the order model
+    (``lasso_cd_order``: the upper triangle up to the limit, row j as it
+    lies past it), one launch a batch."""
+    limit = expl_regression.lasso_smem_k()
+    assert 300 <= limit <= 352                      # 336 on the H100's 227 KB
+    assert expl_regression.lasso_plan(limit, 1) == (True, 1)
+    assert expl_regression.lasso_plan(limit + 1, 9) == (False, 8)
+    k = _lasso_k(k)
+    gram, xty, sq = _lasso_system(cuda, 6, 1000, k, t)
     lam = 0.01 * 1000
     before = expl_regression.LASSO_KERNEL.launches
     got = expl_regression.lasso_cd(gram, xty, sq, lam, 100)
@@ -1684,6 +1735,27 @@ def test_lasso_kernel_matches_plain_below_and_above_the_smem_limit(cuda, k):
     err = (got - want).abs().max().item()
     assert err <= expl_regression.LASSO_TOL * max(1.0, want.abs().max().item()), err
     assert torch.equal(got == 0, want == 0)
+    order = lasso_cd_order(gram, xty, sq, lam, 100, triangle=k <= limit)
+    assert torch.equal(got, order), (got - order).abs().max().item()
+
+
+@pytest.mark.parametrize("k", ["40", "past_limit"])
+def test_lasso_kernel_nan_fit(cuda, k):
+    """A NaN in one instance's Gram matrix (off the diagonal, one side
+    only) and an infinity in another's: NaN wherever the plain version has
+    NaN, the rest as the order model, the clean instance as without them."""
+    k = _lasso_k(k)
+    gram, xty, sq = _lasso_system(cuda, 3, 600, k, 2)
+    lam = 0.01 * 600
+    clean = expl_regression.lasso_cd(gram, xty, sq, lam, 20)
+    gram[1, k - 3, 2] = float("nan")
+    gram[2, 5, 5] = float("inf")
+    got = expl_regression.lasso_cd(gram, xty, sq, lam, 20)
+    want = expl_regression.lasso_cd_plain(gram, xty, sq, lam, 20)
+    assert torch.equal(torch.isnan(got), torch.isnan(want)) and torch.isnan(got[1:]).any()
+    order = lasso_cd_order(gram, xty, sq, lam, 20, triangle=k <= expl_regression.lasso_smem_k())
+    torch.testing.assert_close(got, order, rtol=0, atol=0, equal_nan=True)
+    assert torch.equal(got[0], clean[0])
 
 
 def test_lasso_kernel_edge_cases(cuda):
