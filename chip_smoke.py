@@ -230,6 +230,27 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    entry (``iforest_tree_score``), the scores within FOREST_TOL of the heap
    descent's on the card and the predictions identical; L and B's forest
    entry must launch on that path;
+2n. nearest neighbours, SAR and AccessAnomaly, ranked by kernel K (the
+   top-k in ``lax.top_k``'s order, ``csrc/topk_select.cu``): with every
+   launch count set to 0 just before and read just after, (b) ``KNN`` over
+   1,048,576 keys x 128 f32 answering 16,384 queries (k = 10) and
+   ``ConditionalKNN`` over 262,144 keys x 2,048 (ResNet-50's pooled width),
+   6 labels, 4,096 queries with conditioner sets of 1-3 labels (k = 5),
+   queries/s, 64 queries of each held to the port's CPU run (the same
+   neighbours but swaps within TOPK_TIE_TOL); (c) ``SAR`` (jaccard, support
+   4, decay 30 days) fitted on MovieLens-10M's shape less 1,000,000
+   held-out ratings, ``recommend_for_all_users(10, remove_seen=True)``, the
+   held-out pairs transformed; the co-occurrence counts of 64 items equal a
+   host count and their similarity rows the host's jaccard bit for bit, 256
+   users' lists held to the port's CPU run; (d) ``AccessAnomaly``
+   (implicit, rank 10, 25 iterations) on four tenants of 10,000 users x
+   2,000 resources (250,000 rows each) and a fifth of 1,000 x 400, fit s
+   (ALS s apart), 1,000,000 rows transformed (known, unknown and
+   cross-component), the fifth tenant's scores within ANOMALY_TOL (z units)
+   of the port's CPU fit of it; K must launch in (b) and (c); then (a) K
+   bit-equal to its plain version on every ``kernel_cases.TOPK_CASES`` case
+   and on 256 rows of each phase shape's scores, timed beside the plain
+   version, ``torch.topk`` and its bound;
 3. flash attention's entry point, all causal: in bf16 (the wgmma kernel) at
    the headline shape (B=1, S=32768, H=8, D=64), the grouped-query serving
    shape (B=8, S=8192, H=8, H_kv=2, D=64), the headline length at D=128, and
@@ -3626,6 +3647,424 @@ def explainers_phase(kernels, seed: int, dev, card: str) -> dict:
             "forest": forest, "launches": path_counts}
 
 
+# -- phase 2n: KNN / ConditionalKNN, SAR, AccessAnomaly (kernel K) ---------------------
+
+# (b) keys, width, queries, k; ConditionalKNN at ResNet-50's pooled width
+KNN_SHAPE = (1_048_576, 128, 16_384, 10)
+CKNN_SHAPE = (262_144, 2_048, 4_096, 5)
+CKNN_LABELS = 6
+NN_CPU_QUERIES = 64
+# (c) SAR on MovieLens-10M's shape (schema_data.MOVIELENS_10M), the defaults
+SAR_K, SAR_HELD_OUT, SAR_CPU_USERS, SAR_COUNT_ITEMS = 10, 1_000_000, 256, 64
+# (d) four tenants of 10,000 users x 2,000 resources, a fifth of 1,000 x 400
+ANOMALY_TENANTS = ([(f"tenant{i}", 10_000, 2_000, 250_000) for i in range(4)]
+                   + [("tenant4", 1_000, 400, 25_000)])
+ANOMALY_PARAMS = dict(rank_param=10, max_iter=25, apply_implicit_cf=True)
+ANOMALY_ROWS = 1_000_000
+# (a) kernel K at 256 rows of each phase shape's scores: (n, k)
+TOPK_ROWS = 256
+TOPK_SHAPES = {"knn": (KNN_SHAPE[0], KNN_SHAPE[3]), "cknn": (CKNN_SHAPE[0], CKNN_SHAPE[3]),
+               "sar": (10_677, SAR_K)}
+PHASE_2N_KERNELS = ("topk_select",)
+
+
+def _matches(rows, key="value"):
+    """(indices, distances) arrays of a KNN output column's match lists."""
+    return (np.array([[m[key] for m in r] for r in rows], np.int64),
+            np.array([[m["distance"] for m in r] for r in rows], np.float64))
+
+
+def knn_run(seed: int, card: str) -> dict:
+    """Phase 2n (b), KNN: fit, then two transforms of the queries (the first
+    uploads the keys); 64 queries held to the port's CPU run."""
+    from synapseml_tpu_torch.core import Table
+    from synapseml_tpu_torch.nn import KNN, KNNModel
+    from synapseml_tpu_torch.nn.topk import TOPK_TIE_TOL
+    from synapseml_tpu_torch.tools.kernel_cases import same_up_to_ties
+    from synapseml_tpu_torch.tools.schema_data import embedding_rows
+
+    n, d, nq, k = KNN_SHAPE
+    x, _ = embedding_rows(seed + 24, n + nq, d)
+    keys, queries = x[:n], x[n:]
+    t0 = time.perf_counter()
+    model = KNN(k=k).fit(Table({"features": keys, "values": np.arange(n)}))
+    fit_s = time.perf_counter() - t0
+    qt = Table({"features": queries})
+    t0 = time.perf_counter()
+    model.transform(qt)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out = model.transform(qt)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    idx, dist = _matches(out["output"])
+    if idx.shape != (nq, k) or not np.isfinite(dist).all():
+        fail(f"phase 2n (b) KNN: matches {idx.shape}, finite {np.isfinite(dist).all()}")
+    cpu = KNNModel.from_state(model.state_dict(), device="cpu")
+    want_idx, want_dist = _matches(cpu.transform(Table({"features": queries[:NN_CPU_QUERIES]}))
+                                   ["output"])
+    if not same_up_to_ties(idx[:NN_CPU_QUERIES], dist[:NN_CPU_QUERIES], want_idx, want_dist,
+                           TOPK_TIE_TOL):
+        fail("phase 2n (b) KNN: the card's neighbours differ from the CPU run's beyond ties")
+    swaps = int((idx[:NN_CPU_QUERIES] != want_idx).sum())
+    log(f"phase 2n (b) KNN {n} x {d}, {nq} queries, k={k}: {nq / wall:.0f} queries/s "
+        f"(first transform {first_s:.2f} s with the keys' upload; fit {fit_s:.2f} s), "
+        f"{NN_CPU_QUERIES} queries as on the CPU ({swaps} places traded at ties) [{card}]")
+    return {"model": model, "queries": queries, "fit_s": fit_s, "first_transform_s": first_s,
+            "transform_s": wall, "queries_per_s": nq / wall, "cpu_swaps": swaps,
+            "shape": f"{n} keys x {d} f32, {nq} queries, k={k}"}
+
+
+def _conditioners(rng, nq: int):
+    col = np.empty(nq, dtype=object)
+    for r, size in enumerate(rng.integers(1, 4, nq)):
+        col[r] = sorted(rng.choice(CKNN_LABELS, size=int(size), replace=False).tolist())
+    return col
+
+
+def cknn_run(seed: int, card: str) -> dict:
+    """Phase 2n (b), ConditionalKNN at ResNet-50's pooled width."""
+    from synapseml_tpu_torch.core import Table
+    from synapseml_tpu_torch.nn import ConditionalKNN, ConditionalKNNModel
+    from synapseml_tpu_torch.nn.topk import TOPK_TIE_TOL
+    from synapseml_tpu_torch.tools.kernel_cases import same_up_to_ties
+    from synapseml_tpu_torch.tools.schema_data import embedding_rows
+
+    n, d, nq, k = CKNN_SHAPE
+    x, labels = embedding_rows(seed + 25, n + nq, d, n_labels=CKNN_LABELS, nonnegative=True)
+    keys, queries = x[:n], x[n:]
+    conds = _conditioners(np.random.default_rng([seed, 25]), nq)
+    t0 = time.perf_counter()
+    model = ConditionalKNN(k=k).fit(Table({"features": keys, "values": np.arange(n),
+                                           "labels": labels[:n]}))
+    fit_s = time.perf_counter() - t0
+    qt = Table({"features": queries, "conditioner": conds})
+    t0 = time.perf_counter()
+    model.transform(qt)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out = model.transform(qt)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    idx, dist = _matches(out["output"])
+    got_labels = np.array([[m["label"] for m in r] for r in out["output"]])
+    if idx.shape != (nq, k) or not np.isfinite(dist).all():
+        fail(f"phase 2n (b) ConditionalKNN: matches {idx.shape}")
+    if not all(set(row.tolist()) <= set(c) for row, c in zip(got_labels, conds)):
+        fail("phase 2n (b) ConditionalKNN: a match's label is not in its query's conditioner")
+    cpu = ConditionalKNNModel.from_state(model.state_dict(), device="cpu")
+    want = cpu.transform(Table({"features": queries[:NN_CPU_QUERIES],
+                                "conditioner": conds[:NN_CPU_QUERIES]}))
+    want_idx, want_dist = _matches(want["output"])
+    if not same_up_to_ties(idx[:NN_CPU_QUERIES], dist[:NN_CPU_QUERIES], want_idx, want_dist,
+                           TOPK_TIE_TOL):
+        fail("phase 2n (b) ConditionalKNN: the card's neighbours differ from the CPU run's "
+             "beyond ties")
+    swaps = int((idx[:NN_CPU_QUERIES] != want_idx).sum())
+    log(f"phase 2n (b) ConditionalKNN {n} x {d}, {CKNN_LABELS} labels, {nq} queries, k={k}: "
+        f"{nq / wall:.0f} queries/s (first transform {first_s:.2f} s; fit {fit_s:.2f} s), "
+        f"{NN_CPU_QUERIES} queries as on the CPU ({swaps} places traded at ties) [{card}]")
+    return {"model": model, "queries": queries, "conditioners": conds, "fit_s": fit_s,
+            "first_transform_s": first_s, "transform_s": wall, "queries_per_s": nq / wall,
+            "cpu_swaps": swaps,
+            "shape": f"{n} keys x {d} f32, {CKNN_LABELS} labels, {nq} queries with 1-3 "
+                     f"admissible labels, k={k}"}
+
+
+def sar_run(seed: int, dev, card: str) -> dict:
+    """Phase 2n (c): SAR on MovieLens-10M's shape less the held-out ratings."""
+    from scipy.sparse import csr_matrix
+
+    from synapseml_tpu_torch.core import Table
+    from synapseml_tpu_torch.nn.topk import TOPK_TIE_TOL
+    from synapseml_tpu_torch.recommendation import SAR, SARModel
+    from synapseml_tpu_torch.recommendation import sar as S
+    from synapseml_tpu_torch.runtime.device import full_f32
+    from synapseml_tpu_torch.tools.kernel_cases import same_up_to_ties
+    from synapseml_tpu_torch.tools.schema_data import movielens_rows
+
+    t0 = time.perf_counter()
+    users, items, stars, times = movielens_rows(seed + 24)
+    held = np.zeros(len(users), bool)
+    held[np.random.default_rng([seed, 26]).choice(len(users), SAR_HELD_OUT, replace=False)] = True
+    data_s = time.perf_counter() - t0
+    fit_rows = Table({"user": users[~held], "item": items[~held], "rating": stars[~held],
+                      "time": times[~held]})
+    t0 = time.perf_counter()
+    model = SAR().fit(fit_rows)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    recs = model.recommend_for_all_users(SAR_K, remove_seen=True)
+    torch.cuda.synchronize()
+    rec_s = time.perf_counter() - t0
+    pairs = Table({"user": users[held], "item": items[held]})
+    t0 = time.perf_counter()
+    scored = model.transform(pairs)
+    torch.cuda.synchronize()
+    transform_s = time.perf_counter() - t0
+    n_users, n_items = model.user_affinity.shape
+    lists = recs["recommendations"]
+    if len(lists) != n_users or any(len(r) != SAR_K for r in lists):
+        fail(f"phase 2n (c) SAR: {len(lists)} users' lists, not {n_users} of {SAR_K}")
+    pred = np.asarray(scored["prediction"])
+    if len(pred) != SAR_HELD_OUT or not np.isfinite(pred).all():
+        fail(f"phase 2n (c) SAR: {len(pred)} held-out scores, finite {np.isfinite(pred).all()}")
+    # co-occurrence counts of 64 items against a host count; their similarity
+    # rows against the host's jaccard in f32, bit for bit
+    u, i = users[~held], items[~held]
+    sample = np.sort(np.random.default_rng([seed, 27]).choice(n_items, SAR_COUNT_ITEMS,
+                                                               replace=False))
+    occ = csr_matrix((np.ones(len(u), np.float64), (u, i)), shape=(n_users, n_items))
+    host = np.asarray((occ[:, sample].T @ occ).todense()).astype(np.float32)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card_c = S.cooccurrence(u, i, n_users, n_items, dev)
+    torch.cuda.synchronize()
+    cooc_s = time.perf_counter() - t0
+    got = card_c[torch.from_numpy(sample).to(dev)].cpu().numpy()
+    del card_c
+    # the same product in full f32, for its time beside the TF32 one
+    ones = torch.zeros((n_users, n_items), device=dev)
+    ones[torch.from_numpy(u).to(dev), torch.from_numpy(i).to(dev)] = 1.0
+    with full_f32():
+        f32_ms = time_ms(lambda: torch.matmul(ones.T, ones), 2)
+    del ones
+    if not np.array_equal(got, host):
+        fail(f"phase 2n (c) SAR: co-occurrence counts differ from the host count in "
+             f"{int((got != host).sum())} places")
+    diag = np.asarray(occ.sum(axis=0)).ravel().astype(np.float32)
+    denom = diag[sample][:, None] + diag[None, :] - host
+    with np.errstate(divide="ignore", invalid="ignore"):
+        jac = np.where(denom > 0, host / denom, np.float32(0.0)).astype(np.float32)
+    jac = np.where(host < 4, np.float32(0.0), jac)
+    sim_rows = np.asarray(model.item_similarity)[sample]
+    if not np.array_equal(sim_rows.view(np.uint32), jac.view(np.uint32)):
+        fail("phase 2n (c) SAR: the similarity rows differ from the host's jaccard")
+    # 256 users' lists against the port's CPU run
+    check = np.sort(np.random.default_rng([seed, 28]).choice(n_users, SAR_CPU_USERS,
+                                                              replace=False))
+    cpu = SARModel.from_state(model.state_dict(), device="cpu")
+    want = cpu.recommend_for_user_subset(Table({"user": check}), SAR_K, remove_seen=True)
+    to_arrays = lambda rows: (np.array([[r[0] for r in x] for x in rows], np.int64),
+                              np.array([[r[1] for r in x] for x in rows], np.float64))
+    gi, gv = to_arrays([lists[int(c)] for c in check])
+    wi, wv = to_arrays(want["recommendations"])
+    if not same_up_to_ties(gi, gv, wi, wv, TOPK_TIE_TOL):
+        fail("phase 2n (c) SAR: the card's recommendations differ from the CPU run's "
+             "beyond ties")
+    swaps = int((gi != wi).sum())
+    log(f"phase 2n (c) SAR on {len(u)} ratings ({n_users} users x {n_items} items): fit "
+        f"{fit_s:.2f} s, recommend_for_all_users({SAR_K}, remove_seen) {rec_s:.2f} s, "
+        f"transform {SAR_HELD_OUT / transform_s:.0f} rows/s, counts of {SAR_COUNT_ITEMS} items "
+        f"as the host's, {SAR_CPU_USERS} users as on the CPU ({swaps} places traded at ties); "
+        f"co-occurrence {cooc_s:.3f} s (its TF32 product; {f32_ms:.1f} ms in full f32); "
+        f"data {data_s:.1f} s [{card}]")
+    return {"model": model, "fit_s": fit_s, "recommend_s": rec_s, "cooccurrence_s": cooc_s,
+            "cooccurrence_f32_product_ms": f32_ms,
+            "transform_rows_per_s": SAR_HELD_OUT / transform_s, "transform_s": transform_s,
+            "data_s": data_s, "cpu_swaps": swaps,
+            "shape": f"{len(u)} ratings, {n_users} users x {n_items} items, jaccard, "
+                     f"support 4, decay 30 days, top {SAR_K} with seen items removed"}
+
+
+def _anomaly_probe(cols, seed: int):
+    """ANOMALY_ROWS rows: 20 % training pairs, 70 % a training user with a
+    resource of its tenant drawn at random (some across components), 5 %
+    unknown users, 5 % unknown resources."""
+    rng = np.random.default_rng([seed, 29])
+    t, u, r = (np.asarray(cols[c]) for c in ("tenant", "user", "res"))
+    n = ANOMALY_ROWS
+    a = rng.integers(0, len(t), n)
+    b = rng.integers(0, len(t), n)
+    kind = rng.choice(4, size=n, p=[0.2, 0.7, 0.05, 0.05])
+    same = t[a] == t[b]
+    res = np.where((kind == 1) & same, r[b], r[a]).astype(object)
+    user = u[a].astype(object)
+    user[kind == 2] = "nobody"
+    res[kind == 3] = "nothing"
+    return {"tenant": t[a], "user": user, "res": res}
+
+
+def anomaly_run(seed: int, dev, card: str) -> dict:
+    """Phase 2n (d): AccessAnomaly over five tenants; the fifth held to the
+    port's CPU fit of it."""
+    from synapseml_tpu_torch.core import Table
+    from synapseml_tpu_torch.cyber import AccessAnomaly
+    from synapseml_tpu_torch.cyber import anomaly as A
+    from synapseml_tpu_torch.runtime.device import full_f32
+    from synapseml_tpu_torch.tools.schema_data import access_rows
+
+    cols = access_rows(seed + 24, ANOMALY_TENANTS)
+    als_s = []
+    real_als = A.als
+
+    def timed_als(*args, **kw):
+        t = time.perf_counter()
+        out = real_als(*args, **kw)
+        als_s.append(time.perf_counter() - t)
+        return out
+
+    A.als = timed_als
+    try:
+        t0 = time.perf_counter()
+        model = AccessAnomaly(**ANOMALY_PARAMS).fit(Table(cols))
+        fit_s = time.perf_counter() - t0
+    finally:
+        A.als = real_als
+    probe = _anomaly_probe(cols, seed)
+    t0 = time.perf_counter()
+    scores = np.asarray(model.transform(Table(probe))["anomaly_score"])
+    transform_s = time.perf_counter() - t0
+    unknown = (probe["user"] == "nobody") | (probe["res"] == "nothing")
+    if not np.array_equal(np.isnan(scores), unknown):
+        fail("phase 2n (d) AccessAnomaly: NaN scores are not the unknown rows")
+    cross = int(np.isposinf(scores).sum())
+    if cross == 0 or not np.isfinite(scores[~unknown & ~np.isinf(scores)]).all():
+        fail(f"phase 2n (d) AccessAnomaly: {cross} cross-component rows")
+    # the fifth tenant against the port's CPU fit of it
+    last = ANOMALY_TENANTS[-1][0]
+    mine = np.asarray(cols["tenant"]) == last
+    cpu = AccessAnomaly(device="cpu", **ANOMALY_PARAMS).fit(
+        Table({k: v[mine] for k, v in cols.items()}))
+    rows = probe["tenant"] == last
+    sub = Table({k: v[rows] for k, v in probe.items()})
+    got = np.asarray(model.transform(sub)["anomaly_score"])
+    want = np.asarray(cpu.transform(sub)["anomaly_score"])
+    for kind in (np.isnan, np.isposinf, lambda s: s == 0.0):
+        if not np.array_equal(kind(got), kind(want)):
+            fail("phase 2n (d) AccessAnomaly: the fifth tenant's NaN / inf / 0 rows differ "
+                 "from the CPU fit's")
+    ok = np.isfinite(want)
+    err = float(np.abs(got[ok] - want[ok]).max())
+    if not A.scores_agree(got[ok], want[ok]):
+        fail(f"phase 2n (d) AccessAnomaly: the fifth tenant's scores are {err} from the CPU "
+             f"fit's (> ANOMALY_TOL {A.ANOMALY_TOL} in z units)")
+    # one implicit half-step at the large tenants' shape, its two library calls timed
+    n_u, n_i = ANOMALY_TENANTS[0][1], ANOMALY_TENANTS[0][2]
+    k = ANOMALY_PARAMS["rank_param"]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    r = torch.rand(n_u, n_i, generator=gen, device=dev)
+    r = torch.where(r < 250_000 / (n_u * n_i), r * 10, torch.zeros((), device=dev))
+    fixed = torch.rand(n_i, k, generator=gen, device=dev)
+    with full_f32():
+        gram_ms = time_ms(lambda: A._gram(r, fixed), 5)
+        a = (fixed.T @ fixed + torch.eye(k, device=dev))[None] + A._gram(r, fixed)
+        b = ((1.0 + r) * (r > 0)) @ fixed
+        solve_ms = time_ms(lambda: torch.linalg.solve(a, b[..., None]), 5)
+    del r, fixed, a, b
+    log(f"phase 2n (d) AccessAnomaly: {len(cols['tenant'])} rows over "
+        f"{len(ANOMALY_TENANTS)} tenants, fit {fit_s:.2f} s (ALS {sum(als_s):.2f} s: "
+        f"{', '.join(f'{s:.2f}' for s in als_s)}), transform {ANOMALY_ROWS / transform_s:.0f} "
+        f"rows/s ({int(unknown.sum())} unknown, {cross} cross-component), fifth tenant within "
+        f"{err:.3g} of the CPU fit; a {n_u} x {n_i} half-step's Gram product {gram_ms:.3f} ms, "
+        f"batched solve {solve_ms:.3f} ms [{card}]")
+    return {"fit_s": fit_s, "als_s": sum(als_s), "als_s_by_tenant": als_s,
+            "transform_s": transform_s, "transform_rows_per_s": ANOMALY_ROWS / transform_s,
+            "cross_component_rows": cross, "unknown_rows": int(unknown.sum()),
+            "cpu_max_abs_err": err, "half_step_gram_ms": gram_ms,
+            "half_step_solve_ms": solve_ms,
+            "shape": f"{len(ANOMALY_TENANTS)} tenants "
+                     f"({', '.join(f'{a} x {b}' for _, a, b, _ in ANOMALY_TENANTS)}), "
+                     f"implicit, rank {k}, {ANOMALY_PARAMS['max_iter']} iterations"}
+
+
+def _phase_scores(name: str, runs: dict, dev) -> torch.Tensor:
+    """TOPK_ROWS rows of the scores the main path hands K at ``name``'s shape."""
+    from synapseml_tpu_torch.runtime.device import full_f32
+
+    with full_f32():
+        if name == "sar":
+            aff, sim = runs["sar"]["model"]._device_mats()
+            a = aff[:TOPK_ROWS]
+            return torch.where(a > 0, torch.tensor(-np.inf, device=dev), a @ sim)
+        run = runs[name]
+        keys = run["model"]._device_keys(dev)
+        q = torch.from_numpy(np.ascontiguousarray(run["queries"][:TOPK_ROWS])).to(dev)
+        scores = q @ keys.T
+        if name == "cknn":
+            model = run["model"]
+            lut = {l: i for i, l in enumerate(model.label_levels)}
+            allowed = np.zeros((TOPK_ROWS, len(lut)), bool)
+            for r, c in enumerate(run["conditioners"][:TOPK_ROWS]):
+                allowed[r, [lut[l] for l in c]] = True
+            codes = torch.from_numpy(np.asarray(model.label_codes, np.int64)).to(dev)
+            keep = torch.from_numpy(allowed).to(dev).index_select(1, codes)
+            scores = torch.where(keep, scores, torch.tensor(-np.inf, device=dev))
+        return scores
+
+
+def topk_rows(runs: dict, seed: int, dev, card: str) -> dict:
+    """Phase 2n (a): kernel K bit-equal to its plain version on every
+    TOPK_CASES case and on TOPK_ROWS rows of each phase shape's scores; K,
+    the plain version and torch.topk timed, with K's bound (the scores read
+    once, the values and indices written once)."""
+    from synapseml_tpu_torch.nn.topk import topk_select, topk_select_plain
+    from synapseml_tpu_torch.tools.kernel_cases import TOPK_CASES, topk_case
+
+    def same(x, k):
+        """(values and indices bit-equal, max |v - plain v|: 0 where the
+        bits agree, inf where a non-finite value differs)."""
+        v, i = topk_select(x, k)
+        pv, pi = topk_select_plain(x, k)
+        bits = v.view(torch.int32) == pv.view(torch.int32)
+        diff = torch.where(bits, 0.0, (v - pv).abs().nan_to_num(nan=float("inf")))
+        err = float(diff.max()) if diff.numel() else 0.0
+        return torch.equal(i, pi) and bool(bits.all()), err
+
+    for case in TOPK_CASES:
+        x, k = topk_case(case, seed)
+        if not same(torch.from_numpy(x).to(dev), k)[0]:
+            fail(f"phase 2n (a): kernel K differs from its plain version on the case {case}")
+    out = {"cases": list(TOPK_CASES)}
+    for name, (n, k) in TOPK_SHAPES.items():
+        x = _phase_scores(name, runs, dev)
+        equal, err = same(x, k) if x.shape == (TOPK_ROWS, n) else (False, float("inf"))
+        if not equal:
+            fail(f"phase 2n (a): kernel K differs from its plain version at {name}'s shape "
+                 f"(max abs err {err})")
+        ms = time_ms(lambda: topk_select(x, k), 10)
+        plain_ms = time_ms(lambda: topk_select_plain(x, k), 3)
+        lib_ms = time_ms(lambda: torch.topk(x, k, dim=1), 10)
+        n_bytes = x.numel() * 4 + TOPK_ROWS * k * (4 + 8)
+        out[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bytes": n_bytes,
+                     "max_abs_err": err,
+                     "bound": bound(n_bytes, 0, F32_FLOPS),
+                     "shape": f"{TOPK_ROWS} rows x {n} f32 scores of phase 2n's {name}, k={k}"}
+        log(f"phase 2n (a) K at {name} ({TOPK_ROWS} x {n}, k={k}): {ms:.4f} ms (plain "
+            f"{plain_ms:.3f}, torch.topk {lib_ms:.4f}), bound {out[name]['bound'][0]:.4f} "
+            f"({out[name]['bound'][1]}), bit-equal to the plain version [{card}]")
+        del x
+    return out
+
+
+def nn_rec_phase(kernels, seed: int, dev, card: str) -> dict:
+    """Phase 2n: the main path -- (b) KNN and ConditionalKNN, (c) SAR, (d)
+    AccessAnomaly -- with every launch count set to 0 just before it and
+    read just after, then (a) kernel K against its plain version."""
+    reset(kernels)
+    runs = {"knn": knn_run(seed, card), "cknn": cknn_run(seed, card)}
+    nn_counts = counts(kernels)
+    runs["sar"] = sar_run(seed, dev, card)
+    sar_counts = counts(kernels)
+    anomaly = anomaly_run(seed, dev, card)
+    path_counts = counts(kernels)
+    for name in PHASE_2N_KERNELS:
+        if nn_counts[name] < 1 or sar_counts[name] - nn_counts[name] < 1:
+            fail(f"phase 2n: {name} did not launch in both (b) and (c): "
+                 f"{nn_counts[name]}, {sar_counts[name] - nn_counts[name]}")
+    log(f"phase 2n launches: { {k: v for k, v in path_counts.items() if v} }")
+    topk = topk_rows(runs, seed, dev, card)
+    strip = lambda r: {k: v for k, v in r.items()
+                       if k not in ("model", "queries", "conditioners")}
+    return {"knn": strip(runs["knn"]), "cknn": strip(runs["cknn"]), "sar": strip(runs["sar"]),
+            "anomaly": anomaly, "topk": topk, "launches": path_counts,
+            "launches_knn": nn_counts["topk_select"],
+            "launches_sar": sar_counts["topk_select"] - nn_counts["topk_select"]}
+
+
 def dataclasses_asdict(obj) -> dict:
     import dataclasses
 
@@ -3938,6 +4377,12 @@ def main() -> int:
     expl = explainers_phase(kernels, args.seed, dev, card)
     torch.cuda.empty_cache()
     log(f"phase 2m in {time.perf_counter() - t0:.1f} s [{card}]")
+
+    # -- phase 2n: KNN / ConditionalKNN, SAR, AccessAnomaly (kernel K) -------------------
+    t0 = time.perf_counter()
+    nnrec = nn_rec_phase(kernels, args.seed, dev, card)
+    torch.cuda.empty_cache()
+    log(f"phase 2n in {time.perf_counter() - t0:.1f} s [{card}]")
 
     # -- phase 3: flash attention's entry point -----------------------------------------
     gen = torch.Generator(device=dev).manual_seed(args.seed)
@@ -4722,6 +5167,23 @@ def main() -> int:
            fr["ms"], fr["plain_ms"], fr["bound"], None, shape=fr["shape"], tol=FOREST_TOL,
            bytes_moved=fr["bytes"], rebin_ms=fr["rebin_ms"], bin_dtype=fr["bin_dtype"],
            launches_transform=fr["launches"], launches_fit=fr["fit_launches"])
+
+    # kernel K (phase 2n (a)) at KNN's shape, the other shapes beside it: its
+    # launches in phase 2n's main path, its largest error over the shapes
+    kr = nnrec["topk"]["knn"]
+    k_err = max(nnrec["topk"][name]["max_abs_err"] for name in TOPK_SHAPES)
+    record("topk_select", nnrec["launches"]["topk_select"], k_err, kr["ms"], kr["plain_ms"],
+           kr["bound"], kr["library_ms"], shape=kr["shape"], bytes_moved=kr["bytes"],
+           library="torch.topk (the same values, its own order at ties)",
+           replaces_all=kernels["topk_select"].replaces,
+           launches_knn=nnrec["launches_knn"], launches_sar=nnrec["launches_sar"],
+           cases=nnrec["topk"]["cases"],
+           shapes={name: {key: nnrec["topk"][name][key] for key in
+                          ("shape", "max_abs_err", "ms", "plain_ms", "library_ms", "bytes")}
+                   | {"bound_ms": nnrec["topk"][name]["bound"][0],
+                      "bound_by": nnrec["topk"][name]["bound"][1]}
+                   for name in TOPK_SHAPES},
+           phase_2n={key: nnrec[key] for key in ("knn", "cknn", "sar", "anomaly")})
 
     missing = set(kernels) - {r["name"] for r in rows}
     if missing:

@@ -9,6 +9,7 @@ from .serialization import load_stage, save_stage  # noqa: F401
 from .stage import (  # noqa: F401
     STAGE_NAME_COLLISIONS,
     STAGE_REGISTRY,
+    CarriedModel,
     Estimator,
     Model,
     Pipeline,

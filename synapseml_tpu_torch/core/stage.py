@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import inspect
 import logging
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 from .params import ComplexParam, Param, Params
 from .schema import ColumnSpec, PipelineSchemaError, SchemaError, TableSchema
@@ -164,6 +164,40 @@ class Model(Transformer):
 
     _abstract_stage = True
     parent: Optional[Estimator] = None
+
+    def _cached(self, slot: str, tag: Any, params: Sequence[str],
+                build: Callable[[], Any]) -> Any:
+        """``build()``'s result (say, params uploaded to a device), kept under
+        ``slot`` for ``tag`` (say, the device) and the current objects of
+        ``params``: another tag, or a param set to another object, builds it
+        anew. The cache holds the param objects and compares them by
+        identity, so a new array never passes for a freed one whose ``id``
+        it reuses."""
+        objs = tuple(self.get_or_default(p) for p in params)
+        cache = self.__dict__.setdefault("_cache", {})
+        hit = cache.get(slot)
+        if hit is None or hit[0] != tag or any(a is not b for a, b in zip(hit[1], objs)):
+            hit = cache[slot] = (tag, objs, build())
+        return hit[2]
+
+
+class CarriedModel(Model):
+    """A fitted model whose state is its ``_STATE`` params, named as the
+    reference model's: :meth:`state_dict` gives them, so ``RefModel(**
+    model.state_dict())`` carries the state across, and :meth:`from_state`
+    takes the reference model's params back."""
+
+    _abstract_stage = True
+    _STATE: Tuple[str, ...] = ()
+
+    def state_dict(self) -> Dict[str, Any]:
+        return {k: self.get_or_default(k) for k in self._STATE}
+
+    @classmethod
+    def from_state(cls, state: Dict[str, Any], device: Optional[str] = None):
+        """A model on ``device`` from ``state`` (the keys of :attr:`_STATE`
+        it has; the others keep their defaults)."""
+        return cls(device=device, **{k: state[k] for k in cls._STATE if k in state})
 
 
 class UnaryTransformer(Transformer):

@@ -292,13 +292,10 @@ class IsolationForestModel(Model):
         return cls(device=device, **params)
 
     def _plan(self, d: int, dev: torch.device) -> ForestPlan:
-        key = (d, str(dev), id(self.tree_features), id(self.tree_thresholds),
-               id(self.tree_path_lens))
-        cache = getattr(self, "_plans", None)
-        if cache is None or cache[0] != key:
-            self._plans = cache = (key, forest_plan(self.tree_features, self.tree_thresholds,
-                                                    self.tree_path_lens, d, dev))
-        return cache[1]
+        return self._cached("plan", (d, str(dev)),
+                            ("tree_features", "tree_thresholds", "tree_path_lens"),
+                            lambda: forest_plan(self.tree_features, self.tree_thresholds,
+                                                self.tree_path_lens, d, dev))
 
     def score_tensor(self, x: torch.Tensor) -> torch.Tensor:
         """(n, d) rows on a device -> (n,) f32 outlier scores there: kernel B

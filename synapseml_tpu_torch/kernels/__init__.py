@@ -8,6 +8,7 @@ def all_kernels():
     from ..explainers import regression
     from ..gbdt import device_predict, histogram, lambdarank, partition, sparse, split_search
     from ..isolationforest import forest
+    from ..nn import topk
     from ..onnx import qgemm, rnn
     from ..parallel import flash
     from ..vw import learner
@@ -26,4 +27,5 @@ def all_kernels():
                                 learner.VW_KERNEL, qgemm.QMATMUL_KERNEL, qgemm.QCONV_KERNEL,
                                 qgemm.QCL_KERNEL,
                                 rnn.RNN_KERNEL, rnn.RNN_STEP_KERNEL,
-                                regression.LASSO_KERNEL, forest.IFOREST_KERNEL)}
+                                regression.LASSO_KERNEL, forest.IFOREST_KERNEL,
+                                topk.TOPK_KERNEL)}

@@ -1,15 +1,18 @@
 """Edge-case inputs for kernels D (device binning), E (split search), F
 (the LambdaRank gradient), G (the sparse histogram), P (the row
 partition), V (the VW learner's step), Q (the ONNX integer GEMM / conv), R
-(the ONNX LSTM / GRU steps) and L (the explainers' lasso: its fixtures, a
-torch model of its arithmetic order, the ties that rounding decides), and
-the full-pass growths that the dense and the sparse growth are held to.
+(the ONNX LSTM / GRU steps), L (the explainers' lasso: its fixtures, a
+torch model of its arithmetic order, the ties that rounding decides) and K
+(the top-k select: ties, signed zeros, NaN and infinities, and the rule that
+holds a card's neighbours to a CPU run's), and the full-pass growths that the
+dense and the sparse growth are held to.
 
 Shared by ``tests/test_torch_kernels.py`` (on the card),
 ``tests/test_torch_categorical.py``, ``tests/test_torch_split_step.py`` and
 ``tests/test_torch_ranker.py``, ``tests/test_torch_sparse.py``,
-``tests/test_torch_onnx_quant.py``, ``tests/test_torch_lasso_order.py`` (the
-plain versions on the CPU) and ``chip_smoke.py`` (phases 2m and 4), so they
+``tests/test_torch_onnx_quant.py``, ``tests/test_torch_lasso_order.py``,
+``tests/test_torch_nn.py`` (the plain versions on the CPU) and
+``chip_smoke.py`` (phases 2m, 2n and 4), so they
 check the same cases. Everything is made from a seed with numpy.
 """
 
@@ -31,7 +34,7 @@ from ..gbdt.sparse import (G_ENTRIES, CSRMatrix, SparseBinned, build_sparse_binn
 from ..gbdt.split_search import SplitWorkspace, _thresh_l1, left_set
 from ..vw.learner import pad_examples
 
-__all__ = ["lasso_case", "lasso_cd_order", "lasso_ties", "LASSO_TIE", "forest_rows", "forest_probe_rows", "Q_CONV3D_CASES", "bin_edge_case", "bin_ragged_case", "split_cases", "step_cases",
+__all__ = ["TOPK_CASES", "topk_case", "same_up_to_ties", "lasso_case", "lasso_cd_order", "lasso_ties", "LASSO_TIE", "forest_rows", "forest_probe_rows", "Q_CONV3D_CASES", "bin_edge_case", "bin_ragged_case", "split_cases", "step_cases",
            "LARGEST_KERNEL_A_BINS", "offgrid_split_case", "check_offgrid", "check_left_sets",
            "synthetic_update", "grow_synthetic", "diff_runs", "rank_rows", "RANK_CASES",
            "RANK_CASES_WIDE", "rank_case", "rank_nan_case", "one_split_text", "TWO_TREES",
@@ -1070,3 +1073,86 @@ def forest_probe_rows(model, x: np.ndarray) -> np.ndarray:
     for f in range(x.shape[1]):
         special[3 * f:3 * f + 3, f] = (np.nan, np.inf, -np.inf)
     return np.concatenate([x, ties, special])
+
+
+# kernel K's edge cases (``topk_case``): name -> (rows, n, k) where fixed
+TOPK_CASES = ("probe_ties", "probe_signed", "ties", "specials", "all_neg_inf", "k1",
+              "k_eq_n", "n1", "ragged_n", "smem_k", "past_smem_k", "long_ties",
+              "long_distinct")
+
+
+def topk_case(case: str, seed: int = 0) -> Tuple[np.ndarray, int]:
+    """(scores (rows, n) f32, k) of one of :data:`TOPK_CASES`. The two probe
+    rows are the ones where ``torch.topk`` and a descending sort depart from
+    ``lax.top_k``; ``ties`` and ``long_ties`` make the k-th value straddle
+    a run of equal scores (the lowest indices win), ``specials`` mixes +-NaN,
+    +-0.0 and +-inf into normal scores; ``smem_k`` / ``past_smem_k`` put k on
+    both sides of ``nn.topk.TOPK_SMEM_K``, the ``long`` cases rows of
+    tens of thousands of scores; ``ragged_n`` is no multiple of the block."""
+    from ..nn.topk import TOPK_SMEM_K
+
+    rng = np.random.default_rng([seed, 24, TOPK_CASES.index(case)])
+    nan, inf = np.float32(np.nan), np.float32(np.inf)
+    neg_nan = np.float32(np.copysign(np.nan, -1.0))
+    if case == "probe_ties":
+        return np.array([[1, 3, 3, nan, -inf, 3, 2]], np.float32), 5
+    if case == "probe_signed":
+        return np.array([[-0.0, 0.0, 1, neg_nan, nan, -inf, -inf]], np.float32), 7
+    if case == "ties":
+        return rng.integers(0, 6, (16, 1000)).astype(np.float32), 37
+    if case == "specials":
+        x = rng.normal(size=(16, 3000)).astype(np.float32)
+        pick = rng.integers(0, 8, x.shape)
+        for code, v in enumerate((nan, neg_nan, 0.0, -0.0, inf, -inf)):
+            x[pick == code] = v
+        return x, 600
+    if case == "all_neg_inf":
+        x = np.full((8, 3000), -inf, np.float32)
+        x[1, 17] = 0.0
+        return x, 10
+    if case == "k1":
+        return rng.integers(-3, 3, (32, 777)).astype(np.float32), 1
+    if case == "k_eq_n":
+        x = rng.integers(-2, 2, (4, 777)).astype(np.float32)
+        x[:, ::50] = -0.0
+        return x, 777
+    if case == "n1":
+        return np.array([[2.5], [nan], [-0.0]], np.float32), 1
+    if case == "ragged_n":
+        return rng.normal(size=(8, 3 * 4096 + 17)).astype(np.float32), 13
+    if case in ("smem_k", "past_smem_k"):
+        x = np.round(rng.normal(size=(4, 3 * TOPK_SMEM_K)) * 64).astype(np.float32)
+        return x, TOPK_SMEM_K + (case == "past_smem_k")
+    if case == "long_ties":
+        return rng.integers(0, 4, (6, 73_733)).astype(np.float32), 100
+    if case == "long_distinct":
+        return rng.normal(size=(6, 98_307)).astype(np.float32), 10
+    raise KeyError(case)
+
+
+def same_up_to_ties(idx_a, val_a, idx_b, val_b, tol: float) -> bool:
+    """Whether two top-k results (rows of indices and values, largest first,
+    finite values) agree but for places traded between scores within
+    ``tol`` x max(1, the row's largest |value|): the values agree position by
+    position within that, and an index that one result has and the other
+    has elsewhere or not at all scores within it of the other's value there
+    (or, if absent, of the other's last value)."""
+    idx_a, idx_b = np.asarray(idx_a), np.asarray(idx_b)
+    val_a, val_b = np.asarray(val_a, np.float64), np.asarray(val_b, np.float64)
+    if idx_a.shape != idx_b.shape:
+        return False
+    for ia, va, ib, vb in zip(idx_a, val_a, idx_b, val_b):
+        if len(ia) == 0:
+            continue
+        eps = tol * max(1.0, float(np.abs(np.concatenate([va, vb])).max()))
+        if not np.all(np.abs(va - vb) <= eps):
+            return False
+        where_b = {int(i): j for j, i in enumerate(ib)}
+        for j, i in enumerate(ia):
+            if int(i) == int(ib[j]):
+                continue
+            jb = where_b.get(int(i))
+            other = vb[-1] if jb is None else vb[jb]
+            if abs(va[j] - other) > eps:
+                return False
+    return True

@@ -20,6 +20,16 @@ on rows generated at their schemas:
 - :func:`mslr_rows`: MSLR-WEB30K (Qin & Liu 2013, "Introducing LETOR 4.0
   datasets", and the MSLR-WEB30K release), 136 numeric features, rows
   contiguous by query, relevance 0-4 (see its docstring);
+- :func:`movielens_rows`: MovieLens-10M (Harper & Konstan 2015, "The
+  MovieLens Datasets: History and Context"; the ``ml-10M100K`` release):
+  69,878 users, 10,677 movies, 10,000,054 distinct (user, movie) ratings in
+  half stars 0.5-5 at the release's shares, epoch-second times over
+  1995-2009 (see its docstring);
+- :func:`access_rows`: CyberML's access logs (SynapseML's
+  ``cyber/anomaly/collaborative_filtering.py`` schema: tenant, user,
+  resource, likelihood) for tenants of departments that share resources;
+- :func:`embedding_rows`: dense embedding columns (pooled CNN features such
+  as ResNet-50's 2,048, the input of SynapseML's KNN notebooks) with labels;
 - :func:`hashed_text_rows`: Amazon Review Polarity (Zhang, Zhao & LeCun
   2015, "Character-level Convolutional Networks for Text Classification":
   3,600,000 training and 400,000 test reviews, a binary label) as the VW
@@ -41,7 +51,8 @@ __all__ = ["ADULT_COLUMNS", "ADULT_CARDINALITY", "ADULT_CATEGORICAL", "ADULT_SET
            "COVTYPE_CLASSES", "covertype_rows", "HIGGS_WIDTH", "higgs_width_rows", "FITS",
            "SAMPLED_MODES", "MSLR_FEATURES", "MSLR_MAX_QUERY", "MSLR_TRAIN", "MSLR_VALID",
            "MSLR_SHARES", "mslr_rows", "HASHED_TEXT_BITS", "HASHED_TEXT_TOKENS",
-           "hashed_text_rows"]
+           "hashed_text_rows", "MOVIELENS_10M", "MOVIELENS_STAR_SHARES", "movielens_rows",
+           "access_rows", "embedding_rows"]
 
 ADULT_COLUMNS = ["age", "workclass", "fnlwgt", "education", "education-num",
                  "marital-status", "occupation", "relationship", "race", "sex",
@@ -332,3 +343,114 @@ def hashed_text_rows(seed: int, n: int, num_bits: int = HASHED_TEXT_BITS):
 
     return (CSRMatrix(indptr, (key & int(mask)).astype(np.int32), counts.astype(np.float64),
                       (n, 1 << num_bits)), y)
+
+
+# MovieLens-10M (ml-10M100K): users, movies, ratings; every user has at
+# least 20 ratings; times run from 1995 to early 2009
+MOVIELENS_10M = (69_878, 10_677, 10_000_054)
+MOVIELENS_MIN_RATINGS = 20
+MOVIELENS_TIMES = (788_918_400.0, 1_231_131_736.0)   # 1995-01-01 .. 2009-01-05 UTC
+# shares of the half-star grades 0.5, 1.0, ..., 5.0 in the release (rounded)
+MOVIELENS_STAR_SHARES = (0.009, 0.038, 0.012, 0.079, 0.037, 0.236, 0.088, 0.288, 0.058,
+                         0.155)
+
+
+def movielens_rows(seed: int, n_users: int = MOVIELENS_10M[0],
+                   n_items: int = MOVIELENS_10M[1], n_ratings: int = MOVIELENS_10M[2]):
+    """(users int64, items int64, ratings f64, times f64), ``n_ratings``
+    distinct (user, item) pairs at MovieLens-10M's shape, in no order.
+
+    Each user has at least 20 ratings (the release's floor), the rest spread
+    by lognormal(0, 1.2) activity; a rating's movie is drawn by Zipf-
+    Mandelbrot popularity ``1 / (rank + 50)`` over a fixed permutation of
+    the ids, and a pair drawn twice is drawn again (after three rounds
+    uniformly; after eight the few users left take items they lack), so
+    every pair is distinct and the most-rated movie has about 24,000
+    ratings (the release's has 34,864). Ratings are half stars at
+    :data:`MOVIELENS_STAR_SHARES`, times uniform epoch seconds over
+    1995-2009."""
+    structure, rng = _rngs(seed)
+    floor = min(MOVIELENS_MIN_RATINGS, n_ratings // max(1, n_users))
+    weight = rng.lognormal(0.0, 1.2, n_users)
+    per_user = floor + rng.multinomial(n_ratings - floor * n_users, weight / weight.sum())
+    per_user = np.minimum(per_user, n_items)
+    while per_user.sum() < n_ratings:          # users capped at every item
+        room = np.flatnonzero(per_user < n_items)
+        per_user[room[:n_ratings - int(per_user.sum())]] += 1
+    p = 1.0 / (np.arange(n_items) + 50.0)
+    ids = structure.permutation(n_items)
+    users = np.repeat(np.arange(n_users, dtype=np.int64), per_user)
+    cdf = np.cumsum(p / p.sum())
+    draw = lambda m, zipf: ids[np.minimum(np.searchsorted(cdf, rng.random(m)), n_items - 1)
+                               if zipf else rng.integers(0, n_items, m)]
+    items = draw(len(users), True).astype(np.int64)
+    rows = np.arange(len(users))          # rows of the users still to check
+    for round_ in range(8):
+        key = users[rows] * n_items + items[rows]
+        _, first = np.unique(key, return_index=True)
+        dup = np.ones(len(rows), bool)
+        dup[first] = False
+        if not dup.any():
+            break
+        items[rows[dup]] = draw(int(dup.sum()), round_ < 3)
+        rows = rows[np.isin(users[rows], users[rows[dup]])]
+    else:
+        # the few users left (near every item) take their missing items
+        for u in np.unique(users[rows]).tolist():
+            mine = rows[users[rows] == u]
+            seen, first = np.unique(items[mine], return_index=True)
+            again = np.setdiff1d(np.arange(len(mine)), first)
+            items[mine[again]] = rng.permutation(np.setdiff1d(ids, seen))[:len(again)]
+    stars = (rng.choice(10, size=len(users), p=np.asarray(MOVIELENS_STAR_SHARES) /
+                        sum(MOVIELENS_STAR_SHARES)) + 1) * 0.5
+    times = np.floor(rng.uniform(*MOVIELENS_TIMES, size=len(users)))
+    return users, items, stars.astype(np.float64), times
+
+
+def access_rows(seed: int, tenants, departments: int = 20, closed: int = 2,
+                cross: float = 0.05):
+    """CyberML access rows: ``{"tenant", "user", "res"}`` strings and
+    ``"likelihood"`` f64, for ``tenants`` = [(name, users, resources,
+    rows), ...]. A tenant's users and resources fall into ``departments``
+    equal groups; a user touches its own department's resources, and a
+    ``cross`` share of its rows any resource of the tenant, except in the
+    first ``closed`` departments, which touch only their own (so each is a
+    connected component of its own). Users are drawn with Zipf(1) activity
+    over a permutation, resources uniformly within the group; the
+    likelihood is an access count, 1 + Poisson(3). Pairs may repeat (the
+    fit sums them)."""
+    structure, rng = _rngs(seed)
+    cols = {"tenant": [], "user": [], "res": [], "likelihood": []}
+    for name, n_users, n_res, n_rows in tenants:
+        g = min(departments, n_users, n_res)
+        p = 1.0 / np.arange(1, n_users + 1)
+        user = structure.permutation(n_users)[rng.choice(n_users, size=n_rows, p=p / p.sum())]
+        dept = user % g
+        res_in = dept + g * rng.integers(0, max(1, n_res // g), n_rows)
+        anywhere = (rng.random(n_rows) < cross) & (dept >= closed)
+        res = np.where(anywhere, rng.integers(0, n_res, n_rows), np.minimum(res_in, n_res - 1))
+        res = np.where((res % g < closed) & (res % g != dept), res_in, res)
+        cols["tenant"].append(np.full(n_rows, name, dtype=object))
+        cols["user"].append(np.char.add("u", user.astype(str)).astype(object))
+        cols["res"].append(np.char.add("r", res.astype(str)).astype(object))
+        cols["likelihood"].append(1.0 + rng.poisson(3.0, n_rows))
+    return {k: np.concatenate(v) for k, v in cols.items()}
+
+
+def embedding_rows(seed: int, n: int, d: int, n_labels: int = 0, clusters: int = 64,
+                   nonnegative: bool = False):
+    """((n, d) f32 embeddings, (n,) int64 labels or None): points around
+    ``clusters`` Gaussian centres (spread 0.5 about unit-variance centres),
+    rectified when ``nonnegative`` (pooled ReLU features such as
+    ResNet-50's), each labelled with its cluster modulo ``n_labels``. The
+    centres depend on ``seed`` and ``d`` only, so keys and queries cut from
+    one call share them."""
+    structure, rng = _rngs(seed)
+    centres = structure.standard_normal((clusters, d), dtype=np.float32)
+    which = rng.integers(0, clusters, n)
+    x = rng.standard_normal((n, d), dtype=np.float32)
+    x *= np.float32(0.5)
+    x += centres[which]
+    if nonnegative:
+        np.maximum(x, 0.0, out=x)
+    return x, (which % n_labels).astype(np.int64) if n_labels else None

@@ -36,7 +36,8 @@ def test_port_modules_import_no_jax_and_no_reference():
                 "image.stages", "image.resample", "io.binary", "io.http", "dl.downloader",
                 "dl.featurizer", "explainers.regression", "explainers.lime",
                 "explainers.shap", "explainers.ice", "explainers.superpixel",
-                "isolationforest.forest"):
+                "isolationforest.forest", "nn.topk", "nn.knn", "recommendation.sar",
+                "recommendation.ranking", "cyber.anomaly", "tools.schema_data"):
         assert f"synapseml_tpu_torch.{sub}" in mods, sub
     code = "\n".join(
         ["import sys", f"sys.path.insert(0, {_ROOT!r})"]

@@ -63,9 +63,11 @@ from synapseml_tpu_torch.vw.learner import (VW_KERNEL, StepHyper, StepPlan, Step
                                             _Scratch, batch_step, batch_step_plain,
                                             step_batches, train_linear, train_linear_plain)
 from synapseml_tpu_torch.tools.schema_data import (ADULT_CATEGORICAL, SAMPLED_MODES,
-                                                   adult_rows, adult_unseen_codes,
+                                                   access_rows, adult_rows, adult_unseen_codes,
                                                    hashed_text_rows, higgs_width_rows,
-                                                   mslr_rows)
+                                                   movielens_rows, mslr_rows)
+from synapseml_tpu_torch.nn import topk as nn_topk
+from synapseml_tpu_torch.tools.kernel_cases import TOPK_CASES, same_up_to_ties, topk_case
 
 pytestmark = pytest.mark.cuda
 
@@ -1820,3 +1822,114 @@ def test_blur_and_resize_stay_f32_with_tf32_switched_on(cuda):
         assert torch.backends.cudnn.allow_tf32 and torch.backends.cuda.matmul.allow_tf32
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
+
+
+# -- kernel K (the top-k in lax.top_k's order) and the paths that rank with it ---------------
+
+@pytest.mark.parametrize("case", TOPK_CASES)
+def test_topk_kernel_bit_equal_to_plain(cuda, case):
+    x, k = topk_case(case)
+    xd = torch.from_numpy(x).to(cuda)
+    before = nn_topk.TOPK_KERNEL.launches
+    v, i = nn_topk.topk_select(xd, k)
+    torch.cuda.synchronize()
+    assert nn_topk.TOPK_KERNEL.launches == before + 1
+    pv, pi = nn_topk.topk_select_plain(xd, k)
+    assert torch.equal(i, pi)
+    assert torch.equal(v.view(torch.int32), pv.view(torch.int32))
+
+
+@pytest.mark.parametrize("n,k", [(1_048_576, 10), (262_144, 5), (10_677, 10)])
+def test_topk_kernel_at_the_phase_shapes(cuda, n, k):
+    g = torch.Generator(device=cuda).manual_seed(n)
+    x = torch.randn(64, n, device=cuda, generator=g)
+    x[::3] = torch.round(x[::3] * 8)            # rows of heavy ties
+    x[5, ::7] = -float("inf")
+    v, i = nn_topk.topk_select(x, k)
+    pv, pi = nn_topk.topk_select_plain(x, k)
+    assert torch.equal(i, pi) and torch.equal(v.view(torch.int32), pv.view(torch.int32))
+
+
+def _knn_tables(seed, n, d, nq, labels=None):
+    from synapseml_tpu_torch.core import Table
+
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n + nq, d)).astype(np.float32)
+    cols = {"features": x[:n], "values": np.arange(n)}
+    q = {"features": x[n:]}
+    if labels:
+        cols["labels"] = rng.integers(0, labels, n)
+        conds = np.empty(nq, dtype=object)
+        for r in range(nq):
+            conds[r] = rng.choice(labels, size=int(rng.integers(1, 3)), replace=False).tolist()
+        q["conditioner"] = conds
+    return Table(cols), Table(q)
+
+
+def _knn_arrays(out):
+    return (np.array([[m["value"] for m in r] for r in out["output"]]),
+            np.array([[m["distance"] for m in r] for r in out["output"]]))
+
+
+@pytest.mark.parametrize("conditional", [False, True])
+def test_knn_on_the_card_matches_the_cpu(cuda, conditional):
+    from synapseml_tpu_torch.nn import ConditionalKNN, KNN
+
+    keys, queries = _knn_tables(1, 50_000, 64, 300, labels=4 if conditional else None)
+    est = (ConditionalKNN if conditional else KNN)(k=7)
+    model = est.fit(keys)
+    before = nn_topk.TOPK_KERNEL.launches
+    gi, gv = _knn_arrays(model.transform(queries))
+    assert nn_topk.TOPK_KERNEL.launches > before
+    cpu = type(model).from_state(model.state_dict(), device="cpu")
+    wi, wv = _knn_arrays(cpu.transform(queries))
+    assert same_up_to_ties(gi, gv, wi, wv, nn_topk.TOPK_TIE_TOL)
+
+
+def test_sar_on_the_card_matches_the_cpu(cuda):
+    from synapseml_tpu_torch.core import Table
+    from synapseml_tpu_torch.recommendation import SAR
+
+    u, i, r, t = small_movielens(3)
+    table = Table({"user": u, "item": i, "rating": r, "time": t})
+    card = SAR().fit(table)
+    cpu = SAR(device="cpu").fit(table)
+    for name in ("user_affinity", "item_similarity"):
+        a, b = np.asarray(card.get(name)), np.asarray(cpu.get(name))
+        assert np.array_equal(a.view(np.uint32), b.view(np.uint32)), name
+    before = nn_topk.TOPK_KERNEL.launches
+    got = card.recommend_for_all_users(10, remove_seen=True)
+    assert nn_topk.TOPK_KERNEL.launches > before
+    want = cpu.recommend_for_all_users(10, remove_seen=True)
+    arr = lambda t: (np.array([[x[0] for x in row] for row in t["recommendations"]]),
+                     np.array([[x[1] for x in row] for row in t["recommendations"]]))
+    gi, gv = arr(got)
+    wi, wv = arr(want)
+    assert same_up_to_ties(gi, gv, wi, wv, nn_topk.TOPK_TIE_TOL)
+    pairs = Table({"user": u[:5000], "item": i[::-1][:5000]})
+    np.testing.assert_allclose(card.transform(pairs)["prediction"],
+                               cpu.transform(pairs)["prediction"], rtol=1e-5, atol=1e-6)
+
+
+def small_movielens(seed):
+    """A small MovieLens-shaped log (3,000 users x 800 items)."""
+    return movielens_rows(seed, 3000, 800, 60_000)
+
+
+def test_anomaly_on_the_card_matches_the_cpu(cuda):
+    from synapseml_tpu_torch.core import Table
+    from synapseml_tpu_torch.cyber import AccessAnomaly
+    from synapseml_tpu_torch.cyber import anomaly as cyber_anomaly
+
+    cols = access_rows(4, [("a", 2000, 400, 40_000), ("b", 500, 100, 8_000)])
+    card = AccessAnomaly().fit(Table(cols))
+    cpu = AccessAnomaly(device="cpu").fit(Table(cols))
+    assert card.user_components == cpu.user_components
+    probe = {k: cols[k][::3] for k in ("tenant", "user", "res")}
+    probe["res"] = np.roll(probe["res"], 1)
+    a = np.asarray(card.transform(Table(probe))["anomaly_score"])
+    b = np.asarray(cpu.transform(Table(probe))["anomaly_score"])
+    for kind in (np.isnan, np.isposinf, lambda s: s == 0.0):
+        assert np.array_equal(kind(a), kind(b))
+    ok = np.isfinite(b)
+    assert cyber_anomaly.scores_agree(a[ok], b[ok]), np.abs(a[ok] - b[ok]).max()

@@ -1,5 +1,6 @@
 """Every stage of the port's pipeline-stage library (``stages``,
-``featurize``, ``train``, ``exploratory``, ``cyber``), one recipe each:
+``featurize``, ``train``, ``exploratory``, ``cyber``) and of ``nn`` and
+``recommendation``, one recipe each:
 
 - it is registered in the port's ``STAGE_REGISTRY`` (its fitted model too);
 - run through both packages on the same table, its output (an estimator's
@@ -23,7 +24,8 @@ from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 PACKAGES = ("synapseml_tpu_torch.stages", "synapseml_tpu_torch.featurize",
             "synapseml_tpu_torch.train", "synapseml_tpu_torch.exploratory",
-            "synapseml_tpu_torch.cyber")
+            "synapseml_tpu_torch.cyber", "synapseml_tpu_torch.nn",
+            "synapseml_tpu_torch.recommendation")
 TINY_GBDT = dict(num_iterations=2, num_leaves=4, min_data_in_leaf=1)
 
 
@@ -50,6 +52,21 @@ def _scored(m, n=24):
     p1 = np.clip(0.7 * y + 0.3 * rng.random(n), 0, 1)
     return m.Table({"label": y, "prediction": pred,
                     "probability": np.stack([1 - p1, p1], axis=1)})
+
+
+def _on_cpu(m):
+    """The port's device Param for a CPU run (the reference has none)."""
+    return {} if m is REF else {"device": "cpu"}
+
+
+def _ranked(m, n=24):
+    rng = np.random.default_rng(13)
+    return m.Table({"prediction": [list(rng.permutation(8)[:4]) for _ in range(n)],
+                    "label": [list(rng.permutation(8)[:3]) for _ in range(n)]})
+
+
+def _sar(m, **params):
+    return m.SAR(user_col="ui", item_col="ri", support_threshold=1, **params, **_on_cpu(m))
 
 
 def _learner(m, regression=False):
@@ -144,6 +161,24 @@ RECIPES = {
         input_col="b", output_col="ls", partition_key="tenant"), _table, 0),
     "StandardScalarScaler": (lambda m: m.StandardScalarScaler(
         input_col="b", output_col="ss", partition_key="tenant"), _table, 0),
+    "AccessAnomaly": (lambda m: m.AccessAnomaly(user_col="u", res_col="text",
+                                                likelihood_col="b", max_iter=3, rank_param=2,
+                                                **_on_cpu(m)), _table, 1e-3),
+    "KNN": (lambda m: m.KNN(features_col="vec", values_col="u", k=3, **_on_cpu(m)),
+            _table, 1e-5),
+    "ConditionalKNN": (lambda m: m.ConditionalKNN(features_col="vec", values_col="u",
+                                                  label_col="ui", conditioner_col="seq", k=3,
+                                                  **_on_cpu(m)), _table, 1e-5),
+    "SAR": (lambda m: _sar(m), _table, 1e-5),
+    "RecommendationIndexer": (lambda m: m.RecommendationIndexer(
+        user_input_col="u", item_input_col="text"), _table, 0),
+    "RankingAdapter": (lambda m: m.RankingAdapter(k=3, recommender=_sar(m)), _table, 1e-5),
+    "RankingEvaluator": (lambda m: m.RankingEvaluator(k=3, n_items=8), _ranked, 1e-12),
+    "RankingTrainValidationSplit": (lambda m: m.RankingTrainValidationSplit(
+        user_col="ui", item_col="ri", estimator=_sar(m),
+        estimator_param_maps=[{"similarity_function": "jaccard"},
+                              {"similarity_function": "lift"}],
+        evaluator=m.RankingEvaluator(k=3), seed=2), _table, 1e-5),
 }
 CALLABLE_PARAMS = {"Lambda": "transform_func", "UDFTransformer": "udf"}
 
@@ -175,7 +210,9 @@ def test_every_library_stage_has_a_recipe():
     assert names - set(RECIPES) - fitted == set()
     assert set(RECIPES) <= names
     assert {"TimerModel", "ClassBalancerModel", "FeaturizeModel", "TrainedClassifierModel",
-            "TrainedRegressorModel", "MultiIndexerModel"} <= fitted
+            "TrainedRegressorModel", "MultiIndexerModel", "AccessAnomalyModel", "KNNModel",
+            "ConditionalKNNModel", "SARModel", "RankingAdapterModel",
+            "RankingTrainValidationSplitModel", "RecommendationIndexerModel"} <= fitted
 
 
 @pytest.mark.parametrize("name", sorted(RECIPES))

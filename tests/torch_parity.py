@@ -3,7 +3,7 @@
 ``REF`` and ``PORT`` are namespaces that hold the same names, taken from the
 JAX package and from the port: ``Table``, ``load_stage``, and every stage
 class of the pipeline-stage library (``stages``, ``featurize``, ``train``,
-``exploratory``, ``cyber``). A parity test writes its recipe once as a
+``exploratory``, ``cyber``, ``nn``, ``recommendation``). A parity test writes its recipe once as a
 function of such a namespace, runs ``both(recipe)`` and holds the port's
 result to the reference's with :func:`assert_same`.
 """
@@ -16,34 +16,45 @@ import synapseml_tpu.core as ref_core
 import synapseml_tpu.cyber as ref_cyber
 import synapseml_tpu.exploratory as ref_exploratory
 import synapseml_tpu.featurize as ref_featurize
+import synapseml_tpu.nn as ref_nn
+import synapseml_tpu.recommendation as ref_recommendation
 import synapseml_tpu.stages as ref_stages
 import synapseml_tpu.train as ref_train_stages
 import synapseml_tpu_torch.core as port_core
 import synapseml_tpu_torch.cyber as port_cyber
 import synapseml_tpu_torch.exploratory as port_exploratory
 import synapseml_tpu_torch.featurize as port_featurize
+import synapseml_tpu_torch.nn as port_nn
+import synapseml_tpu_torch.recommendation as port_recommendation
 import synapseml_tpu_torch.stages as port_stages
 import synapseml_tpu_torch.train as port_train_stages
 
-_CYBER = ["ComplementAccessTransformer", "IdIndexer", "IdIndexerModel", "MultiIndexer",
-          "MultiIndexerModel", "LinearScalarScaler", "LinearScalarScalerModel",
-          "StandardScalarScaler", "StandardScalarScalerModel"]
+_CYBER = ["AccessAnomaly", "AccessAnomalyModel", "ComplementAccessTransformer", "IdIndexer",
+          "IdIndexerModel", "MultiIndexer", "MultiIndexerModel", "LinearScalarScaler",
+          "LinearScalarScalerModel", "StandardScalarScaler", "StandardScalarScalerModel"]
+_NN = ["KNN", "KNNModel", "ConditionalKNN", "ConditionalKNNModel"]
+_RECOMMENDATION = ["SAR", "SARModel", "AdvancedRankingMetrics", "RankingAdapter",
+                   "RankingAdapterModel", "RankingEvaluator", "RankingTrainValidationSplit",
+                   "RankingTrainValidationSplitModel", "RecommendationIndexer",
+                   "RecommendationIndexerModel"]
 
 
-def _namespace(core, stages, featurize, train, exploratory, cyber, name):
+def _namespace(core, stages, featurize, train, exploratory, cyber, nn, recommendation, name):
     names = {"Table": core.Table, "Pipeline": core.Pipeline,
              "TableSchema": core.TableSchema, "ColumnSpec": core.ColumnSpec,
              "load_stage": core.load_stage, "name": name}
     for mod in (stages, featurize, train, exploratory):
         names.update({k: getattr(mod, k) for k in mod.__all__})
     names.update({k: getattr(cyber, k) for k in _CYBER})
+    names.update({k: getattr(nn, k) for k in _NN})
+    names.update({k: getattr(recommendation, k) for k in _RECOMMENDATION})
     return SimpleNamespace(**names)
 
 
 REF = _namespace(ref_core, ref_stages, ref_featurize, ref_train_stages, ref_exploratory,
-                 ref_cyber, "ref")
+                 ref_cyber, ref_nn, ref_recommendation, "ref")
 PORT = _namespace(port_core, port_stages, port_featurize, port_train_stages,
-                  port_exploratory, port_cyber, "port")
+                  port_exploratory, port_cyber, port_nn, port_recommendation, "port")
 
 
 def both(recipe):
